@@ -1,0 +1,298 @@
+// Flash-attention forward for Hopper (sm_90a), bf16 in / bf16 out.
+//
+// Replaces three Pallas TPU kernels of fgdm_tpu/kernels/attention.py:
+//   _flash_kernel_t  (:157)  transposed layout, d <= 96 (UNet/ControlNet heads)
+//   _flash_kernel    (:121)  row-major, whole K/V resident (VAE d=512, N=1024)
+//   _flash_kernel_kv (:516)  K/V streamed over the grid (VAE d=512, N=4096)
+// The TPU needed three kernels for lane padding (the transposed layout) and
+// VMEM residency (the streaming grid).  Here one kernel computes the same
+// math, softmax(q k^T * scale) v, for every head dim it is instantiated for:
+// each block owns BM query rows of one (batch, head) and streams K/V tiles of
+// BN keys through shared memory with an online softmax, so no N x N matrix
+// ever reaches device memory.
+//
+// Numerics follow the plain version (_xla_attention, attention.py:63-71):
+// scores and softmax statistics in f32, P cast to bf16 before P.V, f32
+// accumulation of the output, one division by the row sum at the end.
+//
+// What bounds it on the card: at d=40/80 the two products are 4*N^2*d
+// operations against 8*N*d bytes, far above the H100's ~295 op/byte ridge,
+// so the tensor cores and the exp() unit bound it.  This first version is
+// simple rather than fast: mma.sync m16n8k16 (not wgmma), scores and P staged
+// through shared memory, no TMA, no warp specialisation.  The output
+// accumulator lives in registers; each warp owns a fixed set of 16x8 output
+// tiles, which lets d=512 split its 512 columns across warps.
+//
+// The head dim is padded to a multiple of 16 for the q.k contraction with
+// zero-filled shared memory (d=40 -> 48); the P.V product needs only a
+// multiple of 8, which every instantiated d is.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
+                                          const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragment (16x16, row-major in shared memory with row stride ld) of the
+// m16n8k16 product: rows g and g+8, columns 2t, 2t+1 and 2t+8, 2t+9.
+__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* base, int ld,
+                                       int g, int t) {
+  a[0] = ld_pair(base + g * ld + 2 * t);
+  a[1] = ld_pair(base + (g + 8) * ld + 2 * t);
+  a[2] = ld_pair(base + g * ld + 2 * t + 8);
+  a[3] = ld_pair(base + (g + 8) * ld + 2 * t + 8);
+}
+
+// B fragment (16x8, k x n) read from an n-major tile: element (k, n) sits at
+// base[n * ld + k].
+__device__ __forceinline__ void load_b(uint32_t b[2], const bf16* base, int ld,
+                                       int g, int t) {
+  b[0] = ld_pair(base + g * ld + 2 * t);
+  b[1] = ld_pair(base + g * ld + 2 * t + 8);
+}
+
+template <int D, int BM, int BN, int NW>
+struct Cfg {
+  static constexpr int DK = (D + 15) / 16 * 16;  // q.k contraction, padded
+  static constexpr int LDQ = DK + 8;             // bf16 row strides (+16 B
+  static constexpr int LDK = DK + 8;             //  against bank conflicts)
+  static constexpr int LDV = BN + 8;             // V^T: [D][BN]
+  static constexpr int LDS = BN + 4;             // f32 scores
+  static constexpr int LDP = BN + 8;             // bf16 probabilities
+  static constexpr int MT = BM / 16;             // 16-row tiles
+  static constexpr int ST = MT * (BN / 8);       // 16x8 score tiles
+  static constexpr int OT = MT * (D / 8);        // 16x8 output tiles
+  static constexpr int OT_PER_WARP = OT / NW;
+  static constexpr int THREADS = NW * 32;
+  static constexpr size_t SMEM =
+      sizeof(bf16) * (size_t)(BM * LDQ + BN * LDK + D * LDV + BM * LDP) +
+      sizeof(float) * (size_t)(BM * LDS + 3 * BM);
+  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+  static_assert(BM % 16 == 0 && BN % 16 == 0, "tile sizes");
+  static_assert(OT % NW == 0, "output tiles must split evenly over warps");
+};
+
+template <int D, int BM, int BN, int NW>
+__global__ void __launch_bounds__(NW * 32)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, int nq,
+                 int nk, float scale) {
+  typedef Cfg<D, BM, BN, NW> C;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + BM * C::LDQ;
+  bf16* vt = ks + BN * C::LDK;
+  bf16* ps = vt + D * C::LDV;
+  float* ss = reinterpret_cast<float*>(ps + BM * C::LDP);
+  float* m_s = ss + BM * C::LDS;
+  float* l_s = m_s + BM;
+  float* alpha_s = l_s + BM;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // groupID of the mma fragment layouts
+  const int t = lane & 3;   // thread in group
+
+  const int bh = blockIdx.y;
+  const int row0 = blockIdx.x * BM;
+  const bf16* qg = q + ((size_t)bh * nq + row0) * D;
+  const bf16* kg = k + (size_t)bh * nk * D;
+  const bf16* vg = v + (size_t)bh * nk * D;
+
+  // Q tile -> shared, zero-padded in rows (past nq) and columns (past D).
+  constexpr int QCH = C::DK / 8;  // 16-byte chunks per padded row
+  for (int idx = tid; idx < BM * QCH; idx += C::THREADS) {
+    const int r = idx / QCH, c8 = idx % QCH;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < nq && c8 * 8 < D)
+      val = *reinterpret_cast<const uint4*>(qg + (size_t)r * D + c8 * 8);
+    *reinterpret_cast<uint4*>(qs + r * C::LDQ + c8 * 8) = val;
+  }
+  for (int r = tid; r < BM; r += C::THREADS) {
+    m_s[r] = -INFINITY;
+    l_s[r] = 0.f;
+  }
+
+  float acc[C::OT_PER_WARP][4];
+#pragma unroll
+  for (int i = 0; i < C::OT_PER_WARP; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int kb = 0; kb < nk; kb += BN) {
+    // K tile (row-major, zero-padded columns) and V tile (transposed).
+    for (int idx = tid; idx < BN * QCH; idx += C::THREADS) {
+      const int r = idx / QCH, c8 = idx % QCH;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (c8 * 8 < D)
+        val = *reinterpret_cast<const uint4*>(kg + (size_t)(kb + r) * D +
+                                              c8 * 8);
+      *reinterpret_cast<uint4*>(ks + r * C::LDK + c8 * 8) = val;
+    }
+    constexpr int VCH = D / 8;
+    for (int idx = tid; idx < BN * VCH; idx += C::THREADS) {
+      const int r = idx / VCH, c8 = idx % VCH;
+      uint4 val = *reinterpret_cast<const uint4*>(vg + (size_t)(kb + r) * D +
+                                                  c8 * 8);
+      const bf16* e = reinterpret_cast<const bf16*>(&val);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) vt[(c8 * 8 + j) * C::LDV + r] = e[j];
+    }
+    __syncthreads();
+
+    // S = (Q K^T) * scale, one 16x8 tile per warp at a time.
+    for (int st = warp; st < C::ST; st += NW) {
+      const int mt = st / (BN / 8), nt = st % (BN / 8);
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < C::DK; kk += 16) {
+        uint32_t a[4], b[2];
+        load_a(a, qs + mt * 16 * C::LDQ + kk, C::LDQ, g, t);
+        load_b(b, ks + nt * 8 * C::LDK + kk, C::LDK, g, t);
+        mma_16816(c, a, b);
+      }
+      float* s0 = ss + (mt * 16 + g) * C::LDS + nt * 8 + 2 * t;
+      float* s1 = s0 + 8 * C::LDS;
+      s0[0] = c[0] * scale;
+      s0[1] = c[1] * scale;
+      s1[0] = c[2] * scale;
+      s1[1] = c[3] * scale;
+    }
+    __syncthreads();
+
+    // Online softmax: one warp per row, lanes across the BN keys.
+    for (int r = warp; r < BM; r += NW) {
+      const float* srow = ss + r * C::LDS;
+      float mx = -INFINITY;
+      for (int j = lane; j < BN; j += 32) mx = fmaxf(mx, srow[j]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int j = lane; j < BN; j += 32) {
+        const float p = __expf(srow[j] - m_new);
+        sum += p;
+        ps[r * C::LDP + j] = __float2bfloat16(p);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        const float alpha = __expf(m_old - m_new);
+        alpha_s[r] = alpha;
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // O = O * alpha + P V over this warp's output tiles.
+#pragma unroll
+    for (int i = 0; i < C::OT_PER_WARP; ++i) {
+      const int ot = warp + i * NW;
+      const int mt = ot / (D / 8), nt = ot % (D / 8);
+      const float a0 = alpha_s[mt * 16 + g];
+      const float a1 = alpha_s[mt * 16 + g + 8];
+      acc[i][0] *= a0;
+      acc[i][1] *= a0;
+      acc[i][2] *= a1;
+      acc[i][3] *= a1;
+#pragma unroll
+      for (int kk = 0; kk < BN; kk += 16) {
+        uint32_t a[4], b[2];
+        load_a(a, ps + mt * 16 * C::LDP + kk, C::LDP, g, t);
+        load_b(b, vt + nt * 8 * C::LDV + kk, C::LDV, g, t);
+        mma_16816(acc[i], a, b);
+      }
+    }
+    __syncthreads();
+  }
+
+  bf16* og = o + ((size_t)bh * nq + row0) * D;
+#pragma unroll
+  for (int i = 0; i < C::OT_PER_WARP; ++i) {
+    const int ot = warp + i * NW;
+    const int mt = ot / (D / 8), nt = ot % (D / 8);
+    const int r0 = mt * 16 + g, r1 = r0 + 8;
+    const int col = nt * 8 + 2 * t;
+    if (row0 + r0 < nq) {
+      const float inv = 1.f / l_s[r0];
+      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)r0 * D + col) =
+          __floats2bfloat162_rn(acc[i][0] * inv, acc[i][1] * inv);
+    }
+    if (row0 + r1 < nq) {
+      const float inv = 1.f / l_s[r1];
+      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)r1 * D + col) =
+          __floats2bfloat162_rn(acc[i][2] * inv, acc[i][3] * inv);
+    }
+  }
+}
+
+template <int D, int BM, int BN, int NW>
+int launch(const void* q, const void* k, const void* v, void* o, int bh,
+           int nq, int nk, float scale, cudaStream_t stream) {
+  typedef Cfg<D, BM, BN, NW> C;
+  if (nk % BN != 0 || nq <= 0 || nk <= 0 || bh <= 0 || bh > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto kern = flash_fwd_kernel<D, BM, BN, NW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((nq + BM - 1) / BM, bh);
+  kern<<<grid, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), nq, nk, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q/k/v/o: contiguous [bh, n, d] bf16 on the current device, 16-byte
+// aligned.  Returns 0 or a cudaError_t code (launch errors included).
+int fgdm_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
+                        int bh, int nq, int nk, int d, float scale,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 40: return launch<40, 64, 64, 4>(q, k, v, o, bh, nq, nk, scale, s);
+    case 80: return launch<80, 64, 64, 4>(q, k, v, o, bh, nq, nk, scale, s);
+    case 512: return launch<512, 16, 32, 4>(q, k, v, o, bh, nq, nk, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Keys per streamed tile for head dim d (nk must be a multiple), 0 if the
+// head dim has no instantiation.
+int fgdm_flash_attn_block_n(int d) {
+  switch (d) {
+    case 40: case 80: return 64;
+    case 512: return 32;
+    default: return 0;
+  }
+}
+
+const char* fgdm_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,203 @@
+"""SD-1.x UNet with the FG-DM adapter injection (NCHW).
+
+Counterpart of ``fgdm_tpu/models/unet.py:41-295``: 12 input blocks (conv_in,
+then per level ``num_res_blocks`` ResBlocks + SpatialTransformers and a
+Downsample between levels), middle block (Res, Transformer, Res), 12 output
+blocks with skip concatenation, GroupNorm -> SiLU -> zero-conv head.
+
+* Adapter injection (``unet.py:223-229``): the adapter reads ``pcond`` if
+  given, else the noisy latent itself, and its per-level feature is added
+  after the last ResBlock of each level.  ``adapter_on=False`` is the
+  frozen-SD path on the same weights.
+* ControlNet residual injection (``unet.py:255-266``): the last residual
+  goes into the middle output, the rest onto the encoder skips in reverse.
+
+Attention capture, ``num_prompts > 1``, the time adapter, pixel attention
+and ``seq_axis`` are not ported and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from fgdm_tpu_torch import resolve_device
+from fgdm_tpu_torch.models.adapter import Adapter
+from fgdm_tpu_torch.nn.attention import SpatialTransformer
+from fgdm_tpu_torch.nn.blocks import Downsample, ResBlock, Upsample, silu
+from fgdm_tpu_torch.nn.layers import (Conv2d, Dense, GroupNorm32,
+                                      timestep_embedding)
+
+__all__ = ["UNetModel", "build_encoder", "run_block", "time_embed"]
+
+
+def _heads_for(ch: int, num_heads: int, num_head_channels: int):
+    if num_head_channels == -1:
+        return num_heads, ch // num_heads
+    return ch // num_head_channels, num_head_channels
+
+
+def time_embed(mc: int, dtype) -> nn.ModuleList:
+    # reference indices: [Linear, SiLU, Linear]
+    return nn.ModuleList([Dense(mc, 4 * mc, dtype=dtype), nn.Identity(),
+                          Dense(4 * mc, 4 * mc, dtype=dtype)])
+
+
+def embed_timesteps(te: nn.ModuleList, timesteps, mc: int):
+    return te[2](silu(te[0](timestep_embedding(timesteps, mc))))
+
+
+def run_block(block: nn.ModuleList, h, emb, context):
+    """Apply one TimestepEmbedSequential-style block."""
+    for layer in block:
+        if isinstance(layer, ResBlock):
+            h = layer(h, emb)
+        elif isinstance(layer, SpatialTransformer):
+            h = layer(h, context=context)
+        else:
+            h = layer(h)
+    return h
+
+
+def build_encoder(in_channels, mc, num_res_blocks, attention_resolutions,
+                  channel_mult, num_heads, num_head_channels,
+                  transformer_depth, context_dim, use_scale_shift_norm,
+                  conv_resample, fused_norm, dtype):
+    """The SD encoder shared by the UNet and ControlNet.
+
+    Returns ``(input_blocks, middle_block, input_block_chans, level_ends,
+    ds)``: ``level_ends`` are the input-block indices after the last
+    ResBlock of each level (where adapter features land), ``ds`` the final
+    downsampling factor."""
+    emb_ch = 4 * mc
+
+    def res(cin, cout):
+        return ResBlock(cin, emb_ch, cout,
+                        use_scale_shift_norm=use_scale_shift_norm,
+                        fused_norm=fused_norm, dtype=dtype)
+
+    def attn(ch):
+        n_heads, d_head = _heads_for(ch, num_heads, num_head_channels)
+        return SpatialTransformer(ch, n_heads, d_head, depth=transformer_depth,
+                                  context_dim=context_dim, dtype=dtype)
+
+    blocks = [nn.ModuleList([Conv2d(in_channels, mc, 3, dtype=dtype)])]
+    chans, level_ends = [mc], []
+    ch, ds = mc, 1
+    for level, mult in enumerate(channel_mult):
+        for _ in range(num_res_blocks):
+            layers = [res(ch, mult * mc)]
+            ch = mult * mc
+            if ds in attention_resolutions:
+                layers.append(attn(ch))
+            blocks.append(nn.ModuleList(layers))
+            chans.append(ch)
+        level_ends.append(len(blocks) - 1)
+        if level != len(channel_mult) - 1:
+            blocks.append(nn.ModuleList([
+                Downsample(ch, conv_resample, dtype=dtype)]))
+            chans.append(ch)
+            ds *= 2
+    middle = nn.ModuleList([res(ch, ch), attn(ch), res(ch, ch)])
+    return nn.ModuleList(blocks), middle, chans, level_ends, ds
+
+
+class UNetModel(nn.Module):
+    def __init__(self, in_channels: int = 4, model_channels: int = 320,
+                 out_channels: int = 4, num_res_blocks: int = 2,
+                 attention_resolutions: Sequence[int] = (4, 2, 1),
+                 channel_mult: Sequence[int] = (1, 2, 4, 4),
+                 num_heads: int = 8, num_head_channels: int = -1,
+                 transformer_depth: int = 1,
+                 context_dim: Optional[int] = 768,
+                 use_scale_shift_norm: bool = False,
+                 conv_resample: bool = True, use_adapter: bool = True,
+                 adapter_channels: Optional[int] = None,
+                 use_time_adapter: bool = False, num_prompts: int = 1,
+                 use_spatial_transformer: bool = True,
+                 dtype: torch.dtype = torch.bfloat16,
+                 fused_norm_silu: bool = False,
+                 seq_axis: Optional[str] = None, device=None):
+        super().__init__()
+        if use_time_adapter or num_prompts > 1:
+            raise NotImplementedError(
+                "the time adapter and multi-adapter UNet are not ported yet")
+        if not use_spatial_transformer:
+            raise NotImplementedError("pixel attention is not ported yet")
+        if seq_axis is not None:
+            raise NotImplementedError("context parallelism is not ported yet")
+        mc = model_channels
+        self.model_channels, self.dtype = mc, dtype
+        self.in_channels = in_channels
+        with torch.device(resolve_device(device)):
+            self.time_embed = time_embed(mc, dtype)
+            self.adapter = None
+            if use_adapter:
+                self.adapter = Adapter(
+                    channels=tuple(m * mc for m in channel_mult), nums_rb=2,
+                    cin=adapter_channels or in_channels, ksize=1, sk=True,
+                    use_conv=False, dtype=dtype)
+            (self.input_blocks, self.middle_block, chans, level_ends,
+             ds) = build_encoder(
+                in_channels, mc, num_res_blocks, attention_resolutions,
+                channel_mult, num_heads, num_head_channels, transformer_depth,
+                context_dim, use_scale_shift_norm, conv_resample,
+                fused_norm_silu, dtype)
+            self._adapter_at = tuple(level_ends)
+            ch = chans[-1]
+            out_blocks = []
+            for level, mult in reversed(list(enumerate(channel_mult))):
+                for i in range(num_res_blocks + 1):
+                    layers = [ResBlock(ch + chans.pop(), 4 * mc, mult * mc,
+                                       use_scale_shift_norm=use_scale_shift_norm,
+                                       fused_norm=fused_norm_silu,
+                                       dtype=dtype)]
+                    ch = mult * mc
+                    if ds in attention_resolutions:
+                        n_heads, d_head = _heads_for(ch, num_heads,
+                                                     num_head_channels)
+                        layers.append(SpatialTransformer(
+                            ch, n_heads, d_head, depth=transformer_depth,
+                            context_dim=context_dim, dtype=dtype))
+                    if level and i == num_res_blocks:
+                        layers.append(Upsample(ch, conv_resample, dtype=dtype))
+                        ds //= 2
+                    out_blocks.append(nn.ModuleList(layers))
+            self.output_blocks = nn.ModuleList(out_blocks)
+            # reference indices: [GroupNorm, SiLU, conv]
+            self.out = nn.ModuleList([
+                GroupNorm32(ch), nn.Identity(),
+                Conv2d(mc, out_channels, 3, zero_init=True, dtype=dtype)])
+
+    def forward(self, x, timesteps, context=None, pcond=None,
+                adapter_on: bool = True, control=None,
+                only_mid_control: bool = False, capture: bool = False):
+        """x ``[B, C, H, W]``, timesteps ``[B]``, context ``[B, 77, D]``;
+        ``control`` holds ControlNet's 13 residuals.  Returns float32 eps."""
+        if capture:
+            raise NotImplementedError("attention capture is not ported yet")
+        emb = embed_timesteps(self.time_embed, timesteps, self.model_channels)
+        h = x.to(self.dtype)
+        feats = None
+        if self.adapter is not None and adapter_on:
+            feats = list(self.adapter(h if pcond is None
+                                      else pcond.to(self.dtype)))
+        hs = []
+        for i, block in enumerate(self.input_blocks):
+            h = run_block(block, h, emb, context)
+            if feats is not None and i in self._adapter_at:
+                h = h + feats.pop(0).to(h.dtype)
+            hs.append(h)
+        h = run_block(self.middle_block, h, emb, context)
+        ctrl = list(control) if control is not None else None
+        if ctrl is not None:
+            h = h + ctrl.pop().to(h.dtype)
+        for block in self.output_blocks:
+            skip = hs.pop()
+            if ctrl is not None and not only_mid_control:
+                skip = skip + ctrl.pop().to(h.dtype)
+            h = run_block(block, torch.cat([h, skip], dim=1), emb, context)
+        h = silu(self.out[0](h))
+        return self.out[2](h).float()

@@ -1,0 +1,239 @@
+"""The port's kernel modules held against the JAX package, on the CPU.
+
+On the CPU each wrapper takes its kernel's plain version, so this file holds
+those plain versions against the JAX package's plain versions
+(``_xla_attention``, ``_xla_group_norm``) and against the Pallas kernels run
+in interpret mode (the pattern of ``tests/test_attention.py:30``), checks the
+dispatch gates, the launch geometry of the Triton GroupNorm, and that the
+wrappers refuse what they cannot run.  The kernels themselves run only on
+the card: ``chip_smoke.py`` holds them against the same plain versions there.
+
+Tolerances: float32 plain versions 1e-5 (sums in another order); bf16
+attention output 1e-2 * max|ref| (one bf16 rounding of P and of the output);
+Pallas kernels 2e-3 (the tolerance of ``tests/test_attention.py``).
+"""
+
+import math
+import re
+import types
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+import fgdm_tpu.kernels.attention as ka  # noqa: E402
+import fgdm_tpu.kernels.groupnorm as kg  # noqa: E402
+from fgdm_tpu_torch.kernels import _build  # noqa: E402
+from fgdm_tpu_torch.kernels import attention as ta  # noqa: E402
+from fgdm_tpu_torch.kernels import groupnorm as tg  # noqa: E402
+
+torch.set_num_threads(2)
+
+
+def qkv(rng, b, h, nq, nk, d):
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, h, nq, d), (b, h, nk, d), (b, h, nk, d))]
+
+
+def as_torch(arrs, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_ref_matches_xla(dtype):
+    rng = np.random.default_rng(0)
+    q, k, v = qkv(rng, 2, 3, 64, 96, 40)
+    scale = 40 ** -0.5
+    ref = ka._xla_attention(*(jnp.asarray(a, dtype) for a in (q, k, v)),
+                            scale)
+    out = ta.attention_ref(*as_torch((q, k, v), getattr(torch, dtype)),
+                           scale)
+    assert out.dtype == getattr(torch, dtype)
+    ref = np.asarray(ref, np.float32)
+    tol = 1e-5 if dtype == "float32" else 1e-2 * np.abs(ref).max()
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=tol, rtol=0)
+
+
+# (TPU kernel, its jitted caller, B, H, N, d): K1 at the UNet head dims,
+# K2 and K3 at the VAE's single 512-wide head.
+PALLAS_CASES = [
+    ("K1", "_flash_attention_t", 1, 2, 512, 40),
+    ("K1", "_flash_attention_t", 1, 2, 512, 80),
+    ("K2", "_flash_attention", 1, 1, 512, 512),
+    ("K3", "_flash_attention_kv", 1, 1, 1024, 512),
+]
+
+
+@pytest.mark.parametrize("case", PALLAS_CASES, ids=lambda c: f"{c[0]}-d{c[5]}")
+def test_flash_attention_matches_pallas_interpret(case, monkeypatch):
+    _, fn, b, h, n, d = case
+    monkeypatch.setattr(ka, "_INTERPRET", True)
+    rng = np.random.default_rng(d)
+    q, k, v = qkv(rng, b, h, n, n, d)
+    scale = 1 / math.sqrt(d)
+    ref = getattr(ka, fn)(*(jnp.asarray(a) for a in (q, k, v)), scale,
+                          block_q=256, block_k=256)
+    before = sum(ta.flash_attention.launches.values())
+    out = ta.flash_attention(*as_torch((q, k, v)), scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-3)
+    # the CPU takes the plain version and launches nothing
+    assert sum(ta.flash_attention.launches.values()) == before
+
+
+def test_multihead_attention_matches_jax_dispatch():
+    """The public entry points agree, default scale included."""
+    rng = np.random.default_rng(1)
+    q, k, v = qkv(rng, 2, 8, 16, 77, 40)
+    ref = ka.multihead_attention(*(jnp.asarray(a) for a in (q, k, v)))
+    out = ta.multihead_attention(*as_torch((q, k, v)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def fake(device, *shape):
+    """Something with a device and a shape, enough for the gates."""
+    return types.SimpleNamespace(device=torch.device(device), shape=shape)
+
+
+@pytest.mark.parametrize("nq,nk,want", [
+    (1024, 1024, True), (4096, 4096, True), (512, 512, True),
+    (1024, 77, False),     # cross-attention
+    (256, 256, False),     # below the flash length
+    (1024, 768, False),    # nk not a multiple of 512
+    (256, 1024, False),    # nq below the flash length
+])
+def test_flash_gate(nq, nk, want):
+    assert ta.use_flash(fake("cuda", 2, 8, nq, 40),
+                        fake("cuda", 2, 8, nk, 40)) is want
+    assert ta.use_flash(fake("cpu", 2, 8, nq, 40),
+                        fake("cpu", 2, 8, nk, 40)) is False
+
+
+@pytest.mark.parametrize("c,groups,want", [
+    (128, 32, True), (320, 32, True), (2560, 32, True),
+    (96, 32, False),       # narrower than 128
+    (130, 32, False),      # not divisible into the groups
+])
+def test_groupnorm_gate(c, groups, want):
+    assert tg.use_fused_gn(fake("cuda", 2, c, 8, 8), groups) is want
+    assert tg.use_fused_gn(fake("cpu", 2, c, 8, 8), groups) is False
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on the card raises: no quiet
+    switch to the plain version."""
+    q = torch.empty(1, 1, 512, 40, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ta.flash_attention(q, q, q, 0.1)
+    x = torch.empty(1, 128, 4, 4, device="meta")
+    w = torch.empty(128, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tg.group_norm_silu_kernel(x, w, w)
+
+
+def test_build_raises_without_nvcc(monkeypatch):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_library_is_keyed_by_source_hash():
+    path = _build.library_path("flash_attn_fwd")
+    assert path.parent == _build.BUILD_DIR
+    assert re.fullmatch(r"libflash_attn_fwd-[0-9a-f]{16}\.so", path.name)
+    assert _build.library_path("flash_attn_fwd") == path
+    # the build directory is ignored by git
+    root = _build.BUILD_DIR.parents[1]
+    ignored = (root / ".gitignore").read_text().split()
+    assert "build/" in ignored
+
+
+def test_kernel_head_dims_match_the_source():
+    """The Python list of head dims is the CUDA source's switch."""
+    src = (_build.CSRC / "flash_attn_fwd.cu").read_text()
+    body = src[src.index("int fgdm_flash_attn_fwd("):
+               src.index("int fgdm_flash_attn_block_n(")]
+    dims = tuple(int(d) for d in re.findall(r"case (\d+): return launch", body))
+    assert dims == ta.KERNEL_HEAD_DIMS
+    assert {40, 80, 512} <= set(dims)   # the chain's self-attention heads
+
+
+def nhwc_to_nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1)))
+
+
+@pytest.mark.parametrize("shape,eps,silu", [
+    ((2, 8, 8, 320), 1e-5, True),
+    ((1, 16, 16, 128), 1e-6, True),
+    ((2, 4, 4, 256), 1e-5, False),
+])
+def test_group_norm_ref_matches_xla_and_pallas(shape, eps, silu, monkeypatch):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal(shape).astype(np.float32) * 3 + 1
+    w = rng.standard_normal(shape[-1]).astype(np.float32)
+    b = rng.standard_normal(shape[-1]).astype(np.float32)
+    xla = kg._xla_group_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                             32, eps, silu)
+    monkeypatch.setattr(kg, "_INTERPRET", True)
+    pallas = kg.group_norm_silu(jnp.asarray(x), jnp.asarray(w),
+                                jnp.asarray(b), eps=eps, apply_silu=silu,
+                                use_fused=True)
+    out = tg.group_norm_silu(nhwc_to_nchw(x), torch.from_numpy(w),
+                             torch.from_numpy(b), 32, eps, silu)
+    out = np.moveaxis(out.numpy(), 1, -1)
+    np.testing.assert_allclose(out, np.asarray(xla), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out, np.asarray(pallas), atol=1e-4, rtol=0)
+
+
+def test_group_norm_ref_bf16_casts_once():
+    """bf16 in, bf16 out; statistics, affine and SiLU in f32 with a single
+    cast at the end, as ``_xla_group_norm``."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((1, 8, 8, 128)).astype(np.float32)
+    w = rng.standard_normal(128).astype(np.float32)
+    b = rng.standard_normal(128).astype(np.float32)
+    xla = kg._xla_group_norm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w),
+                             jnp.asarray(b), 32, 1e-6, True)
+    out = tg.group_norm_silu_kernel(nhwc_to_nchw(x).to(torch.bfloat16),
+                                    torch.from_numpy(w), torch.from_numpy(b),
+                                    32, 1e-6, True)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(np.moveaxis(out.float().numpy(), 1, -1),
+                               np.asarray(xla, np.float32), atol=2e-2)
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 320, 64, 64), (2, 2560, 8, 8), (2, 1280, 4, 4), (1, 512, 64, 64),
+    (1, 128, 512, 512), (1, 256, 512, 512), (3, 128, 5, 7),
+])
+def test_group_norm_launch_geometry_covers_each_group(shape):
+    """The Triton launch's slices tile each (batch, group) span exactly,
+    and the two-pass statistics over them (partial sums of x and x^2,
+    var = E[x^2] - mean^2, as the TPU kernel) equal the plain version's."""
+    numel, split, chunk = tg.launch_geometry(shape)
+    assert numel == shape[1] // 32 * math.prod(shape[2:])
+    assert chunk % tg._BLOCK == 0 and split <= tg._MAX_SPLIT
+    assert split & (split - 1) == 0
+    assert (split - 1) * chunk < numel <= split * chunk
+    if numel > 1 << 16:
+        return
+    rng = np.random.default_rng(4)
+    span = (rng.standard_normal(numel) * 2 + 0.5).astype(np.float32)
+    parts = np.array([[span[s * chunk:(s + 1) * chunk].sum(dtype=np.float32),
+                       (span[s * chunk:(s + 1) * chunk] ** 2).sum(
+                           dtype=np.float32)] for s in range(split)])
+    mean = parts[:, 0].sum() / numel
+    var = parts[:, 1].sum() / numel - mean * mean
+    np.testing.assert_allclose(mean, span.mean(dtype=np.float64), atol=1e-5)
+    np.testing.assert_allclose(var, span.var(dtype=np.float64), rtol=1e-4)
+
+
+def test_group_norm_cpu_path_counts_no_launch():
+    before = sum(tg.group_norm_silu_kernel.launches.values())
+    tg.group_norm_silu(torch.zeros(1, 128, 4, 4), torch.ones(128),
+                       torch.zeros(128), use_kernel=True)
+    assert sum(tg.group_norm_silu_kernel.launches.values()) == before
