@@ -2,21 +2,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from the sources in this checkout, then:
+Builds the port's kernels from the sources in this checkout (one ``nvcc``
+per CUDA source, started together), then:
 
 1. prints the card's name and power limit;
 2. holds every kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it, and times kernel, plain version and the
-   PyTorch library call that computes the same function (the yardstick,
-   never used by the port);
+   shapes the two paths below give it (the flash forward's lse output and
+   the flash backward's dQ and dK/dV included), and times kernel, plain
+   version and the PyTorch library call that computes the same function
+   (the yardstick, never used by the port);
 3. runs one full-width SD-1.4 UNet forward (with the FG-DM adapter) with the
    kernels on and with the plain versions, and compares;
-4. drives the full-width text->seg->image chain (``builders.build_chain`` +
-   ``fgdm_chain``: 50 + 20 DDIM steps, batch 1, seeded random weights and
-   contexts) with every launch count set to 0 just before, checks the image
-   and that each kernel launched, then profiles one more run for the
-   device time by kernel;
-5. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+4. the chain path: drives the full-width text->seg->image chain
+   (``builders.build_chain`` + ``fgdm_chain``: 50 + 20 DDIM steps, batch 1,
+   seeded random weights and contexts) with every launch count set to 0 just
+   before, checks the image and that each kernel launched, then profiles one
+   more run for the device time by kernel;
+5. the training path: ``builders.build_trainer`` (adapter-only fine-tuning
+   at 256^2, batch 8, VAE encode + CLIP + UNet forward and backward + AdamW
+   + EMA) takes one cold step with every launch count set to 0 just before,
+   then 5 timed warm steps; checks the losses, the gradient norm, that the
+   adapter moved and every frozen parameter did not, the EMA count; compares
+   one loss and its adapter gradients kernels-on vs plain on injected
+   draws; profiles one more step;
+6. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, if there is no CUDA device or any phase
 fails.  Imports nothing of JAX.
@@ -24,7 +33,9 @@ fails.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -36,32 +47,59 @@ PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
 
 ATTN_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_fwd.cu"
+BWD_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_bwd.cu"
 GN_SRC = "fgdm_tpu_torch/kernels/groupnorm.py"
 K1 = "fgdm_tpu/kernels/attention.py:157"   # _flash_kernel_t
 K2 = "fgdm_tpu/kernels/attention.py:121"   # _flash_kernel
 K3 = "fgdm_tpu/kernels/attention.py:516"   # _flash_kernel_kv
 K4 = "fgdm_tpu/kernels/groupnorm.py:68"    # _kernel
+K5 = "fgdm_tpu/kernels/attention.py:299"   # _flash_bwd_dq_kernel_t
+K6 = "fgdm_tpu/kernels/attention.py:329"   # _flash_bwd_dkv_kernel_t
 
-# (label, TPU kernel, B*CFG, heads, N, d): the self-attention shapes of the
-# chain at batch 1 (CFG doubles the UNet batch; the VAE decodes batch 1).
+# (label, TPU kernel, batch, heads, N, d, lse, path): the self-attention
+# shapes of the chain at batch 1 (CFG doubles the UNet batch; the VAE
+# decodes batch 1) and of the training step at batch 8 (the frozen input
+# blocks launch the forward alone, the blocks that need a gradient with
+# lse; the VAE encoder's mid-block at 32^2).
 ATTN_CASES = [
-    ("flash_attn_fwd d40 N1024", K1, 2, 8, 1024, 40),
-    ("flash_attn_fwd d40 N4096", K1, 2, 8, 4096, 40),
-    ("flash_attn_fwd d80 N1024", K1, 2, 8, 1024, 80),
-    ("flash_attn_fwd d512 N1024", K2, 1, 1, 1024, 512),
-    ("flash_attn_fwd d512 N4096", K3, 1, 1, 4096, 512),
+    ("flash_attn_fwd d40 N1024", K1, 2, 8, 1024, 40, False, "chain"),
+    ("flash_attn_fwd d40 N4096", K1, 2, 8, 4096, 40, False, "chain"),
+    ("flash_attn_fwd d80 N1024", K1, 2, 8, 1024, 80, False, "chain"),
+    ("flash_attn_fwd d512 N1024", K2, 1, 1, 1024, 512, False, "chain"),
+    ("flash_attn_fwd d512 N4096", K3, 1, 1, 4096, 512, False, "chain"),
+    ("flash_attn_fwd d40 N1024 [8,8] train", K1, 8, 8, 1024, 40, False,
+     "train"),
+    ("flash_attn_fwd+lse d40 N1024 [8,8] train", K1, 8, 8, 1024, 40, True,
+     "train"),
+    ("flash_attn_fwd d512 N1024 [8,1] train", K2, 8, 1, 1024, 512, False,
+     "train"),
 ]
-# (label, shape, eps): GroupNorm+SiLU shapes of UNet/ControlNet ResBlocks
-# (eps 1e-5) and VAE ResnetBlocks (eps 1e-6).
+# (label suffix, batch, heads, N, d, path): backward shapes, each giving a
+# K5 (dQ) and a K6 (dK/dV) row: the training step's, and the 512^2
+# training shapes (no path here; they exercise N=4096 and d=80).
+BWD_CASES = [
+    ("d40 N1024 [8,8] train", 8, 8, 1024, 40, "train"),
+    ("d40 N4096 [2,8]", 2, 8, 4096, 40, None),
+    ("d80 N1024 [2,8]", 2, 8, 1024, 80, None),
+]
+# (label, shape, eps, path): GroupNorm+SiLU shapes of UNet/ControlNet
+# ResBlocks (eps 1e-5) and VAE ResnetBlocks (eps 1e-6).
 GN_CASES = [
-    ("group_norm_silu [2,320,64,64]", (2, 320, 64, 64), 1e-5),
-    ("group_norm_silu [2,2560,8,8]", (2, 2560, 8, 8), 1e-5),
-    ("group_norm_silu [1,512,64,64]", (1, 512, 64, 64), 1e-6),
-    ("group_norm_silu [1,128,512,512]", (1, 128, 512, 512), 1e-6),
+    ("group_norm_silu [2,320,64,64]", (2, 320, 64, 64), 1e-5, "chain"),
+    ("group_norm_silu [2,2560,8,8]", (2, 2560, 8, 8), 1e-5, "chain"),
+    ("group_norm_silu [1,512,64,64]", (1, 512, 64, 64), 1e-6, "chain"),
+    ("group_norm_silu [1,128,512,512]", (1, 128, 512, 512), 1e-6, "chain"),
+    ("group_norm_silu [8,320,32,32] train", (8, 320, 32, 32), 1e-5, "train"),
+    ("group_norm_silu [8,128,256,256] train", (8, 128, 256, 256), 1e-6,
+     "train"),
 ]
 ATTN_TOL = (1e-2, 1e-3)   # max|d| <= 1e-2 * max|ref| + 1e-3 (bf16 out, P)
+LSE_TOL = 1e-3            # max|d| of the f32 lse (same f32 scores)
+BWD_TOL = (2e-2, 2e-3)    # max|d| <= 2e-2 * max|ref| + 2e-3 (bf16 p and dS)
 GN_TOL = 1e-2             # max |d| / (1 + |ref|) (bf16 output rounding)
 UNET_TOL = 5e-2           # max|d| / max|ref| of the UNet eps, bf16 chain
+LOSS_TOL = 1e-2           # relative difference of the training loss
+TRAIN_BATCH, WARM_STEPS = 8, 5
 
 
 def log(msg):
@@ -92,63 +130,158 @@ def card_line():
 
 
 def build_kernels():
-    """nvcc the CUDA source and compile the Triton programs once."""
+    """nvcc both CUDA sources at once and compile the Triton programs
+    meanwhile."""
     import torch
     from fgdm_tpu_torch.kernels import _build, attention, groupnorm
 
     t0 = time.perf_counter()
-    lib_path = _build.build("flash_attn_fwd")
+    names = ("flash_attn_fwd", "flash_attn_bwd")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        builds = [pool.submit(_build.build, n) for n in names]
+        x = torch.randn(1, 128, 8, 8, device="cuda", dtype=torch.bfloat16)
+        w = torch.ones(128, device="cuda")
+        for silu in (True, False):
+            groupnorm.group_norm_silu_kernel(x, w, w, 32, 1e-5, silu)
+        torch.cuda.synchronize()
+        log(f"compiled Triton GroupNorm in {time.perf_counter() - t0:.1f}s")
+        paths = [b.result() for b in builds]
     attention._lib()
-    log(f"built {lib_path.name} in {time.perf_counter() - t0:.1f}s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
-    x = torch.randn(1, 128, 8, 8, device="cuda", dtype=torch.bfloat16)
-    w = torch.ones(128, device="cuda")
-    t0 = time.perf_counter()
-    for silu in (True, False):
-        groupnorm.group_norm_silu_kernel(x, w, w, 32, 1e-5, silu)
-    torch.cuda.synchronize()
-    log(f"compiled Triton GroupNorm in {time.perf_counter() - t0:.1f}s")
+    attention._bwd_lib()
+    log(f"built {', '.join(p.name for p in paths)} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for path in paths:
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "Compiling entry")):
+                log(f"  ptxas {path.name.split('-')[0]}: " + line.strip())
 
 
-def phase_kernels():
-    """Each kernel against its plain version at the main path's shapes."""
+def bound(flops, nbytes, peak_flops):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def attn_rows(gen):
+    """K1-K3 forward rows; at d=40/80 also the lse output against the plain
+    version's, and the output with lse against the output without."""
     import torch
     import torch.nn.functional as F
-    from fgdm_tpu_torch.kernels import attention, groupnorm
+    from fgdm_tpu_torch.kernels import attention
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for label, tpu, b, h, n, d in ATTN_CASES:
+    for label, tpu, b, h, n, d, with_lse, path in ATTN_CASES:
         q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen,
                                dtype=torch.bfloat16) for _ in range(3))
         scale = d ** -0.5
         out = attention.flash_attention(q, k, v, scale)
-        ref = attention.attention_ref(q, k, v, scale)
-        torch.cuda.synchronize()
+        ref, ref_lse = attention.attention_ref(q, k, v, scale,
+                                               return_lse=True)
         err = (out.float() - ref.float()).abs().max().item()
         lim = ATTN_TOL[0] * ref.float().abs().max().item() + ATTN_TOL[1]
         ok = math.isfinite(err) and err <= lim
-        reps = 20 if n >= 4096 else 50
-        ms = cuda_ms(lambda: attention.flash_attention(q, k, v, scale), reps)
-        plain_ms = cuda_ms(lambda: attention.attention_ref(q, k, v, scale),
-                           reps)
+        note = ""
+        if d in attention.BWD_HEAD_DIMS:
+            out_l, lse = attention.flash_attention(q, k, v, scale,
+                                                   return_lse=True)
+            lse_err = (lse - ref_lse).abs().max().item()
+            same = torch.equal(out_l, out)
+            ok = ok and math.isfinite(lse_err) and lse_err <= LSE_TOL and same
+            note = (f"  lse max|d|={lse_err:.3e} (tol {LSE_TOL}), output "
+                    f"with lse {'==' if same else '!='} without")
+        reps = 20 if n * b >= 8192 else 50
+        ms = cuda_ms(lambda: attention.flash_attention(
+            q, k, v, scale, return_lse=with_lse), reps)
+        plain_ms = cuda_ms(lambda: attention.attention_ref(
+            q, k, v, scale, return_lse=with_lse), reps)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=scale), reps)
-        flops = 4.0 * b * h * n * n * d
-        nbytes = 4.0 * b * h * n * d * 2
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        bound_ms, bound_by = bound(4.0 * b * h * n * n * d,
+                                   4.0 * b * h * n * d * 2
+                                   + (4.0 * b * h * n if with_lse else 0),
+                                   PEAK_BF16_FLOPS)
         rows.append(dict(
             name=label, route="cuda", source=ATTN_SRC, replaces=tpu,
-            key=("attn", d, n, n), max_abs_err=err, tol=lim, ok=ok, ms=ms,
-            plain_ms=plain_ms, bound_ms=1e3 * max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=lib_ms))
-        log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}) {'OK' if ok else 'FAIL'}"
-            f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f}"
-            f" ms  bound {rows[-1]['bound_ms']:.4f} ms")
-    for label, shape, eps in GN_CASES:
+            key=("attn", d, n, n, with_lse), path=path, max_abs_err=err,
+            tol=lim, ok=ok, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms))
+        log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}){note} "
+            f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bound_ms:.4f} ms")
+    return rows
+
+
+def bwd_rows(gen):
+    """K5 (dQ) and K6 (dK/dV) against ``attention_bwd_ref`` on the same
+    bf16 inputs and the forward kernel's output and lse.  The plain version
+    of each is the whole plain backward (the wrappers' CPU route); the
+    library yardstick is SDPA's backward alone."""
+    import torch
+    import torch.nn.functional as F
+    from fgdm_tpu_torch.kernels import attention
+
+    rows = []
+    for suffix, b, h, n, d, path in BWD_CASES:
+        q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen,
+                                   dtype=torch.bfloat16) for _ in range(4))
+        scale = d ** -0.5
+        o, lse = attention.flash_attention(q, k, v, scale, return_lse=True)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        dq = attention.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+        dk, dv = attention.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                   scale)
+        again = attention.flash_attention_backward(q, k, v, o, lse, do, scale)
+        refs = attention.attention_bwd_ref(q, k, v, o, lse, do, scale)
+        errs, oks = {}, {}
+        for name, got, ref, rep in zip("qkv", (dq, dk, dv), refs, again):
+            err = (got.float() - ref.float()).abs().max().item()
+            lim = BWD_TOL[0] * ref.float().abs().max().item() + BWD_TOL[1]
+            errs[name] = (err, lim)
+            oks[name] = (math.isfinite(err) and err <= lim
+                         and torch.equal(got, rep))
+        reps = 10 if n >= 4096 else 30
+        ms_dq = cuda_ms(lambda: attention.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, scale), reps)
+        ms_dkv = cuda_ms(lambda: attention.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, scale), reps)
+        plain_ms = cuda_ms(lambda: attention.attention_bwd_ref(
+            q, k, v, o, lse, do, scale), reps)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True), reps)
+        bhnd, bhn = b * h * n * d, b * h * n
+        for kern, tpu, ms, names, flops, nbytes in (
+                ("flash_attn_bwd_dq", K5, ms_dq, "q", 6.0 * bhnd * n,
+                 2 * 5.0 * bhnd + 4 * 2.0 * bhn),
+                ("flash_attn_bwd_dkv", K6, ms_dkv, "kv", 8.0 * bhnd * n,
+                 2 * 6.0 * bhnd + 4 * 2.0 * bhn)):
+            bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            err = max(errs[c][0] for c in names)
+            ok = all(oks[c] for c in names)
+            rows.append(dict(
+                name=f"{kern} {suffix}", route="cuda", source=BWD_SRC,
+                replaces=tpu, key=(kern, d, n, n), path=path,
+                max_abs_err=err, ok=ok, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+            log(f"{kern} {suffix}: "
+                + " ".join(f"d{c} max|d|={errs[c][0]:.3e} (tol "
+                           f"{errs[c][1]:.3e})" for c in names)
+                + f", rerun bit-identical {all(oks[c] for c in names)} "
+                f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
+                f"backward {plain_ms:.4f} ms  sdpa backward {lib_ms:.4f} ms"
+                f"  bound {bound_ms:.4f} ms ({bound_by})")
+    return rows
+
+
+def gn_rows(gen):
+    import torch
+    import torch.nn.functional as F
+    from fgdm_tpu_torch.kernels import groupnorm
+
+    rows = []
+    for label, shape, eps, path in GN_CASES:
         c = shape[1]
         x = torch.randn(shape, device="cuda", generator=gen,
                         dtype=torch.bfloat16)
@@ -171,17 +304,26 @@ def phase_kernels():
                          reps)
         nbytes = 2.0 * x.numel() * x.element_size() + 2 * c * 4
         flops = 8.0 * x.numel()   # sums, affine, SiLU: ~8 f32 ops/element
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_FLOPS)
         rows.append(dict(
             name=label, route="triton", source=GN_SRC, replaces=K4,
-            key=("gn", shape, eps), max_abs_err=err, tol=GN_TOL, ok=ok, ms=ms,
-            plain_ms=plain_ms, bound_ms=1e3 * max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=lib_ms))
+            key=("gn", shape, eps), path=path, max_abs_err=err, tol=GN_TOL,
+            ok=ok, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms))
         log(f"{label} eps={eps}: max|d|={err:.3e} max|d|/(1+|ref|)={rel:.3e}"
             f" (tol {GN_TOL}) {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms"
             f"  plain {plain_ms:.4f} ms  F.group_norm+silu {lib_ms:.4f} ms"
-            f"  bound {rows[-1]['bound_ms']:.4f} ms")
+            f"  bound {bound_ms:.4f} ms")
+    return rows
+
+
+def phase_kernels():
+    """Each kernel against its plain version at the paths' shapes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = attn_rows(gen) + bwd_rows(gen) + gn_rows(gen)
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -199,11 +341,29 @@ def plain_path():
         attention.use_flash, groupnorm.use_fused_gn = saved
 
 
-def reset_counts():
+def _counters():
     from fgdm_tpu_torch.kernels import attention, groupnorm
 
-    attention.flash_attention.launches.clear()
-    groupnorm.group_norm_silu_kernel.launches.clear()
+    return {"attn": attention.flash_attention.launches,
+            "flash_attn_bwd_dq": attention.flash_attention_bwd_dq.launches,
+            "flash_attn_bwd_dkv": attention.flash_attention_bwd_dkv.launches,
+            "gn": groupnorm.group_norm_silu_kernel.launches}
+
+
+def reset_counts():
+    for c in _counters().values():
+        c.clear()
+
+
+def read_counts():
+    """{kind: {key: launches}} since the last ``reset_counts``."""
+    return {kind: dict(c) for kind, c in _counters().items()}
+
+
+def log_counts(path, counts):
+    for kind, c in counts.items():
+        log(f"{path} {kind} launches by key: "
+            + json.dumps({str(k): v for k, v in sorted(c.items())}))
 
 
 def phase_unet():
@@ -245,7 +405,6 @@ def phase_chain():
     and must reproduce the first."""
     import torch
     from fgdm_tpu_torch.builders import build_chain
-    from fgdm_tpu_torch.kernels import attention, groupnorm
     from fgdm_tpu_torch.sampling.chain import fgdm_chain
 
     t0 = time.perf_counter()
@@ -265,8 +424,7 @@ def phase_chain():
 
     reset_counts()
     out, cold = run()
-    attn = dict(attention.flash_attention.launches)
-    gn = dict(groupnorm.group_norm_silu_kernel.launches)
+    counts = read_counts()
     torch.cuda.reset_peak_memory_stats()
     again, warm = run()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -282,40 +440,152 @@ def phase_chain():
         f"{cold:.3f}s first run (kernel compiles included), {warm:.3f}s "
         f"second run (host clock); peak memory {peak_gib:.2f} GiB; "
         f"{'OK' if ok else 'FAIL'}")
-    log("chain flash launches by (d, nq, nk): "
-        + json.dumps({str(k): v for k, v in sorted(attn.items())}))
-    log("chain groupnorm launches by (shape, eps): "
-        + json.dumps({str(k): v for k, v in sorted(gn.items())}))
-    profile_chain(run, warm)
-    return ok, attn, gn, warm
+    log_counts("chain", counts)
+    profile("chain", run, warm)
+    return ok, counts
 
 
-def profile_chain(run, warm_s):
-    """Device time by kernel over one more chain run (torch.profiler), and
-    the device's busy share: that kernel time over the unprofiled warm wall
-    time.  Prints "not measured" if the trace holds no device time."""
+def profile(path, run, warm_s):
+    """Device time by kernel over one more run of ``run`` (torch.profiler),
+    and the device's busy share: that kernel time over the unprofiled warm
+    wall time.  Prints "not measured" if the trace holds no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         run()
     by_name = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # user annotations (e.g. "Optimizer.step#AdamW.step") span kernels
+        # that are counted on their own
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             us = e.time_range.end - e.time_range.start
             n, t = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, t + us)
     total_ms = sum(t for _, t in by_name.values()) / 1e3
     if total_ms == 0:
-        log("chain device time by kernel: not measured (no device events)")
+        log(f"{path} device time by kernel: not measured (no device events)")
         return
-    log(f"chain device kernel time {total_ms:.1f} ms over a warm wall of "
+    log(f"{path} device kernel time {total_ms:.1f} ms over a warm wall of "
         f"{1e3 * warm_s:.1f} ms: device busy share "
         f"{total_ms / (1e3 * warm_s):.3f}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     for name, (n, t) in top:
         log(f"  {t / 1e3:9.2f} ms {100 * t / 1e3 / total_ms:5.1f}% "
             f"{n:6d}x  {name[:110]}")
+
+
+def adapter_grads(ld, state, batch, draws):
+    """Loss and adapter gradients of one forward/backward on injected t,
+    noise and posterior eps (no optimizer step)."""
+    import torch
+    from fgdm_tpu_torch.diffusion.losses import diffusion_loss
+
+    t, noise, eps = draws
+    with torch.no_grad():
+        x0 = ld.encode_first_stage(batch["image"], eps=eps)
+        ctx = ld.get_learned_conditioning(batch["input_ids"])
+    loss, _ = diffusion_loss(ld, x0, {"c_crossattn": ctx}, t=t, noise=noise)
+    loss.backward()
+    grads = {k: p.grad.float() for k, p in state.params.items()}
+    for p in state.params.values():
+        p.grad = None
+    return loss.item(), grads
+
+
+def frozen_checksum(state):
+    """One int64 per frozen parameter: the sum of its bit patterns."""
+    import torch
+
+    return torch.stack([p.detach().view(torch.int32).sum(dtype=torch.int64)
+                        for p in state.frozen.values()])
+
+
+def phase_train():
+    """The adapter-only training step at full width, batch 8, 256^2.  The
+    cold step is the path's counted run."""
+    import torch
+    from fgdm_tpu_torch.builders import build_trainer
+
+    t0 = time.perf_counter()
+    tr = build_trainer(device="cuda", seed=0, batch=TRAIN_BATCH,
+                       use_ema=True)
+    ld, state, batch = tr.ld, tr.state, tr.batch
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in state.params.values())
+    n_frozen = sum(p.numel() for p in state.frozen.values())
+    log(f"built the trainer in {time.perf_counter() - t0:.1f}s: "
+        f"{n_train} trainable (adapter) and {n_frozen} frozen UNet "
+        f"parameters, batch {tuple(batch['image'].shape)}")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    adapter0 = {k: p.detach().clone() for k, p in state.params.items()}
+    frozen0 = frozen_checksum(state)
+    metrics = []
+
+    def step():
+        nonlocal state
+        state, m = tr.train_step(state, batch, gen)
+        metrics.append(m)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    counts = read_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(WARM_STEPS):
+        step()
+    torch.cuda.synchronize()
+    warm = (time.perf_counter() - t0) / WARM_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [m["loss"].item() for m in metrics]
+    norms = [m["grad_norm"].item() for m in metrics]
+    moved = max((p - adapter0[k]).abs().max().item()
+                for k, p in state.params.items())
+    frozen_same = torch.equal(frozen_checksum(state), frozen0)
+    ok = (all(math.isfinite(x) for x in losses)
+          and all(math.isfinite(x) and x > 0 for x in norms)
+          and moved > 0 and frozen_same
+          and state.ema.num_updates == state.step == 1 + WARM_STEPS)
+    log(f"train: {1 + WARM_STEPS} steps, losses "
+        f"{[round(x, 5) for x in losses]}, grad norms "
+        f"{[round(x, 5) for x in norms]}; adapter max|moved|={moved:.3e}; "
+        f"frozen bit-identical {frozen_same}; EMA updates "
+        f"{state.ema.num_updates}; {'OK' if ok else 'FAIL'}")
+    log(f"train: cold step {1e3 * cold:.1f} ms (kernel compiles included); "
+        f"warm {1e3 * warm:.1f} ms/step over {WARM_STEPS} steps (host "
+        f"clock), {TRAIN_BATCH / warm:.2f} images/s at batch {TRAIN_BATCH}; "
+        f"peak memory {peak_gib:.2f} GiB")
+    log_counts("train", counts)
+
+    # kernels on vs plain, one loss and its adapter gradients
+    b = batch["image"].shape[0]
+    draws = (torch.randint(0, 1000, (b,), device="cuda", generator=gen),
+             torch.randn(b, 4, 32, 32, device="cuda", generator=gen),
+             torch.randn(b, 4, 32, 32, device="cuda", generator=gen))
+    loss_on, g_on = adapter_grads(ld, state, batch, draws)
+    with plain_path():
+        loss_off, g_off = adapter_grads(ld, state, batch, draws)
+    loss_rel = abs(loss_on - loss_off) / abs(loss_off)
+    g_err = max((g_on[k] - g_off[k]).abs().max().item() for k in g_on)
+    g_scale = max(g.abs().max().item() for g in g_off.values())
+    cmp_ok = (math.isfinite(loss_rel) and loss_rel <= LOSS_TOL
+              and g_scale > 0 and g_err / g_scale <= UNET_TOL)
+    log(f"train kernels on vs plain: loss {loss_on:.6f} vs {loss_off:.6f} "
+        f"(rel {loss_rel:.3e}, tol {LOSS_TOL}); adapter grads max|d|/max|ref|"
+        f" = {g_err / max(g_scale, 1e-30):.3e} (tol {UNET_TOL}); "
+        f"{'OK' if cmp_ok else 'FAIL'}")
+
+    def run():
+        step()
+        torch.cuda.synchronize()
+
+    profile("train", run, warm)
+    return ok and cmp_ok, counts
 
 
 def main():
@@ -333,28 +603,35 @@ def main():
     build_kernels()
     rows = phase_kernels()
     unet_ok = phase_unet()
-    chain_ok, attn, gn, _ = phase_chain()
+    chain_ok, chain = phase_chain()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_ok, train = phase_train()
 
     failures = [r["name"] for r in rows if not r["ok"]]
+    by_path = {"chain": chain, "train": train}
     for r in rows:
-        kind = r["key"][0]
-        if kind == "attn":
-            r["launches"] = attn.get(r["key"][1:], 0)
-        else:
-            r["launches"] = gn.get((r["key"][1], r["key"][2]), 0)
-    for r in rows[:len(ATTN_CASES)]:
-        if r["launches"] == 0:
-            failures.append(f"{r['name']} not launched by the chain")
-    if sum(gn.values()) == 0:
-        failures.append("group_norm_silu not launched by the chain")
+        kind, key = r["key"][0], r["key"][1:]
+        r["launches"] = by_path.get(r["path"], {}).get(kind, {}).get(key, 0)
+        if r["path"] and r["launches"] == 0:
+            failures.append(f"{r['name']} not launched by the {r['path']}")
+    for kind in ("attn", "gn"):
+        if sum(chain[kind].values()) == 0:
+            failures.append(f"{kind} not launched by the chain")
+    for kind in ("attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "gn"):
+        if sum(train[kind].values()) == 0:
+            failures.append(f"{kind} not launched by the training step")
     if not unet_ok:
         failures.append("UNet kernels-on vs plain")
     if not chain_ok:
         failures.append("chain output")
+    if not train_ok:
+        failures.append("training step")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log("total launches in the chain: flash_attn_fwd "
-        f"{sum(attn.values())}, group_norm_silu {sum(gn.values())}")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
+    for path, counts in by_path.items():
+        log(f"total launches in the {path}: " + ", ".join(
+            f"{kind} {sum(c.values())}" for kind, c in counts.items()))
     if failures:
         log("FAILED: " + "; ".join(failures))
         return 1

@@ -2,17 +2,15 @@
 
 Takes a param tree as nested dicts of numpy arrays (``jax.tree.map(
 np.asarray, params)``, with or without the ``"params"`` root) and returns
-``{torch key: float32 tensor}`` for ``UNetModel``, ``ControlNet`` and
-``AutoencoderKL`` (decoder half).  The port's own copy of the path rules of
-``fgdm_tpu/checkpoint/torch_export.py:18-171``, writing the reference's
-CompVis / ControlNet key schema in OIHW layout, with one difference: an
-``Adapter`` block's channel-changing conv is ``adapter.body.N.in_conv``
-(the reference T2I-Adapter's name; ``torch_export`` writes the TimeAdapter
-ResBlock's ``in_layers.2``).
+``{torch key: float32 tensor}`` for ``UNetModel``, ``ControlNet``,
+``AutoencoderKL`` and ``CLIPTextEncoder``.  The port's own copy of the path
+rules of ``fgdm_tpu/checkpoint/torch_export.py:18-171``, writing the
+reference's CompVis / ControlNet / HF CLIP key schema in OIHW layout, with
+one difference: an ``Adapter`` block's channel-changing conv is
+``adapter.body.N.in_conv`` (the reference T2I-Adapter's name;
+``torch_export`` writes the TimeAdapter ResBlock's ``in_layers.2``).
 
-Every leaf must map to a key; an unknown path raises ``KeyError``.  The VAE
-encoder and ``quant_conv`` are not ported, so ``vae_decoder_state_dict``
-skips exactly those.
+Every leaf must map to a key; an unknown path raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -24,7 +22,7 @@ import numpy as np
 import torch
 
 __all__ = ["flatten", "unet_state_dict", "controlnet_state_dict",
-           "vae_decoder_state_dict"]
+           "vae_state_dict", "clip_state_dict"]
 
 _RES = {
     "in_norm": "in_layers.0",
@@ -59,7 +57,7 @@ def _leaf(leaf: str, v: np.ndarray) -> Tuple[str, np.ndarray]:
         # HWIO -> OIHW; [in, out] -> [out, in]
         return "weight", (np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4
                           else np.transpose(v))
-    if leaf == "scale":
+    if leaf in ("scale", "embedding"):
         return "weight", v
     if leaf == "bias":
         return "bias", v
@@ -127,33 +125,46 @@ def _controlnet_path(path: Tuple[str, ...]) -> Optional[str]:
     return _unet_path(path)
 
 
-def _vae_decoder_path(path: Tuple[str, ...]) -> Optional[str]:
+def _vae_path(path: Tuple[str, ...]) -> Optional[str]:
     head = path[0]
-    if head == "post_quant_conv":
+    if head in ("quant_conv", "post_quant_conv"):
         return head
-    if head != "decoder" or len(path) < 2:
+    if head not in ("encoder", "decoder") or len(path) < 2:
         return None
     sub, inner = path[1], ".".join(path[2:])
     if sub in ("conv_in", "conv_out", "norm_out"):
-        return f"decoder.{sub}"
+        return f"{head}.{sub}"
     m = re.match(r"mid_(block_1|attn_1|block_2)$", sub)
     if m:
-        return f"decoder.mid.{m.group(1)}.{inner}"
-    m = re.match(r"up_(\d+)_(block|attn)_(\d+)$", sub)
+        return f"{head}.mid.{m.group(1)}.{inner}"
+    m = re.match(r"(down|up)_(\d+)_(block|attn)_(\d+)$", sub)
     if m:
-        lvl, kind, j = m.groups()
-        return f"decoder.up.{lvl}.{kind}.{j}.{inner}"
-    m = re.match(r"up_(\d+)_upsample$", sub)
+        way, lvl, kind, j = m.groups()
+        return f"{head}.{way}.{lvl}.{kind}.{j}.{inner}"
+    m = re.match(r"(down|up)_(\d+)_(downsample|upsample)$", sub)
     if m:
-        return f"decoder.up.{m.group(1)}.upsample.conv"
+        return f"{head}.{m.group(1)}.{m.group(2)}.{m.group(3)}.conv"
     return None
 
 
-def _convert(params, path_fn, skip=lambda path: False):
+def _clip_path(path: Tuple[str, ...]) -> Optional[str]:
+    head = path[0]
+    if head in ("token_embedding", "position_embedding"):
+        return f"text_model.embeddings.{head}"
+    if head == "final_layer_norm":
+        return "text_model.final_layer_norm"
+    m = re.match(r"layers_(\d+)$", head)
+    if m and len(path) > 1:
+        inner = list(path[1:])
+        if inner[0] in ("fc1", "fc2"):
+            inner = ["mlp"] + inner
+        return f"text_model.encoder.layers.{m.group(1)}." + ".".join(inner)
+    return None
+
+
+def _convert(params, path_fn):
     out: Dict[str, torch.Tensor] = {}
     for path, v in flatten(params).items():
-        if skip(path):
-            continue
         tpath = path_fn(path[:-1]) if len(path) > 1 else None
         if tpath is None:
             raise KeyError(f"no port key for flax path {'/'.join(path)}")
@@ -172,8 +183,16 @@ def controlnet_state_dict(params) -> Dict[str, torch.Tensor]:
     return _convert(params, _controlnet_path)
 
 
-def vae_decoder_state_dict(params) -> Dict[str, torch.Tensor]:
-    """``AutoencoderKL`` (decode half) state dict from a flax AutoencoderKL;
-    the encoder and ``quant_conv`` leaves are left out."""
-    return _convert(params, _vae_decoder_path,
-                    skip=lambda p: p[0] in ("encoder", "quant_conv"))
+def vae_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``AutoencoderKL`` state dict (encoder, ``quant_conv``,
+    ``post_quant_conv``, decoder) from a flax AutoencoderKL."""
+    return _convert(params, _vae_path)
+
+
+def clip_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``CLIPTextEncoder`` state dict from a flax CLIPTextEncoder."""
+    tree = dict(params.get("params", params))
+    # the position table is a bare param at the root; give it the
+    # embedding leaf name the token table has
+    tree["position_embedding"] = {"embedding": tree["position_embedding"]}
+    return _convert(tree, _clip_path)

@@ -3,7 +3,7 @@
 Counterpart of ``fgdm_tpu/core/schedules.py``: every quantity is computed
 once on the host in float64 numpy (the reference builds its buffers in
 float64 before casting) and stored as float32 tensors.  ``to(device)`` moves
-a table to where the sampler runs.
+a table to where the sampler or the training step runs.
 """
 
 from __future__ import annotations
@@ -59,6 +59,12 @@ def _f32(a) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=torch.float32)
 
 
+def _gather(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """``table[t]`` shaped ``[B, 1, ...]`` to broadcast over an ``ndim``-d
+    batch (a no-op move when the table already lives on t's device)."""
+    return table.to(t.device)[t].reshape((-1,) + (1,) * (ndim - 1))
+
+
 def _move(obj, device):
     return dataclasses.replace(obj, **{
         f.name: getattr(obj, f.name).to(device)
@@ -68,9 +74,9 @@ def _move(obj, device):
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """The DDPM buffers the sampler path reads (reference ``ddpm.py:175-227``),
-    float32 ``[T]``, plus the float64 ``alphas_cumprod`` for exact DDIM
-    tables."""
+    """The DDPM buffers (reference ``ddpm.py:175-227``) that sampling and
+    the training loss read, float32 ``[T]``, plus the float64
+    ``alphas_cumprod`` for exact DDIM tables."""
 
     num_timesteps: int
     betas: torch.Tensor
@@ -78,28 +84,65 @@ class DiffusionSchedule:
     alphas_cumprod_prev: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
+    lvlb_weights: torch.Tensor
     alphas_cumprod_f64: np.ndarray = dataclasses.field(repr=False)
 
     @staticmethod
     def create(timesteps: int = 1000, beta_schedule: str = "linear",
                linear_start: float = 1e-4, linear_end: float = 2e-2,
-               cosine_s: float = 8e-3) -> "DiffusionSchedule":
+               cosine_s: float = 8e-3, v_posterior: float = 0.0,
+               parameterization: str = "eps") -> "DiffusionSchedule":
         betas = make_beta_schedule(beta_schedule, timesteps,
                                    linear_start=linear_start,
                                    linear_end=linear_end, cosine_s=cosine_s)
-        acp = np.cumprod(1.0 - betas, axis=0)
+        alphas = 1.0 - betas
+        acp = np.cumprod(alphas, axis=0)
+        acp_prev = np.append(1.0, acp[:-1])
+        if parameterization == "eps":
+            post_var = ((1 - v_posterior) * betas * (1.0 - acp_prev)
+                        / (1.0 - acp) + v_posterior * betas)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                lvlb = betas ** 2 / (2 * post_var * alphas * (1 - acp))
+            # t=0 is 0/0; the reference pins it to t=1 (ddpm.py:225-227)
+            lvlb[0] = lvlb[1]
+        elif parameterization == "x0":
+            # the reference's expression, operator precedence included
+            lvlb = 0.5 * np.sqrt(acp) / (2.0 * 1 - acp)
+        elif parameterization == "v":
+            lvlb = np.ones_like(betas)
+        else:
+            raise ValueError(parameterization)
         return DiffusionSchedule(
             num_timesteps=int(timesteps),
             betas=_f32(betas),
             alphas_cumprod=_f32(acp),
-            alphas_cumprod_prev=_f32(np.append(1.0, acp[:-1])),
+            alphas_cumprod_prev=_f32(acp_prev),
             sqrt_alphas_cumprod=_f32(np.sqrt(acp)),
             sqrt_one_minus_alphas_cumprod=_f32(np.sqrt(1.0 - acp)),
+            lvlb_weights=_f32(lvlb),
             alphas_cumprod_f64=acp,
         )
 
     def to(self, device) -> "DiffusionSchedule":
         return _move(self, device)
+
+    def q_sample(self, x_start, t, noise):
+        """Forward-process sample ``a_t x_0 + s_t noise`` in float32; ``t``
+        is an int tensor ``[B]``."""
+        return (_gather(self.sqrt_alphas_cumprod, t, x_start.dim())
+                * x_start.float()
+                + _gather(self.sqrt_one_minus_alphas_cumprod, t,
+                          x_start.dim()) * noise.float())
+
+    def get_v(self, x, noise, t):
+        """The v-prediction target ``a_t noise - s_t x``."""
+        return (_gather(self.sqrt_alphas_cumprod, t, x.dim()) * noise
+                - _gather(self.sqrt_one_minus_alphas_cumprod, t, x.dim()) * x)
+
+    def predict_start_from_v(self, x_t, t, v):
+        return (_gather(self.sqrt_alphas_cumprod, t, x_t.dim()) * x_t
+                - _gather(self.sqrt_one_minus_alphas_cumprod, t, x_t.dim())
+                * v)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,12 @@
-"""Latent diffusion pipeline: UNet + VAE decoder + noise schedule.
+"""Latent diffusion pipeline: UNet + VAE + CLIP + noise schedule.
 
-Counterpart of ``fgdm_tpu/diffusion/latent_diffusion.py:64-107``:
-``decode_first_stage`` undoes the 0.18215 ``scale_factor``; ``apply_model``
-is the ``crossattn`` route of the reference's conditioning router, with
-``pcond`` as the adapter prompt and ``adapter_on=False`` for the frozen-SD
-path; ``denoise_fn`` closes over it for the samplers.
+Counterpart of ``fgdm_tpu/diffusion/latent_diffusion.py:50-121``:
+``get_learned_conditioning`` runs CLIP on token ids;
+``encode_first_stage`` / ``decode_first_stage`` apply and undo the 0.18215
+``scale_factor``; ``apply_model`` is the ``crossattn`` route of the
+reference's conditioning router, with ``pcond`` as the adapter prompt and
+``adapter_on=False`` for the frozen-SD path; ``denoise_fn`` closes over it
+for the samplers; ``q_sample`` is the schedule's.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from fgdm_tpu_torch.core.schedules import DiffusionSchedule
 from fgdm_tpu_torch.models.autoencoder import AutoencoderKL
+from fgdm_tpu_torch.models.clip import CLIPTextEncoder
 from fgdm_tpu_torch.models.unet import UNetModel
 
 __all__ = ["LatentDiffusion"]
@@ -29,6 +32,23 @@ class LatentDiffusion:
     vae: AutoencoderKL
     schedule: DiffusionSchedule
     scale_factor: float = 0.18215
+    clip: Optional[CLIPTextEncoder] = None
+
+    def get_learned_conditioning(self, input_ids) -> torch.Tensor:
+        return self.clip(input_ids)
+
+    def encode_first_stage(self, img, eps: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
+        """img ``[B, 3, H, W]`` in [-1, 1] -> scaled latent
+        ``[B, 4, H/8, W/8]``: a posterior sample with the injected ``eps``
+        or one drawn from ``generator``; the posterior mode if neither."""
+        posterior = self.vae.encode(img)
+        if eps is None and generator is None:
+            z = posterior.mode()
+        else:
+            z = posterior.sample(eps, generator)
+        return self.scale_factor * z
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         return self.vae.decode(z / self.scale_factor)
@@ -51,3 +71,6 @@ class LatentDiffusion:
             return self.apply_model(x, t, cond, adapter_on=adapter_on)
 
         return fn
+
+    def q_sample(self, x_start, t, noise):
+        return self.schedule.q_sample(x_start, t, noise)

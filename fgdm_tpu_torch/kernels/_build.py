@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled at first use into a shared library with
 a plain C interface, ``build/fgdm_tpu_torch/lib<name>-<hash>.so`` under the
-repository root.  The hash covers the source and the flags, so an edited
-source builds anew and an unchanged one loads from disk.  No ninja, no
+repository root.  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source builds anew and an
+unchanged one loads from disk.  No ninja, no
 PyTorch headers: the build takes seconds, not minutes.  ``nvcc``'s
 ``-Xptxas -v`` report (registers, shared memory, spills per kernel) is kept
 beside the library as ``.log``.
@@ -40,6 +41,7 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

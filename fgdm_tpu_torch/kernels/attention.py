@@ -1,18 +1,28 @@
-"""Multi-head attention: plain version, hand-written CUDA flash kernel, gate.
+"""Multi-head attention: plain versions, hand-written CUDA flash kernels,
+their autograd Function, gate.
 
 Counterpart of ``fgdm_tpu/kernels/attention.py``.  ``multihead_attention``
 takes q ``[B, H, Nq, D]`` and k/v ``[B, H, Nk, D]`` and returns
-``[B, H, Nq, D]`` in q's dtype.  It routes to the flash kernel
-(``csrc/flash_attn_fwd.cu``) by the JAX package's gate
-(``attention.py:660-673``: Nq >= 512, Nk >= 512, Nk % 512 == 0) on CUDA
-tensors, and to ``attention_ref`` otherwise (cross-attention over 77 keys,
-the N < 512 self-attentions, the CPU).  The kernel takes bf16 and the head
-dims in ``KERNEL_HEAD_DIMS``; anything else through the gate raises.
+``[B, H, Nq, D]`` in q's dtype.  It routes to the flash kernels by the JAX
+package's gate (``attention.py:660-673``: Nq >= 512, Nk >= 512,
+Nk % 512 == 0) on CUDA tensors, and to ``attention_ref`` otherwise
+(cross-attention over 77 keys, the N < 512 self-attentions, the CPU).  The
+kernels take bf16 and the head dims in ``KERNEL_HEAD_DIMS``; anything else
+through the gate raises.
 
-One CUDA kernel stands in for the three TPU forward kernels
-(``_flash_kernel_t``, ``_flash_kernel``, ``_flash_kernel_kv``): their split
-existed for TPU lane padding and VMEM residency, which have no counterpart
-on the GPU.  See the source for its design.
+Forward (``csrc/flash_attn_fwd.cu``): one CUDA kernel stands in for the
+three TPU forward kernels (``_flash_kernel_t``, ``_flash_kernel``,
+``_flash_kernel_kv``): their split existed for TPU lane padding and VMEM
+residency, which have no counterpart on the GPU.  It optionally writes the
+logsumexp of the scaled scores, the residual of the backward.
+
+Backward (``csrc/flash_attn_bwd.cu``): the dQ kernel and the dK/dV kernel
+replace ``_flash_bwd_dq_kernel_t`` and ``_flash_bwd_dkv_kernel_t`` at the
+head dims in ``BWD_HEAD_DIMS``.  ``FlashAttention`` (the counterpart of the
+``custom_vjp`` ``_flash_op``, ``attention.py:634-657``) saves the forward's
+lse at those head dims and launches both backward kernels; at any other
+head dim its backward recomputes through ``attention_ref`` under autograd,
+as the JAX VJP's XLA branch does.  See the sources for the kernels' design.
 """
 
 from __future__ import annotations
@@ -26,82 +36,272 @@ import torch
 
 from fgdm_tpu_torch.kernels import _build
 
-__all__ = ["attention_ref", "flash_attention", "use_flash",
-           "multihead_attention", "KERNEL_HEAD_DIMS"]
+__all__ = ["attention_ref", "attention_bwd_ref", "flash_attention",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "flash_attention_backward", "FlashAttention", "use_flash",
+           "multihead_attention", "KERNEL_HEAD_DIMS", "BWD_HEAD_DIMS"]
 
-# Head dims the CUDA source instantiates: the chain's self-attention heads
-# at N >= 512 (SD-1.x UNet levels 0 and 1, the VAE's single 512-wide head).
+# Head dims the CUDA sources instantiate: the chain's self-attention heads
+# at N >= 512 (SD-1.x UNet levels 0 and 1, the VAE's single 512-wide head);
+# the backward only the UNet's, the ones training differentiates.
 KERNEL_HEAD_DIMS = (40, 80, 512)
+BWD_HEAD_DIMS = (40, 80)
 _MIN_N = 512
 
 
-def attention_ref(q, k, v, scale):
+def attention_ref(q, k, v, scale, return_lse: bool = False):
     """Plain version (``_xla_attention``): f32 scores and softmax, the
-    probabilities cast to v's dtype for the P.V product."""
+    probabilities cast to v's dtype for the P.V product.  With
+    ``return_lse`` also the f32 logsumexp of the scaled scores
+    ``[B, H, Nq]``."""
     sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     attn = torch.softmax(sim, dim=-1)
-    return torch.matmul(attn.to(v.dtype), v)
+    out = torch.matmul(attn.to(v.dtype), v)
+    if return_lse:
+        return out, torch.logsumexp(sim, dim=-1)
+    return out
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, scale):
+    """Plain version of the flash backward (``attention.py:290-294``), in
+    f32 from the forward's output and lse: ``(dq, dk, dv)`` in q's dtype."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return _bwd_ref(q, k, v, do, lse, delta, scale)
+
+
+def _bwd_ref(q, k, v, do, lse, delta, scale):
+    """``attention_bwd_ref`` from delta = rowsum(dO * O) ``[B, H, Nq]``."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                  - lse.float()[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta.float()[..., None])
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _typed(lib: ctypes.CDLL, name: str, n_ptr: int, n_int: int):
+    """Declare ``name(ptr * n_ptr, int * n_int, float, stream) -> int``."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = getattr(lib, name)
+    fn.argtypes = [vp] * n_ptr + [ci] * n_int + [ctypes.c_float, vp]
+    fn.restype = ci
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn_fwd")
     if not getattr(lib, "_fgdm_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fgdm_flash_attn_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                            ctypes.c_float, vp]
-        lib.fgdm_flash_attn_fwd.restype = ci
-        lib.fgdm_flash_attn_block_n.argtypes = [ci]
-        lib.fgdm_flash_attn_block_n.restype = ci
-        lib.fgdm_cuda_error_string.argtypes = [ci]
+        _typed(lib, "fgdm_flash_attn_fwd", 5, 4)
+        lib.fgdm_flash_attn_block_n.argtypes = [ctypes.c_int]
+        lib.fgdm_flash_attn_block_n.restype = ctypes.c_int
+        lib.fgdm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.fgdm_cuda_error_string.restype = ctypes.c_char_p
         lib._fgdm_typed = True
     return lib
 
 
-def flash_attention(q, k, v, scale):
-    """Flash-attention forward.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises.
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attn_bwd")
+    if not getattr(lib, "_fgdm_typed", False):
+        _typed(lib, "fgdm_flash_attn_bwd_dq", 7, 4)
+        _typed(lib, "fgdm_flash_attn_bwd_dkv", 8, 4)
+        lib.fgdm_flash_attn_bwd_block_n.argtypes = [ctypes.c_int]
+        lib.fgdm_flash_attn_bwd_block_n.restype = ctypes.c_int
+        lib.fgdm_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.fgdm_cuda_error_string.restype = ctypes.c_char_p
+        lib._fgdm_typed = True
+    return lib
 
-    Counts launches in ``flash_attention.launches`` keyed by ``(d, nq, nk)``.
-    """
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, scale).to(q.dtype)
+
+def _check(fn: str, q, k, named):
+    """Device, dtype, layout and shape checks shared by the wrappers: every
+    ``[B, H, N, D]`` tensor in ``named`` is bf16, contiguous and 16-byte
+    aligned on q's device, with q's (B, H, D) and q's or k's length.  Returns
+    ``(b, h, nq, nk, d)``."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+        raise ValueError(f"{fn}: unsupported device {q.device}")
     b, h, nq, d = q.shape
     nk = k.shape[2]
-    for name, tsr in (("q", q), ("k", k), ("v", v)):
+    for name, tsr in named.items():
         if tsr.device != q.device or tsr.dtype != torch.bfloat16:
-            raise ValueError(f"flash_attention: {name} must be bf16 on "
-                             f"{q.device}, got {tsr.dtype} on {tsr.device}")
+            raise ValueError(f"{fn}: {name} must be bf16 on {q.device}, got "
+                             f"{tsr.dtype} on {tsr.device}")
         if not tsr.is_contiguous() or tsr.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be contiguous "
-                             "and 16-byte aligned")
-    if k.shape != (b, h, nk, d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    lib = _lib()
-    block_n = lib.fgdm_flash_attn_block_n(d)
+            raise ValueError(f"{fn}: {name} must be contiguous and 16-byte "
+                             "aligned")
+        if tsr.shape not in ((b, h, nq, d), (b, h, nk, d)):
+            raise ValueError(f"{fn}: {name} has shape {tuple(tsr.shape)}; "
+                             f"q is {tuple(q.shape)}, k {tuple(k.shape)}")
+    if k.shape != (b, h, nk, d):
+        raise ValueError(f"{fn}: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    return b, h, nq, nk, d
+
+
+def _check_rows(fn: str, q, named):
+    """The f32 ``[B, H, Nq]`` row statistics (lse, delta) of q's rows."""
+    for name, tsr in named.items():
+        if (tsr.device != q.device or tsr.dtype != torch.float32
+                or tsr.shape != q.shape[:3] or not tsr.is_contiguous()):
+            raise ValueError(f"{fn}: {name} must be contiguous f32 "
+                             f"{tuple(q.shape[:3])} on {q.device}")
+
+
+def _block_n(fn: str, block_n: int, d: int, nk: int, have) -> None:
     if block_n == 0:
-        raise ValueError(f"flash_attention: head dim {d} not instantiated "
-                         f"(have {KERNEL_HEAD_DIMS})")
+        raise ValueError(f"{fn}: head dim {d} not instantiated (have {have})")
     if nk % block_n:
-        raise ValueError(f"flash_attention: nk={nk} must be a multiple of "
-                         f"{block_n} at d={d}")
+        raise ValueError(f"{fn}: nk={nk} must be a multiple of {block_n} at "
+                         f"d={d}")
+
+
+def _raise_on(lib, fn: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: "
+                           + lib.fgdm_cuda_error_string(rc).decode())
+
+
+def flash_attention(q, k, v, scale, return_lse: bool = False):
+    """Flash-attention forward (K1-K3).  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises.  With
+    ``return_lse`` also returns the f32 logsumexp ``[B, H, Nq]`` of the
+    scaled scores.
+
+    Counts launches in ``flash_attention.launches`` keyed by
+    ``(d, nq, nk, return_lse)``.
+    """
+    if q.device.type == "cpu":
+        if return_lse:
+            out, lse = attention_ref(q, k, v, scale, return_lse=True)
+            return out.to(q.dtype), lse
+        return attention_ref(q, k, v, scale).to(q.dtype)
+    b, h, nq, nk, d = _check("flash_attention", q, k,
+                             {"q": q, "k": k, "v": v})
+    lib = _lib()
+    _block_n("flash_attention", lib.fgdm_flash_attn_block_n(d), d, nk,
+             KERNEL_HEAD_DIMS)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
+           if return_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = lib.fgdm_flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     out.data_ptr(), b * h, nq, nk, d,
-                                     float(scale), stream)
-    if rc != 0:
-        raise RuntimeError("flash_attention launch failed: "
-                           + lib.fgdm_cuda_error_string(rc).decode())
-    flash_attention.launches[(d, nq, nk)] += 1
-    return out
+        rc = lib.fgdm_flash_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b * h, nq, nk, d,
+            float(scale), stream)
+    _raise_on(lib, "flash_attention", rc)
+    flash_attention.launches[(d, nq, nk, bool(return_lse))] += 1
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = collections.Counter()
+
+
+def _bwd_args(fn, q, k, v, do, lse, delta):
+    b, h, nq, nk, d = _check(fn, q, k, {"q": q, "k": k, "v": v, "do": do})
+    if do.shape != q.shape:
+        raise ValueError(f"{fn}: do {tuple(do.shape)} vs q {tuple(q.shape)}")
+    _check_rows(fn, q, {"lse": lse, "delta": delta})
+    lib = _bwd_lib()
+    _block_n(fn, lib.fgdm_flash_attn_bwd_block_n(d), d, nk, BWD_HEAD_DIMS)
+    return lib, (b * h, nq, nk, d)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
+    """dQ of flash attention (K5) from the forward's lse and
+    ``delta = rowsum(dO * O)``, both f32 ``[B, H, Nq]``.  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises.  Counts
+    launches in ``flash_attention_bwd_dq.launches`` keyed by
+    ``(d, nq, nk)``."""
+    if q.device.type == "cpu":
+        return _bwd_ref(q, k, v, do, lse, delta, scale)[0]
+    lib, (bh, nq, nk, d) = _bwd_args("flash_attention_bwd_dq", q, k, v, do,
+                                     lse, delta)
+    dq = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.fgdm_flash_attn_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, nq, nk, d,
+            float(scale), stream)
+    _raise_on(lib, "flash_attention_bwd_dq", rc)
+    flash_attention_bwd_dq.launches[(d, nq, nk)] += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = collections.Counter()
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
+    """``(dK, dV)`` of flash attention (K6); the arguments of
+    ``flash_attention_bwd_dq``.  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises.  Counts launches in
+    ``flash_attention_bwd_dkv.launches`` keyed by ``(d, nq, nk)``."""
+    if q.device.type == "cpu":
+        return _bwd_ref(q, k, v, do, lse, delta, scale)[1:]
+    lib, (bh, nq, nk, d) = _bwd_args("flash_attention_bwd_dkv", q, k, v, do,
+                                     lse, delta)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.fgdm_flash_attn_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, nq, nk, d, float(scale), stream)
+    _raise_on(lib, "flash_attention_bwd_dkv", rc)
+    flash_attention_bwd_dkv.launches[(d, nq, nk)] += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = collections.Counter()
+
+
+def flash_attention_backward(q, k, v, o, lse, do, scale):
+    """``(dq, dk, dv)`` of flash attention from the forward's output and
+    lse (``_flash_backward_t``).  A CPU tensor takes the plain version; a
+    CUDA tensor launches K5 and K6 or raises.  delta = rowsum(dO * O) is one
+    torch reduction, as in the JAX package (``attention.py:390-393``)."""
+    if q.device.type == "cuda" and do.data_ptr() % 16:
+        do = do.clone()
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (``_flash_op``).
+
+    At the head dims in ``BWD_HEAD_DIMS`` the forward keeps the kernel's
+    lse and the backward runs ``flash_attention_backward``; at any other
+    head dim (the VAE's 512) the backward recomputes ``attention_ref``
+    under autograd.  On the CPU both directions are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.scale = scale
+        if q.shape[-1] in BWD_HEAD_DIMS:
+            out, lse = flash_attention(q, k, v, scale, return_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out = flash_attention(q, k, v, scale)
+            ctx.save_for_backward(q, k, v)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        do = do.contiguous()
+        if len(ctx.saved_tensors) == 5:
+            q, k, v, out, lse = ctx.saved_tensors
+            return (*flash_attention_backward(q, k, v, out, lse, do,
+                                              ctx.scale), None)
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = attention_ref(q, k, v, ctx.scale).to(q.dtype)
+        return (*torch.autograd.grad(out, (q, k, v), do), None)
 
 
 def use_flash(q, k) -> bool:
@@ -118,13 +318,18 @@ def multihead_attention(q, k, v, scale: Optional[float] = None,
                         use_kernel: Optional[bool] = None):
     """Scaled dot-product attention, q/k/v ``[B, H, N, D]``.
 
-    ``use_kernel=None`` applies the gate; True/False force the kernel or the
-    plain version (the counterpart of JAX's ``use_flash=``)."""
+    ``use_kernel=None`` applies the gate; True/False force the kernels or
+    the plain version (the counterpart of JAX's ``use_flash=``).  Through
+    the kernels, inputs that need a gradient go through ``FlashAttention``;
+    the others (inference, frozen towers) launch the forward alone."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if use_kernel is None:
         use_kernel = use_flash(q, k)
-    if use_kernel:
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               float(scale))
-    return attention_ref(q, k, v, float(scale)).to(q.dtype)
+    if not use_kernel:
+        return attention_ref(q, k, v, float(scale)).to(q.dtype)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, float(scale))
+    return flash_attention(q, k, v, float(scale))

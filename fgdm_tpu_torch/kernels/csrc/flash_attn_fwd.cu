@@ -27,45 +27,15 @@
 // zero-filled shared memory (d=40 -> 48); the P.V product needs only a
 // multiple of 8, which every instantiated d is.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16x16, row-major in shared memory with row stride ld) of the
-// m16n8k16 product: rows g and g+8, columns 2t, 2t+1 and 2t+8, 2t+9.
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* base, int ld,
-                                       int g, int t) {
-  a[0] = ld_pair(base + g * ld + 2 * t);
-  a[1] = ld_pair(base + (g + 8) * ld + 2 * t);
-  a[2] = ld_pair(base + g * ld + 2 * t + 8);
-  a[3] = ld_pair(base + (g + 8) * ld + 2 * t + 8);
-}
-
-// B fragment (16x8, k x n) read from an n-major tile: element (k, n) sits at
-// base[n * ld + k].
-__device__ __forceinline__ void load_b(uint32_t b[2], const bf16* base, int ld,
-                                       int g, int t) {
-  b[0] = ld_pair(base + g * ld + 2 * t);
-  b[1] = ld_pair(base + g * ld + 2 * t + 8);
-}
+using namespace fgdm;
 
 template <int D, int BM, int BN, int NW>
 struct Cfg {
@@ -91,8 +61,8 @@ struct Cfg {
 template <int D, int BM, int BN, int NW>
 __global__ void __launch_bounds__(NW * 32)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int nq,
-                 int nk, float scale) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int nq, int nk, float scale) {
   typedef Cfg<D, BM, BN, NW> C;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
@@ -117,14 +87,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vg = v + (size_t)bh * nk * D;
 
   // Q tile -> shared, zero-padded in rows (past nq) and columns (past D).
-  constexpr int QCH = C::DK / 8;  // 16-byte chunks per padded row
-  for (int idx = tid; idx < BM * QCH; idx += C::THREADS) {
-    const int r = idx / QCH, c8 = idx % QCH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nq && c8 * 8 < D)
-      val = *reinterpret_cast<const uint4*>(qg + (size_t)r * D + c8 * 8);
-    *reinterpret_cast<uint4*>(qs + r * C::LDQ + c8 * 8) = val;
-  }
+  load_rows<D, C::DK, C::THREADS>(qs, C::LDQ, qg, BM, nq - row0, tid);
   for (int r = tid; r < BM; r += C::THREADS) {
     m_s[r] = -INFINITY;
     l_s[r] = 0.f;
@@ -137,23 +100,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int kb = 0; kb < nk; kb += BN) {
     // K tile (row-major, zero-padded columns) and V tile (transposed).
-    for (int idx = tid; idx < BN * QCH; idx += C::THREADS) {
-      const int r = idx / QCH, c8 = idx % QCH;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (c8 * 8 < D)
-        val = *reinterpret_cast<const uint4*>(kg + (size_t)(kb + r) * D +
-                                              c8 * 8);
-      *reinterpret_cast<uint4*>(ks + r * C::LDK + c8 * 8) = val;
-    }
-    constexpr int VCH = D / 8;
-    for (int idx = tid; idx < BN * VCH; idx += C::THREADS) {
-      const int r = idx / VCH, c8 = idx % VCH;
-      uint4 val = *reinterpret_cast<const uint4*>(vg + (size_t)(kb + r) * D +
-                                                  c8 * 8);
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[(c8 * 8 + j) * C::LDV + r] = e[j];
-    }
+    load_rows<D, C::DK, C::THREADS>(ks, C::LDK, kg + (size_t)kb * D, BN, BN,
+                                    tid);
+    load_rows_t<D, C::THREADS>(vt, C::LDV, vg + (size_t)kb * D, BN, BN, tid);
     __syncthreads();
 
     // S = (Q K^T) * scale, one 16x8 tile per warp at a time.
@@ -226,6 +175,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
 
+  // The flash backward's residual: logsumexp of the scaled scores, in
+  // natural-log units (the scores above are already scaled and p = exp(s - m)).
+  if (lse != nullptr) {
+    for (int r = tid; r < BM; r += C::THREADS)
+      if (row0 + r < nq)
+        lse[(size_t)bh * nq + row0 + r] = m_s[r] + logf(l_s[r]);
+  }
+
   bf16* og = o + ((size_t)bh * nq + row0) * D;
 #pragma unroll
   for (int i = 0; i < C::OT_PER_WARP; ++i) {
@@ -247,8 +204,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D, int BM, int BN, int NW>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int nq, int nk, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int nq, int nk, float scale, cudaStream_t stream) {
   typedef Cfg<D, BM, BN, NW> C;
   if (nk % BN != 0 || nq <= 0 || nk <= 0 || bh <= 0 || bh > 65535)
     return (int)cudaErrorInvalidValue;
@@ -259,7 +216,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   dim3 grid((nq + BM - 1) / BM, bh);
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), nq, nk, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, nq, nk, scale);
   return (int)cudaGetLastError();
 }
 
@@ -268,15 +225,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 extern "C" {
 
 // q/k/v/o: contiguous [bh, n, d] bf16 on the current device, 16-byte
-// aligned.  Returns 0 or a cudaError_t code (launch errors included).
+// aligned.  lse: null, or contiguous [bh, nq] f32 that receives the
+// logsumexp of each query row's scaled scores.  Returns 0 or a cudaError_t
+// code (launch errors included).
 int fgdm_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                        int bh, int nq, int nk, int d, float scale,
+                        void* lse, int bh, int nq, int nk, int d, float scale,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (d) {
-    case 40: return launch<40, 64, 64, 4>(q, k, v, o, bh, nq, nk, scale, s);
-    case 80: return launch<80, 64, 64, 4>(q, k, v, o, bh, nq, nk, scale, s);
-    case 512: return launch<512, 16, 32, 4>(q, k, v, o, bh, nq, nk, scale, s);
+    case 40: return launch<40, 64, 64, 4>(q, k, v, o, l, bh, nq, nk, scale, s);
+    case 80: return launch<80, 64, 64, 4>(q, k, v, o, l, bh, nq, nk, scale, s);
+    case 512: return launch<512, 16, 32, 4>(q, k, v, o, l, bh, nq, nk, scale,
+                                            s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,9 +1,14 @@
-"""Fused GroupNorm(+SiLU): plain version, hand-written Triton kernel, gate.
+"""Fused GroupNorm(+SiLU): plain version, hand-written Triton kernel, its
+autograd Function, gate.
 
 Counterpart of ``fgdm_tpu/kernels/groupnorm.py``, in NCHW.
 ``group_norm_silu`` routes by the JAX package's gate (``groupnorm.py:260-270``:
 C % G == 0 and C >= 128) on CUDA tensors, and to ``group_norm_silu_ref``
-otherwise.
+otherwise.  Through the kernel, inputs that need a gradient go through
+``GroupNormSiLU`` (the counterpart of the ``custom_vjp`` ``_fused_op``,
+``groupnorm.py:226-246``): its forward launches the kernel, its backward is
+the VJP of ``group_norm_silu_ref``, as the JAX package's is the VJP of
+``_xla_group_norm``; the TPU has no backward kernel for it either.
 
 The kernel replaces ``fgdm_tpu/kernels/groupnorm.py:68 _kernel``.  In NCHW
 each (batch, group) is one contiguous span of ``C/G * H * W`` elements, so
@@ -38,8 +43,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["group_norm_silu_ref", "group_norm_silu_kernel", "use_fused_gn",
-           "group_norm_silu"]
+__all__ = ["group_norm_silu_ref", "group_norm_silu_kernel", "GroupNormSiLU",
+           "use_fused_gn", "group_norm_silu"]
 
 _BLOCK = 1024
 _MAX_SPLIT = 64
@@ -182,6 +187,30 @@ def group_norm_silu_kernel(x, weight, bias, num_groups: int = 32,
 group_norm_silu_kernel.launches = collections.Counter()
 
 
+class GroupNormSiLU(torch.autograd.Function):
+    """Differentiable fused GroupNorm+affine(+SiLU) (``_fused_op``): the
+    kernel forward, the plain version's VJP backward (recomputed from the
+    saved input, for the inputs that need a gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps, apply_silu):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.cfg = (num_groups, eps, apply_silu)
+        return group_norm_silu_kernel(x, weight, bias, num_groups, eps,
+                                      apply_silu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[:3]
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y = group_norm_silu_ref(*inputs, *ctx.cfg)
+        grads = iter(torch.autograd.grad(
+            y, [t for t in inputs if t.requires_grad], grad))
+        return (*(next(grads) if n else None for n in need), None, None, None)
+
+
 def use_fused_gn(x, num_groups: int = 32) -> bool:
     """The gate of ``groupnorm.py:260-270`` on this card: CUDA tensors with
     C % G == 0 and C >= 128."""
@@ -195,11 +224,15 @@ def group_norm_silu(x, weight, bias, num_groups: int = 32, eps: float = 1e-5,
     """GroupNorm -> affine -> (SiLU) over ``[B, C, *spatial]``.
 
     ``use_kernel=None`` applies the gate; True/False force the kernel or the
-    plain version (the counterpart of JAX's ``use_fused=``)."""
+    plain version (the counterpart of JAX's ``use_fused=``).  Through the
+    kernel, inputs that need a gradient go through ``GroupNormSiLU``."""
     if use_kernel is None:
         use_kernel = use_fused_gn(x, num_groups)
-    if use_kernel:
-        return group_norm_silu_kernel(x.contiguous(), weight.float(),
-                                      bias.float(), num_groups, eps,
-                                      apply_silu)
-    return group_norm_silu_ref(x, weight, bias, num_groups, eps, apply_silu)
+    if not use_kernel:
+        return group_norm_silu_ref(x, weight, bias, num_groups, eps,
+                                   apply_silu)
+    args = (x.contiguous(), weight.float(), bias.float(), num_groups,
+            float(eps), bool(apply_silu))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args[:3]):
+        return GroupNormSiLU.apply(*args)
+    return group_norm_silu_kernel(*args)

@@ -19,7 +19,7 @@ from fgdm_tpu_torch.kernels.groupnorm import (group_norm_silu,
                                               group_norm_silu_ref)
 
 __all__ = ["timestep_embedding", "GroupNorm32", "FusedGroupNormSiLU",
-           "LayerNorm32", "Conv2d", "Dense", "nearest_upsample_2x",
+           "LayerNorm32", "Conv2d", "Dense", "Embed", "nearest_upsample_2x",
            "avg_pool_2x2", "init_params_"]
 
 # JAX's truncated-normal variance scaling divides by the std of a standard
@@ -134,6 +134,29 @@ class Dense(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
+class Embed(nn.Module):
+    """Lookup table with float32 ``[num, features]`` params (flax
+    ``nn.Embed``: N(0, 1/features) init; ``zero_init`` for learned position
+    tables)."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 zero_init: bool = False):
+        super().__init__()
+        self.zero_init = zero_init
+        self.weight = nn.Parameter(torch.empty(num_embeddings, features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        if self.zero_init:
+            nn.init.zeros_(self.weight)
+        else:
+            nn.init.normal_(self.weight, std=self.weight.shape[1] ** -0.5,
+                            generator=generator)
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight)
+
+
 def _init_weight(w: torch.Tensor, zero: bool, generator=None):
     """JAX's default: truncated normal with variance 1/fan_in (lecun)."""
     if zero:
@@ -146,10 +169,10 @@ def _init_weight(w: torch.Tensor, zero: bool, generator=None):
 
 def init_params_(module: nn.Module, generator: torch.Generator,
                  perturb: float = 0.0) -> nn.Module:
-    """Re-draw every Conv2d/Dense weight from ``generator``, then add
+    """Re-draw every Conv2d/Dense/Embed weight from ``generator``, then add
     ``perturb`` * N(0, 1) to every parameter (so zero-init heads work)."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, Dense)):
+        if isinstance(m, (Conv2d, Dense, Embed)):
             m.reset_parameters(generator)
     if perturb:
         with torch.no_grad():

@@ -44,6 +44,7 @@ from fgdm_tpu_torch.core import schedules as tsch  # noqa: E402
 from fgdm_tpu_torch.diffusion.control import ControlLDM  # noqa: E402
 from fgdm_tpu_torch.diffusion.latent_diffusion import LatentDiffusion  # noqa: E402
 from fgdm_tpu_torch.models.autoencoder import AutoencoderKL  # noqa: E402
+from fgdm_tpu_torch.models.clip import CLIPTextEncoder  # noqa: E402
 from fgdm_tpu_torch.models.controlnet import ControlNet  # noqa: E402
 from fgdm_tpu_torch.models.unet import UNetModel  # noqa: E402
 from fgdm_tpu_torch.sampling import chain as tchain  # noqa: E402
@@ -217,7 +218,7 @@ def tiny():
         return module.eval()
 
     vae = loaded(AutoencoderKL(**VAE_TINY, dtype=torch.float32, device="cpu"),
-                 convert.vae_decoder_state_dict(vae_p))
+                 convert.vae_state_dict(vae_p))
     tsched = builders.sd14_schedule()
     ld = LatentDiffusion(
         loaded(UNetModel(**TINY, dtype=torch.float32, device="cpu"),
@@ -391,9 +392,10 @@ def test_unported_unet_options_raise(kw):
 @pytest.mark.parametrize("entry", [
     lambda: builders.build_chain(), lambda: builders.build_unet(),
     lambda: UNetModel(**TINY), lambda: ControlNet(**TINY),
-    lambda: AutoencoderKL(**VAE_TINY)],
+    lambda: AutoencoderKL(**VAE_TINY), lambda: builders.build_trainer(),
+    lambda: CLIPTextEncoder(vocab_size=128, embed_dim=64, num_layers=1)],
     ids=["build_chain", "build_unet", "UNetModel", "ControlNet",
-         "AutoencoderKL"])
+         "AutoencoderKL", "build_trainer", "CLIPTextEncoder"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -8,9 +8,17 @@ dispatch gates, the launch geometry of the Triton GroupNorm, and that the
 wrappers refuse what they cannot run.  The kernels themselves run only on
 the card: ``chip_smoke.py`` holds them against the same plain versions there.
 
+The backward (K5, K6) and the two autograd Functions are held against the
+Pallas flash backward in interpret mode, ``jax.vjp`` of ``_xla_attention``
+and ``jax.grad`` through the ``custom_vjp`` ops ``_flash_op`` /
+``_fused_op`` (the pattern of ``tests/test_attention.py:110-159``).
+
 Tolerances: float32 plain versions 1e-5 (sums in another order); bf16
 attention output 1e-2 * max|ref| (one bf16 rounding of P and of the output);
-Pallas kernels 2e-3 (the tolerance of ``tests/test_attention.py``).
+Pallas kernels 2e-3 (the tolerance of ``tests/test_attention.py``); the
+logsumexp 1e-5; attention gradients atol 5e-3, rtol 1e-3 (the tolerance of
+``tests/test_attention.py:131-136``); GroupNorm+SiLU gradients 1e-4 *
+max|ref|.
 """
 
 import math
@@ -237,3 +245,158 @@ def test_group_norm_cpu_path_counts_no_launch():
     tg.group_norm_silu(torch.zeros(1, 128, 4, 4), torch.ones(128),
                        torch.zeros(128), use_kernel=True)
     assert sum(tg.group_norm_silu_kernel.launches.values()) == before
+
+
+# --- the backward: lse, K5/K6 plain version, the autograd Functions ---------
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_attention_lse_matches_pallas_interpret(d, monkeypatch):
+    """K1's lse output: the natural-log logsumexp of the scaled scores."""
+    monkeypatch.setattr(ka, "_INTERPRET", True)
+    rng = np.random.default_rng(10 + d)
+    q, k, v = qkv(rng, 1, 2, 300, 512, d)
+    scale = 1 / math.sqrt(d)
+    _, ref = ka._flash_attention_t(*(jnp.asarray(a) for a in (q, k, v)),
+                                   scale, block_q=256, block_k=256,
+                                   return_lse=True)
+    ref = np.asarray(ref)[:, 0, :300].reshape(1, 2, 300)
+    out, lse = ta.attention_ref(*as_torch((q, k, v)), scale, return_lse=True)
+    np.testing.assert_allclose(lse.numpy(), ref, atol=1e-5, rtol=1e-5)
+    out2, lse2 = ta.flash_attention(*as_torch((q, k, v)), scale,
+                                    return_lse=True)
+    assert torch.equal(lse2, lse) and torch.equal(out2, out)
+    assert lse.dtype == torch.float32 and lse.shape == (1, 2, 300)
+
+
+@pytest.mark.parametrize("d,nq,nk", [(40, 512, 512), (80, 256, 384)])
+def test_attention_bwd_ref_matches_pallas_and_xla_vjp(d, nq, nk,
+                                                      monkeypatch):
+    monkeypatch.setattr(ka, "_INTERPRET", True)
+    rng = np.random.default_rng(d + nk)
+    q, k, v = qkv(rng, 1, 2, nq, nk, d)
+    g = rng.standard_normal((1, 2, nq, d)).astype(np.float32)
+    scale = 1 / math.sqrt(d)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    _, vjp = jax.vjp(lambda a, b, c: ka._xla_attention(a, b, c, scale),
+                     jq, jk, jv)
+    xla = vjp(jg)
+    o, lse = ka._flash_attention_t(jq, jk, jv, scale, block_q=128,
+                                   block_k=128, return_lse=True)
+    pallas = ka._flash_backward_t(jq, jk, jv, o, lse, jg, scale,
+                                  block_q=128, block_k=128)
+    tq, tk, tv, tg_ = as_torch((q, k, v, g))
+    to, tlse = ta.attention_ref(tq, tk, tv, scale, return_lse=True)
+    port = ta.attention_bwd_ref(tq, tk, tv, to, tlse, tg_, scale)
+    before = (sum(ta.flash_attention_bwd_dq.launches.values()),
+              sum(ta.flash_attention_bwd_dkv.launches.values()))
+    wrapped = ta.flash_attention_backward(tq, tk, tv, to, tlse, tg_, scale)
+    for ours, w, x, p in zip(port, wrapped, xla, pallas):
+        assert ours.dtype == torch.float32
+        np.testing.assert_allclose(ours.numpy(), np.asarray(x), atol=5e-3,
+                                   rtol=1e-3)
+        np.testing.assert_allclose(ours.numpy(), np.asarray(p), atol=5e-3,
+                                   rtol=1e-3)
+        # the CPU takes the plain version and launches nothing
+        assert torch.equal(w, ours)
+    assert (sum(ta.flash_attention_bwd_dq.launches.values()),
+            sum(ta.flash_attention_bwd_dkv.launches.values())) == before
+
+
+@pytest.mark.parametrize("b,h,n,d", [(1, 2, 256, 40), (1, 2, 256, 80),
+                                     (1, 1, 256, 512)],
+                         ids=["d40", "d80", "d512"])
+def test_flash_attention_function_grads_match_jax(b, h, n, d, monkeypatch):
+    """``FlashAttention`` (the kernels' route, plain on the CPU) against
+    ``jax.grad`` through ``_flash_op``: the lse-saving backward at d=40/80,
+    the recompute through ``attention_ref`` at the VAE's d=512."""
+    monkeypatch.setattr(ka, "_INTERPRET", True)
+    monkeypatch.setattr(ka, "_FLASH_BWD", True)
+    monkeypatch.setattr(ka, "_FLASH_TRANSPOSED", True)
+    rng = np.random.default_rng(d)
+    q, k, v = qkv(rng, b, h, n, n, d)
+    scale = 1 / math.sqrt(d)
+
+    def loss(qq, kk, vv):
+        return jnp.sum(ka._flash_op(qq, kk, vv, scale) ** 2)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                              for a in (q, k, v)))
+    tq, tk, tv = (t.requires_grad_() for t in as_torch((q, k, v)))
+    out = ta.multihead_attention(tq, tk, tv, scale, use_kernel=True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    (out ** 2).sum().backward()
+    for t, r in zip((tq, tk, tv), ref):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), atol=5e-3,
+                                   rtol=1e-3)
+
+
+def test_flash_attention_without_grad_skips_the_function():
+    q = torch.zeros(1, 1, 512, 40)
+    assert ta.multihead_attention(q, q, q, use_kernel=True).grad_fn is None
+    q.requires_grad_()
+    with torch.no_grad():
+        assert ta.multihead_attention(q, q, q, use_kernel=True).grad_fn is None
+
+
+@pytest.mark.parametrize("silu,frozen", [(True, False), (False, False),
+                                         (True, True)],
+                         ids=["silu", "no_silu", "frozen_affine"])
+def test_group_norm_function_grads_match_jax(silu, frozen, monkeypatch):
+    """``GroupNormSiLU`` against ``jax.grad`` through ``_fused_op`` (the
+    Pallas forward in interpret mode, the XLA VJP backward)."""
+    monkeypatch.setattr(kg, "_INTERPRET", True)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 8, 8, 128)).astype(np.float32) * 2 + 0.5
+    w = 1 + 0.2 * rng.standard_normal(128).astype(np.float32)
+    b = 0.2 * rng.standard_normal(128).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+
+    def loss(xx, ww, bb):
+        return jnp.sum(kg._fused_op(xx, ww, bb, 32, 1e-5, silu) * g)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                              for a in (x, w, b)))
+    tx = nhwc_to_nchw(x).requires_grad_()
+    tw, tb = torch.from_numpy(w), torch.from_numpy(b)
+    if not frozen:
+        tw.requires_grad_(), tb.requires_grad_()
+    y = tg.group_norm_silu(tx, tw, tb, 32, 1e-5, silu, use_kernel=True)
+    assert type(y.grad_fn).__name__ == "GroupNormSiLUBackward"
+    (y * nhwc_to_nchw(g)).sum().backward()
+    ours = [np.moveaxis(tx.grad.numpy(), 1, -1), tw.grad, tb.grad]
+    for o, r in zip(ours if not frozen else ours[:1], ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(np.asarray(o), r, rtol=0,
+                                   atol=1e-4 * np.abs(r).max())
+    if frozen:
+        assert tw.grad is None and tb.grad is None
+
+
+def test_bwd_head_dims_match_the_source():
+    """The backward's Python head dims are the CUDA source's switches, with
+    the forward's key tile (both wrappers ask for nk % 64 == 0)."""
+    src = (_build.CSRC / "flash_attn_bwd.cu").read_text()
+    for fn in ("fgdm_flash_attn_bwd_dq(", "fgdm_flash_attn_bwd_dkv("):
+        body = src[src.index("int " + fn):]
+        body = body[:body.index("default:")]
+        dims = tuple(int(d) for d in re.findall(r"case (\d+): return", body))
+        assert dims == ta.BWD_HEAD_DIMS == (40, 80)
+    assert set(ta.BWD_HEAD_DIMS) <= set(ta.KERNEL_HEAD_DIMS)
+
+
+def test_backward_wrappers_refuse_other_devices():
+    q = torch.empty(1, 1, 512, 40, device="meta")
+    r = torch.empty(1, 1, 512, device="meta")
+    for fn in (ta.flash_attention_bwd_dq, ta.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(q, q, q, q, r, r, 0.1)
+
+
+def test_library_key_covers_the_shared_header(monkeypatch, tmp_path):
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("flash_attn_bwd")
+    (tmp_path / "mma_bf16.cuh").write_text(
+        (tmp_path / "mma_bf16.cuh").read_text() + "\n// edited\n")
+    assert _build.library_path("flash_attn_bwd") != before

@@ -1,4 +1,4 @@
-"""The port's UNet, ControlNet and VAE decoder held against the JAX package.
+"""The port's UNet, ControlNet, VAE and CLIP held against the JAX package.
 
 Tiny geometries of ``tests/test_golden_chain.py:38-43``, float32, on the CPU.
 Flax params (perturbed by 0.02 N(0, 1) so zero-init heads do work) go
@@ -16,14 +16,18 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from fgdm_tpu.checkpoint.torch_export import (export_controlnet,  # noqa: E402
-                                              export_unet, export_vae)
+from fgdm_tpu.checkpoint.torch_export import (export_clip,  # noqa: E402
+                                              export_controlnet, export_unet,
+                                              export_vae)
 from fgdm_tpu.models.autoencoder import AutoencoderKL as JAutoencoderKL  # noqa: E402
+from fgdm_tpu.models.clip import CLIPTextEncoder as JCLIPTextEncoder  # noqa: E402
+from fgdm_tpu.models.clip import CLIPTokenizer as JCLIPTokenizer  # noqa: E402
 from fgdm_tpu.models.controlnet import ControlNet as JControlNet  # noqa: E402
 from fgdm_tpu.models.controlnet import guess_mode_scales as j_guess_scales  # noqa: E402
 from fgdm_tpu.models.unet import UNetModel as JUNetModel  # noqa: E402
 from fgdm_tpu_torch.checkpoint import convert  # noqa: E402
 from fgdm_tpu_torch.models.autoencoder import AutoencoderKL  # noqa: E402
+from fgdm_tpu_torch.models.clip import CLIPTextEncoder, CLIPTokenizer  # noqa: E402
 from fgdm_tpu_torch.models.controlnet import (ControlNet,  # noqa: E402
                                               guess_mode_scales)
 from fgdm_tpu_torch.models.unet import UNetModel  # noqa: E402
@@ -35,6 +39,7 @@ TINY = dict(model_channels=32, num_heads=4, context_dim=64,
             num_res_blocks=1)
 VAE_TINY = dict(ch=32, ch_mult=(1, 2, 4, 4), num_res_blocks=1, resolution=64,
                 z_channels=4, embed_dim=4)
+CLIP_TINY = dict(vocab_size=128, embed_dim=64, num_layers=2, num_heads=4)
 TOL = 1e-4
 
 
@@ -222,15 +227,13 @@ def test_vae_decoder_matches_jax(fused):
     p = perturbed(p, 5)
     tm = AutoencoderKL(**VAE_TINY, fused_norm=fused, dtype=torch.float32,
                        device="cpu")
-    sd = convert.vae_decoder_state_dict(p)
+    sd = convert.vae_state_dict(p)
     tm.load_state_dict(sd, strict=True)
-    exported = {k for k in export_vae(p, prefix="")
-                if k.startswith(("decoder.", "post_quant_conv."))}
-    assert set(sd) == set(tm.state_dict()) == exported
-    n_dropped = sum(1 for path, _ in
-                    jax.tree_util.tree_flatten_with_path(p)[0]
-                    if path[1].key in ("encoder", "quant_conv"))
-    assert len(sd) + n_dropped == len(jax.tree.leaves(p))
+    exported = export_vae(p, prefix="")
+    assert set(sd) == set(tm.state_dict()) == set(exported)
+    assert len(sd) == len(jax.tree.leaves(p))
+    for k, v in exported.items():
+        np.testing.assert_array_equal(sd[k].numpy(), v)
 
     z = np.random.default_rng(6).standard_normal((2, 8, 8, 4)).astype(
         np.float32)
@@ -241,6 +244,109 @@ def test_vae_decoder_matches_jax(fused):
         out = tm.decode(nchw(z))
     assert out.shape == (2, 3, 64, 64)
     assert_close(nhwc(out), ref)
+
+
+@pytest.fixture(scope="module")
+def vae_pair():
+    jm = JAutoencoderKL(**VAE_TINY, dtype=jnp.float32)
+    p = perturbed(jm.init(jax.random.PRNGKey(8), jnp.zeros((1, 64, 64, 3)),
+                          sample_posterior=False), 8)
+    return jm, p
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_vae_encoder_matches_jax(vae_pair, fused):
+    """``encode``: the posterior's mean and logvar, and a sample with an
+    injected eps, against ``AutoencoderKL.encode`` + ``sample``."""
+    _, p = vae_pair
+    jm = JAutoencoderKL(**VAE_TINY, fused_norm=fused, dtype=jnp.float32)
+    tm = AutoencoderKL(**VAE_TINY, fused_norm=fused, dtype=torch.float32,
+                       device="cpu")
+    tm.load_state_dict(convert.vae_state_dict(p), strict=True)
+    rng = np.random.default_rng(9)
+    x = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    eps = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
+    from fgdm_tpu.models.autoencoder import AutoencoderKL as J
+
+    post = jm.apply(p, jnp.asarray(x), method=J.encode)
+    with torch.no_grad():
+        tpost = tm.encode(nchw(x))
+        sample = tpost.sample(eps=nchw(eps))
+    assert tpost.mean.shape == (2, 4, 8, 8)
+    assert_close(nhwc(tpost.mean), post.mean)
+    assert_close(nhwc(tpost.logvar), post.logvar)
+    assert_close(nhwc(sample), post.mean + post.std * jnp.asarray(eps))
+    assert_close(tpost.kl().numpy(), post.kl())
+    assert torch.equal(tpost.mode(), tpost.mean)
+
+
+@pytest.fixture(scope="module")
+def clip_pair():
+    jm = JCLIPTextEncoder(**CLIP_TINY)
+    p = perturbed(jm.init(jax.random.PRNGKey(10),
+                          jnp.zeros((1, 77), jnp.int32)), 10)
+    tm = CLIPTextEncoder(**CLIP_TINY, device="cpu")
+    sd = convert.clip_state_dict(p)
+    tm.load_state_dict(sd, strict=True)
+    return jm, p, tm, sd
+
+
+def test_clip_keys_match_export(clip_pair):
+    _, p, tm, sd = clip_pair
+    exported = export_clip(p, prefix="")
+    assert set(tm.state_dict()) == set(sd) == set(exported)
+    assert len(sd) == len(jax.tree.leaves(p))
+    for k, v in exported.items():
+        np.testing.assert_array_equal(sd[k].numpy(), v)
+
+
+@pytest.mark.parametrize("n", [77, 12])
+def test_clip_text_encoder_matches_jax(clip_pair, n):
+    jm, p, tm, _ = clip_pair
+    ids = np.random.default_rng(11).integers(0, 128, (2, n)).astype(np.int32)
+    ref = jm.apply(p, jnp.asarray(ids))
+    with torch.no_grad():
+        out = tm(torch.from_numpy(ids).long())
+    assert out.dtype == torch.float32 and out.shape == (2, n, 64)
+    assert_close(out.numpy(), ref)
+
+
+PROMPTS = ["a photograph of an astronaut riding a horse",
+           "Two  dogs &amp; a cat, 3 birds!", "", "ÉLAN vital — naïve café",
+           "a " * 100, "it's the dog's toy, isn't it?"]
+
+
+def test_tokenizer_ids_match_jax(monkeypatch):
+    """The hash fallback (no vocabulary in the repo) gives JAX's ids."""
+    monkeypatch.delenv("FGDM_CLIP_VOCAB_DIR", raising=False)
+    ids = CLIPTokenizer()(PROMPTS)
+    ref = JCLIPTokenizer()(PROMPTS)
+    assert ids.shape == (len(PROMPTS), 77)
+    np.testing.assert_array_equal(ids.numpy(), ref)
+    assert not CLIPTokenizer().has_real_vocab
+
+
+def test_tokenizer_bpe_vocab_matches_jax(tmp_path):
+    """With a (toy) vocabulary both tokenizers run the same BPE merges."""
+    merges = ["#version: 0.2", "h o", "ho r", "hor s", "hors e</w>", "a </w>"]
+    vocab = {tok: i for i, tok in enumerate(
+        ["a</w>", "h", "o", "r", "s", "e</w>", "ho", "hor", "hors",
+         "horse</w>", "!</w>"])}
+    (tmp_path / "merges.txt").write_text("\n".join(merges))
+    (tmp_path / "vocab.json").write_text(__import__("json").dumps(vocab))
+    texts = ["a horse!", "horses", "A HORSE a horse"]
+    ids = CLIPTokenizer(str(tmp_path))(texts)
+    ref = JCLIPTokenizer(str(tmp_path))(texts)
+    np.testing.assert_array_equal(ids.numpy(), ref)
+    assert CLIPTokenizer(str(tmp_path)).has_real_vocab
+
+
+def test_tokenizer_check_production(monkeypatch):
+    monkeypatch.delenv("FGDM_ALLOW_HASH_TOKENIZER", raising=False)
+    with pytest.raises(SystemExit, match="FGDM_CLIP_VOCAB_DIR"):
+        CLIPTokenizer().check_production()
+    monkeypatch.setenv("FGDM_ALLOW_HASH_TOKENIZER", "1")
+    CLIPTokenizer().check_production()
 
 
 def test_converter_rejects_unknown_paths(unets):
