@@ -7,25 +7,43 @@ per CUDA source, started together), then:
 
 1. prints the card's name and power limit;
 2. holds every kernel against its plain PyTorch version on the card at the
-   shapes the two paths below give it (the flash forward's lse output and
-   the flash backward's dQ and dK/dV included), and times kernel, plain
-   version and the PyTorch library call that computes the same function
-   (the yardstick, never used by the port);
+   shapes the three paths below give it (the flash forward's lse output,
+   the flash backward's dQ and dK/dV, the direct 3x3 conv at the serving
+   shapes included; each rerun must be bit-identical where the kernel has
+   no atomics), checks ``Conv3x3``'s gradients against autograd through
+   the plain conv, and times kernel, plain version and the PyTorch library
+   call that computes the same function (the yardstick, never used by the
+   port);
 3. runs one full-width SD-1.4 UNet forward (with the FG-DM adapter) with the
    kernels on and with the plain versions, and compares;
 4. the chain path: drives the full-width text->seg->image chain
    (``builders.build_chain`` + ``fgdm_chain``: 50 + 20 DDIM steps, batch 1,
    seeded random weights and contexts) with every launch count set to 0 just
    before, checks the image and that each kernel launched, then profiles one
-   more run for the device time by kernel;
-5. the training path: ``builders.build_trainer`` (adapter-only fine-tuning
+   more run for the device time by kernel; then, with the conv-kernel flags
+   on, compares one factor-2 UNet + ControlNet forward at [8, 4, 64, 64] and
+   one 512^2 VAE decode kernels-on vs plain;
+5. the serving path, on the chain's models with both conv-kernel flags on:
+   a ``ChainEngine`` (batch 4, the fast preset: DPM-Solver++ 20 steps for
+   factor 1, DDIM 20 for factor 2, CLIP on hash-fallback tokens, 256^2 ->
+   512^2) warms up with one full ``generate()``; ``server.serve`` listens on
+   an ephemeral localhost port with a 500 ms batch window; with every launch
+   count set to 0, four client threads POST one prompt each (distinct seeds,
+   one negative), then one solo request repeats one (prompt, seed), then
+   ``/healthz`` and ``/metrics``.  Checks the PNGs, that the four coalesced
+   into one engine batch, that the solo image equals its coalesced slot,
+   that K1-K4 and K7 (both families) launched; times the engine's batch of
+   4 (images/s of the serving preset) and profiles one more batch; then
+   holds K7 against its plain version at every other conv shape that the
+   served batch launched, and times it there;
+6. the training path: ``builders.build_trainer`` (adapter-only fine-tuning
    at 256^2, batch 8, VAE encode + CLIP + UNet forward and backward + AdamW
    + EMA) takes one cold step with every launch count set to 0 just before,
    then 5 timed warm steps; checks the losses, the gradient norm, that the
    adapter moved and every frozen parameter did not, the EMA count; compares
    one loss and its adapter gradients kernels-on vs plain on injected
    draws; profiles one more step;
-6. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+7. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, if there is no CUDA device or any phase
 fails.  Imports nothing of JAX.
@@ -33,14 +51,19 @@ fails.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import base64
 import concurrent.futures
 import contextlib
 import gc
 import json
 import math
+import struct
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
+import zlib
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
@@ -49,12 +72,14 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
 ATTN_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_fwd.cu"
 BWD_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_bwd.cu"
 GN_SRC = "fgdm_tpu_torch/kernels/groupnorm.py"
+CONV_SRC = "fgdm_tpu_torch/kernels/csrc/conv3x3.cu"
 K1 = "fgdm_tpu/kernels/attention.py:157"   # _flash_kernel_t
 K2 = "fgdm_tpu/kernels/attention.py:121"   # _flash_kernel
 K3 = "fgdm_tpu/kernels/attention.py:516"   # _flash_kernel_kv
 K4 = "fgdm_tpu/kernels/groupnorm.py:68"    # _kernel
 K5 = "fgdm_tpu/kernels/attention.py:299"   # _flash_bwd_dq_kernel_t
 K6 = "fgdm_tpu/kernels/attention.py:329"   # _flash_bwd_dkv_kernel_t
+K7 = "fgdm_tpu/kernels/conv.py:100"        # _kernel (direct 3x3 conv)
 
 # (label, TPU kernel, batch, heads, N, d, lse, path): the self-attention
 # shapes of the chain at batch 1 (CFG doubles the UNet batch; the VAE
@@ -93,13 +118,24 @@ GN_CASES = [
     ("group_norm_silu [8,128,256,256] train", (8, 128, 256, 256), 1e-6,
      "train"),
 ]
+# K7's launch keys (N, C, Co, H, W) of the served batch's 3x3 convs, one per
+# family: the factor-2 UNet and ControlNet at batch 8 with CFG (levels 0-2,
+# one up-block concat input), the VAE decoder at batch 4 (64^2 x 512 and
+# the level-0 512^2 x 128 family).  The other shapes the served batch
+# launches are checked after it, from its launch counts.
+CONV_CASES = [(8, 320, 320, 64, 64), (8, 640, 640, 32, 32),
+              (8, 1280, 1280, 16, 16), (8, 960, 320, 64, 64),
+              (4, 512, 512, 64, 64), (4, 128, 128, 512, 512)]
 ATTN_TOL = (1e-2, 1e-3)   # max|d| <= 1e-2 * max|ref| + 1e-3 (bf16 out, P)
 LSE_TOL = 1e-3            # max|d| of the f32 lse (same f32 scores)
 BWD_TOL = (2e-2, 2e-3)    # max|d| <= 2e-2 * max|ref| + 2e-3 (bf16 p and dS)
 GN_TOL = 1e-2             # max |d| / (1 + |ref|) (bf16 output rounding)
+CONV_TOL = (1e-2, 1e-3)   # max|d| <= 1e-2 * max|ref| + 1e-3 (bf16 output)
 UNET_TOL = 5e-2           # max|d| / max|ref| of the UNet eps, bf16 chain
 LOSS_TOL = 1e-2           # relative difference of the training loss
 TRAIN_BATCH, WARM_STEPS = 8, 5
+SERVE_BATCH, SERVE_TIMED = 4, 2
+SERVE_SEEDS = (11, 22, -33, 44)   # one client each; the third repeats solo
 
 
 def log(msg):
@@ -133,10 +169,10 @@ def build_kernels():
     """nvcc both CUDA sources at once and compile the Triton programs
     meanwhile."""
     import torch
-    from fgdm_tpu_torch.kernels import _build, attention, groupnorm
+    from fgdm_tpu_torch.kernels import _build, attention, conv, groupnorm
 
     t0 = time.perf_counter()
-    names = ("flash_attn_fwd", "flash_attn_bwd")
+    names = ("flash_attn_fwd", "flash_attn_bwd", "conv3x3")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         builds = [pool.submit(_build.build, n) for n in names]
         x = torch.randn(1, 128, 8, 8, device="cuda", dtype=torch.bfloat16)
@@ -148,6 +184,7 @@ def build_kernels():
         paths = [b.result() for b in builds]
     attention._lib()
     attention._bwd_lib()
+    conv._lib()
     log(f"built {', '.join(p.name for p in paths)} in "
         f"{time.perf_counter() - t0:.1f}s")
     for path in paths:
@@ -317,37 +354,130 @@ def gn_rows(gen):
     return rows
 
 
+def conv_rows(gen, keys):
+    """K7 against ``conv3x3_ref`` (f32 cuDNN conv, TF32 off) at launch keys
+    ``(N, C, Co, H, W)`` of the served batch.  The kernel's time includes
+    the per-call K-major bf16 weight copy the main path pays; the library
+    yardstick is ``F.conv2d`` in bf16 on a bf16 weight and bias made
+    beforehand."""
+    import torch
+    import torch.nn.functional as F
+    from fgdm_tpu_torch.kernels import conv
+
+    rows = []
+    for n, c, co, h, w in keys:
+        label = f"conv3x3 [{n},{c},{h},{w}]->{co}"
+        x = torch.randn(n, c, h, w, device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        wt = torch.randn(co, c, 3, 3, device="cuda", generator=gen) \
+            * (9 * c) ** -0.5
+        b = 0.1 * torch.randn(co, device="cuda", generator=gen)
+        out = conv.conv3x3_kernel(x, wt, b)
+        ref = conv.conv3x3_ref(x, wt, b)
+        same = torch.equal(out, conv.conv3x3_kernel(x, wt, b))
+        err = (out.float() - ref.float()).abs().max().item()
+        lim = CONV_TOL[0] * ref.float().abs().max().item() + CONV_TOL[1]
+        ok = math.isfinite(err) and err <= lim and same
+        reps = 10 if h >= 512 else 30
+        ms = cuda_ms(lambda: conv.conv3x3_kernel(x, wt, b), reps)
+        plain_ms = cuda_ms(lambda: conv.conv3x3_ref(x, wt, b), reps)
+        wb, bb = wt.to(torch.bfloat16), b.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: F.conv2d(x, wb, bb, 1, 1), reps)
+        nbytes = 2.0 * n * h * w * (c + co) + 4.0 * co * (9 * c + 1)
+        bound_ms, bound_by = bound(2.0 * n * h * w * 9 * c * co, nbytes,
+                                   PEAK_BF16_FLOPS)
+        rows.append(dict(
+            name=label, route="cuda", source=CONV_SRC, replaces=K7,
+            key=("conv", n, c, co, h, w), path="serve", max_abs_err=err,
+            tol=lim, ok=ok, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms))
+        log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}), rerun bit-identical "
+            f"{same} {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  F.conv2d bf16 {lib_ms:.4f} ms  bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+    return rows
+
+
+def conv_grad_check(gen):
+    """``Conv3x3`` at [8, 320, 32, 32]: the kernel forward and the plain
+    backward against autograd through ``conv3x3_ref``."""
+    import torch
+    from fgdm_tpu_torch.kernels import conv
+
+    x = torch.randn(8, 320, 32, 32, device="cuda", generator=gen,
+                    dtype=torch.bfloat16).requires_grad_()
+    wt = (torch.randn(320, 320, 3, 3, device="cuda", generator=gen)
+          * (9 * 320) ** -0.5).requires_grad_()
+    b = (0.1 * torch.randn(320, device="cuda", generator=gen)
+         ).requires_grad_()
+    g = torch.randn(8, 320, 32, 32, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    y = conv.conv3x3(x, wt, b)
+    got = torch.autograd.grad(y, (x, wt, b), g)
+    y_ref = conv.conv3x3_ref(x, wt, b)
+    refs = torch.autograd.grad(y_ref, (x, wt, b), g)
+    ok = type(y.grad_fn).__name__ == "Conv3x3Backward"
+    msgs = []
+    for name, a, r in zip(("y", "dx", "dw", "db"), (y,) + got,
+                          (y_ref,) + refs):
+        err = (a.float() - r.float()).abs().max().item()
+        lim = CONV_TOL[0] * r.float().abs().max().item() + CONV_TOL[1]
+        ok = ok and math.isfinite(err) and err <= lim
+        msgs.append(f"{name} max|d|={err:.3e} (tol {lim:.3e})")
+    log(f"Conv3x3 gradient [8,320,32,32] vs autograd through the plain conv:"
+        f" {', '.join(msgs)}; {'OK' if ok else 'FAIL'}")
+    return ok
+
+
 def phase_kernels():
     """Each kernel against its plain version at the paths' shapes."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = attn_rows(gen) + bwd_rows(gen) + gn_rows(gen)
+    rows = (attn_rows(gen) + bwd_rows(gen) + gn_rows(gen)
+            + conv_rows(gen, CONV_CASES))
+    grad_ok = conv_grad_check(gen)
     torch.cuda.empty_cache()
-    return rows
+    return rows, grad_ok
 
 
 @contextlib.contextmanager
 def plain_path():
-    """Route every gate to the plain versions (for the on/off comparison)."""
-    from fgdm_tpu_torch.kernels import attention, groupnorm
+    """Route every gate to the plain versions (for the on/off comparison);
+    convs the conv flags send to K7 take ``conv3x3_ref``."""
+    from fgdm_tpu_torch.kernels import attention, conv, groupnorm
 
-    saved = attention.use_flash, groupnorm.use_fused_gn
+    saved = attention.use_flash, groupnorm.use_fused_gn, conv.conv3x3
     attention.use_flash = lambda *a, **k: False
     groupnorm.use_fused_gn = lambda *a, **k: False
+    conv.conv3x3 = conv.conv3x3_ref
     try:
         yield
     finally:
-        attention.use_flash, groupnorm.use_fused_gn = saved
+        attention.use_flash, groupnorm.use_fused_gn, conv.conv3x3 = saved
+
+
+@contextlib.contextmanager
+def conv_flags():
+    """Both conv-kernel flags on (``FGDM_PALLAS_CONV``/``_VAE``)."""
+    from fgdm_tpu_torch.nn import layers
+
+    saved = layers._PALLAS_CONV, layers._PALLAS_CONV_VAE
+    layers._PALLAS_CONV = layers._PALLAS_CONV_VAE = True
+    try:
+        yield
+    finally:
+        layers._PALLAS_CONV, layers._PALLAS_CONV_VAE = saved
 
 
 def _counters():
-    from fgdm_tpu_torch.kernels import attention, groupnorm
+    from fgdm_tpu_torch.kernels import attention, conv, groupnorm
 
     return {"attn": attention.flash_attention.launches,
             "flash_attn_bwd_dq": attention.flash_attention_bwd_dq.launches,
             "flash_attn_bwd_dkv": attention.flash_attention_bwd_dkv.launches,
-            "gn": groupnorm.group_norm_silu_kernel.launches}
+            "gn": groupnorm.group_norm_silu_kernel.launches,
+            "conv": conv.conv3x3_kernel.launches}
 
 
 def reset_counts():
@@ -442,6 +572,200 @@ def phase_chain():
         f"{'OK' if ok else 'FAIL'}")
     log_counts("chain", counts)
     profile("chain", run, warm)
+    return ok, counts, ld, cldm
+
+
+def phase_conv_forwards(cldm):
+    """With the conv flags on: one factor-2 UNet + ControlNet forward at
+    [8, 4, 64, 64] (the served batch with CFG) and one 512^2 VAE decode at
+    batch 1, kernels on vs plain."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ok = True
+    with torch.inference_mode(), conv_flags():
+        x = torch.randn(8, 4, 64, 64, device="cuda", generator=gen)
+        t = torch.full((8,), 981, device="cuda")
+        ctx = torch.randn(8, 77, 768, device="cuda", generator=gen)
+        hint = torch.rand(8, 3, 512, 512, device="cuda", generator=gen)
+        z = torch.randn(1, 4, 64, 64, device="cuda", generator=gen)
+        cond = {"c_crossattn": ctx, "c_hint_emb": cldm.encode_hint(hint)}
+        for label, fn in (
+                ("f2 UNet + ControlNet forward [8,4,64,64]",
+                 lambda: cldm.apply_model(x, t, cond)),
+                ("VAE decode [1,4,64,64] -> 512^2",
+                 lambda: cldm.decode_first_stage(z))):
+            reset_counts()
+            on = fn()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            with plain_path():
+                off = fn()
+            torch.cuda.synchronize()
+            rel = ((on.float() - off.float()).abs().max()
+                   / off.float().abs().max()).item()
+            n = {k: sum(c.values()) for k, c in counts.items()}
+            good = (math.isfinite(rel) and rel <= UNET_TOL and n["conv"] > 0
+                    and bool(torch.isfinite(on).all()))
+            ok = ok and good
+            log(f"{label}, conv flags on: kernels on vs plain max|d|/max|ref|"
+                f" = {rel:.3e} (tol {UNET_TOL}); launches conv {n['conv']} "
+                f"attn {n['attn']} gn {n['gn']}; {'OK' if good else 'FAIL'}")
+    del cond, on, off
+    torch.cuda.empty_cache()
+    return ok
+
+
+def png_rgb(data: bytes):
+    """``(height, width, pixels)`` of an 8-bit RGB PNG whose rows all use
+    filter 0, as ``server.png_bytes`` writes them; checks every CRC."""
+    import numpy as np
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != (
+                zlib.crc32(tag + body) & 0xFFFFFFFF):
+            raise ValueError(f"bad CRC in {tag!r}")
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, ctype = ihdr[:4]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    if depth != 8 or ctype != 2 or rows.shape[1] != 1 + 3 * w \
+            or rows[:, 0].any():
+        raise ValueError(f"unexpected PNG layout {ihdr}")
+    return h, w, rows[:, 1:].reshape(h, w, 3)
+
+
+def _http(port, path, payload=None):
+    """``(status, body bytes, seconds)`` of one localhost request."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, r.read(), time.perf_counter() - t0
+
+
+def phase_serve(ld, cldm):
+    """The serving path on the chain's models, conv flags on.  The four
+    coalesced requests are the path's counted run."""
+    import torch
+    from fgdm_tpu_torch import server
+    from fgdm_tpu_torch.builders import PROMPTS
+    from fgdm_tpu_torch.models.clip import CLIPTokenizer
+    from fgdm_tpu_torch.serving import ChainEngine
+
+    prompts = PROMPTS[:SERVE_BATCH]
+    with conv_flags():
+        engine = ChainEngine(ld, cldm, tokenizer=CLIPTokenizer(),
+                             max_batch=SERVE_BATCH, f1_sampler="dpm",
+                             f1_steps=20)
+        log(f"serve: engine warmup (one full generate() of the preset "
+            f"dpm-20 + ddim-20, batch {SERVE_BATCH}, 256^2 -> 512^2) "
+            f"{engine.compile_seconds:.2f}s")
+        ready = threading.Event()
+        srv = threading.Thread(
+            target=server.serve, args=(engine, "127.0.0.1", 0),
+            kwargs=dict(max_requests=SERVE_BATCH + 3, batch_window_ms=500,
+                        ready=ready), daemon=True)
+        srv.start()
+        if not ready.wait(60):
+            raise RuntimeError("the server did not start")
+        port = ready.server.server_address[1]
+        responses, errors = {}, []
+
+        def client(i):
+            try:
+                responses[i] = _http(port, "/generate", {
+                    "prompts": [prompts[i]], "seed": SERVE_SEEDS[i]})
+            except Exception as e:  # reported below
+                errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+        reset_counts()
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_BATCH)]
+        for th in clients:
+            th.start()
+        for th in clients:
+            th.join(timeout=600)
+        counts = read_counts()
+        solo = _http(port, "/generate", {"prompts": [prompts[2]],
+                                         "seed": SERVE_SEEDS[2]})
+        health = json.loads(_http(port, "/healthz")[1])
+        metrics = _http(port, "/metrics")[1].decode()
+        srv.join(timeout=60)
+        # serve() returned after its last request and closed its batcher
+        left = [t.name for t in threading.enumerate()
+                if t is not threading.main_thread()]
+
+        ok, pngs = not errors and len(responses) == SERVE_BATCH, {}
+        for i, (status, body, secs) in sorted(responses.items()):
+            body = json.loads(body)
+            ok = ok and status == 200
+            img = png_rgb(base64.b64decode(body["images"][0]))
+            cnd = png_rgb(base64.b64decode(body["conditions"][0]))
+            ok = ok and img[:2] == (512, 512) and cnd[:2] == (256, 256)
+            pngs[i] = img[2]
+            log(f"serve: request {i} (seed {SERVE_SEEDS[i]}) {status}, "
+                f"client latency {secs:.3f}s, server latency_s "
+                f"{body['latency_s']}, image {img[:2]}, condition {cnd[:2]}")
+        solo_img = png_rgb(base64.b64decode(
+            json.loads(solo[1])["images"][0]))[2]
+        delta = (int(abs(solo_img.astype(int) - pngs[2].astype(int)).max())
+                 if 2 in pngs else -1)
+        vals = {ln.split()[0]: float(ln.split()[1])
+                for ln in metrics.splitlines()
+                if ln and not ln.startswith("#")}
+        coalesced = vals.get("fgdm_engine_batches_total") == 2.0
+        conv_keys = counts["conv"].keys()
+        families = (any(16 <= k[3] <= 64 for k in conv_keys),
+                    any(k[3] >= 512 for k in conv_keys))
+        launched = all(sum(counts[k].values()) > 0
+                       for k in ("attn", "gn", "conv"))
+        ok = (ok and solo[0] == 200 and delta == 0 and coalesced
+              and all(families) and launched and health["status"] == "ok"
+              and vals.get("fgdm_images_total") == SERVE_BATCH + 1
+              and not left)
+        log(f"serve: {SERVE_BATCH} concurrent requests -> engine batches "
+            f"{vals.get('fgdm_engine_batches_total')} with the solo repeat "
+            f"(coalesced into one: {coalesced}); solo vs coalesced slot max "
+            f"uint8 |d| = {delta}; healthz {health}; K7 whole-plane / VAE "
+            f"families launched {families}; errors {errors}; threads left "
+            f"after the server stopped {left}; {'OK' if ok else 'FAIL'}")
+        log_counts("serve", counts)
+
+        def run():
+            engine.generate(prompts, seeds=list(SERVE_SEEDS))
+
+        def timed():
+            t0 = time.perf_counter()
+            for _ in range(SERVE_TIMED):
+                run()
+            return (time.perf_counter() - t0) / SERVE_TIMED
+
+        torch.cuda.reset_peak_memory_stats()
+        warm = timed()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"serve: serving preset (dpm-20 + ddim-20, 512^2, conv kernels "
+            f"on) {warm:.3f} s per engine batch of {SERVE_BATCH} (mean of "
+            f"{SERVE_TIMED}, host clock, generate() returns host arrays), "
+            f"{SERVE_BATCH / warm:.3f} images/s at batch {SERVE_BATCH}; peak "
+            f"memory {peak_gib:.2f} GiB")
+        profile("serve", run, warm)
+    # the same batch with the conv flags off (cuDNN's convs), for the cost
+    # of K7 end to end; the flags are read at call time.  One untimed batch
+    # first: cuDNN meets these batch-8 shapes for the first time here.
+    run()
+    off = timed()
+    log(f"serve: the same batch with the conv flags off (F.conv2d) "
+        f"{off:.3f} s per batch, {SERVE_BATCH / off:.3f} images/s")
     return ok, counts
 
 
@@ -601,15 +925,28 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     build_kernels()
-    rows = phase_kernels()
+    rows, grad_ok = phase_kernels()
     unet_ok = phase_unet()
-    chain_ok, chain = phase_chain()
+    chain_ok, chain, ld, cldm = phase_chain()
+    t0 = time.perf_counter()
+    conv_ok = phase_conv_forwards(cldm)
+    t1 = time.perf_counter()
+    serve_ok, serve = phase_serve(ld, cldm)
+    log(f"conv forwards {t1 - t0:.1f}s, serving phase "
+        f"{time.perf_counter() - t1:.1f}s")
+    del ld, cldm
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows += conv_rows(torch.Generator(device="cuda").manual_seed(5),
+                      sorted(set(serve["conv"]) - set(CONV_CASES)))
+    torch.cuda.empty_cache()
+    log(f"K7 at the served batch's other conv shapes "
+        f"{time.perf_counter() - t0:.1f}s")
     train_ok, train = phase_train()
 
     failures = [r["name"] for r in rows if not r["ok"]]
-    by_path = {"chain": chain, "train": train}
+    by_path = {"chain": chain, "train": train, "serve": serve}
     for r in rows:
         kind, key = r["key"][0], r["key"][1:]
         r["launches"] = by_path.get(r["path"], {}).get(kind, {}).get(key, 0)
@@ -621,8 +958,17 @@ def main():
     for kind in ("attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "gn"):
         if sum(train[kind].values()) == 0:
             failures.append(f"{kind} not launched by the training step")
+    for kind in ("attn", "gn", "conv"):
+        if sum(serve[kind].values()) == 0:
+            failures.append(f"{kind} not launched by the served batch")
+    if not grad_ok:
+        failures.append("Conv3x3 gradient")
     if not unet_ok:
         failures.append("UNet kernels-on vs plain")
+    if not conv_ok:
+        failures.append("conv-gated forwards kernels-on vs plain")
+    if not serve_ok:
+        failures.append("serving")
     if not chain_ok:
         failures.append("chain output")
     if not train_ok:

@@ -3,8 +3,11 @@
 ``build_chain`` is the counterpart of ``bench.py:95-155``: the factor-1
 ``LatentDiffusion`` (SD-1.4 UNet + FG-DM adapter) and the factor-2
 ``ControlLDM`` (SD UNet without adapter + ControlNet), sharing one VAE; bf16
-compute over float32 params, fused GroupNorm+SiLU on.  About 2.2B
-parameters, 9 GB in float32.
+compute over float32 params, fused GroupNorm+SiLU on.  Each pipeline also
+gets its own CLIP ViT-L/14 text tower, as ``checkpoint/loader.py:99-230``
+builds them without checkpoints, so ``get_learned_conditioning`` works (the
+serving engine embeds real tokens).  About 2.4B parameters, 9.8 GB in
+float32.
 
 ``build_trainer`` is the counterpart of ``tools/bench_train.py:49-79``: the
 adapter-only fine-tuning step at 256^2 (UNet with adapter, VAE and CLIP,
@@ -62,17 +65,20 @@ def build_unet(device=None, dtype=torch.bfloat16, fused_norm: bool = True,
 
 def build_chain(device=None, dtype=torch.bfloat16, fused_norm: bool = True,
                 seed: int = 0):
-    """``(LatentDiffusion, ControlLDM)`` of the FG-DM chain at SD-1.4 width."""
+    """``(LatentDiffusion, ControlLDM)`` of the FG-DM chain at SD-1.4 width,
+    each with its CLIP text tower."""
     dev = resolve_device(device)
     vae = _seeded(AutoencoderKL(fused_norm=fused_norm, dtype=dtype,
                                 device=dev), dev, seed + 3, 0.0)
     control = _seeded(ControlNet(fused_norm_silu=fused_norm, dtype=dtype,
                                  device=dev), dev, seed + 2, _PERTURB)
+    clip, cn_clip = (_seeded(CLIPTextEncoder(dtype=dtype, device=dev), dev,
+                             s, 0.0) for s in (seed + 4, seed + 5))
     sched = sd14_schedule()
     ld = LatentDiffusion(build_unet(dev, dtype, fused_norm, True, seed), vae,
-                         sched)
+                         sched, clip=clip)
     cldm = ControlLDM(build_unet(dev, dtype, fused_norm, False, seed + 1), vae,
-                      sched, control=control)
+                      sched, clip=cn_clip, control=control)
     return ld, cldm
 
 

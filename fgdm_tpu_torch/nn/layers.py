@@ -5,22 +5,37 @@ Counterpart of ``fgdm_tpu/nn/layers.py:50-225``.  Parameters stay float32;
 ``dtype`` (bf16 on the card) as the JAX layers do, rather than through
 ``torch.autocast``, whose casting rules differ.  Normalizations compute in
 float32 and cast back to the input dtype.
+
+``_PALLAS_CONV`` / ``_PALLAS_CONV_VAE`` (``FGDM_PALLAS_CONV=1`` /
+``FGDM_PALLAS_CONV_VAE=1``, default off, as ``layers.py:23-32``) send the
+3x3 stride-1 pad-1 convs with a bias that ``kernels/conv.py``'s gates accept
+to the direct conv kernel K7.  The gates admit bf16 compute only, so a
+float32 ``Conv2d`` keeps ``F.conv2d`` with a flag on.  The Winograd branch
+is not ported.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fgdm_tpu_torch.kernels import conv as kconv
 from fgdm_tpu_torch.kernels.groupnorm import (group_norm_silu,
                                               group_norm_silu_ref)
 
 __all__ = ["timestep_embedding", "GroupNorm32", "FusedGroupNormSiLU",
            "LayerNorm32", "Conv2d", "Dense", "Embed", "nearest_upsample_2x",
            "avg_pool_2x2", "init_params_"]
+
+# The direct 3x3 conv kernel for 16^2-64^2 planes (kernels/conv.py), and for
+# the VAE decoder's >= 512^2 128-channel planes; read at call time, so tests
+# set them by attribute.
+_PALLAS_CONV = os.environ.get("FGDM_PALLAS_CONV", "0") == "1"
+_PALLAS_CONV_VAE = os.environ.get("FGDM_PALLAS_CONV_VAE", "0") == "1"
 
 # JAX's truncated-normal variance scaling divides by the std of a standard
 # normal truncated to [-2, 2].
@@ -108,6 +123,15 @@ class Conv2d(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
+        if ((_PALLAS_CONV or _PALLAS_CONV_VAE) and self.stride == 1
+                and self.padding == 1 and self.bias is not None
+                and self.weight.shape[2:] == (3, 3)):
+            xk = x.to(self.dtype)
+            shapes = (xk.shape, self.weight.shape, xk.dtype)
+            if ((_PALLAS_CONV and kconv.conv3x3_ok(*shapes))
+                    or (_PALLAS_CONV_VAE and kconv.conv3x3_vae_ok(*shapes))):
+                # the weight is cast to xk's dtype inside; the bias stays f32
+                return kconv.conv3x3(xk, self.weight, self.bias)
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
                         self.stride, self.padding)

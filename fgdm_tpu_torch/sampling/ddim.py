@@ -21,8 +21,8 @@ import torch
 
 from fgdm_tpu_torch.core.schedules import DDIMSchedule
 
-__all__ = ["derive_seed", "slot_noise", "ddim_step", "cfg_eps",
-           "ddim_sample"]
+__all__ = ["derive_seed", "slot_noise", "initial_noise", "ddim_step",
+           "cfg_eps", "ddim_sample"]
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
 
@@ -50,6 +50,27 @@ def slot_noise(slot_seeds: Sequence[int], shape: Tuple[int, ...], tag: int,
         g = torch.Generator(device=device).manual_seed(derive_seed(s, *parts))
         draws.append(torch.randn(tuple(shape[1:]), generator=g, device=device))
     return torch.stack(draws)
+
+
+def initial_noise(shape: Tuple[int, ...], x_T: Optional[torch.Tensor],
+                  generator: Optional[torch.Generator],
+                  slot_seeds: Optional[Sequence[int]], device):
+    """``(x_T, device)`` for a sampler: ``x_T`` if given, else per-slot
+    streams from ``slot_seeds`` (tag ``SLOT_INIT_TAG``), else ``generator``.
+    ``device`` defaults to x_T's, else ``generator``'s."""
+    if device is None:
+        if x_T is None and generator is None:
+            raise ValueError("a sampler needs device= with slot_seeds")
+        device = x_T.device if x_T is not None else generator.device
+    if slot_seeds is not None and len(slot_seeds) != shape[0]:
+        raise ValueError(f"{len(slot_seeds)} slot seeds for batch {shape[0]}")
+    if x_T is not None:
+        x = x_T.to(device=device, dtype=torch.float32)
+    elif slot_seeds is not None:
+        x = slot_noise(slot_seeds, shape, SLOT_INIT_TAG, device)
+    else:
+        x = torch.randn(shape, generator=generator, device=device)
+    return x, device
 
 
 def ddim_step(x, e_t, index: int, sched: DDIMSchedule,
@@ -95,22 +116,11 @@ def ddim_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
                 device=None) -> torch.Tensor:
     """Full DDIM loop; returns x_0 (float32, ``shape``).
 
-    Noise: ``x_T`` if given, else per-slot streams from ``slot_seeds``, else
-    ``generator``.  ``device`` defaults to x_T's, else ``generator``'s."""
-    if device is None:
-        if x_T is None and generator is None:
-            raise ValueError("ddim_sample needs device= with slot_seeds")
-        device = x_T.device if x_T is not None else generator.device
+    Noise: see ``initial_noise``; with eta > 0 the step noise comes from the
+    same source (per slot, or ``generator``)."""
+    x, device = initial_noise(shape, x_T, generator, slot_seeds, device)
     sched = sched.to(device)
     per_slot = slot_seeds is not None
-    if per_slot and len(slot_seeds) != shape[0]:
-        raise ValueError(f"{len(slot_seeds)} slot seeds for batch {shape[0]}")
-    if x_T is not None:
-        x = x_T.to(device=device, dtype=torch.float32)
-    elif per_slot:
-        x = slot_noise(slot_seeds, shape, SLOT_INIT_TAG, device)
-    else:
-        x = torch.randn(shape, generator=generator, device=device)
     steps = sched.num_steps
     for i in range(steps):
         index = steps - 1 - i

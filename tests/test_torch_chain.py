@@ -38,7 +38,7 @@ from fgdm_tpu.models.autoencoder import AutoencoderKL as JAutoencoderKL  # noqa:
 from fgdm_tpu.models.controlnet import ControlNet as JControlNet  # noqa: E402
 from fgdm_tpu.models.unet import UNetModel as JUNetModel  # noqa: E402
 import fgdm_tpu_torch  # noqa: E402
-from fgdm_tpu_torch import builders  # noqa: E402
+from fgdm_tpu_torch import builders, server  # noqa: E402
 from fgdm_tpu_torch.checkpoint import convert  # noqa: E402
 from fgdm_tpu_torch.core import schedules as tsch  # noqa: E402
 from fgdm_tpu_torch.diffusion.control import ControlLDM  # noqa: E402
@@ -49,6 +49,7 @@ from fgdm_tpu_torch.models.controlnet import ControlNet  # noqa: E402
 from fgdm_tpu_torch.models.unet import UNetModel  # noqa: E402
 from fgdm_tpu_torch.sampling import chain as tchain  # noqa: E402
 from fgdm_tpu_torch.sampling import ddim as tddim  # noqa: E402
+from fgdm_tpu_torch.serving import ChainEngine  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -393,9 +394,11 @@ def test_unported_unet_options_raise(kw):
     lambda: builders.build_chain(), lambda: builders.build_unet(),
     lambda: UNetModel(**TINY), lambda: ControlNet(**TINY),
     lambda: AutoencoderKL(**VAE_TINY), lambda: builders.build_trainer(),
-    lambda: CLIPTextEncoder(vocab_size=128, embed_dim=64, num_layers=1)],
+    lambda: CLIPTextEncoder(vocab_size=128, embed_dim=64, num_layers=1),
+    lambda: ChainEngine(*builders.build_chain()), lambda: server.main([])],
     ids=["build_chain", "build_unet", "UNetModel", "ControlNet",
-         "AutoencoderKL", "build_trainer", "CLIPTextEncoder"])
+         "AutoencoderKL", "build_trainer", "CLIPTextEncoder", "ChainEngine",
+         "server_main"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -421,7 +424,11 @@ def test_port_imports_no_jax():
                 continue
             bad += [f"{path.name}: {n}" for n in names
                     if n.split(".")[0] in banned]
-    assert len(_port_sources()) > 20 and not bad, bad
+    names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    assert {"fgdm_tpu_torch/serving.py", "fgdm_tpu_torch/server.py",
+            "fgdm_tpu_torch/kernels/conv.py", "fgdm_tpu_torch/sampling/plms.py",
+            "fgdm_tpu_torch/sampling/dpm_solver.py"} <= names
+    assert len(names) > 20 and not bad, bad
 
 
 def test_chip_smoke_fails_without_a_card():
