@@ -1,19 +1,26 @@
 """On-card smoke test of the fgdm_tpu_torch port (one NVIDIA GPU).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sweep]
 
-Builds the port's kernels from the sources in this checkout (one ``nvcc``
+With ``--sweep`` it builds the kernels, times K7 at each forced tile size
+and the d = 512 forward at forced KV slice counts (how ``conv3x3_plan``'s
+cost weights and ``kv_splits`` were chosen), and exits.  With no argument it
+builds the port's kernels from the sources in this checkout (one ``nvcc``
 per CUDA source, started together), then:
 
 1. prints the card's name and power limit;
 2. holds every kernel against its plain PyTorch version on the card at the
    shapes the three paths below give it (the flash forward's lse output,
-   the flash backward's dQ and dK/dV, the direct 3x3 conv at the serving
-   shapes included; each rerun must be bit-identical where the kernel has
+   the d = 512 forward with and without a KV split and its combine pass,
+   the flash backward's dQ and dK/dV, the direct 3x3 conv with its
+   transposing pre-pass at the serving shapes and at three ragged shapes
+   the gates admit; each rerun must be bit-identical where the kernel has
    no atomics), checks ``Conv3x3``'s gradients against autograd through
    the plain conv, and times kernel, plain version and the PyTorch library
    call that computes the same function (the yardstick, never used by the
-   port);
+   port).  Kernels that take less device time than the host needs to launch
+   them are timed as CUDA-graph replays (``ms``) and eagerly (``eager_ms``);
+   replays of a small shape find their operands in L2;
 3. runs one full-width SD-1.4 UNet forward (with the FG-DM adapter) with the
    kernels on and with the plain versions, and compares;
 4. the chain path: drives the full-width text->seg->image chain
@@ -32,10 +39,12 @@ per CUDA source, started together), then:
    one negative), then one solo request repeats one (prompt, seed), then
    ``/healthz`` and ``/metrics``.  Checks the PNGs, that the four coalesced
    into one engine batch, that the solo image equals its coalesced slot,
-   that K1-K4 and K7 (both families) launched; times the engine's batch of
-   4 (images/s of the serving preset) and profiles one more batch; then
-   holds K7 against its plain version at every other conv shape that the
-   served batch launched, and times it there;
+   that K1-K4 and K7 (both families, with the pre-pass) launched and that
+   no conv weight was packed anew; times the engine's batch of 4 (images/s
+   of the serving preset) with the conv flags on and off turn about, and
+   profiles one more batch of each; then holds K7 and
+   its pre-pass against their plain versions at every other conv shape that
+   the served batch launched, and times them there;
 6. the training path: ``builders.build_trainer`` (adapter-only fine-tuning
    at 256^2, batch 8, VAE encode + CLIP + UNet forward and backward + AdamW
    + EMA) takes one cold step with every launch count set to 0 just before,
@@ -70,6 +79,7 @@ PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
 
 ATTN_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_fwd.cu"
+ATTN512_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_fwd_d512.cu"
 BWD_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_bwd.cu"
 GN_SRC = "fgdm_tpu_torch/kernels/groupnorm.py"
 CONV_SRC = "fgdm_tpu_torch/kernels/csrc/conv3x3.cu"
@@ -81,24 +91,33 @@ K5 = "fgdm_tpu/kernels/attention.py:299"   # _flash_bwd_dq_kernel_t
 K6 = "fgdm_tpu/kernels/attention.py:329"   # _flash_bwd_dkv_kernel_t
 K7 = "fgdm_tpu/kernels/conv.py:100"        # _kernel (direct 3x3 conv)
 
-# (label, TPU kernel, batch, heads, N, d, lse, path): the self-attention
-# shapes of the chain at batch 1 (CFG doubles the UNet batch; the VAE
-# decodes batch 1) and of the training step at batch 8 (the frozen input
-# blocks launch the forward alone, the blocks that need a gradient with
-# lse; the VAE encoder's mid-block at 32^2).
+# (label, TPU kernel, batch, heads, N, d, lse, path, splits): the
+# self-attention shapes of the chain at batch 1 (CFG doubles the UNet batch;
+# the VAE decodes batch 1) and of the training step at batch 8 (the frozen
+# input blocks launch the forward alone, the blocks that need a gradient
+# with lse; the VAE encoder's mid-block at 32^2).  ``splits`` None is the
+# wrapper's own choice (at d = 512: 8, 2 and 1 KV slices at the three
+# shapes); the last two rows force the other case, no path runs them.
 ATTN_CASES = [
-    ("flash_attn_fwd d40 N1024", K1, 2, 8, 1024, 40, False, "chain"),
-    ("flash_attn_fwd d40 N4096", K1, 2, 8, 4096, 40, False, "chain"),
-    ("flash_attn_fwd d80 N1024", K1, 2, 8, 1024, 80, False, "chain"),
-    ("flash_attn_fwd d512 N1024", K2, 1, 1, 1024, 512, False, "chain"),
-    ("flash_attn_fwd d512 N4096", K3, 1, 1, 4096, 512, False, "chain"),
+    ("flash_attn_fwd d40 N1024", K1, 2, 8, 1024, 40, False, "chain", None),
+    ("flash_attn_fwd d40 N4096", K1, 2, 8, 4096, 40, False, "chain", None),
+    ("flash_attn_fwd d80 N1024", K1, 2, 8, 1024, 80, False, "chain", None),
+    ("flash_attn_fwd d512 N1024", K2, 1, 1, 1024, 512, False, "chain", None),
+    ("flash_attn_fwd d512 N4096", K3, 1, 1, 4096, 512, False, "chain", None),
     ("flash_attn_fwd d40 N1024 [8,8] train", K1, 8, 8, 1024, 40, False,
-     "train"),
+     "train", None),
     ("flash_attn_fwd+lse d40 N1024 [8,8] train", K1, 8, 8, 1024, 40, True,
-     "train"),
+     "train", None),
     ("flash_attn_fwd d512 N1024 [8,1] train", K2, 8, 1, 1024, 512, False,
-     "train"),
+     "train", None),
+    ("flash_attn_fwd d512 N1024 one KV slice", K2, 1, 1, 1024, 512, False,
+     None, 1),
+    ("flash_attn_fwd+lse d512 N1024 [8,1] two KV slices", K2, 8, 1, 1024,
+     512, True, None, 2),
 ]
+# (N, splits, TPU kernel): the combine pass of the d = 512 forward at the
+# chain's two VAE decodes (256^2 and 512^2 images)
+COMBINE_CASES = [(1024, 8, K2), (4096, 2, K3)]
 # (label suffix, batch, heads, N, d, path): backward shapes, each giving a
 # K5 (dQ) and a K6 (dK/dV) row: the training step's, and the 512^2
 # training shapes (no path here; they exercise N=4096 and d=80).
@@ -126,6 +145,10 @@ GN_CASES = [
 CONV_CASES = [(8, 320, 320, 64, 64), (8, 640, 640, 32, 32),
               (8, 1280, 1280, 16, 16), (8, 960, 320, 64, 64),
               (4, 512, 512, 64, 64), (4, 128, 128, 512, 512)]
+# shapes the gates admit and no path launches: W % 8 != 0, Co % 128 != 0,
+# C % 64 != 0, H != W
+RAGGED_CONV_CASES = [(3, 136, 200, 24, 24), (2, 128, 136, 17, 23),
+                     (1, 264, 128, 64, 20)]
 ATTN_TOL = (1e-2, 1e-3)   # max|d| <= 1e-2 * max|ref| + 1e-3 (bf16 out, P)
 LSE_TOL = 1e-3            # max|d| of the f32 lse (same f32 scores)
 BWD_TOL = (2e-2, 2e-3)    # max|d| <= 2e-2 * max|ref| + 2e-3 (bf16 p and dS)
@@ -134,7 +157,7 @@ CONV_TOL = (1e-2, 1e-3)   # max|d| <= 1e-2 * max|ref| + 1e-3 (bf16 output)
 UNET_TOL = 5e-2           # max|d| / max|ref| of the UNet eps, bf16 chain
 LOSS_TOL = 1e-2           # relative difference of the training loss
 TRAIN_BATCH, WARM_STEPS = 8, 5
-SERVE_BATCH, SERVE_TIMED = 4, 2
+SERVE_BATCH, SERVE_TIMED = 4, 3
 SERVE_SEEDS = (11, 22, -33, 44)   # one client each; the third repeats solo
 
 
@@ -158,6 +181,21 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps):
+    """Device time of ``fn`` alone: ``reps`` calls captured into one CUDA
+    graph and replayed, so the host's launch cost drops out.  For the
+    kernels that take less time than the host needs to launch them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 3) / reps
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -166,13 +204,14 @@ def card_line():
 
 
 def build_kernels():
-    """nvcc both CUDA sources at once and compile the Triton programs
+    """nvcc every CUDA source at once and compile the Triton programs
     meanwhile."""
     import torch
     from fgdm_tpu_torch.kernels import _build, attention, conv, groupnorm
 
     t0 = time.perf_counter()
-    names = ("flash_attn_fwd", "flash_attn_bwd", "conv3x3")
+    names = ("flash_attn_fwd", "flash_attn_fwd_d512", "flash_attn_bwd",
+             "conv3x3")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         builds = [pool.submit(_build.build, n) for n in names]
         x = torch.randn(1, 128, 8, 8, device="cuda", dtype=torch.bfloat16)
@@ -183,6 +222,7 @@ def build_kernels():
         log(f"compiled Triton GroupNorm in {time.perf_counter() - t0:.1f}s")
         paths = [b.result() for b in builds]
     attention._lib()
+    attention._d512_lib()
     attention._bwd_lib()
     conv._lib()
     log(f"built {', '.join(p.name for p in paths)} in "
@@ -201,51 +241,105 @@ def bound(flops, nbytes, peak_flops):
 
 
 def attn_rows(gen):
-    """K1-K3 forward rows; at d=40/80 also the lse output against the plain
-    version's, and the output with lse against the output without."""
+    """K1-K3 forward rows; the lse output against the plain version's and
+    the output with lse against the output without; at d = 512 also the
+    rerun, bit for bit.  The d = 512 rows are timed as device time (CUDA
+    graph): the kernel takes less than the host's launch cost."""
     import torch
     import torch.nn.functional as F
     from fgdm_tpu_torch.kernels import attention
 
     rows = []
-    for label, tpu, b, h, n, d, with_lse, path in ATTN_CASES:
+    for label, tpu, b, h, n, d, with_lse, path, splits in ATTN_CASES:
         q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen,
                                dtype=torch.bfloat16) for _ in range(3))
         scale = d ** -0.5
-        out = attention.flash_attention(q, k, v, scale)
+        kw = {"splits": splits} if d == 512 else {}
+        out = attention.flash_attention(q, k, v, scale, **kw)
         ref, ref_lse = attention.attention_ref(q, k, v, scale,
                                                return_lse=True)
         err = (out.float() - ref.float()).abs().max().item()
         lim = ATTN_TOL[0] * ref.float().abs().max().item() + ATTN_TOL[1]
         ok = math.isfinite(err) and err <= lim
-        note = ""
-        if d in attention.BWD_HEAD_DIMS:
-            out_l, lse = attention.flash_attention(q, k, v, scale,
-                                                   return_lse=True)
-            lse_err = (lse - ref_lse).abs().max().item()
-            same = torch.equal(out_l, out)
-            ok = ok and math.isfinite(lse_err) and lse_err <= LSE_TOL and same
-            note = (f"  lse max|d|={lse_err:.3e} (tol {LSE_TOL}), output "
-                    f"with lse {'==' if same else '!='} without")
+        out_l, lse = attention.flash_attention(q, k, v, scale,
+                                               return_lse=True, **kw)
+        lse_err = (lse - ref_lse).abs().max().item()
+        same = torch.equal(out_l, out)
+        ok = ok and math.isfinite(lse_err) and lse_err <= LSE_TOL and same
+        note = (f"  lse max|d|={lse_err:.3e} (tol {LSE_TOL}), output "
+                f"with lse {'==' if same else '!='} without")
+        if d == 512:
+            used = splits or attention.kv_splits(b * h, n, n)
+            note += f", {used} KV slice(s), rerun bit-identical"
         reps = 20 if n * b >= 8192 else 50
-        ms = cuda_ms(lambda: attention.flash_attention(
+        timer = graph_ms if d == 512 else cuda_ms
+        def run():
+            return attention.flash_attention(q, k, v, scale,
+                                             return_lse=with_lse, **kw)
+
+        ms = timer(run, reps)
+        eager_ms = cuda_ms(run, reps) if d == 512 else ms
+        plain_ms = timer(lambda: attention.attention_ref(
             q, k, v, scale, return_lse=with_lse), reps)
-        plain_ms = cuda_ms(lambda: attention.attention_ref(
-            q, k, v, scale, return_lse=with_lse), reps)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=scale), reps)
         bound_ms, bound_by = bound(4.0 * b * h * n * n * d,
                                    4.0 * b * h * n * d * 2
                                    + (4.0 * b * h * n if with_lse else 0),
                                    PEAK_BF16_FLOPS)
         rows.append(dict(
-            name=label, route="cuda", source=ATTN_SRC, replaces=tpu,
+            name=label, route="cuda",
+            source=ATTN512_SRC if d == 512 else ATTN_SRC, replaces=tpu,
             key=("attn", d, n, n, with_lse), path=path, max_abs_err=err,
-            tol=lim, ok=ok, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=lib_ms))
+            tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
         log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}){note} "
             f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bound_ms:.4f} ms")
+            f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bound_ms:.4f} ms"
+            + (f"  (device times; eager {eager_ms:.4f} ms)" if d == 512
+               else ""))
+    return rows
+
+
+def combine_rows(gen):
+    """The combine pass of the d = 512 forward against ``combine_ref`` on
+    the plain split version's partials (the same f32 inputs to both)."""
+    import torch
+    from fgdm_tpu_torch.kernels import attention
+
+    rows = []
+    for n, splits, tpu in COMBINE_CASES:
+        label = f"flash_combine d512 N{n} {splits} slices"
+        q, k, v = (torch.randn(1, 1, n, 512, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(3))
+        parts = attention.attention_split_ref(q, k, v, 512 ** -0.5, splits)
+        parts = tuple(p.contiguous() for p in parts)
+        out, lse = attention.flash_combine(*parts)
+        ref, ref_lse = attention.combine_ref(*parts, torch.bfloat16)
+        again = attention.flash_combine(*parts)
+        err = (out.float() - ref.float()).abs().max().item()
+        lim = ATTN_TOL[0] * ref.float().abs().max().item() + ATTN_TOL[1]
+        lse_err = (lse - ref_lse).abs().max().item()
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        ok = (math.isfinite(err) and err <= lim and math.isfinite(lse_err)
+              and lse_err <= LSE_TOL and same)
+        ms = graph_ms(lambda: attention.flash_combine(*parts), 50)
+        eager_ms = cuda_ms(lambda: attention.flash_combine(*parts), 50)
+        plain_ms = graph_ms(lambda: attention.combine_ref(
+            *parts, torch.bfloat16), 50)
+        nbytes = 4.0 * splits * n * (512 + 2) + n * (2.0 * 512 + 4)
+        bound_ms, bound_by = bound(3.0 * splits * n * 512, nbytes,
+                                   PEAK_F32_FLOPS)
+        rows.append(dict(
+            name=label, route="cuda", source=ATTN512_SRC, replaces=tpu,
+            key=("combine", n, splits), path="chain", max_abs_err=err,
+            tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}), lse max|d|="
+            f"{lse_err:.3e} (tol {LSE_TOL}), rerun bit-identical {same} "
+            f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  "
+            f"(device times; eager {eager_ms:.4f} ms)")
     return rows
 
 
@@ -300,8 +394,9 @@ def bwd_rows(gen):
             rows.append(dict(
                 name=f"{kern} {suffix}", route="cuda", source=BWD_SRC,
                 replaces=tpu, key=(kern, d, n, n), path=path,
-                max_abs_err=err, ok=ok, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+                max_abs_err=err, ok=ok, ms=ms, eager_ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms))
             log(f"{kern} {suffix}: "
                 + " ".join(f"d{c} max|d|={errs[c][0]:.3e} (tol "
                            f"{errs[c][1]:.3e})" for c in names)
@@ -345,7 +440,7 @@ def gn_rows(gen):
         rows.append(dict(
             name=label, route="triton", source=GN_SRC, replaces=K4,
             key=("gn", shape, eps), path=path, max_abs_err=err, tol=GN_TOL,
-            ok=ok, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            ok=ok, ms=ms, eager_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=lib_ms))
         log(f"{label} eps={eps}: max|d|={err:.3e} max|d|/(1+|ref|)={rel:.3e}"
             f" (tol {GN_TOL}) {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms"
@@ -354,12 +449,20 @@ def gn_rows(gen):
     return rows
 
 
-def conv_rows(gen, keys):
-    """K7 against ``conv3x3_ref`` (f32 cuDNN conv, TF32 off) at launch keys
-    ``(N, C, Co, H, W)`` of the served batch.  The kernel's time includes
-    the per-call K-major bf16 weight copy the main path pays; the library
-    yardstick is ``F.conv2d`` in bf16 on a bf16 weight and bias made
-    beforehand."""
+_PREPASS_SEEN = set()
+
+
+def conv_rows(gen, keys, path="serve"):
+    """K7 (the pre-pass plus the wgmma kernel, as the wrapper runs them; the
+    weight's pack is made once, at the first call, and is in no time here)
+    against ``conv3x3_ref`` (f32 cuDNN conv, TF32 off), and the pre-pass
+    alone against its plain version, at launch keys ``(N, C, Co, H, W)``.
+    The library yardsticks are ``F.conv2d`` in bf16 on a bf16 weight and
+    bias made beforehand, and ``x.contiguous(memory_format=
+    torch.channels_last)`` for the pre-pass.  ``ms`` is device time (CUDA
+    graph): the small shapes take less than the host's launch cost, which
+    ``eager_ms`` includes.  The bound counts the bf16 pack the kernel reads,
+    not the f32 weight."""
     import torch
     import torch.nn.functional as F
     from fgdm_tpu_torch.kernels import conv
@@ -379,22 +482,48 @@ def conv_rows(gen, keys):
         lim = CONV_TOL[0] * ref.float().abs().max().item() + CONV_TOL[1]
         ok = math.isfinite(err) and err <= lim and same
         reps = 10 if h >= 512 else 30
-        ms = cuda_ms(lambda: conv.conv3x3_kernel(x, wt, b), reps)
-        plain_ms = cuda_ms(lambda: conv.conv3x3_ref(x, wt, b), reps)
+        ms = graph_ms(lambda: conv.conv3x3_kernel(x, wt, b), reps)
+        eager_ms = cuda_ms(lambda: conv.conv3x3_kernel(x, wt, b), reps)
+        plain_ms = graph_ms(lambda: conv.conv3x3_ref(x, wt, b), reps)
         wb, bb = wt.to(torch.bfloat16), b.to(torch.bfloat16)
-        lib_ms = cuda_ms(lambda: F.conv2d(x, wb, bb, 1, 1), reps)
-        nbytes = 2.0 * n * h * w * (c + co) + 4.0 * co * (9 * c + 1)
-        bound_ms, bound_by = bound(2.0 * n * h * w * 9 * c * co, nbytes,
-                                   PEAK_BF16_FLOPS)
+        lib_ms = graph_ms(lambda: F.conv2d(x, wb, bb, 1, 1), reps)
+        nbytes = 2.0 * n * h * w * (c + co) + 2.0 * co * 9 * c + 4.0 * co
+        flops = 2.0 * n * h * w * 9 * c * co
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        plan = conv.conv3x3_plan(n, c, co, h, w)
         rows.append(dict(
             name=label, route="cuda", source=CONV_SRC, replaces=K7,
-            key=("conv", n, c, co, h, w), path="serve", max_abs_err=err,
-            tol=lim, ok=ok, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=lib_ms))
+            key=("conv", n, c, co, h, w), path=path, max_abs_err=err,
+            tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
         log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}), rerun bit-identical "
-            f"{same} {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  F.conv2d bf16 {lib_ms:.4f} ms  bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+            f"{same} {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.0f} TF/s; eager {eager_ms:.4f} ms; tile "
+            f"{plan.th}x{plan.tw} of {plan.bm}, {plan.grid[0] * plan.grid[1]}"
+            f" blocks)  plain {plain_ms:.4f} ms  F.conv2d bf16 {lib_ms:.4f} "
+            f"ms  bound {bound_ms:.4f} ms ({bound_by})")
+        if (n, c, h, w) in _PREPASS_SEEN:   # one pre-pass row per input shape
+            continue
+        _PREPASS_SEEN.add((n, c, h, w))
+        xt = conv.nchw_to_nhwc(x)
+        pre_ok = torch.equal(xt, conv.nchw_to_nhwc_ref(x))
+        pre_ms = graph_ms(lambda: conv.nchw_to_nhwc(x), reps)
+        pre_eager = cuda_ms(lambda: conv.nchw_to_nhwc(x), reps)
+        pre_plain = graph_ms(lambda: conv.nchw_to_nhwc_ref(x), reps)
+        pre_lib = graph_ms(lambda: x.contiguous(
+            memory_format=torch.channels_last), reps)
+        pre_bound, pre_by = bound(0.0, 4.0 * x.numel(), PEAK_BF16_FLOPS)
+        rows.append(dict(
+            name=f"nchw_to_nhwc [{n},{c},{h},{w}]", route="cuda",
+            source=CONV_SRC, replaces=K7, key=("prepass", n, c, h, w),
+            path=path, max_abs_err=0.0 if pre_ok else float("inf"), tol=0.0,
+            ok=pre_ok, ms=pre_ms, eager_ms=pre_eager, plain_ms=pre_plain,
+            bound_ms=pre_bound, bound_by=pre_by, library_ms=pre_lib))
+        log(f"nchw_to_nhwc [{n},{c},{h},{w}]: {'==' if pre_ok else '!='} "
+            f"plain {'OK' if pre_ok else 'FAIL'}  kernel {pre_ms:.4f} ms "
+            f"(eager {pre_eager:.4f} ms)  plain {pre_plain:.4f} ms  "
+            f"channels_last copy {pre_lib:.4f} ms  bound {pre_bound:.4f} ms "
+            f"({pre_by})")
     return rows
 
 
@@ -434,8 +563,9 @@ def phase_kernels():
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = (attn_rows(gen) + bwd_rows(gen) + gn_rows(gen)
-            + conv_rows(gen, CONV_CASES))
+    rows = (attn_rows(gen) + combine_rows(gen) + bwd_rows(gen)
+            + gn_rows(gen) + conv_rows(gen, CONV_CASES)
+            + conv_rows(gen, RAGGED_CONV_CASES, path=None))
     grad_ok = conv_grad_check(gen)
     torch.cuda.empty_cache()
     return rows, grad_ok
@@ -474,6 +604,8 @@ def _counters():
     from fgdm_tpu_torch.kernels import attention, conv, groupnorm
 
     return {"attn": attention.flash_attention.launches,
+            "combine": attention.flash_combine.launches,
+            "prepass": conv.nchw_to_nhwc.launches,
             "flash_attn_bwd_dq": attention.flash_attention_bwd_dq.launches,
             "flash_attn_bwd_dkv": attention.flash_attention_bwd_dkv.launches,
             "gn": groupnorm.group_norm_silu_kernel.launches,
@@ -688,7 +820,10 @@ def phase_serve(ld, cldm):
             except Exception as e:  # reported below
                 errors.append(f"client {i}: {type(e).__name__}: {e}")
 
+        from fgdm_tpu_torch.kernels import conv as kconv
+
         reset_counts()
+        packs0 = kconv.packed_weight.packs
         clients = [threading.Thread(target=client, args=(i,))
                    for i in range(SERVE_BATCH)]
         for th in clients:
@@ -696,14 +831,21 @@ def phase_serve(ld, cldm):
         for th in clients:
             th.join(timeout=600)
         counts = read_counts()
+        packs = kconv.packed_weight.packs - packs0
         solo = _http(port, "/generate", {"prompts": [prompts[2]],
                                          "seed": SERVE_SEEDS[2]})
         health = json.loads(_http(port, "/healthz")[1])
         metrics = _http(port, "/metrics")[1].decode()
         srv.join(timeout=60)
-        # serve() returned after its last request and closed its batcher
-        left = [t.name for t in threading.enumerate()
-                if t is not threading.main_thread()]
+        # serve() returned after its last request and closed its batcher;
+        # the last handler thread may still be closing its socket
+        deadline = time.perf_counter() + 5.0
+        while True:
+            left = [t.name for t in threading.enumerate()
+                    if t is not threading.main_thread()]
+            if not left or time.perf_counter() > deadline:
+                break
+            time.sleep(0.05)
 
         ok, pngs = not errors and len(responses) == SERVE_BATCH, {}
         for i, (status, body, secs) in sorted(responses.items()):
@@ -728,16 +870,19 @@ def phase_serve(ld, cldm):
         families = (any(16 <= k[3] <= 64 for k in conv_keys),
                     any(k[3] >= 512 for k in conv_keys))
         launched = all(sum(counts[k].values()) > 0
-                       for k in ("attn", "gn", "conv"))
+                       for k in ("attn", "combine", "gn", "conv", "prepass"))
         ok = (ok and solo[0] == 200 and delta == 0 and coalesced
-              and all(families) and launched and health["status"] == "ok"
+              and all(families) and launched and packs == 0
+              and health["status"] == "ok"
               and vals.get("fgdm_images_total") == SERVE_BATCH + 1
               and not left)
         log(f"serve: {SERVE_BATCH} concurrent requests -> engine batches "
             f"{vals.get('fgdm_engine_batches_total')} with the solo repeat "
             f"(coalesced into one: {coalesced}); solo vs coalesced slot max "
             f"uint8 |d| = {delta}; healthz {health}; K7 whole-plane / VAE "
-            f"families launched {families}; errors {errors}; threads left "
+            f"families launched {families}; conv weights packed during the "
+            f"counted batch {packs} (of {len(kconv._PACKS)} kept from the "
+            f"warmup); errors {errors}; threads left "
             f"after the server stopped {left}; {'OK' if ok else 'FAIL'}")
         log_counts("serve", counts)
 
@@ -746,26 +891,38 @@ def phase_serve(ld, cldm):
 
         def timed():
             t0 = time.perf_counter()
-            for _ in range(SERVE_TIMED):
-                run()
-            return (time.perf_counter() - t0) / SERVE_TIMED
+            run()
+            return time.perf_counter() - t0
 
         torch.cuda.reset_peak_memory_stats()
-        warm = timed()
+        timed()
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"serve: serving preset (dpm-20 + ddim-20, 512^2, conv kernels "
-            f"on) {warm:.3f} s per engine batch of {SERVE_BATCH} (mean of "
-            f"{SERVE_TIMED}, host clock, generate() returns host arrays), "
-            f"{SERVE_BATCH / warm:.3f} images/s at batch {SERVE_BATCH}; peak "
-            f"memory {peak_gib:.2f} GiB")
-        profile("serve", run, warm)
-    # the same batch with the conv flags off (cuDNN's convs), for the cost
-    # of K7 end to end; the flags are read at call time.  One untimed batch
-    # first: cuDNN meets these batch-8 shapes for the first time here.
+    # The same batch with the conv flags on (K7) and off (cuDNN's convs),
+    # turn about, since the host's clock drifts between minutes; the flags
+    # are read at call time.  One untimed batch with the flags off first:
+    # cuDNN meets these batch-8 shapes for the first time here.
     run()
-    off = timed()
-    log(f"serve: the same batch with the conv flags off (F.conv2d) "
-        f"{off:.3f} s per batch, {SERVE_BATCH / off:.3f} images/s")
+    on, off = [], []
+    for _ in range(SERVE_TIMED):
+        with conv_flags():
+            on.append(timed())
+        off.append(timed())
+    warm = sum(on) / len(on)
+    log(f"serve: serving preset (dpm-20 + ddim-20, 512^2, conv kernels "
+        f"on) {warm:.3f} s per engine batch of {SERVE_BATCH} (mean of "
+        f"{SERVE_TIMED} {[round(t, 3) for t in on]}, host clock, generate() "
+        f"returns host arrays), {SERVE_BATCH / warm:.3f} images/s at batch "
+        f"{SERVE_BATCH}, {SERVE_BATCH / min(on):.3f} at best; peak memory "
+        f"{peak_gib:.2f} GiB")
+    cold = sum(off) / len(off)
+    log(f"serve: the same batch with the conv flags off (F.conv2d), turn "
+        f"about with the above: {cold:.3f} s per batch (mean of "
+        f"{SERVE_TIMED} {[round(t, 3) for t in off]}), "
+        f"{SERVE_BATCH / cold:.3f} images/s, {SERVE_BATCH / min(off):.3f} "
+        f"at best")
+    with conv_flags():
+        profile("serve", run, warm)
+    profile("serve with the conv flags off", run, cold)
     return ok, counts
 
 
@@ -795,8 +952,13 @@ def profile(path, run, warm_s):
     log(f"{path} device kernel time {total_ms:.1f} ms over a warm wall of "
         f"{1e3 * warm_s:.1f} ms: device busy share "
         f"{total_ms / (1e3 * warm_s):.3f}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
-    for name, (n, t) in top:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    # the top 15, and every kernel of the port below them
+    anon = "(anonymous namespace)::"
+    ours = (anon + "flash_", anon + "conv3x3_", anon + "nchw_to_nhwc_",
+            "_gn_")
+    for name, (n, t) in ranked[:15] + [
+            kv for kv in ranked[15:] if any(o in kv[0] for o in ours)]:
         log(f"  {t / 1e3:9.2f} ms {100 * t / 1e3 / total_ms:5.1f}% "
             f"{n:6d}x  {name[:110]}")
 
@@ -912,6 +1074,62 @@ def phase_train():
     return ok and cmp_ok, counts
 
 
+def sweep():
+    """K7's ``wgmma`` kernel alone (no pre-pass) at the planned tile (*) and
+    at each forced size, and the d = 512 forward at forced KV slice counts;
+    each held against its plain version, device times."""
+    import torch
+    from fgdm_tpu_torch.kernels import attention, conv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bad = 0
+    for n, c, co, h, w in CONV_CASES + RAGGED_CONV_CASES:
+        x = torch.randn(n, c, h, w, device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        wt = torch.randn(co, c, 3, 3, device="cuda", generator=gen) \
+            * (9 * c) ** -0.5
+        b = 0.1 * torch.randn(co, device="cuda", generator=gen)
+        ref = conv.conv3x3_ref(x, wt, b)
+        lim = CONV_TOL[0] * ref.float().abs().max().item() + CONV_TOL[1]
+        xt, (wk, bias) = conv.nchw_to_nhwc(x), conv.packed_weight(wt, b)
+        planned = conv.conv3x3_plan(n, c, co, h, w)
+        msgs = []
+        for plan in (planned, conv._tile(n, c, co, h, w, 64),
+                     conv._tile(n, c, co, h, w, 128)):
+            out = conv._launch(xt, wk, bias, co, plan)
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = math.isfinite(err) and err <= lim
+            bad += not ok
+            ms = graph_ms(lambda: conv._launch(xt, wk, bias, co, plan), 20)
+            msgs.append(f"{plan.bm}{'*' if plan is planned else ''} slots "
+                        f"{plan.grid[0] * plan.grid[1]} blocks {ms:.4f} ms "
+                        f"{'OK' if ok else 'FAIL'}")
+        log(f"conv3x3 [{n},{c},{h},{w}]->{co}: " + "; ".join(msgs))
+    for b, n in ((1, 1024), (1, 4096), (8, 1024)):
+        q, k, v = (torch.randn(b, 1, n, 512, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(3))
+        scale = 512 ** -0.5
+        ref = attention.attention_ref(q, k, v, scale)
+        lim = ATTN_TOL[0] * ref.float().abs().max().item() + ATTN_TOL[1]
+        tiles = n // attention._D512_BN
+        msgs = []
+        for splits in (None, 1, 2, 3, 4, 6, 8, 11, 16):
+            if splits and -(-tiles // -(-tiles // splits)) != splits:
+                continue   # the last slices would be empty
+            out = attention.flash_attention(q, k, v, scale, splits=splits)
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = math.isfinite(err) and err <= lim
+            bad += not ok
+            ms = graph_ms(lambda: attention.flash_attention(
+                q, k, v, scale, splits=splits), 20)
+            msgs.append(f"{splits or attention.kv_splits(b, n, n)}"
+                        f"{'' if splits else '*'} slices {ms:.4f} ms "
+                        f"{'OK' if ok else 'FAIL'}")
+        log(f"flash_attn_fwd d512 [{b},1,{n},512]: " + "; ".join(msgs))
+    log("FAILED" if bad else "sweep OK")
+    return 1 if bad else 0
+
+
 def main():
     import torch
 
@@ -924,7 +1142,12 @@ def main():
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    if sys.argv[1:] not in ([], ["--sweep"]):
+        log(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+        return 2
     build_kernels()
+    if sys.argv[1:]:
+        return sweep()
     rows, grad_ok = phase_kernels()
     unet_ok = phase_unet()
     chain_ok, chain, ld, cldm = phase_chain()
@@ -941,7 +1164,7 @@ def main():
     rows += conv_rows(torch.Generator(device="cuda").manual_seed(5),
                       sorted(set(serve["conv"]) - set(CONV_CASES)))
     torch.cuda.empty_cache()
-    log(f"K7 at the served batch's other conv shapes "
+    log(f"K7 and its pre-pass at the served batch's other conv shapes "
         f"{time.perf_counter() - t0:.1f}s")
     train_ok, train = phase_train()
 
@@ -952,13 +1175,13 @@ def main():
         r["launches"] = by_path.get(r["path"], {}).get(kind, {}).get(key, 0)
         if r["path"] and r["launches"] == 0:
             failures.append(f"{r['name']} not launched by the {r['path']}")
-    for kind in ("attn", "gn"):
+    for kind in ("attn", "combine", "gn"):
         if sum(chain[kind].values()) == 0:
             failures.append(f"{kind} not launched by the chain")
     for kind in ("attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "gn"):
         if sum(train[kind].values()) == 0:
             failures.append(f"{kind} not launched by the training step")
-    for kind in ("attn", "gn", "conv"):
+    for kind in ("attn", "combine", "gn", "conv", "prepass"):
         if sum(serve[kind].values()) == 0:
             failures.append(f"{kind} not launched by the served batch")
     if not grad_ok:
@@ -974,7 +1197,8 @@ def main():
     if not train_ok:
         failures.append("training step")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
+            "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "path")
     for path, counts in by_path.items():
         log(f"total launches in the {path}: " + ", ".join(
             f"{kind} {sum(c.values())}" for kind, c in counts.items()))

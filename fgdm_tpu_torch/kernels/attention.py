@@ -10,10 +10,14 @@ Nk % 512 == 0) on CUDA tensors, and to ``attention_ref`` otherwise
 kernels take bf16 and the head dims in ``KERNEL_HEAD_DIMS``; anything else
 through the gate raises.
 
-Forward (``csrc/flash_attn_fwd.cu``): one CUDA kernel stands in for the
-three TPU forward kernels (``_flash_kernel_t``, ``_flash_kernel``,
-``_flash_kernel_kv``): their split existed for TPU lane padding and VMEM
-residency, which have no counterpart on the GPU.  It optionally writes the
+Forward: ``csrc/flash_attn_fwd.cu`` (``mma.sync``) stands in for the TPU
+kernel ``_flash_kernel_t`` at the UNet's head dims 40 and 80;
+``csrc/flash_attn_fwd_d512.cu`` (``wgmma``, TMA) for ``_flash_kernel`` and
+``_flash_kernel_kv`` at the VAE's single 512-wide head.  The TPU's split into
+resident and streamed K/V existed for VMEM residency and has no counterpart
+here; instead the d = 512 kernel splits the keys across blocks when B*H is
+too small to fill the card (``kv_splits``) and a second kernel combines the
+partial results (``flash_combine``).  Both forwards optionally write the
 logsumexp of the scaled scores, the residual of the backward.
 
 Backward (``csrc/flash_attn_bwd.cu``): the dQ kernel and the dK/dV kernel
@@ -36,7 +40,8 @@ import torch
 
 from fgdm_tpu_torch.kernels import _build
 
-__all__ = ["attention_ref", "attention_bwd_ref", "flash_attention",
+__all__ = ["attention_ref", "attention_bwd_ref", "attention_split_ref",
+           "combine_ref", "kv_splits", "flash_combine", "flash_attention",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_backward", "FlashAttention", "use_flash",
            "multihead_attention", "KERNEL_HEAD_DIMS", "BWD_HEAD_DIMS"]
@@ -47,6 +52,9 @@ __all__ = ["attention_ref", "attention_bwd_ref", "flash_attention",
 KERNEL_HEAD_DIMS = (40, 80, 512)
 BWD_HEAD_DIMS = (40, 80)
 _MIN_N = 512
+SMS = 132           # streaming multiprocessors of an H100
+_D512_BM, _D512_BN = 64, 32   # the d = 512 kernel's query rows and keys a tile
+_LOG2E = 1.4426950408889634
 
 
 def attention_ref(q, k, v, scale, return_lse: bool = False):
@@ -82,6 +90,59 @@ def _bwd_ref(q, k, v, do, lse, delta, scale):
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def kv_splits(bh: int, nq: int, nk: int, sms: int = SMS) -> int:
+    """Into how many slices the d = 512 kernel cuts the keys of one row
+    tile, so that the blocks (row tiles x slices x B*H, one to an SM) fill
+    the card.  Least estimated time over 1..16 non-empty slices: waves of
+    blocks over the SMs times the key tiles a block walks, plus three
+    tile-times for what each block pays once (the Q load, the partial's
+    write and its re-read by the combine pass)."""
+    base = bh * -(-nq // _D512_BM)
+    tiles = nk // _D512_BN
+    best = None
+    for s in range(1, min(tiles, 16) + 1):
+        per = -(-tiles // s)
+        if -(-tiles // per) != s:
+            continue   # the last slices would be empty
+        cost = -(-base * s // sms) * (per + 3)
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    return best[1]
+
+
+def attention_split_ref(q, k, v, scale, splits: int):
+    """Plain version of the split-KV forward: the keys in ``splits`` slices
+    of whole 32-key tiles (the kernel's slices); per slice the unnormalised
+    output ``[S, B, H, Nq, D]`` f32 (P rounded to v's dtype before P.V),
+    the row maxima of the scores in base 2 (scaled by ``scale * log2 e``)
+    and the row sums of ``exp2`` ``[S, B, H, Nq]``."""
+    tiles = k.shape[2] // _D512_BN
+    per = -(-tiles // splits) * _D512_BN
+    t = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+        * (scale * _LOG2E)
+    outs, ms, ls = [], [], []
+    for s in range(splits):
+        ts = t[..., s * per:(s + 1) * per]
+        m = ts.max(dim=-1).values
+        p = torch.exp2(ts - m[..., None])
+        outs.append(torch.matmul(p.to(v.dtype),
+                                 v[:, :, s * per:(s + 1) * per]).float())
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+    return torch.stack(outs), torch.stack(ms), torch.stack(ls)
+
+
+def combine_ref(part_o, part_m, part_l, dtype):
+    """Plain version of the combine pass: rescale each slice by
+    ``exp2(m_i - m)``, sum, divide once, round to ``dtype``.  Returns the
+    output ``[B, H, Nq, D]`` and the natural-log lse ``[B, H, Nq]``."""
+    m = part_m.max(dim=0).values
+    w = torch.exp2(part_m - m)
+    l = (w * part_l).sum(dim=0)
+    out = (w[..., None] * part_o).sum(dim=0) / l[..., None]
+    return out.to(dtype), (m + torch.log2(l)) / _LOG2E
+
+
 def _typed(lib: ctypes.CDLL, name: str, n_ptr: int, n_int: int):
     """Declare ``name(ptr * n_ptr, int * n_int, float, stream) -> int``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -97,6 +158,21 @@ def _lib() -> ctypes.CDLL:
         lib.fgdm_flash_attn_block_n.argtypes = [ctypes.c_int]
         lib.fgdm_flash_attn_block_n.restype = ctypes.c_int
         lib.fgdm_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.fgdm_cuda_error_string.restype = ctypes.c_char_p
+        lib._fgdm_typed = True
+    return lib
+
+
+def _d512_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attn_fwd_d512")
+    if not getattr(lib, "_fgdm_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fgdm_flash_attn_fwd_d512.argtypes = (
+            [vp] * 8 + [ci] * 4 + [ctypes.c_float, vp])
+        lib.fgdm_flash_attn_fwd_d512.restype = ci
+        lib.fgdm_flash_combine.argtypes = [vp] * 5 + [ci] * 2 + [vp]
+        lib.fgdm_flash_combine.restype = ci
+        lib.fgdm_cuda_error_string.argtypes = [ci]
         lib.fgdm_cuda_error_string.restype = ctypes.c_char_p
         lib._fgdm_typed = True
     return lib
@@ -163,11 +239,89 @@ def _raise_on(lib, fn: str, rc: int) -> None:
                            + lib.fgdm_cuda_error_string(rc).decode())
 
 
-def flash_attention(q, k, v, scale, return_lse: bool = False):
+def flash_combine(part_o, part_m, part_l, dtype=torch.bfloat16):
+    """The combine pass of the split-KV forward over the partials of
+    ``attention_split_ref``'s layout.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises.  Returns
+    ``(out, lse)``.  Counts launches in ``flash_combine.launches`` keyed by
+    ``(nq, splits)``."""
+    if part_o.device.type == "cpu":
+        return combine_ref(part_o, part_m, part_l, dtype)
+    fn = "flash_combine"
+    if part_o.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {part_o.device}")
+    splits, b, h, nq, d = part_o.shape
+    for name, tsr, shape in (("part_o", part_o, (splits, b, h, nq, d)),
+                             ("part_m", part_m, (splits, b, h, nq)),
+                             ("part_l", part_l, (splits, b, h, nq))):
+        if (tsr.device != part_o.device or tsr.dtype != torch.float32
+                or tuple(tsr.shape) != shape or not tsr.is_contiguous()):
+            raise ValueError(f"{fn}: {name} must be contiguous f32 {shape} "
+                             f"on {part_o.device}")
+    if d != 512 or dtype != torch.bfloat16:
+        raise ValueError(f"{fn}: the kernel combines d=512 into bf16, got "
+                         f"d={d}, {dtype}")
+    out = torch.empty((b, h, nq, d), device=part_o.device, dtype=dtype)
+    lse = torch.empty((b, h, nq), device=part_o.device, dtype=torch.float32)
+    lib = _d512_lib()
+    stream = torch.cuda.current_stream(part_o.device).cuda_stream
+    with torch.cuda.device(part_o.device):
+        rc = lib.fgdm_flash_combine(
+            part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b * h * nq, splits, stream)
+    _raise_on(lib, fn, rc)
+    flash_combine.launches[(nq, splits)] += 1
+    return out, lse
+
+
+flash_combine.launches = collections.Counter()
+
+
+def _flash_d512(q, k, v, scale, return_lse, splits, b, h, nq, nk):
+    """The d = 512 route of ``flash_attention``: one launch that writes the
+    output when the keys are not split, else the partials and the combine
+    pass."""
+    fn = "flash_attention"
+    _block_n(fn, _D512_BN, 512, nk, KERNEL_HEAD_DIMS)
+    if splits is None:
+        splits = kv_splits(b * h, nq, nk)
+    tiles = nk // _D512_BN
+    if not 1 <= splits <= tiles or -(-tiles // -(-tiles // splits)) != splits:
+        raise ValueError(f"{fn}: {splits} splits of {tiles} key tiles would "
+                         "leave a split empty")
+    dev = q.device
+    out = lse = part_o = part_m = part_l = None
+    if splits == 1:
+        out = torch.empty_like(q)
+        if return_lse:
+            lse = torch.empty((b, h, nq), device=dev, dtype=torch.float32)
+    else:
+        part_o = torch.empty((splits, b, h, nq, 512), device=dev,
+                             dtype=torch.float32)
+        part_m = torch.empty((splits, b, h, nq), device=dev,
+                             dtype=torch.float32)
+        part_l = torch.empty_like(part_m)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _d512_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.fgdm_flash_attn_fwd_d512(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(out), ptr(lse),
+            ptr(part_o), ptr(part_m), ptr(part_l), b * h, nq, nk, splits,
+            float(scale), stream)
+    _raise_on(lib, fn, rc)
+    if splits > 1:
+        out, lse = flash_combine(part_o, part_m, part_l, q.dtype)
+    return out, lse
+
+
+def flash_attention(q, k, v, scale, return_lse: bool = False,
+                    splits: Optional[int] = None):
     """Flash-attention forward (K1-K3).  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises.  With
     ``return_lse`` also returns the f32 logsumexp ``[B, H, Nq]`` of the
-    scaled scores.
+    scaled scores.  At d = 512 the keys are cut into ``kv_splits`` slices
+    (``splits=`` forces a count) and ``flash_combine`` merges them.
 
     Counts launches in ``flash_attention.launches`` keyed by
     ``(d, nq, nk, return_lse)``.
@@ -179,6 +333,13 @@ def flash_attention(q, k, v, scale, return_lse: bool = False):
         return attention_ref(q, k, v, scale).to(q.dtype)
     b, h, nq, nk, d = _check("flash_attention", q, k,
                              {"q": q, "k": k, "v": v})
+    if d == 512:
+        out, lse = _flash_d512(q, k, v, scale, return_lse, splits, b, h, nq,
+                               nk)
+        flash_attention.launches[(d, nq, nk, bool(return_lse))] += 1
+        return (out, lse) if return_lse else out
+    if splits not in (None, 1):
+        raise ValueError(f"flash_attention: no KV split at d={d}")
     lib = _lib()
     _block_n("flash_attention", lib.fgdm_flash_attn_block_n(d), d, nk,
              KERNEL_HEAD_DIMS)

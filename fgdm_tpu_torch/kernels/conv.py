@@ -8,12 +8,16 @@ dtype.  The f32 bias is added to the f32 sum before the single cast, as the
 JAX kernel does (``conv.py:120-121``); the ``F.conv2d`` path of ``Conv2d``
 adds a bias already cast to bf16.
 
-``csrc/conv3x3.cu``: one CUDA kernel, an implicit GEMM straight over NCHW,
-stands in for the TPU kernel ``_kernel`` (``conv.py:100``) behind both of
-its callers, ``_conv3x3_fwd`` (whole planes) and ``_conv3x3_slab_fwd``
-(height/width slabs with a one-row halo).  The padded copy and the slabs
-existed for VMEM residency; the kernel zero-fills the halo by bounds checks.
-See the source for its design.
+``csrc/conv3x3.cu`` stands in for the TPU kernel ``_kernel``
+(``conv.py:100``) behind both of its callers, ``_conv3x3_fwd`` (whole
+planes) and ``_conv3x3_slab_fwd`` (height/width slabs with a one-row halo),
+with two CUDA kernels: a transposing pre-pass (``nchw_to_nhwc``) and an
+implicit GEMM on ``wgmma`` that loads a halo tile of the activations once per
+channel chunk for all nine taps (``conv3x3_kernel``).  The host side lives
+here: ``conv3x3_plan`` picks the tile per shape, ``packed_weight`` keeps the
+kernel's K-major bf16 weight and f32 bias per weight tensor until the weight
+changes, ``conv3x3_taps_ref`` is the kernel's algorithm in plain torch.  See
+the source for the kernels' design.
 
 Gates (``conv3x3_ok``, ``conv3x3_vae_ok``) keep the JAX package's shape
 rules and drop its backend test and its VMEM fit model
@@ -35,14 +39,25 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
+import weakref
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from fgdm_tpu_torch.kernels import _build
 
-__all__ = ["conv3x3_ref", "conv3x3_kernel", "Conv3x3", "conv3x3",
-           "conv3x3_ok", "conv3x3_vae_ok"]
+__all__ = ["conv3x3_ref", "conv3x3_taps_ref", "conv3x3_kernel", "Conv3x3",
+           "conv3x3", "conv3x3_ok", "conv3x3_vae_ok", "conv3x3_plan",
+           "ConvPlan", "pack_weight", "packed_weight", "nchw_to_nhwc",
+           "nchw_to_nhwc_ref"]
+
+SMS = 132                  # streaming multiprocessors of an H100
+SMEM_MAX = 232448          # dynamic shared memory one block may have
+_BN, _BK = 128, 64         # the kernel's output-channel tile and channel chunk
+_W_TILE = _BN * _BK * 2    # one (chunk, tap) of weights in shared memory
 
 
 def conv3x3_ref(x, w, b):
@@ -52,32 +67,224 @@ def conv3x3_ref(x, w, b):
     return out.to(x.dtype)
 
 
+def nchw_to_nhwc_ref(x):
+    """Plain version of the pre-pass: ``[N, C, H, W]`` to a contiguous
+    ``[N, H, W, C]``."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def pack_weight(w, b):
+    """The kernel's operands from a conv's parameters: w ``[Co, C, 3, 3]``
+    as the K-major bf16 matrix ``[Co, 9, C]`` (k = (ky*3 + kx)*C + c) and b
+    as a contiguous f32 copy, in one op each."""
+    co, c = w.shape[:2]
+    wk = w.detach().permute(0, 2, 3, 1).to(
+        torch.bfloat16, memory_format=torch.contiguous_format)
+    bias = b.detach().to(torch.float32, copy=True).contiguous()
+    return wk.view(co, 9, c), bias
+
+
+def _state(t):
+    return (t.data_ptr(), t._version, t.dtype, t.device, tuple(t.shape),
+            t.stride())
+
+
+# weight tensor -> (state, weak reference to the bias, wk, bias); an entry
+# goes when its weight dies
+_PACKS = WeakTensorKeyDictionary()
+
+
+def packed_weight(w, b):
+    """``pack_weight(w, b)``, kept per weight tensor.  A pack is reused while
+    the tensors it was made from are alive and unchanged: same storage,
+    layout and ``_version`` (an optimizer step, ``load_state_dict`` or any
+    other in-place write bumps it; a write through ``.data`` has a version
+    counter of its own and is not seen, so the port never writes parameters
+    that way).  The entry is keyed weakly by the weight itself, so a deleted
+    module's pack is freed with it, and a changed weight's entry is
+    overwritten, which frees its old pack.  A tensor made under
+    ``torch.inference_mode`` has no version counter to read and is packed
+    anew at every call (the port makes its parameters outside it).  Counts
+    the packs it makes in ``packed_weight.packs``."""
+    keep = not (w.is_inference() or b.is_inference())
+    if keep:
+        state = (_state(w), _state(b))
+        e = _PACKS.get(w)
+        if e is not None and e[0] == state and e[1]() is b:
+            return e[2], e[3]
+    wk, bias = pack_weight(w, b)
+    packed_weight.packs += 1
+    if keep:
+        _PACKS[w] = (state, weakref.ref(b), wk, bias)
+    return wk, bias
+
+
+packed_weight.packs = 0
+
+
+def conv3x3_taps_ref(xt, wk, bias):
+    """The kernel's algorithm in plain torch: xt ``[N, H, W, C]`` (the
+    pre-pass's output), wk ``[Co, 9, C]`` and bias ``[Co]`` f32 (a pack).
+    Nine shifted ``[pixels, C] x [C, Co]`` products over a zero halo, summed
+    in f32, the f32 bias added before the one rounding to xt's dtype.
+    Returns ``[N, Co, H, W]``."""
+    n, h, w, _ = xt.shape
+    xp = F.pad(xt.float(), (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros((n, h, w, wk.shape[0]), dtype=torch.float32,
+                      device=xt.device)
+    for tap in range(9):
+        ky, kx = divmod(tap, 3)
+        acc += xp[:, ky:ky + h, kx:kx + w] @ wk[:, tap].float().t()
+    out = (acc + bias.float()).to(xt.dtype)
+    return out.permute(0, 3, 1, 2).contiguous()
+
+
+class ConvPlan(NamedTuple):
+    """How one conv shape is cut into blocks: ``bm`` pixel slots a block
+    (64 or 128: one or two consumer warpgroups of one 64-row ``wgmma`` tile
+    each), of which the ``th x tw`` rectangle of output pixels uses
+    ``th * tw``; ``grid`` = (images x tile rows x tile columns, 128-wide
+    output-channel tiles); ``wst`` weight stages; ``smem`` bytes of dynamic
+    shared memory."""
+    bm: int
+    th: int
+    tw: int
+    tiles_y: int
+    tiles_x: int
+    grid: tuple
+    wst: int
+    smem: int
+
+
+def _smem_bytes(bm: int, th: int, tw: int, wst: int) -> int:
+    """``smem_bytes`` of ``csrc/conv3x3.cu``: 1 KiB of alignment slack, the
+    barriers, the weight ring, and the two halo stages (rounded to the
+    swizzle atom) or the epilogue's ``[128][bm + 8]`` tile, whichever is
+    larger (they share memory)."""
+    halo = 2 * (-(-(th + 2) * (tw + 2) * _BK * 2 // 1024) * 1024)
+    return 1024 + 1024 + wst * _W_TILE + max(halo, _BN * (bm + 8) * 2)
+
+
+# Relative time of a pixel slot by tile size: a 64-slot block streams the
+# same weight tiles from L2 as a 128-slot block for half the work (measured
+# 1.35-1.6x per slot at the 64^2 and 512^2 planes, NVIDIA H100 80GB HBM3,
+# 700 W, ``chip_smoke.py --sweep``).
+_SLOT_COST = {64: 1.5, 128: 1.0}
+
+
+def _tile(n: int, c: int, co: int, h: int, w: int, bm: int) -> ConvPlan:
+    """The plan with ``bm`` pixel slots a block: whole rows where w <= 64,
+    else 64-pixel row segments; as many rows as fit the slots."""
+    tw = min(w, 64)
+    th = max(1, min(bm // tw, h))
+    wst = 4 if bm == 64 else 6
+    tiles_y, tiles_x = -(-h // th), -(-w // tw)
+    return ConvPlan(bm, th, tw, tiles_y, tiles_x,
+                    (n * tiles_y * tiles_x, -(-co // _BN)), wst,
+                    _smem_bytes(bm, th, tw, wst))
+
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_plan(n: int, c: int, co: int, h: int, w: int) -> ConvPlan:
+    """The tile for x ``[n, c, h, w]`` -> ``co`` channels.  Among 128 and 64
+    pixel slots a block it takes the least estimated time, the blocks an SM
+    gets times the slots a block computes, among the sizes that give every
+    SM a block if any does."""
+    best = None
+    for bm in (128, 64):
+        plan = _tile(n, c, co, h, w, bm)
+        if bm > 64 and plan.th * plan.tw <= bm // 2:
+            continue   # the rectangle would leave half the slots idle
+        blocks = plan.grid[0] * plan.grid[1]
+        cost = (blocks < SMS, -(-blocks // SMS) * bm * _SLOT_COST[bm])
+        if best is None or cost < best[0]:
+            best = (cost, plan)
+    plan = best[1]
+    if plan.smem > SMEM_MAX or plan.th * plan.tw > plan.bm:
+        raise ValueError(f"conv3x3_plan: no tile for {(n, c, co, h, w)}: "
+                         f"{plan}")
+    return plan
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3")
     if not getattr(lib, "_fgdm_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fgdm_conv3x3.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+        lib.fgdm_conv3x3.argtypes = [vp] * 4 + [ci] * 10 + [vp]
         lib.fgdm_conv3x3.restype = ci
+        lib.fgdm_nchw_to_nhwc.argtypes = [vp] * 2 + [ci] * 3 + [vp]
+        lib.fgdm_nchw_to_nhwc.restype = ci
         lib.fgdm_cuda_error_string.argtypes = [ci]
         lib.fgdm_cuda_error_string.restype = ctypes.c_char_p
         lib._fgdm_typed = True
     return lib
 
 
+def _check_x(fn: str, x) -> None:
+    if x.dtype != torch.bfloat16 or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"{fn}: x must be a contiguous 4-d bf16 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.shape[1] % 8:
+        raise ValueError(f"{fn}: C={x.shape[1]} must be a multiple of 8")
+
+
+def _raise_on(lib, fn: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: "
+                           + lib.fgdm_cuda_error_string(rc).decode())
+
+
+def nchw_to_nhwc(x):
+    """The conv's pre-pass: x ``[N, C, H, W]`` bf16 to a contiguous
+    ``[N, H, W, C]`` by a hand-written tiled transpose.  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises.  Counts
+    launches in ``nchw_to_nhwc.launches`` keyed by ``(N, C, H, W)``."""
+    if x.device.type == "cpu":
+        return nchw_to_nhwc_ref(x)
+    _check_x("nchw_to_nhwc", x)
+    n, c, h, wd = x.shape
+    xt = torch.empty((n, h, wd, c), device=x.device, dtype=x.dtype)
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = lib.fgdm_nchw_to_nhwc(x.data_ptr(), xt.data_ptr(), n, c, h * wd,
+                                   stream)
+    _raise_on(lib, "nchw_to_nhwc", rc)
+    nchw_to_nhwc.launches[(n, c, h, wd)] += 1
+    return xt
+
+
+nchw_to_nhwc.launches = collections.Counter()
+
+
+def _launch(xt, wk, bias, co: int, plan: ConvPlan):
+    """The ``wgmma`` kernel on xt ``[N, H, W, C]`` and a weight pack with
+    the tile ``plan``; returns ``[N, co, H, W]`` or raises."""
+    n, h, wd, c = xt.shape
+    out = torch.empty((n, co, h, wd), device=xt.device, dtype=xt.dtype)
+    lib = _lib()
+    stream = torch.cuda.current_stream(xt.device).cuda_stream
+    with torch.cuda.device(xt.device):
+        rc = lib.fgdm_conv3x3(xt.data_ptr(), wk.data_ptr(), bias.data_ptr(),
+                              out.data_ptr(), n, c, co, h, wd, plan.bm,
+                              plan.th, plan.tw, plan.wst, plan.smem, stream)
+    _raise_on(lib, "conv3x3_kernel", rc)
+    return out
+
+
 def conv3x3_kernel(x, w, b):
-    """The 3x3 conv through K7.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises.  The weight is rearranged to
-    the kernel's K-major ``[Co, 3, 3, C]`` bf16 copy in one op with its
-    cast, once per call (training changes the weights).
+    """The 3x3 conv through K7: the pre-pass into ``[N, H, W, C]`` scratch,
+    then the ``wgmma`` kernel on the weight's pack (``packed_weight``: made
+    once per weight, not per call) with the tile of ``conv3x3_plan``.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernels or
+    raises.
 
     Counts launches in ``conv3x3_kernel.launches`` keyed by
     ``(N, C, Co, H, W)``."""
     if x.device.type == "cpu":
         return conv3x3_ref(x, w, b)
     fn = "conv3x3_kernel"
-    if x.dtype != torch.bfloat16 or x.dim() != 4 or not x.is_contiguous():
-        raise ValueError(f"{fn}: x must be a contiguous 4-d bf16 tensor, got "
-                         f"{x.dtype} {tuple(x.shape)}")
+    _check_x(fn, x)
     n, c, h, wd = x.shape
     co = w.shape[0]
     if tuple(w.shape) != (co, c, 3, 3) or tuple(b.shape) != (co,):
@@ -85,20 +292,9 @@ def conv3x3_kernel(x, w, b):
                          f"do not fit x {tuple(x.shape)}")
     if w.device != x.device or b.device != x.device:
         raise ValueError(f"{fn}: w and b must be on {x.device}")
-    if c % 8:
-        raise ValueError(f"{fn}: C={c} must be a multiple of 8")
-    wk = w.detach().permute(0, 2, 3, 1).to(
-        torch.bfloat16, memory_format=torch.contiguous_format)
-    bias = b.detach().float().contiguous()
-    out = torch.empty((n, co, h, wd), device=x.device, dtype=x.dtype)
-    lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = lib.fgdm_conv3x3(x.data_ptr(), wk.data_ptr(), bias.data_ptr(),
-                              out.data_ptr(), n, c, co, h, wd, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: "
-                           + lib.fgdm_cuda_error_string(rc).decode())
+    wk, bias = packed_weight(w, b)
+    out = _launch(nchw_to_nhwc(x), wk, bias, co,
+                  conv3x3_plan(n, c, co, h, wd))
     conv3x3_kernel.launches[(n, c, co, h, wd)] += 1
     return out
 

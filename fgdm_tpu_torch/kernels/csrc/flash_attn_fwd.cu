@@ -1,27 +1,32 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in / bf16 out.
+// Flash-attention forward at the UNet's head dims (40, 80) for Hopper
+// (sm_90a), bf16 in / bf16 out.
 //
-// Replaces three Pallas TPU kernels of fgdm_tpu/kernels/attention.py:
-//   _flash_kernel_t  (:157)  transposed layout, d <= 96 (UNet/ControlNet heads)
-//   _flash_kernel    (:121)  row-major, whole K/V resident (VAE d=512, N=1024)
-//   _flash_kernel_kv (:516)  K/V streamed over the grid (VAE d=512, N=4096)
-// The TPU needed three kernels for lane padding (the transposed layout) and
-// VMEM residency (the streaming grid).  Here one kernel computes the same
-// math, softmax(q k^T * scale) v, for every head dim it is instantiated for:
-// each block owns BM query rows of one (batch, head) and streams K/V tiles of
-// BN keys through shared memory with an online softmax, so no N x N matrix
-// ever reaches device memory.
+// Replaces the Pallas TPU kernel fgdm_tpu/kernels/attention.py:157
+// _flash_kernel_t (pallas_call at :257), the transposed-layout kernel for
+// d <= 96 of the UNet and ControlNet heads.  The transposed layout was for
+// the TPU's lane padding and has no counterpart here.  The two d = 512
+// kernels of the VAE mid-block, _flash_kernel (:121) and _flash_kernel_kv
+// (:516), are replaced by flash_attn_fwd_d512.cu.
+//
+// The kernel computes softmax(q k^T * scale) v: each block owns BM query
+// rows of one (batch, head) and streams K/V tiles of BN keys through shared
+// memory with an online softmax, so no N x N matrix ever reaches device
+// memory.  It optionally writes the logsumexp of the scaled scores, the
+// residual of the backward.
 //
 // Numerics follow the plain version (_xla_attention, attention.py:63-71):
 // scores and softmax statistics in f32, P cast to bf16 before P.V, f32
 // accumulation of the output, one division by the row sum at the end.
 //
-// What bounds it on the card: at d=40/80 the two products are 4*N^2*d
-// operations against 8*N*d bytes, far above the H100's ~295 op/byte ridge,
-// so the tensor cores and the exp() unit bound it.  This first version is
-// simple rather than fast: mma.sync m16n8k16 (not wgmma), scores and P staged
-// through shared memory, no TMA, no warp specialisation.  The output
-// accumulator lives in registers; each warp owns a fixed set of 16x8 output
-// tiles, which lets d=512 split its 512 columns across warps.
+// What bounds it on the card: the two products are 4*N^2*d operations
+// against 8*N*d bytes, far above the H100's ~295 op/byte ridge, so the
+// tensor cores and the exp() unit bound it.  The kernel reaches a few
+// percent of that bound: it multiplies with mma.sync m16n8k16 on fragments
+// read by 32-bit shared loads, stages the scores and P through shared
+// memory behind block-wide barriers and loads synchronously.  The d = 512
+// kernel's design (wgmma, TMA tiles behind mbarriers, P kept in registers)
+// is the way up for this one too.  The output accumulator lives in
+// registers; each warp owns a fixed set of 16x8 output tiles.
 //
 // The head dim is padded to a multiple of 16 for the q.k contraction with
 // zero-filled shared memory (d=40 -> 48); the P.V product needs only a
@@ -236,8 +241,6 @@ int fgdm_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
   switch (d) {
     case 40: return launch<40, 64, 64, 4>(q, k, v, o, l, bh, nq, nk, scale, s);
     case 80: return launch<80, 64, 64, 4>(q, k, v, o, l, bh, nq, nk, scale, s);
-    case 512: return launch<512, 16, 32, 4>(q, k, v, o, l, bh, nq, nk, scale,
-                                            s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -247,7 +250,6 @@ int fgdm_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
 int fgdm_flash_attn_block_n(int d) {
   switch (d) {
     case 40: case 80: return 64;
-    case 512: return 32;
     default: return 0;
   }
 }

@@ -7,6 +7,12 @@ mode through both of its callers (``_conv3x3_fwd``, ``_conv3x3_slab_fwd``),
 at the smallest shapes of ``tests/test_conv_kernel.py``.  The CUDA kernel
 itself is checked on the card by ``chip_smoke.py``.
 
+The redesigned kernel's host side is held here too: ``conv3x3_taps_ref``
+(the kernel's algorithm in plain torch: NHWC input, the packed ``[Co, 9, C]``
+weight, zero halo, f32 sum and bias, one rounding) against ``conv3x3_ref``
+and JAX's ``_xla_conv3x3``; the weight pack's cache; ``conv3x3_plan`` over
+the served chain's shapes and a grid of ragged admitted ones.
+
 Tolerances: forward 2e-4 (float32 both sides, ``test_conv_kernel.py``'s);
 ``Conv3x3`` gradients against ``jax.vjp(conv3x3)`` 1e-4 for dx and db, 1e-3
 for dw (a sum over N*H*W products); the conv-gated UNet 1e-4 * max(1,
@@ -350,3 +356,215 @@ def test_conv_gated_unet_matches_jax(monkeypatch, dtype):
     err = np.abs(nhwc(out) - ref).max()
     tol = UNET_TOL[dtype] * max(1.0, np.abs(ref).max())
     assert err <= tol, (err, tol)
+
+
+# --- the kernel's algorithm in plain torch ---------------------------------
+
+# (n, h, w, c, co): served-like (whole 16^2 planes, 128 channels and up) and
+# ragged (W % 8 != 0, Co % 128 != 0, C % 64 != 0, H != W)
+TAPS_CASES = [(2, 9, 9, 16, 24), (1, 16, 16, 128, 128), (2, 16, 16, 320, 128),
+              (3, 24, 24, 136, 200), (2, 17, 23, 128, 136),
+              (1, 64, 20, 264, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,c,co", TAPS_CASES)
+def test_conv_by_taps_matches_ref_and_xla(n, h, w, c, co, dtype):
+    rng = np.random.default_rng(h * w + c)
+    x = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    wt = (rng.standard_normal((3, 3, c, co)) * (9 * c) ** -0.5).astype(
+        np.float32)
+    b = rng.standard_normal((co,)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    xla = np.asarray(kc._xla_conv3x3(jnp.asarray(x, jd), jnp.asarray(wt, jd),
+                                     jnp.asarray(b)), np.float32)
+    xt, w_t, b_t = nchw(x).to(td), oihw(wt), torch.from_numpy(b)
+    wk, bias = tc.pack_weight(w_t, b_t)
+    assert wk.shape == (co, 9, c) and wk.dtype == torch.bfloat16
+    assert wk.is_contiguous() and bias.dtype == torch.float32
+    if dtype == "float32":   # the pack is bf16: compare on a bf16-exact w
+        w_t = w_t.to(torch.bfloat16).float()
+        xla = np.asarray(kc._xla_conv3x3(
+            jnp.asarray(x), jnp.asarray(np.transpose(w_t.numpy(),
+                                                     (2, 3, 1, 0))),
+            jnp.asarray(b)))
+    # k = (ky*3 + kx)*C + c
+    assert torch.equal(wk[:, 5, 7].float(),
+                       w_t[:, 7, 1, 2].to(torch.bfloat16).float())
+    x_nhwc = tc.nchw_to_nhwc(xt)
+    assert x_nhwc.shape == (n, h, w, c) and x_nhwc.is_contiguous()
+    out = tc.conv3x3_taps_ref(x_nhwc, wk, bias)
+    ref = tc.conv3x3_ref(xt, w_t, b_t)
+    assert out.shape == ref.shape == (n, co, h, w) and out.dtype == td
+    tol = TOL if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(nhwc(out), xla, rtol=tol, atol=tol)
+
+
+# --- the weight pack's cache -----------------------------------------------
+
+def _conv_module():
+    m = tlayers.Conv2d(16, 24, 3)
+    tlayers.init_params_(m, torch.Generator().manual_seed(0), 0.1)
+    return m
+
+
+def _pack_is_current(m, pack):
+    fresh = tc.pack_weight(m.weight, m.bias)
+    return torch.equal(pack[0], fresh[0]) and torch.equal(pack[1], fresh[1])
+
+
+def _add_(p):
+    with torch.no_grad():
+        p.add_(1.0)
+
+
+def _optimizer_step(m):
+    opt = torch.optim.AdamW(m.parameters(), lr=0.1)
+    m(torch.ones(1, 16, 4, 4)).sum().backward()
+    opt.step()
+
+
+def _load_state_dict(m):
+    m.load_state_dict({k: v + 1 for k, v in m.state_dict().items()})
+
+
+@pytest.mark.parametrize("change", [
+    lambda m: _add_(m.weight),
+    lambda m: _add_(m.bias),
+    _optimizer_step,
+    _load_state_dict,
+], ids=["w.add_", "b.add_", "optimizer.step", "load_state_dict"])
+def test_packed_weight_sees_in_place_updates(change):
+    m = _conv_module()
+    made = tc.packed_weight.packs
+    first = tc.packed_weight(m.weight, m.bias)
+    again = tc.packed_weight(m.weight, m.bias)
+    assert again[0] is first[0] and again[1] is first[1]
+    assert tc.packed_weight.packs == made + 1
+    change(m)
+    assert not _pack_is_current(m, first)
+    after = tc.packed_weight(m.weight, m.bias)
+    assert after[0] is not first[0]
+    assert _pack_is_current(m, after)
+    assert tc.packed_weight.packs == made + 2
+    # and the conv that follows computes with the new weight
+    x = torch.ones(1, 16, 4, 4)
+    torch.testing.assert_close(
+        tc.conv3x3_taps_ref(tc.nchw_to_nhwc(x), *after),
+        tc.conv3x3_ref(x, m.weight.to(torch.bfloat16), m.bias),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_packed_weight_does_not_keep_a_deleted_weight_alive():
+    import gc
+    import weakref
+
+    m = _conv_module()
+    pack = tc.packed_weight(m.weight, m.bias)
+    kept = len(tc._PACKS)
+    assert tc._PACKS[m.weight][2] is pack[0]
+    w_ref, wk_ref = weakref.ref(m.weight), weakref.ref(pack[0])
+    del m, pack
+    gc.collect()
+    assert w_ref() is None and wk_ref() is None
+    assert len(tc._PACKS) == kept - 1
+
+
+def test_packed_weight_frees_the_pack_of_a_changed_weight():
+    """A training loop repacks after every step; the packs of the steps
+    before must not pile up while the weight lives."""
+    import gc
+    import weakref
+
+    m = _conv_module()
+    olds = []
+    for _ in range(3):
+        olds.append(weakref.ref(tc.packed_weight(m.weight, m.bias)[0]))
+        _add_(m.weight)
+    current = tc.packed_weight(m.weight, m.bias)
+    gc.collect()
+    assert [r() for r in olds] == [None, None, None]
+    assert _pack_is_current(m, current)
+
+
+def test_packed_weight_is_per_tensor_and_per_bias():
+    a, b = _conv_module(), _conv_module()
+    pa, pb = (tc.packed_weight(m.weight, m.bias) for m in (a, b))
+    assert pa[0] is not pb[0]
+    other = torch.zeros(24)
+    assert tc.packed_weight(a.weight, other)[1] is not pa[1]
+    assert torch.equal(tc.packed_weight(a.weight, other)[1], other)
+
+
+# --- the plan function -----------------------------------------------------
+
+CONV_SHAPES = [  # (N, C, Co, H, W): the served batch's 26, then ragged ones
+    (8, 320, 640, 16, 16), (8, 640, 640, 16, 16), (8, 640, 1280, 16, 16),
+    (8, 960, 640, 16, 16), (8, 1280, 640, 16, 16), (8, 1280, 1280, 16, 16),
+    (8, 1920, 640, 16, 16), (8, 1920, 1280, 16, 16), (8, 2560, 1280, 16, 16),
+    (8, 320, 320, 32, 32), (8, 320, 640, 32, 32), (8, 640, 320, 32, 32),
+    (8, 640, 640, 32, 32), (8, 960, 320, 32, 32), (8, 960, 640, 32, 32),
+    (8, 1280, 640, 32, 32), (8, 1280, 1280, 32, 32), (8, 1920, 640, 32, 32),
+    (8, 320, 320, 64, 64), (8, 640, 320, 64, 64), (8, 640, 640, 64, 64),
+    (8, 960, 320, 64, 64), (4, 512, 512, 32, 32), (4, 256, 320, 64, 64),
+    (4, 512, 512, 64, 64), (4, 128, 128, 512, 512),
+    (3, 136, 200, 24, 24), (2, 128, 136, 17, 23), (1, 264, 128, 64, 20),
+]
+RAGGED_SHAPES = [(n, c, co, h, w)
+                 for n in (1, 3) for c in (128, 136) for co in (128, 200, 320)
+                 for h, w in ((16, 16), (17, 23), (24, 24), (33, 31),
+                              (64, 20), (64, 64))]
+
+
+def test_plan_cases_are_the_served_chain_shapes():
+    """``CONV_SHAPES[:26]`` (the cases below) are the gate-admitted conv
+    shapes of the served chain, the keys under which ``chip_smoke.py`` finds
+    K7 launched by the served batch."""
+    admitted = {(xs[1], ws[0], xs[2], xs[3])
+                for xs, ws in _served_chain_conv_shapes()
+                if tc.conv3x3_ok(xs, ws, torch.bfloat16)
+                or tc.conv3x3_vae_ok(xs, ws, torch.bfloat16)}
+    # batch 8 through the CFG-doubled UNets, 4 through the VAE and through
+    # the hint encoder (the enumeration runs the hint at 8)
+    assert admitted == {s[1:] for s in CONV_SHAPES[:26]}
+    assert len(admitted) == 26 and {s[0] for s in CONV_SHAPES[:26]} == {4, 8}
+    for n, c, co, h, w in RAGGED_SHAPES + CONV_SHAPES[26:]:
+        assert tc.conv3x3_ok((n, c, h, w), (co, c, 3, 3), torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,c,co,h,w", CONV_SHAPES + RAGGED_SHAPES)
+def test_conv3x3_plan(n, c, co, h, w):
+    p = tc.conv3x3_plan(n, c, co, h, w)
+    assert p.bm in (64, 128) and 1 <= p.th * p.tw <= p.bm
+    assert p.tw <= 64 and 2 <= p.wst <= 8
+    # shared memory: what one block may have, and the source's formula
+    halo = -(-(p.th + 2) * (p.tw + 2) * 128 // 1024) * 1024
+    assert p.smem == 2048 + p.wst * 16384 + max(2 * halo,
+                                                128 * (p.bm + 8) * 2)
+    assert p.smem <= tc.SMEM_MAX == 232448
+    # the grid covers every output exactly once
+    assert p.grid == (n * p.tiles_y * p.tiles_x, -(-co // 128))
+    cover = np.zeros((n, h, w), np.int32)
+    for bx in range(p.grid[0]):
+        x0 = (bx % p.tiles_x) * p.tw
+        r0 = (bx // p.tiles_x % p.tiles_y) * p.th
+        img = bx // (p.tiles_x * p.tiles_y)
+        assert r0 < h and x0 < w            # no block without an output
+        cover[img, r0:r0 + p.th, x0:x0 + p.tw] += 1
+    assert (cover == 1).all()
+    assert (p.grid[1] - 1) * 128 < co <= p.grid[1] * 128
+    # the halo boxes tile the plane: consecutive tiles' rectangles abut, and
+    # a box (th + 2) x (tw + 2) from (r0 - 1, x0 - 1) holds all nine taps
+    assert p.tiles_y == -(-h // p.th) and p.tiles_x == -(-w // p.tw)
+    assert p.th + 2 <= 256 and p.tw + 2 <= 256   # TMA box limits
+    # enough blocks for the card wherever the work allows it
+    if n * h * w * co >= tc.SMS * 64 * 128:
+        assert p.grid[0] * p.grid[1] >= tc.SMS == 132
+
+
+def test_conv3x3_plan_forced_tile_and_refusal():
+    assert tc._tile(8, 320, 320, 64, 64, 64).bm == 64
+    assert tc.conv3x3_plan(8, 320, 320, 64, 64).bm == 128
+    assert tc.conv3x3_plan(8, 640, 640, 16, 16).bm == 64   # 160 blocks, not 80

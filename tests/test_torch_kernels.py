@@ -13,12 +13,18 @@ Pallas flash backward in interpret mode, ``jax.vjp`` of ``_xla_attention``
 and ``jax.grad`` through the ``custom_vjp`` ops ``_flash_op`` /
 ``_fused_op`` (the pattern of ``tests/test_attention.py:110-159``).
 
+The d = 512 kernel's host logic: the plain split-KV version (per-slice
+partials, then the combine pass) is held against ``attention_ref`` and the
+streamed-KV Pallas kernel ``_flash_attention_kv`` in interpret mode, and
+``kv_splits`` against the block counts it is meant to give.
+
 Tolerances: float32 plain versions 1e-5 (sums in another order); bf16
 attention output 1e-2 * max|ref| (one bf16 rounding of P and of the output);
 Pallas kernels 2e-3 (the tolerance of ``tests/test_attention.py``); the
 logsumexp 1e-5; attention gradients atol 5e-3, rtol 1e-3 (the tolerance of
 ``tests/test_attention.py:131-136``); GroupNorm+SiLU gradients 1e-4 *
-max|ref|.
+max|ref|; the split-KV version 1e-5 against ``attention_ref`` (float32,
+sums in another order) and 2e-3 against the Pallas kernel.
 """
 
 import math
@@ -161,13 +167,20 @@ def test_library_is_keyed_by_source_hash():
 
 
 def test_kernel_head_dims_match_the_source():
-    """The Python list of head dims is the CUDA source's switch."""
+    """The Python list of head dims is the CUDA sources': the switch of
+    ``flash_attn_fwd.cu`` (d <= 96) and the one head dim of
+    ``flash_attn_fwd_d512.cu``."""
     src = (_build.CSRC / "flash_attn_fwd.cu").read_text()
     body = src[src.index("int fgdm_flash_attn_fwd("):
                src.index("int fgdm_flash_attn_block_n(")]
     dims = tuple(int(d) for d in re.findall(r"case (\d+): return launch", body))
+    wide = (_build.CSRC / "flash_attn_fwd_d512.cu").read_text()
+    dims += tuple(int(d) for d in re.findall(r"constexpr int D = (\d+);", wide))
     assert dims == ta.KERNEL_HEAD_DIMS
     assert {40, 80, 512} <= set(dims)   # the chain's self-attention heads
+    # the tile sizes the host logic assumes are the kernel's
+    assert f"constexpr int BM = {ta._D512_BM};" in wide
+    assert f"constexpr int BN = {ta._D512_BN};" in wide
 
 
 def nhwc_to_nchw(a):
@@ -400,3 +413,110 @@ def test_library_key_covers_the_shared_header(monkeypatch, tmp_path):
     (tmp_path / "mma_bf16.cuh").write_text(
         (tmp_path / "mma_bf16.cuh").read_text() + "\n// edited\n")
     assert _build.library_path("flash_attn_bwd") != before
+
+
+# --- the d = 512 forward's KV split and combine pass -----------------------
+
+def _split_inputs():
+    """[1, 1, 1024, 512] q/k/v in which row 0's scores against the first 32
+    keys (the first slice at every split count) stand ~100 above its scores
+    against all other keys, so that the other slices' weights for that row
+    underflow to 0 in the combine pass."""
+    rng = np.random.default_rng(512)
+    q, k, v = qkv(rng, 1, 1, 1024, 1024, 512)
+    u = q[0, 0, 0] / np.linalg.norm(q[0, 0, 0])
+    k[0, 0, :32] += 100.0 * u
+    return q, k, v
+
+
+_SPLIT_SCALE = 512 ** -0.5
+_split_cache = {}
+
+
+def _split_refs(monkeypatch):
+    if not _split_cache:
+        monkeypatch.setattr(ka, "_INTERPRET", True)
+        q, k, v = _split_inputs()
+        _split_cache["pallas"] = np.asarray(ka._flash_attention_kv(
+            *(jnp.asarray(a) for a in (q, k, v)), _SPLIT_SCALE, block_q=256,
+            block_k=256))
+        _split_cache["plain"] = ta.attention_ref(
+            *as_torch((q, k, v)), _SPLIT_SCALE, return_lse=True)
+    return _split_cache["pallas"], _split_cache["plain"]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_split_kv_matches_plain_and_pallas(splits, monkeypatch):
+    pallas, (ref, ref_lse) = _split_refs(monkeypatch)
+    q, k, v = as_torch(_split_inputs())
+    part_o, part_m, part_l = ta.attention_split_ref(q, k, v, _SPLIT_SCALE,
+                                                    splits)
+    assert part_o.shape == (splits, 1, 1, 1024, 512)
+    assert part_m.shape == part_l.shape == (splits, 1, 1, 1024)
+    if splits > 1:
+        # row 0's maximum in every later slice lies far below the first's
+        gap = (part_m[0, 0, 0, 0] - part_m[1:, 0, 0, 0].max()).item()
+        assert gap > 100, gap
+    out, lse = ta.flash_combine(part_o, part_m, part_l, torch.float32)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=1e-4,
+                               rtol=1e-6)
+    np.testing.assert_allclose(out.numpy(), pallas, atol=2e-3)
+    assert np.isfinite(out.numpy()).all()
+
+
+def test_split_kv_bf16_rounds_p_once():
+    """In bf16 the split version rounds P before P.V as ``attention_ref``
+    does; the combined output stays within one bf16 rounding of it."""
+    rng = np.random.default_rng(3)
+    q, k, v = as_torch(qkv(rng, 2, 1, 64, 256, 512), torch.bfloat16)
+    ref = ta.attention_ref(q, k, v, _SPLIT_SCALE)
+    out, _ = ta.combine_ref(*ta.attention_split_ref(q, k, v, _SPLIT_SCALE,
+                                                    4), torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    tol = 1e-2 * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+# (B*H, N) of the chain's and the training step's VAE mid-block attention,
+# the split count and the blocks (64-row tiles x splits x B*H) it gives
+@pytest.mark.parametrize("bh,n,want,blocks", [
+    (1, 1024, 8, 128), (1, 4096, 2, 128), (8, 1024, 1, 128)])
+def test_kv_splits_fill_the_card(bh, n, want, blocks):
+    """One wave of blocks over the 132 SMs.  With 64-row tiles the three
+    shapes have 16, 64 and 128 row tiles, so no split count gives between
+    129 and 132 blocks: 128 (97 % of the SMs) in one wave beats 144-256 in
+    two, and [8, 1, 1024, 512] takes one split."""
+    s = ta.kv_splits(bh, n, n)
+    assert s == want
+    assert bh * (n // ta._D512_BM) * s == blocks >= 0.95 * ta.SMS
+
+
+@pytest.mark.parametrize("bh", [1, 2, 3, 8, 64])
+@pytest.mark.parametrize("nq,nk", [(512, 512), (1024, 1024), (4096, 4096),
+                                    (1000, 1536), (64, 32)])
+def test_kv_splits_leave_no_split_empty(bh, nq, nk):
+    s = ta.kv_splits(bh, nq, nk)
+    tiles = nk // ta._D512_BN
+    per = -(-tiles // s)
+    assert 1 <= s <= min(tiles, 16)
+    assert (s - 1) * per < tiles <= s * per
+    # several waves of row tiles are never cut further
+    if bh * -(-nq // ta._D512_BM) >= 4 * ta.SMS:
+        assert s == 1
+
+
+def test_d512_cpu_route_ignores_the_split_and_counts_nothing():
+    rng = np.random.default_rng(4)
+    q, k, v = as_torch(qkv(rng, 1, 1, 64, 128, 512))
+    before = (sum(ta.flash_attention.launches.values()),
+              sum(ta.flash_combine.launches.values()))
+    ref = ta.attention_ref(q, k, v, _SPLIT_SCALE)
+    for splits in (None, 2):
+        out = ta.flash_attention(q, k, v, _SPLIT_SCALE, splits=splits)
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert before == (sum(ta.flash_attention.launches.values()),
+                      sum(ta.flash_combine.launches.values()))
+    part = torch.empty(2, 1, 1, 4, 512, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ta.flash_combine(part, part[..., 0], part[..., 0])
