@@ -2,15 +2,17 @@
 
     python3 chip_smoke.py [--sweep]
 
-With ``--sweep`` it builds the kernels, times K7 at each forced tile size
-and the d = 512 forward at forced KV slice counts (how ``conv3x3_plan``'s
-cost weights and ``kv_splits`` were chosen), and exits.  With no argument it
-builds the port's kernels from the sources in this checkout (one ``nvcc``
-per CUDA source, started together), then:
+With ``--sweep`` it builds the kernels, times K1 at each tile choice (keys
+per tile, ring stages, consumer warpgroups), K7 at each forced tile size and
+the d = 512 forward at forced KV slice counts (how ``flash_fwd_plan``,
+``conv3x3_plan``'s cost weights and ``kv_splits`` were chosen), and exits.
+With no argument it builds the port's kernels from the sources in this
+checkout (one ``nvcc`` per CUDA source, started together), then:
 
 1. prints the card's name and power limit;
 2. holds every kernel against its plain PyTorch version on the card at the
    shapes the three paths below give it (the flash forward's lse output,
+   K1 also at two ragged query lengths the gate admits,
    the d = 512 forward with and without a KV split and its combine pass,
    the flash backward's dQ and dK/dV, the direct 3x3 conv with its
    transposing pre-pass at the serving shapes and at three ragged shapes
@@ -18,9 +20,12 @@ per CUDA source, started together), then:
    no atomics), checks ``Conv3x3``'s gradients against autograd through
    the plain conv, and times kernel, plain version and the PyTorch library
    call that computes the same function (the yardstick, never used by the
-   port).  Kernels that take less device time than the host needs to launch
-   them are timed as CUDA-graph replays (``ms``) and eagerly (``eager_ms``);
-   replays of a small shape find their operands in L2;
+   port).  The forward attention kernels, GroupNorm, the combine pass, K7
+   and its pre-pass are timed as CUDA-graph replays (``ms``, device time)
+   and eagerly (``eager_ms``, which adds the host's launch cost where that
+   is longer); replays of a small shape find their operands in L2.  Each
+   bound counts the exponentials of the attention kernels beside their
+   tensor operations and bytes (``bound_term``);
 3. runs one full-width SD-1.4 UNet forward (with the FG-DM adapter) with the
    kernels on and with the plain versions, and compares;
 4. the chain path: drives the full-width text->seg->image chain
@@ -64,6 +69,7 @@ import base64
 import concurrent.futures
 import contextlib
 import gc
+import itertools
 import json
 import math
 import struct
@@ -77,6 +83,8 @@ import zlib
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
+# exp on the special-function units: 16 a clock per SM x 132 SMs x ~1.83 GHz
+PEAK_EXPS = 3.9e12
 
 ATTN_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_fwd.cu"
 ATTN512_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_fwd_d512.cu"
@@ -91,30 +99,51 @@ K5 = "fgdm_tpu/kernels/attention.py:299"   # _flash_bwd_dq_kernel_t
 K6 = "fgdm_tpu/kernels/attention.py:329"   # _flash_bwd_dkv_kernel_t
 K7 = "fgdm_tpu/kernels/conv.py:100"        # _kernel (direct 3x3 conv)
 
-# (label, TPU kernel, batch, heads, N, d, lse, path, splits): the
+# (label, TPU kernel, batch, heads, Nq, Nk, d, lse, path, splits): the
 # self-attention shapes of the chain at batch 1 (CFG doubles the UNet batch;
-# the VAE decodes batch 1) and of the training step at batch 8 (the frozen
+# the VAE decodes batch 1), of the training step at batch 8 (the frozen
 # input blocks launch the forward alone, the blocks that need a gradient
-# with lse; the VAE encoder's mid-block at 32^2).  ``splits`` None is the
-# wrapper's own choice (at d = 512: 8, 2 and 1 KV slices at the three
-# shapes); the last two rows force the other case, no path runs them.
+# with lse; the VAE encoder's mid-block at 32^2) and of the served batch of
+# 4 (CFG: 8; factor 1 at 32^2 latents, factor 2 at 64^2).  ``splits`` None
+# is the wrapper's own choice (at d = 512: 8, 2 and 1 KV slices at the three
+# shapes); two d = 512 rows force the other case, and two K1 rows have a
+# ragged query length the gate admits (Nq != Nk, Nq % 64 != 0): no path runs
+# those four.
 ATTN_CASES = [
-    ("flash_attn_fwd d40 N1024", K1, 2, 8, 1024, 40, False, "chain", None),
-    ("flash_attn_fwd d40 N4096", K1, 2, 8, 4096, 40, False, "chain", None),
-    ("flash_attn_fwd d80 N1024", K1, 2, 8, 1024, 80, False, "chain", None),
-    ("flash_attn_fwd d512 N1024", K2, 1, 1, 1024, 512, False, "chain", None),
-    ("flash_attn_fwd d512 N4096", K3, 1, 1, 4096, 512, False, "chain", None),
-    ("flash_attn_fwd d40 N1024 [8,8] train", K1, 8, 8, 1024, 40, False,
+    ("flash_attn_fwd d40 N1024", K1, 2, 8, 1024, 1024, 40, False, "chain",
+     None),
+    ("flash_attn_fwd d40 N4096", K1, 2, 8, 4096, 4096, 40, False, "chain",
+     None),
+    ("flash_attn_fwd d80 N1024", K1, 2, 8, 1024, 1024, 80, False, "chain",
+     None),
+    ("flash_attn_fwd d512 N1024", K2, 1, 1, 1024, 1024, 512, False, "chain",
+     None),
+    ("flash_attn_fwd d512 N4096", K3, 1, 1, 4096, 4096, 512, False, "chain",
+     None),
+    ("flash_attn_fwd d40 N1024 [8,8] train", K1, 8, 8, 1024, 1024, 40, False,
      "train", None),
-    ("flash_attn_fwd+lse d40 N1024 [8,8] train", K1, 8, 8, 1024, 40, True,
-     "train", None),
-    ("flash_attn_fwd d512 N1024 [8,1] train", K2, 8, 1, 1024, 512, False,
-     "train", None),
-    ("flash_attn_fwd d512 N1024 one KV slice", K2, 1, 1, 1024, 512, False,
-     None, 1),
+    ("flash_attn_fwd+lse d40 N1024 [8,8] train", K1, 8, 8, 1024, 1024, 40,
+     True, "train", None),
+    ("flash_attn_fwd d512 N1024 [8,1] train", K2, 8, 1, 1024, 1024, 512,
+     False, "train", None),
+    ("flash_attn_fwd d40 N1024 [8,8] serve", K1, 8, 8, 1024, 1024, 40, False,
+     "serve", None),
+    ("flash_attn_fwd d40 N4096 [8,8] serve", K1, 8, 8, 4096, 4096, 40, False,
+     "serve", None),
+    ("flash_attn_fwd d80 N1024 [8,8] serve", K1, 8, 8, 1024, 1024, 80, False,
+     "serve", None),
+    ("flash_attn_fwd d512 N1024 one KV slice", K2, 1, 1, 1024, 1024, 512,
+     False, None, 1),
     ("flash_attn_fwd+lse d512 N1024 [8,1] two KV slices", K2, 8, 1, 1024,
-     512, True, None, 2),
+     1024, 512, True, None, 2),
+    ("flash_attn_fwd+lse d40 Nq520 Nk1024 [1,3] ragged", K1, 1, 3, 520, 1024,
+     40, True, None, None),
+    ("flash_attn_fwd d80 Nq600 Nk1024 [1,3] ragged", K1, 1, 3, 600, 1024, 80,
+     False, None, None),
 ]
+# (batch, heads, N, d): where ``--sweep`` times K1 at every tile choice
+K1_SWEEP = [(2, 8, 4096, 40), (8, 8, 4096, 40), (8, 8, 1024, 40),
+            (2, 8, 1024, 40), (8, 8, 1024, 80)]
 # (N, splits, TPU kernel): the combine pass of the d = 512 forward at the
 # chain's two VAE decodes (256^2 and 512^2 images)
 COMBINE_CASES = [(1024, 8, K2), (4096, 2, K3)]
@@ -165,20 +194,26 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+def cuda_ms(fn, reps, rounds=2):
+    """Device time of ``fn`` per call over ``reps`` back-to-back calls
+    (where ``fn`` is shorter than its launch cost, the host's time), after
+    three warm-up calls; the least of ``rounds`` such means."""
     import torch
 
-    fn()
+    for _ in range(3):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    best = math.inf
+    for _ in range(rounds):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
 
 
 def graph_ms(fn, reps):
@@ -193,7 +228,7 @@ def graph_ms(fn, reps):
     with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
-    return cuda_ms(graph.replay, 3) / reps
+    return cuda_ms(graph.replay, 3, rounds=1) / reps
 
 
 def card_line():
@@ -234,25 +269,37 @@ def build_kernels():
                 log(f"  ptxas {path.name.split('-')[0]}: " + line.strip())
 
 
-def bound(flops, nbytes, peak_flops):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+def bound(flops, nbytes, peak_flops, exps=0.0):
+    """``(ms, by, term)``: the least time for ``flops`` operations at
+    ``peak_flops``, ``exps`` exponentials at ``PEAK_EXPS`` and ``nbytes``
+    at the HBM rate, the larger of the three.  ``by`` is "operations" (the
+    tensor-core, f32 or exp term) or "bytes"; ``term`` names which of the
+    four: "tensor", "f32", "exp" or "bytes"."""
+    terms = {("tensor" if peak_flops == PEAK_BF16_FLOPS else "f32"):
+             flops / peak_flops, "exp": exps / PEAK_EXPS,
+             "bytes": nbytes / PEAK_BYTES}
+    term = max(terms, key=terms.get)
+    return (1e3 * terms[term], "bytes" if term == "bytes" else "operations",
+            term)
 
 
 def attn_rows(gen):
-    """K1-K3 forward rows; the lse output against the plain version's and
-    the output with lse against the output without; at d = 512 also the
-    rerun, bit for bit.  The d = 512 rows are timed as device time (CUDA
-    graph): the kernel takes less than the host's launch cost."""
+    """K1-K3 forward rows: the output against the plain version's, the lse
+    output against the plain version's, the output with lse against the
+    output without, and the rerun, bit for bit.  Kernel and SDPA are timed
+    as device time (CUDA graph replays, ``ms``) and eagerly (``eager_ms``,
+    the timer of PR 1-4's K1 figures; SDPA's is logged), the plain version
+    as a replay up to 2^26 scores, eagerly above."""
     import torch
     import torch.nn.functional as F
     from fgdm_tpu_torch.kernels import attention
 
     rows = []
-    for label, tpu, b, h, n, d, with_lse, path, splits in ATTN_CASES:
-        q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen,
-                               dtype=torch.bfloat16) for _ in range(3))
+    for label, tpu, b, h, nq, nk, d, with_lse, path, splits in ATTN_CASES:
+        q = torch.randn(b, h, nq, d, device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(b, h, nk, d, device="cuda", generator=gen,
+                            dtype=torch.bfloat16) for _ in range(2))
         scale = d ** -0.5
         kw = {"splits": splits} if d == 512 else {}
         out = attention.flash_attention(q, k, v, scale, **kw)
@@ -265,39 +312,59 @@ def attn_rows(gen):
                                                return_lse=True, **kw)
         lse_err = (lse - ref_lse).abs().max().item()
         same = torch.equal(out_l, out)
-        ok = ok and math.isfinite(lse_err) and lse_err <= LSE_TOL and same
+        rerun = torch.equal(attention.flash_attention(q, k, v, scale, **kw),
+                            out)
+        ok = (ok and math.isfinite(lse_err) and lse_err <= LSE_TOL and same
+              and rerun)
         note = (f"  lse max|d|={lse_err:.3e} (tol {LSE_TOL}), output "
-                f"with lse {'==' if same else '!='} without")
+                f"with lse {'==' if same else '!='} without, rerun "
+                f"bit-identical {rerun}")
         if d == 512:
-            used = splits or attention.kv_splits(b * h, n, n)
-            note += f", {used} KV slice(s), rerun bit-identical"
-        reps = 20 if n * b >= 8192 else 50
-        timer = graph_ms if d == 512 else cuda_ms
+            used = splits or attention.kv_splits(b * h, nq, nk)
+            note += f", {used} KV slice(s)"
+        else:
+            plan = attention.flash_fwd_plan(b * h, nq, nk, d)
+            vt_ms = graph_ms(lambda: v.transpose(2, 3).contiguous(), 20)
+            note += (f", tile {plan.bn} keys x {plan.stages} stages x "
+                     f"{plan.wgs} warpgroup(s), "
+                     f"{plan.grid[0] * plan.grid[1]} blocks, of the kernel "
+                     f"time the V^T copy {vt_ms:.4f} ms")
+        reps = 20 if nq * b >= 8192 else 50
+
         def run():
             return attention.flash_attention(q, k, v, scale,
                                              return_lse=with_lse, **kw)
 
-        ms = timer(run, reps)
-        eager_ms = cuda_ms(run, reps) if d == 512 else ms
-        plain_ms = timer(lambda: attention.attention_ref(
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+        ms = graph_ms(run, reps)
+        eager_ms = cuda_ms(run, reps)
+        # the plain version's f32 scores take GBs at N = 4096: eagerly there
+        # (the launch cost is nothing beside it), not ``reps`` copies in one
+        # graph's pool
+        plain_timer = graph_ms if b * h * nq * nk <= 1 << 26 else cuda_ms
+        plain_ms = plain_timer(lambda: attention.attention_ref(
             q, k, v, scale, return_lse=with_lse), reps)
-        lib_ms = timer(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale), reps)
-        bound_ms, bound_by = bound(4.0 * b * h * n * n * d,
-                                   4.0 * b * h * n * d * 2
-                                   + (4.0 * b * h * n if with_lse else 0),
-                                   PEAK_BF16_FLOPS)
+        lib_ms = graph_ms(sdpa, reps)
+        lib_eager = cuda_ms(sdpa, reps)
+        bound_ms, bound_by, term = bound(
+            4.0 * b * h * nq * nk * d,
+            2.0 * b * h * d * (2 * nq + 2 * nk)
+            + (4.0 * b * h * nq if with_lse else 0), PEAK_BF16_FLOPS,
+            exps=1.0 * b * h * nq * nk)
         rows.append(dict(
             name=label, route="cuda",
             source=ATTN512_SRC if d == 512 else ATTN_SRC, replaces=tpu,
-            key=("attn", d, n, n, with_lse), path=path, max_abs_err=err,
+            key=("attn", d, nq, nk, with_lse), path=path, max_abs_err=err,
             tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+            bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
+            library_ms=lib_ms))
         log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}){note} "
-            f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bound_ms:.4f} ms"
-            + (f"  (device times; eager {eager_ms:.4f} ms)" if d == 512
-               else ""))
+            f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms (eager "
+            f"{eager_ms:.4f})  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms "
+            f"(eager {lib_eager:.4f})  bound {bound_ms:.4f} ms ({term}; "
+            f"{100 * bound_ms / ms:.1f} % of it)")
     return rows
 
 
@@ -328,13 +395,14 @@ def combine_rows(gen):
         plain_ms = graph_ms(lambda: attention.combine_ref(
             *parts, torch.bfloat16), 50)
         nbytes = 4.0 * splits * n * (512 + 2) + n * (2.0 * 512 + 4)
-        bound_ms, bound_by = bound(3.0 * splits * n * 512, nbytes,
-                                   PEAK_F32_FLOPS)
+        bound_ms, bound_by, term = bound(3.0 * splits * n * 512, nbytes,
+                                         PEAK_F32_FLOPS)
         rows.append(dict(
             name=label, route="cuda", source=ATTN512_SRC, replaces=tpu,
             key=("combine", n, splits), path="chain", max_abs_err=err,
             tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+            bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
+            library_ms=None))
         log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}), lse max|d|="
             f"{lse_err:.3e} (tol {LSE_TOL}), rerun bit-identical {same} "
             f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
@@ -388,7 +456,9 @@ def bwd_rows(gen):
                  2 * 5.0 * bhnd + 4 * 2.0 * bhn),
                 ("flash_attn_bwd_dkv", K6, ms_dkv, "kv", 8.0 * bhnd * n,
                  2 * 6.0 * bhnd + 4 * 2.0 * bhn)):
-            bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            # each recomputes P: one exp per score
+            bound_ms, bound_by, term = bound(flops, nbytes, PEAK_BF16_FLOPS,
+                                             exps=1.0 * b * h * n * n)
             err = max(errs[c][0] for c in names)
             ok = all(oks[c] for c in names)
             rows.append(dict(
@@ -396,14 +466,14 @@ def bwd_rows(gen):
                 replaces=tpu, key=(kern, d, n, n), path=path,
                 max_abs_err=err, ok=ok, ms=ms, eager_ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=lib_ms))
+                bound_term=term, library_ms=lib_ms))
             log(f"{kern} {suffix}: "
                 + " ".join(f"d{c} max|d|={errs[c][0]:.3e} (tol "
                            f"{errs[c][1]:.3e})" for c in names)
                 + f", rerun bit-identical {all(oks[c] for c in names)} "
                 f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
                 f"backward {plain_ms:.4f} ms  sdpa backward {lib_ms:.4f} ms"
-                f"  bound {bound_ms:.4f} ms ({bound_by})")
+                f"  bound {bound_ms:.4f} ms ({term})")
     return rows
 
 
@@ -427,25 +497,33 @@ def gn_rows(gen):
         err = (out.float() - ref.float()).abs().max().item()
         ok = math.isfinite(rel) and rel <= GN_TOL
         reps = 20 if x.numel() > 1 << 24 else 100
-        ms = cuda_ms(lambda: groupnorm.group_norm_silu_kernel(
-            x, w, bias, 32, eps, True), reps)
-        plain_ms = cuda_ms(lambda: groupnorm.group_norm_silu_ref(
-            x, w, bias, 32, eps, True), reps)
+
+        def kern():
+            return groupnorm.group_norm_silu_kernel(x, w, bias, 32, eps, True)
+
         wb, bb = w.to(x.dtype), bias.to(x.dtype)
-        lib_ms = cuda_ms(lambda: F.silu(F.group_norm(x, 32, wb, bb, eps)),
-                         reps)
+
+        def lib():
+            return F.silu(F.group_norm(x, 32, wb, bb, eps))
+
+        ms, eager_ms = graph_ms(kern, reps), cuda_ms(kern, reps)
+        plain_ms = graph_ms(lambda: groupnorm.group_norm_silu_ref(
+            x, w, bias, 32, eps, True), reps)
+        lib_ms, lib_eager = graph_ms(lib, reps), cuda_ms(lib, reps)
         nbytes = 2.0 * x.numel() * x.element_size() + 2 * c * 4
         flops = 8.0 * x.numel()   # sums, affine, SiLU: ~8 f32 ops/element
-        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+        bound_ms, bound_by, term = bound(flops, nbytes, PEAK_F32_FLOPS)
         rows.append(dict(
             name=label, route="triton", source=GN_SRC, replaces=K4,
             key=("gn", shape, eps), path=path, max_abs_err=err, tol=GN_TOL,
-            ok=ok, ms=ms, eager_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=lib_ms))
+            ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
+            library_ms=lib_ms))
         log(f"{label} eps={eps}: max|d|={err:.3e} max|d|/(1+|ref|)={rel:.3e}"
-            f" (tol {GN_TOL}) {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms"
-            f"  plain {plain_ms:.4f} ms  F.group_norm+silu {lib_ms:.4f} ms"
-            f"  bound {bound_ms:.4f} ms")
+            f" (tol {GN_TOL}) {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms "
+            f"(eager {eager_ms:.4f})  plain {plain_ms:.4f} ms  "
+            f"F.group_norm+silu {lib_ms:.4f} ms (eager {lib_eager:.4f})  "
+            f"bound {bound_ms:.4f} ms ({term})")
     return rows
 
 
@@ -489,19 +567,20 @@ def conv_rows(gen, keys, path="serve"):
         lib_ms = graph_ms(lambda: F.conv2d(x, wb, bb, 1, 1), reps)
         nbytes = 2.0 * n * h * w * (c + co) + 2.0 * co * 9 * c + 4.0 * co
         flops = 2.0 * n * h * w * 9 * c * co
-        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        bound_ms, bound_by, term = bound(flops, nbytes, PEAK_BF16_FLOPS)
         plan = conv.conv3x3_plan(n, c, co, h, w)
         rows.append(dict(
             name=label, route="cuda", source=CONV_SRC, replaces=K7,
             key=("conv", n, c, co, h, w), path=path, max_abs_err=err,
             tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+            bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
+            library_ms=lib_ms))
         log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}), rerun bit-identical "
             f"{same} {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.0f} TF/s; eager {eager_ms:.4f} ms; tile "
             f"{plan.th}x{plan.tw} of {plan.bm}, {plan.grid[0] * plan.grid[1]}"
             f" blocks)  plain {plain_ms:.4f} ms  F.conv2d bf16 {lib_ms:.4f} "
-            f"ms  bound {bound_ms:.4f} ms ({bound_by})")
+            f"ms  bound {bound_ms:.4f} ms ({term})")
         if (n, c, h, w) in _PREPASS_SEEN:   # one pre-pass row per input shape
             continue
         _PREPASS_SEEN.add((n, c, h, w))
@@ -512,13 +591,15 @@ def conv_rows(gen, keys, path="serve"):
         pre_plain = graph_ms(lambda: conv.nchw_to_nhwc_ref(x), reps)
         pre_lib = graph_ms(lambda: x.contiguous(
             memory_format=torch.channels_last), reps)
-        pre_bound, pre_by = bound(0.0, 4.0 * x.numel(), PEAK_BF16_FLOPS)
+        pre_bound, pre_by, pre_term = bound(0.0, 4.0 * x.numel(),
+                                            PEAK_BF16_FLOPS)
         rows.append(dict(
             name=f"nchw_to_nhwc [{n},{c},{h},{w}]", route="cuda",
             source=CONV_SRC, replaces=K7, key=("prepass", n, c, h, w),
             path=path, max_abs_err=0.0 if pre_ok else float("inf"), tol=0.0,
             ok=pre_ok, ms=pre_ms, eager_ms=pre_eager, plain_ms=pre_plain,
-            bound_ms=pre_bound, bound_by=pre_by, library_ms=pre_lib))
+            bound_ms=pre_bound, bound_by=pre_by, bound_term=pre_term,
+            library_ms=pre_lib))
         log(f"nchw_to_nhwc [{n},{c},{h},{w}]: {'==' if pre_ok else '!='} "
             f"plain {'OK' if pre_ok else 'FAIL'}  kernel {pre_ms:.4f} ms "
             f"(eager {pre_eager:.4f} ms)  plain {pre_plain:.4f} ms  "
@@ -1074,15 +1155,60 @@ def phase_train():
     return ok and cmp_ok, counts
 
 
+def sweep_k1(gen):
+    """K1 at the planned tile (*) and at every tile the kernel takes (keys
+    per tile, ring stages, consumer warpgroups) at the ``K1_SWEEP`` shapes,
+    each held against the plain version; device times.  Returns the number
+    of failures."""
+    import torch
+    from fgdm_tpu_torch.kernels import attention
+
+    bad = 0
+    for b, h, n, d in K1_SWEEP:
+        q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(3))
+        scale = d ** -0.5
+        ref = attention.attention_ref(q, k, v, scale)
+        lim = ATTN_TOL[0] * ref.float().abs().max().item() + ATTN_TOL[1]
+        planned = attention.flash_fwd_plan(b * h, n, n, d)
+        plans = [planned]
+        for bn, wgs, stages in itertools.product(
+                attention._K1_BNS, attention._K1_WGS,
+                range(2, attention._K1_MAX_STAGES + 1)):
+            try:
+                plan = attention.k1_tile(b * h, n, n, d, bn, stages, wgs)
+            except ValueError:
+                continue   # more shared memory than a block has
+            if plan != planned:
+                plans.append(plan)
+        msgs = []
+        for plan in plans:
+            out = attention._flash_k1(q, k, v, scale, False, plan)[0]
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = math.isfinite(err) and err <= lim
+            bad += not ok
+            ms = graph_ms(lambda: attention._flash_k1(q, k, v, scale, False,
+                                                      plan), 20)
+            msgs.append(f"{plan.bn}x{plan.stages}x{plan.wgs}"
+                        f"{'*' if plan is planned else ''} {ms:.4f} ms "
+                        f"{'OK' if ok else 'FAIL'}")
+        log(f"flash_attn_fwd d{d} [{b},{h},{n}] (keys x stages x "
+            f"warpgroups): " + "; ".join(msgs))
+        del ref
+        torch.cuda.empty_cache()
+    return bad
+
+
 def sweep():
-    """K7's ``wgmma`` kernel alone (no pre-pass) at the planned tile (*) and
-    at each forced size, and the d = 512 forward at forced KV slice counts;
-    each held against its plain version, device times."""
+    """K1 at each tile choice (``sweep_k1``), K7's ``wgmma`` kernel alone (no
+    pre-pass) at the planned tile (*) and at each forced size, and the d =
+    512 forward at forced KV slice counts; each held against its plain
+    version, device times."""
     import torch
     from fgdm_tpu_torch.kernels import attention, conv
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bad = 0
+    bad = sweep_k1(gen)
     for n, c, co, h, w in CONV_CASES + RAGGED_CONV_CASES:
         x = torch.randn(n, c, h, w, device="cuda", generator=gen,
                         dtype=torch.bfloat16)
@@ -1198,7 +1324,7 @@ def main():
         failures.append("training step")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "path")
+            "bound_term", "library_ms", "path")
     for path, counts in by_path.items():
         log(f"total launches in the {path}: " + ", ".join(
             f"{kind} {sum(c.values())}" for kind, c in counts.items()))

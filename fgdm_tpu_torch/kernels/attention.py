@@ -10,8 +10,10 @@ Nk % 512 == 0) on CUDA tensors, and to ``attention_ref`` otherwise
 kernels take bf16 and the head dims in ``KERNEL_HEAD_DIMS``; anything else
 through the gate raises.
 
-Forward: ``csrc/flash_attn_fwd.cu`` (``mma.sync``) stands in for the TPU
-kernel ``_flash_kernel_t`` at the UNet's head dims 40 and 80;
+Forward: ``csrc/flash_attn_fwd.cu`` (``wgmma``, TMA) stands in for the TPU
+kernel ``_flash_kernel_t`` at the UNet's head dims 40 and 80, with the tile
+(keys per tile, ring stages, consumer warpgroups) that ``flash_fwd_plan``
+picks and V handed over transposed (``_flash_k1``);
 ``csrc/flash_attn_fwd_d512.cu`` (``wgmma``, TMA) for ``_flash_kernel`` and
 ``_flash_kernel_kv`` at the VAE's single 512-wide head.  The TPU's split into
 resident and streamed K/V existed for VMEM residency and has no counterpart
@@ -41,7 +43,8 @@ import torch
 from fgdm_tpu_torch.kernels import _build
 
 __all__ = ["attention_ref", "attention_bwd_ref", "attention_split_ref",
-           "combine_ref", "kv_splits", "flash_combine", "flash_attention",
+           "combine_ref", "kv_splits", "K1Plan", "k1_tile", "flash_fwd_plan",
+           "flash_combine", "flash_attention",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_backward", "FlashAttention", "use_flash",
            "multihead_attention", "KERNEL_HEAD_DIMS", "BWD_HEAD_DIMS"]
@@ -55,6 +58,11 @@ _MIN_N = 512
 SMS = 132           # streaming multiprocessors of an H100
 _D512_BM, _D512_BN = 64, 32   # the d = 512 kernel's query rows and keys a tile
 _LOG2E = 1.4426950408889634
+# The d <= 96 kernel (flash_attn_fwd.cu): query rows per consumer
+# warpgroup, the keys per tile and the consumer warpgroups it instantiates,
+# its deepest K/V ring, and the dynamic shared memory a block may use.
+_K1_WG_ROWS, _K1_BNS, _K1_WGS, _K1_MAX_STAGES = 64, (64, 128), (1, 2), 4
+_SMEM_LIMIT = 232448
 
 
 def attention_ref(q, k, v, scale, return_lse: bool = False):
@@ -110,6 +118,41 @@ def kv_splits(bh: int, nq: int, nk: int, sms: int = SMS) -> int:
     return best[1]
 
 
+K1Plan = collections.namedtuple("K1Plan", "bn stages wgs grid smem")
+K1Plan.__doc__ = """The d <= 96 forward's tile: ``bn`` keys per streamed
+tile, a ring of ``stages`` K/V tiles, ``wgs`` consumer warpgroups of 64
+query rows each; ``grid`` (row tiles, B*H) and the block's shared memory in
+bytes."""
+
+
+def k1_tile(bh: int, nq: int, nk: int, d: int, bn: int, stages: int,
+            wgs: int) -> K1Plan:
+    """The plan of one forced tile choice; raises ValueError on a choice the
+    kernel does not take (the checks of ``flash_attn_fwd.cu``'s launch)."""
+    panels = -(-d // 64)
+    smem = (2048 + wgs * panels * _K1_WG_ROWS * 128
+            + stages * (panels * bn * 128 + bn // 64 * d * 128))
+    if (bn not in _K1_BNS or wgs not in _K1_WGS or nk % bn
+            or not 2 <= stages <= _K1_MAX_STAGES or smem > _SMEM_LIMIT):
+        raise ValueError(f"flash_attention: no tile bn={bn} stages={stages} "
+                         f"wgs={wgs} at d={d}, nk={nk} ({smem} B of shared "
+                         "memory)")
+    return K1Plan(bn, stages, wgs, (-(-nq // (wgs * _K1_WG_ROWS)), bh), smem)
+
+
+def flash_fwd_plan(bh: int, nq: int, nk: int, d: int,
+                   sms: int = SMS) -> K1Plan:
+    """The tile of the d <= 96 forward for ``[bh, nq, d]`` queries against
+    ``nk`` keys: 128 keys a tile where they divide nk (else 64), a 2-stage
+    ring, and two consumer warpgroups (128 query rows a block, the
+    warpgroups' softmax and products in turn) unless that leaves fewer
+    blocks than SMs (minus 4 %: B*H = 16 at N = 1024 gives 128), then
+    one."""
+    bn = _K1_BNS[-1] if nk % _K1_BNS[-1] == 0 else _K1_BNS[0]
+    wgs = 2 if bh * -(-nq // (2 * _K1_WG_ROWS)) >= 0.96 * sms else 1
+    return k1_tile(bh, nq, nk, d, bn, 2, wgs)
+
+
 def attention_split_ref(q, k, v, scale, splits: int):
     """Plain version of the split-KV forward: the keys in ``splits`` slices
     of whole 32-key tiles (the kernel's slices); per slice the unnormalised
@@ -154,7 +197,7 @@ def _typed(lib: ctypes.CDLL, name: str, n_ptr: int, n_int: int):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn_fwd")
     if not getattr(lib, "_fgdm_typed", False):
-        _typed(lib, "fgdm_flash_attn_fwd", 5, 4)
+        _typed(lib, "fgdm_flash_attn_fwd", 5, 7)
         lib.fgdm_flash_attn_block_n.argtypes = [ctypes.c_int]
         lib.fgdm_flash_attn_block_n.restype = ctypes.c_int
         lib.fgdm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -315,13 +358,35 @@ def _flash_d512(q, k, v, scale, return_lse, splits, b, h, nq, nk):
     return out, lse
 
 
+def _flash_k1(q, k, v, scale, return_lse, plan: K1Plan):
+    """The d = 40/80 route of ``flash_attention`` at the tile ``plan`` on
+    checked inputs: V goes to the kernel transposed, ``[B, H, D, Nk]``, so
+    that P.V's B operand is K-major (see ``flash_attn_fwd.cu``).  Returns
+    ``(out, lse or None)``."""
+    b, h, nq, d = q.shape
+    vt = v.transpose(2, 3).contiguous()
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
+           if return_lse else None)
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.fgdm_flash_attn_fwd(
+            q.data_ptr(), k.data_ptr(), vt.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b * h, nq, k.shape[2],
+            d, plan.bn, plan.stages, plan.wgs, float(scale), stream)
+    _raise_on(lib, "flash_attention", rc)
+    return out, lse
+
+
 def flash_attention(q, k, v, scale, return_lse: bool = False,
                     splits: Optional[int] = None):
     """Flash-attention forward (K1-K3).  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises.  With
     ``return_lse`` also returns the f32 logsumexp ``[B, H, Nq]`` of the
     scaled scores.  At d = 512 the keys are cut into ``kv_splits`` slices
-    (``splits=`` forces a count) and ``flash_combine`` merges them.
+    (``splits=`` forces a count) and ``flash_combine`` merges them; at
+    d = 40/80 ``flash_fwd_plan`` picks the tile.
 
     Counts launches in ``flash_attention.launches`` keyed by
     ``(d, nq, nk, return_lse)``.
@@ -343,16 +408,8 @@ def flash_attention(q, k, v, scale, return_lse: bool = False,
     lib = _lib()
     _block_n("flash_attention", lib.fgdm_flash_attn_block_n(d), d, nk,
              KERNEL_HEAD_DIMS)
-    out = torch.empty_like(q)
-    lse = (torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
-           if return_lse else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = lib.fgdm_flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b * h, nq, nk, d,
-            float(scale), stream)
-    _raise_on(lib, "flash_attention", rc)
+    out, lse = _flash_k1(q, k, v, scale, return_lse,
+                         flash_fwd_plan(b * h, nq, nk, d))
     flash_attention.launches[(d, nq, nk, bool(return_lse))] += 1
     return (out, lse) if return_lse else out
 

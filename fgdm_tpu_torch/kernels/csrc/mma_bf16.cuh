@@ -1,6 +1,6 @@
-// Warp-level bf16 tensor-core helpers shared by the flash-attention kernels:
-// mma.sync m16n8k16 with f32 accumulation and its operand fragments read
-// from shared memory.
+// Warp-level bf16 tensor-core helpers of the flash-attention backward
+// kernels (flash_attn_bwd.cu): mma.sync m16n8k16 with f32 accumulation and
+// its operand fragments read from shared memory.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -169,7 +169,8 @@ def test_library_is_keyed_by_source_hash():
 def test_kernel_head_dims_match_the_source():
     """The Python list of head dims is the CUDA sources': the switch of
     ``flash_attn_fwd.cu`` (d <= 96) and the one head dim of
-    ``flash_attn_fwd_d512.cu``."""
+    ``flash_attn_fwd_d512.cu``; the tile constants and choices the host's
+    plans assume are the kernels'."""
     src = (_build.CSRC / "flash_attn_fwd.cu").read_text()
     body = src[src.index("int fgdm_flash_attn_fwd("):
                src.index("int fgdm_flash_attn_block_n(")]
@@ -178,9 +179,121 @@ def test_kernel_head_dims_match_the_source():
     dims += tuple(int(d) for d in re.findall(r"constexpr int D = (\d+);", wide))
     assert dims == ta.KERNEL_HEAD_DIMS
     assert {40, 80, 512} <= set(dims)   # the chain's self-attention heads
-    # the tile sizes the host logic assumes are the kernel's
+    # the tile sizes the host logic assumes are the kernels'
     assert f"constexpr int BM = {ta._D512_BM};" in wide
     assert f"constexpr int BN = {ta._D512_BN};" in wide
+    assert f"constexpr int WG_ROWS = {ta._K1_WG_ROWS};" in src
+    assert f"constexpr int MAX_STAGES = {ta._K1_MAX_STAGES};" in src
+    assert f"constexpr int SMEM_LIMIT = {ta._SMEM_LIMIT};" in src
+    assert "constexpr int HEADER = 1024;" in src   # k1_tile's 2048 = 1024 + it
+    tiles = set(re.findall(r"if \(bn == (\d+) && wgs == (\d+)\)", src))
+    assert tiles == {(str(bn), str(w)) for bn in ta._K1_BNS
+                     for w in ta._K1_WGS}
+
+
+# --- K1's tile plan and arithmetic ------------------------------------------
+
+# (B*H, Nq, Nk, d) of K1's launches on the paths: the chain (CFG, batch 1),
+# the training step and the served batch of 4 (both B*H = 8*8)
+K1_PATH_SHAPES = [(16, 1024, 1024, 40), (16, 4096, 4096, 40),
+                  (16, 1024, 1024, 80), (64, 1024, 1024, 40),
+                  (64, 4096, 4096, 40), (64, 1024, 1024, 80)]
+
+
+@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("nq,nk", [(512, 512), (520, 1024), (1000, 1536),
+                                    (1024, 1024), (4096, 4096), (4097, 512),
+                                    (600, 2048)])
+@pytest.mark.parametrize("bh", [1, 3, 16, 64])
+def test_k1_plan_is_a_valid_tile(bh, nq, nk, d):
+    """Every shape the gate admits gets a tile the kernel takes: the keys
+    per tile divide Nk, the grid covers every query row (a ragged last
+    tile included) once, the ring fits the block's shared memory."""
+    p = ta.flash_fwd_plan(bh, nq, nk, d)
+    assert p.bn in ta._K1_BNS and nk % p.bn == 0
+    rows = p.wgs * ta._K1_WG_ROWS
+    assert p.grid[1] == bh
+    assert (p.grid[0] - 1) * rows < nq <= p.grid[0] * rows
+    assert 2 <= p.stages <= ta._K1_MAX_STAGES
+    assert p.smem <= ta._SMEM_LIMIT
+    assert p == ta.k1_tile(bh, nq, nk, d, p.bn, p.stages, p.wgs)
+
+
+@pytest.mark.parametrize("shape", K1_PATH_SHAPES,
+                         ids=lambda s: "bh{}-n{}-d{}".format(*s[1:]))
+def test_k1_plan_fills_the_card(shape):
+    """At least 128 blocks (of 132 SMs) at every path shape, with the
+    widest key tile (Nk % 512 == 0 there)."""
+    p = ta.flash_fwd_plan(*shape)
+    assert p.grid[0] * p.grid[1] >= 128
+    assert p.bn == max(ta._K1_BNS)
+
+
+@pytest.mark.parametrize("bn,stages,wgs,d,nk", [
+    (96, 2, 2, 40, 1024),     # no such key tile
+    (128, 2, 2, 40, 960),     # does not divide Nk
+    (128, 1, 2, 40, 1024),    # a ring of one
+    (128, 5, 2, 40, 1024),    # deeper than the header's barriers
+    (64, 2, 3, 40, 1024),     # three consumer warpgroups
+    (128, 2, 3, 40, 1024),
+    (128, 4, 2, 80, 1024),    # 247,808 B of shared memory
+])
+def test_k1_tile_refuses_what_the_kernel_does_not_take(bn, stages, wgs, d,
+                                                       nk):
+    with pytest.raises(ValueError, match="no tile"):
+        ta.k1_tile(16, 1024, nk, d, bn, stages, wgs)
+
+
+def k1_arithmetic(q, k, vt, scale, bn):
+    """The K1 kernel's arithmetic in plain torch: key tiles of ``bn``, an
+    online softmax in base 2 with scale * log2 e folded into the scores, P
+    rounded to bf16 unnormalised, V handed over transposed (``vt``
+    ``[B, H, D, Nk]``), f32 accumulation, one division at the end.  Returns
+    the output in q's dtype and the natural-log lse."""
+    sl = scale * ta._LOG2E
+    b, h, nq, d = q.shape
+    m = torch.full((b, h, nq), -math.inf)
+    l = torch.zeros(b, h, nq)
+    acc = torch.zeros(b, h, nq, d)
+    for j in range(0, k.shape[2], bn):
+        s = torch.matmul(q.float(), k[:, :, j:j + bn].float().transpose(2, 3))
+        mn = torch.maximum(m, s.amax(dim=-1) * sl)
+        alpha = torch.exp2(m - mn)
+        p = torch.exp2(s * sl - mn[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.matmul(p.to(torch.bfloat16).float(),
+                          vt[..., j:j + bn].float().transpose(2, 3))
+        acc = acc * alpha[..., None] + pv
+        m = mn
+    return (acc / l[..., None]).to(q.dtype), (m + torch.log2(l)) / ta._LOG2E
+
+
+@pytest.mark.parametrize("d,nq,nk,bn", [(40, 520, 1024, 128),
+                                        (80, 600, 1024, 128),
+                                        (40, 512, 512, 64)])
+def test_k1_cpu_route_and_arithmetic_match_plain_and_xla(d, nq, nk, bn):
+    """At ragged and even query lengths, in bf16: the CPU route is
+    ``attention_ref``; it and the kernel's arithmetic (base 2, V^T, P
+    unnormalised) agree with JAX's ``_xla_attention`` within one bf16
+    rounding of P and of the output (1e-2 * max|ref|), and their lse within
+    1e-4 (f32, exp2 against exp)."""
+    rng = np.random.default_rng(d + nq)
+    arrs = qkv(rng, 1, 3, nq, nk, d)
+    q, k, v = as_torch(arrs, torch.bfloat16)
+    scale = d ** -0.5
+    out, lse = ta.flash_attention(q, k, v, scale, return_lse=True)
+    ref, ref_lse = ta.attention_ref(q, k, v, scale, return_lse=True)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    xla = np.asarray(ka._xla_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in arrs), scale), np.float32)
+    tol = 1e-2 * np.abs(xla).max()
+    emu, emu_lse = k1_arithmetic(q, k, v.transpose(2, 3).contiguous(), scale,
+                                 bn)
+    for got in (out, emu):
+        assert got.dtype == torch.bfloat16 and got.shape == (1, 3, nq, d)
+        np.testing.assert_allclose(got.float().numpy(), xla, atol=tol, rtol=0)
+    np.testing.assert_allclose(emu_lse.numpy(), ref_lse.numpy(), atol=1e-4,
+                               rtol=0)
 
 
 def nhwc_to_nchw(a):
