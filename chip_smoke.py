@@ -3,11 +3,13 @@
     python3 chip_smoke.py [--sweep]
 
 With ``--sweep`` it builds the kernels, times K1 at each tile choice (keys
-per tile, ring stages, consumer warpgroups), K7 at each forced tile size and
-the d = 512 forward at forced KV slice counts (how ``flash_fwd_plan``,
-``conv3x3_plan``'s cost weights and ``kv_splits`` were chosen), and exits.
-With no argument it builds the port's kernels from the sources in this
-checkout (one ``nvcc`` per CUDA source, started together), then:
+per tile, ring stages, consumer warpgroups), K5 and K6 at each tile choice
+(streamed tile, ring stages, consumer warpgroups) at the ``BWD_CASES``
+shapes, K7 at each forced tile size and the d = 512 forward at forced KV
+slice counts (how ``flash_fwd_plan``, ``flash_bwd_plan``, ``conv3x3_plan``'s
+cost weights and ``kv_splits`` were chosen), and exits.  With no argument
+it builds the port's kernels from the sources in this checkout (one
+``nvcc`` per CUDA source, started together), then:
 
 1. prints the card's name and power limit;
 2. holds every kernel against its plain PyTorch version on the card at the
@@ -20,12 +22,16 @@ checkout (one ``nvcc`` per CUDA source, started together), then:
    no atomics), checks ``Conv3x3``'s gradients against autograd through
    the plain conv, and times kernel, plain version and the PyTorch library
    call that computes the same function (the yardstick, never used by the
-   port).  The forward attention kernels, GroupNorm, the combine pass, K7
-   and its pre-pass are timed as CUDA-graph replays (``ms``, device time)
-   and eagerly (``eager_ms``, which adds the host's launch cost where that
-   is longer); replays of a small shape find their operands in L2.  Each
-   bound counts the exponentials of the attention kernels beside their
-   tensor operations and bytes (``bound_term``);
+   port).  Every kernel is timed as CUDA-graph replays (``ms``, device
+   time) and eagerly (``eager_ms``, which adds the host's launch cost where
+   that is longer); replays of a small shape find their operands in L2.
+   The rows of K1, K5 and K6 carry the time of the transposed copies their
+   wrappers make (``copy_ms``, included in ``ms``: K1's V^T; K5 and K6 read
+   K, Q and dO in place and make none, 0); SDPA's backward, K5 and K6's
+   yardstick, is timed as the summed kernel time of ``torch.profiler`` over
+   repeated calls.  Each bound counts the exponentials of the
+   attention kernels beside their tensor operations and bytes
+   (``bound_term``);
 3. runs one full-width SD-1.4 UNet forward (with the FG-DM adapter) with the
    kernels on and with the plain versions, and compares;
 4. the chain path: drives the full-width text->seg->image chain
@@ -59,7 +65,11 @@ checkout (one ``nvcc`` per CUDA source, started together), then:
    draws; profiles one more step;
 7. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
-Exits non-zero, printing no result, if there is no CUDA device or any phase
+Exits non-zero, printing no result, if there is no CUDA device, if any of
+the reference's kernel switches the port honours (``FGDM_DISABLE_FLASH``,
+``FGDM_FLASH_MIN_N``, ``FGDM_FLASH_BWD``, ``FGDM_FLASH_TRANSPOSED``,
+``FGDM_FLASH_TRANSPOSE_MAX_D``, ``FGDM_DISABLE_PALLAS_CONV``) is set away
+from its default, so that no kernel is skipped quietly, or if any phase
 fails.  Imports nothing of JAX.
 """
 
@@ -147,14 +157,24 @@ K1_SWEEP = [(2, 8, 4096, 40), (8, 8, 4096, 40), (8, 8, 1024, 40),
 # (N, splits, TPU kernel): the combine pass of the d = 512 forward at the
 # chain's two VAE decodes (256^2 and 512^2 images)
 COMBINE_CASES = [(1024, 8, K2), (4096, 2, K3)]
-# (label suffix, batch, heads, N, d, path): backward shapes, each giving a
-# K5 (dQ) and a K6 (dK/dV) row: the training step's, and the 512^2
-# training shapes (no path here; they exercise N=4096 and d=80).
+# (label suffix, batch, heads, Nq, Nk, d, path): backward shapes, each
+# giving a K5 (dQ) and a K6 (dK/dV) row: the training step's, the 512^2
+# training shapes (no path here; they exercise N=4096 and d=80), and a
+# ragged query length the gate admits (Nq != Nk, Nq % 64 != 0; no path).
 BWD_CASES = [
-    ("d40 N1024 [8,8] train", 8, 8, 1024, 40, "train"),
-    ("d40 N4096 [2,8]", 2, 8, 4096, 40, None),
-    ("d80 N1024 [2,8]", 2, 8, 1024, 80, None),
+    ("d40 N1024 [8,8] train", 8, 8, 1024, 1024, 40, "train"),
+    ("d40 N4096 [2,8]", 2, 8, 4096, 4096, 40, None),
+    ("d80 N1024 [2,8]", 2, 8, 1024, 1024, 80, None),
+    ("d40 Nq520 Nk1024 [1,3] ragged", 1, 3, 520, 1024, 40, None),
 ]
+# The reference's kernel switches the port reads, with their defaults.
+SWITCHES = {"FGDM_DISABLE_FLASH": ("attention", "_DISABLE_FLASH", False),
+            "FGDM_FLASH_MIN_N": ("attention", "_MIN_N", 512),
+            "FGDM_FLASH_BWD": ("attention", "_FLASH_BWD", True),
+            "FGDM_FLASH_TRANSPOSED": ("attention", "_FLASH_TRANSPOSED", True),
+            "FGDM_FLASH_TRANSPOSE_MAX_D": ("attention", "_TRANSPOSE_MAX_D",
+                                           96),
+            "FGDM_DISABLE_PALLAS_CONV": ("conv", "_DISABLE", False)}
 # (label, shape, eps, path): GroupNorm+SiLU shapes of UNet/ControlNet
 # ResBlocks (eps 1e-5) and VAE ResnetBlocks (eps 1e-6).
 GN_CASES = [
@@ -231,6 +251,37 @@ def graph_ms(fn, reps):
     return cuda_ms(graph.replay, 3, rounds=1) / reps
 
 
+def profiled_ms(fn, reps):
+    """Device time of ``fn`` per call: the summed kernel time that
+    ``torch.profiler`` records over ``reps`` calls after three warm-up
+    calls; None if the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False))
+    return us / 1e3 / reps if us > 0 else None
+
+
+def switches_off_default():
+    """The names of the reference's kernel switches that this process reads
+    away from their defaults."""
+    import importlib
+
+    return [name for name, (mod, attr, default) in SWITCHES.items()
+            if getattr(importlib.import_module(
+                f"fgdm_tpu_torch.kernels.{mod}"), attr) != default]
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -265,7 +316,8 @@ def build_kernels():
     for path in paths:
         for line in path.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
-                                       "Compiling entry")):
+                                       "Compiling entry",
+                                       "Performance Loss")):
                 log(f"  ptxas {path.name.split('-')[0]}: " + line.strip())
 
 
@@ -319,6 +371,7 @@ def attn_rows(gen):
         note = (f"  lse max|d|={lse_err:.3e} (tol {LSE_TOL}), output "
                 f"with lse {'==' if same else '!='} without, rerun "
                 f"bit-identical {rerun}")
+        vt_ms = None
         if d == 512:
             used = splits or attention.kv_splits(b * h, nq, nk)
             note += f", {used} KV slice(s)"
@@ -357,9 +410,9 @@ def attn_rows(gen):
             name=label, route="cuda",
             source=ATTN512_SRC if d == 512 else ATTN_SRC, replaces=tpu,
             key=("attn", d, nq, nk, with_lse), path=path, max_abs_err=err,
-            tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
-            library_ms=lib_ms))
+            tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, copy_ms=vt_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bound_term=term, library_ms=lib_ms))
         log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}){note} "
             f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms (eager "
             f"{eager_ms:.4f})  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms "
@@ -411,69 +464,99 @@ def combine_rows(gen):
     return rows
 
 
+def bwd_inputs(gen, b, h, nq, nk, d):
+    """q, k, v, dO and the forward kernel's output and lse, and delta."""
+    import torch
+    from fgdm_tpu_torch.kernels import attention
+
+    q, do = (torch.randn(b, h, nq, d, device="cuda", generator=gen,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, h, nk, d, device="cuda", generator=gen,
+                        dtype=torch.bfloat16) for _ in range(2))
+    scale = d ** -0.5
+    o, lse = attention.flash_attention(q, k, v, scale, return_lse=True)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return q, k, v, do, o, lse, delta, scale
+
+
+def bwd_errors(got, refs):
+    """{name: (max|d|, limit)} of (dq, dk, dv) or a part of it, keyed
+    by the gradient's name."""
+    out = {}
+    for name, g, ref in zip("qkv", got, refs):
+        if g is None:
+            continue
+        err = (g.float() - ref.float()).abs().max().item()
+        out[name] = (err, BWD_TOL[0] * ref.float().abs().max().item()
+                     + BWD_TOL[1])
+    return out
+
+
 def bwd_rows(gen):
     """K5 (dQ) and K6 (dK/dV) against ``attention_bwd_ref`` on the same
-    bf16 inputs and the forward kernel's output and lse.  The plain version
-    of each is the whole plain backward (the wrappers' CPU route); the
-    library yardstick is SDPA's backward alone."""
+    bf16 inputs and the forward kernel's output and lse, each rerun bit for
+    bit.  The plain version of each is the whole plain backward (the
+    wrappers' CPU route); the library yardstick is SDPA's backward alone,
+    by its kernels' summed device time (``profiled_ms``)."""
     import torch
     import torch.nn.functional as F
     from fgdm_tpu_torch.kernels import attention
 
     rows = []
-    for suffix, b, h, n, d, path in BWD_CASES:
-        q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen,
-                                   dtype=torch.bfloat16) for _ in range(4))
-        scale = d ** -0.5
-        o, lse = attention.flash_attention(q, k, v, scale, return_lse=True)
-        delta = (do.float() * o.float()).sum(dim=-1)
+    for suffix, b, h, nq, nk, d, path in BWD_CASES:
+        q, k, v, do, o, lse, delta, scale = bwd_inputs(gen, b, h, nq, nk, d)
         dq = attention.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
         dk, dv = attention.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                    scale)
         again = attention.flash_attention_backward(q, k, v, o, lse, do, scale)
         refs = attention.attention_bwd_ref(q, k, v, o, lse, do, scale)
-        errs, oks = {}, {}
-        for name, got, ref, rep in zip("qkv", (dq, dk, dv), refs, again):
-            err = (got.float() - ref.float()).abs().max().item()
-            lim = BWD_TOL[0] * ref.float().abs().max().item() + BWD_TOL[1]
-            errs[name] = (err, lim)
-            oks[name] = (math.isfinite(err) and err <= lim
-                         and torch.equal(got, rep))
-        reps = 10 if n >= 4096 else 30
-        ms_dq = cuda_ms(lambda: attention.flash_attention_bwd_dq(
-            q, k, v, do, lse, delta, scale), reps)
-        ms_dkv = cuda_ms(lambda: attention.flash_attention_bwd_dkv(
-            q, k, v, do, lse, delta, scale), reps)
-        plain_ms = cuda_ms(lambda: attention.attention_bwd_ref(
-            q, k, v, o, lse, do, scale), reps)
+        errs = bwd_errors((dq, dk, dv), refs)
+        oks = {c: math.isfinite(errs[c][0]) and errs[c][0] <= errs[c][1]
+               and torch.equal(got, rep)
+               for c, got, rep in zip("qkv", (dq, dk, dv), again)}
+        reps = 10 if nq >= 4096 else 30
+        plans = attention.flash_bwd_plan(b * h, nq, nk, d)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_ms = profiled_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True), reps)
-        bhnd, bhn = b * h * n * d, b * h * n
-        for kern, tpu, ms, names, flops, nbytes in (
-                ("flash_attn_bwd_dq", K5, ms_dq, "q", 6.0 * bhnd * n,
-                 2 * 5.0 * bhnd + 4 * 2.0 * bhn),
-                ("flash_attn_bwd_dkv", K6, ms_dkv, "kv", 8.0 * bhnd * n,
-                 2 * 6.0 * bhnd + 4 * 2.0 * bhn)):
+        plain_ms = cuda_ms(lambda: attention.attention_bwd_ref(
+            q, k, v, o, lse, do, scale), reps)
+        bh, ops = b * h, 1.0 * b * h * nq * nk * d
+        for kern, tpu, plan, names, flops, nbytes, run in (
+                ("flash_attn_bwd_dq", K5, plans[0], "q", 6.0 * ops,
+                 2.0 * d * bh * (3 * nq + 2 * nk) + 8.0 * bh * nq,
+                 lambda: attention.flash_attention_bwd_dq(
+                     q, k, v, do, lse, delta, scale)),
+                ("flash_attn_bwd_dkv", K6, plans[1], "kv", 8.0 * ops,
+                 2.0 * d * bh * (2 * nq + 4 * nk) + 8.0 * bh * nq,
+                 lambda: attention.flash_attention_bwd_dkv(
+                     q, k, v, do, lse, delta, scale))):
             # each recomputes P: one exp per score
             bound_ms, bound_by, term = bound(flops, nbytes, PEAK_BF16_FLOPS,
-                                             exps=1.0 * b * h * n * n)
+                                             exps=1.0 * b * h * nq * nk)
+            ms = graph_ms(run, reps)
+            eager_ms = cuda_ms(run, reps)
             err = max(errs[c][0] for c in names)
             ok = all(oks[c] for c in names)
             rows.append(dict(
                 name=f"{kern} {suffix}", route="cuda", source=BWD_SRC,
-                replaces=tpu, key=(kern, d, n, n), path=path,
-                max_abs_err=err, ok=ok, ms=ms, eager_ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bound_term=term, library_ms=lib_ms))
+                replaces=tpu, key=(kern, d, nq, nk), path=path,
+                max_abs_err=err, ok=ok, ms=ms, eager_ms=eager_ms, copy_ms=0.0,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_term=term, library_ms=lib_ms))
             log(f"{kern} {suffix}: "
                 + " ".join(f"d{c} max|d|={errs[c][0]:.3e} (tol "
                            f"{errs[c][1]:.3e})" for c in names)
-                + f", rerun bit-identical {all(oks[c] for c in names)} "
-                f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
-                f"backward {plain_ms:.4f} ms  sdpa backward {lib_ms:.4f} ms"
-                f"  bound {bound_ms:.4f} ms ({term})")
+                + f", rerun bit-identical {all(oks[c] for c in names)}, tile "
+                f"{plan.bt} x {plan.stages} stages x {plan.wgs} warpgroup(s)"
+                f", {plan.grid[0] * plan.grid[1]} blocks "
+                f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms (eager "
+                f"{eager_ms:.4f})"
+                f"  plain backward {plain_ms:.4f} ms  sdpa backward "
+                f"{'not measured' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+                f" (profiled kernel time)  bound {bound_ms:.4f} ms ({term}; "
+                f"{100 * bound_ms / ms:.1f} % of it)")
     return rows
 
 
@@ -1199,8 +1282,55 @@ def sweep_k1(gen):
     return bad
 
 
+def sweep_bwd(gen):
+    """K5 and K6 at the planned tile (*) and at every tile each kernel takes
+    (streamed tile, ring stages, consumer warpgroups) at the ``BWD_CASES``
+    shapes, each held against the plain version; device times.  Returns the
+    number of failures."""
+    import torch
+    from fgdm_tpu_torch.kernels import attention
+
+    bad = 0
+    for suffix, b, h, nq, nk, d, _ in BWD_CASES:
+        q, k, v, do, o, lse, delta, scale = bwd_inputs(gen, b, h, nq, nk, d)
+        refs = attention.attention_bwd_ref(q, k, v, o, lse, do, scale)
+        planned = attention.flash_bwd_plan(b * h, nq, nk, d)
+        for i, (kernel, run) in enumerate((("dq", attention._flash_k5),
+                                           ("dkv", attention._flash_k6))):
+            plans = [planned[i]]
+            for bt, wgs, stages in itertools.product(
+                    attention._BWD_TILES[kernel], attention._BWD_WGS,
+                    range(2, attention._BWD_MAX_STAGES + 1)):
+                try:
+                    plan = attention.bwd_tile(kernel, b * h, nq, nk, d, bt,
+                                              stages, wgs)
+                except ValueError:
+                    continue   # more shared memory than a block has
+                if plan != planned[i]:
+                    plans.append(plan)
+            msgs = []
+            for plan in plans:
+                got = run(q, k, v, do, lse, delta, scale, plan)
+                got = (got, None, None) if kernel == "dq" else (None, *got)
+                errs = bwd_errors(got, refs)
+                ok = all(math.isfinite(e) and e <= lim
+                         for e, lim in errs.values())
+                bad += not ok
+                ms = graph_ms(lambda: run(q, k, v, do, lse, delta, scale,
+                                          plan), 10)
+                msgs.append(f"{plan.bt}x{plan.stages}x{plan.wgs}"
+                            f"{'*' if plan is planned[i] else ''} {ms:.4f} ms "
+                            f"{'OK' if ok else 'FAIL'}")
+            log(f"flash_attn_bwd_{kernel} {suffix} (tile x stages x "
+                f"warpgroups): " + "; ".join(msgs))
+        del refs
+        torch.cuda.empty_cache()
+    return bad
+
+
 def sweep():
-    """K1 at each tile choice (``sweep_k1``), K7's ``wgmma`` kernel alone (no
+    """K1 at each tile choice (``sweep_k1``), K5 and K6 at each tile choice
+    (``sweep_bwd``), K7's ``wgmma`` kernel alone (no
     pre-pass) at the planned tile (*) and at each forced size, and the d =
     512 forward at forced KV slice counts; each held against its plain
     version, device times."""
@@ -1208,7 +1338,7 @@ def sweep():
     from fgdm_tpu_torch.kernels import attention, conv
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bad = sweep_k1(gen)
+    bad = sweep_k1(gen) + sweep_bwd(gen)
     for n, c, co, h, w in CONV_CASES + RAGGED_CONV_CASES:
         x = torch.randn(n, c, h, w, device="cuda", generator=gen,
                         dtype=torch.bfloat16)
@@ -1261,6 +1391,11 @@ def main():
 
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
+        return 1
+    off = switches_off_default()
+    if off:
+        log(f"chip_smoke: kernel switches set away from their defaults: "
+            f"{', '.join(off)}; unset them, so that every kernel runs")
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1323,7 +1458,7 @@ def main():
     if not train_ok:
         failures.append("training step")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+            "ms", "eager_ms", "copy_ms", "plain_ms", "bound_ms", "bound_by",
             "bound_term", "library_ms", "path")
     for path, counts in by_path.items():
         log(f"total launches in the {path}: " + ", ".join(
@@ -1332,7 +1467,8 @@ def main():
         log("FAILED: " + "; ".join(failures))
         return 1
     log(card)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r.get(k) for k in keys}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,10 +5,24 @@ Counterpart of ``fgdm_tpu/kernels/attention.py``.  ``multihead_attention``
 takes q ``[B, H, Nq, D]`` and k/v ``[B, H, Nk, D]`` and returns
 ``[B, H, Nq, D]`` in q's dtype.  It routes to the flash kernels by the JAX
 package's gate (``attention.py:660-673``: Nq >= 512, Nk >= 512,
-Nk % 512 == 0) on CUDA tensors, and to ``attention_ref`` otherwise
-(cross-attention over 77 keys, the N < 512 self-attentions, the CPU).  The
-kernels take bf16 and the head dims in ``KERNEL_HEAD_DIMS``; anything else
-through the gate raises.
+Nk % 512 == 0; ``flash_gate``) on CUDA tensors, and to ``attention_ref``
+otherwise (cross-attention over 77 keys, the N < 512 self-attentions, the
+CPU).  The kernels take bf16 and the head dims in ``KERNEL_HEAD_DIMS``;
+anything else through the gate raises.
+
+The JAX package's switches are read at import, under its names and
+defaults, into module attributes: ``FGDM_DISABLE_FLASH`` (``_DISABLE_FLASH``,
+the gate refuses every shape), ``FGDM_FLASH_MIN_N`` (``_MIN_N``, the
+gate's least Nq and Nk), ``FGDM_FLASH_BWD`` (``_FLASH_BWD``) and
+``FGDM_FLASH_TRANSPOSED`` / ``FGDM_FLASH_TRANSPOSE_MAX_D``
+(``_FLASH_TRANSPOSED``, ``_TRANSPOSE_MAX_D``; ``_use_flash_bwd``).  On the
+TPU the last two pick the transposed forward kernel, the one that writes
+lse; here the forward serves both layouts, so together with ``_FLASH_BWD``
+they decide only whether ``FlashAttention``'s backward is the flash
+backward or the recompute through ``attention_ref``.  The TPU's tile knobs
+have no counterpart: ``FGDM_FLASH_BLOCK_Q``, ``FGDM_FLASH_BLOCK_K``,
+``FGDM_FLASH_T_BLOCK_Q`` and ``FGDM_FLASH_KV_BUDGET`` (``flash_fwd_plan``,
+``flash_bwd_plan`` and ``kv_splits`` pick the tiles here).
 
 Forward: ``csrc/flash_attn_fwd.cu`` (``wgmma``, TMA) stands in for the TPU
 kernel ``_flash_kernel_t`` at the UNet's head dims 40 and 80, with the tile
@@ -22,13 +36,16 @@ too small to fill the card (``kv_splits``) and a second kernel combines the
 partial results (``flash_combine``).  Both forwards optionally write the
 logsumexp of the scaled scores, the residual of the backward.
 
-Backward (``csrc/flash_attn_bwd.cu``): the dQ kernel and the dK/dV kernel
-replace ``_flash_bwd_dq_kernel_t`` and ``_flash_bwd_dkv_kernel_t`` at the
-head dims in ``BWD_HEAD_DIMS``.  ``FlashAttention`` (the counterpart of the
-``custom_vjp`` ``_flash_op``, ``attention.py:634-657``) saves the forward's
-lse at those head dims and launches both backward kernels; at any other
-head dim its backward recomputes through ``attention_ref`` under autograd,
-as the JAX VJP's XLA branch does.  See the sources for the kernels' design.
+Backward (``csrc/flash_attn_bwd.cu``, ``wgmma``, TMA): the dQ kernel (K5)
+and the dK/dV kernel (K6) replace ``_flash_bwd_dq_kernel_t`` and
+``_flash_bwd_dkv_kernel_t`` at the head dims in ``BWD_HEAD_DIMS``, at the
+tiles ``flash_bwd_plan`` picks (``_flash_k5``, ``_flash_k6``); they read
+K, Q and dO in place, with no transposed copy.  ``FlashAttention`` (the
+counterpart of the ``custom_vjp`` ``_flash_op``, ``attention.py:634-657``)
+saves the forward's lse and launches both backward kernels where
+``_FLASH_BWD and _use_flash_bwd(d)`` holds, as ``_flash_op_fwd`` does; else
+its backward recomputes through ``attention_ref`` under autograd, as the
+JAX VJP's XLA branch does.  See the sources for the kernels' design.
 """
 
 from __future__ import annotations
@@ -36,6 +53,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import math
+import os
 from typing import Optional
 
 import torch
@@ -44,17 +62,24 @@ from fgdm_tpu_torch.kernels import _build
 
 __all__ = ["attention_ref", "attention_bwd_ref", "attention_split_ref",
            "combine_ref", "kv_splits", "K1Plan", "k1_tile", "flash_fwd_plan",
+           "BwdPlan", "bwd_tile", "flash_bwd_plan",
            "flash_combine", "flash_attention",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "flash_attention_backward", "FlashAttention", "use_flash",
-           "multihead_attention", "KERNEL_HEAD_DIMS", "BWD_HEAD_DIMS"]
+           "flash_attention_backward", "FlashAttention", "flash_gate",
+           "use_flash", "multihead_attention", "KERNEL_HEAD_DIMS",
+           "BWD_HEAD_DIMS"]
 
 # Head dims the CUDA sources instantiate: the chain's self-attention heads
 # at N >= 512 (SD-1.x UNet levels 0 and 1, the VAE's single 512-wide head);
 # the backward only the UNet's, the ones training differentiates.
 KERNEL_HEAD_DIMS = (40, 80, 512)
 BWD_HEAD_DIMS = (40, 80)
-_MIN_N = 512
+# The JAX package's switches (attention.py:29,32,43,50,493), same defaults.
+_DISABLE_FLASH = os.environ.get("FGDM_DISABLE_FLASH", "0") == "1"
+_MIN_N = int(os.environ.get("FGDM_FLASH_MIN_N", "512"))
+_FLASH_BWD = os.environ.get("FGDM_FLASH_BWD", "1") == "1"
+_FLASH_TRANSPOSED = os.environ.get("FGDM_FLASH_TRANSPOSED", "1") == "1"
+_TRANSPOSE_MAX_D = int(os.environ.get("FGDM_FLASH_TRANSPOSE_MAX_D", "96"))
 SMS = 132           # streaming multiprocessors of an H100
 _D512_BM, _D512_BN = 64, 32   # the d = 512 kernel's query rows and keys a tile
 _LOG2E = 1.4426950408889634
@@ -63,6 +88,11 @@ _LOG2E = 1.4426950408889634
 # its deepest K/V ring, and the dynamic shared memory a block may use.
 _K1_WG_ROWS, _K1_BNS, _K1_WGS, _K1_MAX_STAGES = 64, (64, 128), (1, 2), 4
 _SMEM_LIMIT = 232448
+# The backward (flash_attn_bwd.cu): rows per consumer warpgroup, the
+# streamed tiles each kernel instantiates (keys for dQ, queries for dK/dV),
+# its consumer warpgroups and deepest ring.
+_BWD_WG_ROWS, _BWD_WGS, _BWD_MAX_STAGES = 64, (1, 2), 4
+_BWD_TILES = {"dq": (64, 128), "dkv": (64,)}
 
 
 def attention_ref(q, k, v, scale, return_lse: bool = False):
@@ -153,6 +183,75 @@ def flash_fwd_plan(bh: int, nq: int, nk: int, d: int,
     return k1_tile(bh, nq, nk, d, bn, 2, wgs)
 
 
+def _use_flash_bwd(d: int) -> bool:
+    """JAX's ``_use_transposed`` (``attention.py:496-497``): whether
+    ``FlashAttention`` at head dim ``d`` keeps lse for the flash backward
+    (together with ``_FLASH_BWD``)."""
+    return _FLASH_TRANSPOSED and d <= _TRANSPOSE_MAX_D
+
+
+BwdPlan = collections.namedtuple("BwdPlan", "kernel bt stages wgs grid smem")
+BwdPlan.__doc__ = """A backward kernel's tile: ``kernel`` "dq" (K5) or
+"dkv" (K6), ``bt`` keys (K5) or queries (K6) per streamed tile, a ring of
+``stages`` tiles, ``wgs`` consumer warpgroups of 64 rows each (query rows
+for K5, key rows for K6); ``grid`` (row tiles, B*H) and the block's shared
+memory in bytes."""
+
+
+def bwd_tile(kernel: str, bh: int, nq: int, nk: int, d: int, bt: int,
+             stages: int, wgs: int) -> BwdPlan:
+    """The plan of one forced tile choice of K5 (``kernel="dq"``) or K6
+    (``"dkv"``); raises ValueError on a choice the kernel does not take
+    (the checks of ``flash_attn_bwd.cu``'s launches)."""
+    if kernel not in _BWD_TILES:
+        raise ValueError(f"flash_attention_bwd: no kernel {kernel!r}")
+    panels = -(-d // 64)
+    stage = 2 * panels * bt * 128   # K and V, or Q and dO
+    if kernel == "dkv":             # and the tile's lse and delta
+        stage += 8 * bt
+    smem = 2048 + 2 * wgs * panels * _BWD_WG_ROWS * 128 + stages * stage
+    rows = nq if kernel == "dq" else nk
+    if (bt not in _BWD_TILES[kernel] or wgs not in _BWD_WGS
+            or (kernel == "dq" and nk % bt)
+            or not 2 <= stages <= _BWD_MAX_STAGES or smem > _SMEM_LIMIT):
+        raise ValueError(f"flash_attention_bwd_{kernel}: no tile bt={bt} "
+                         f"stages={stages} wgs={wgs} at d={d}, nk={nk} "
+                         f"({smem} B of shared memory)")
+    return BwdPlan(kernel, bt, stages, wgs,
+                   (-(-rows // (wgs * _BWD_WG_ROWS)), bh), smem)
+
+
+def flash_bwd_plan(bh: int, nq: int, nk: int, d: int,
+                   sms: int = SMS) -> tuple:
+    """The tiles ``(dq, dkv)`` of K5 and K6 for ``[bh, nq, d]`` queries
+    against ``nk`` keys (``chip_smoke.py --sweep``): the deepest ring that
+    fits; two consumer warpgroups unless that leaves fewer blocks than SMs
+    (minus 4 %), as ``flash_fwd_plan``; K5 streams 128 keys a tile where
+    they divide Nk at d <= 64, else 64.  At d = 80 the accumulators of a
+    64 x 128 tile (d padded to whole swizzle atoms) leave no room for two
+    warpgroups in K6, or for 128-key tiles in K5: ptxas would spill and
+    serialize the wgmmas."""
+    plans = []
+    for kernel, rows in (("dq", nq), ("dkv", nk)):
+        wgs = 2 if bh * -(-rows // (2 * _BWD_WG_ROWS)) >= 0.96 * sms else 1
+        if kernel == "dkv" and d > 64:
+            wgs = 1
+        bt = _BWD_TILES[kernel][-1]
+        if kernel == "dq" and (d > 64 or nk % bt):
+            bt = _BWD_TILES[kernel][0]
+        for stages in range(_BWD_MAX_STAGES, 1, -1):
+            try:
+                plans.append(bwd_tile(kernel, bh, nq, nk, d, bt, stages,
+                                      wgs))
+                break
+            except ValueError:
+                continue
+        else:
+            raise ValueError(f"flash_attention_bwd_{kernel}: no tile at "
+                             f"d={d}, nq={nq}, nk={nk}")
+    return tuple(plans)
+
+
 def attention_split_ref(q, k, v, scale, splits: int):
     """Plain version of the split-KV forward: the keys in ``splits`` slices
     of whole 32-key tiles (the kernel's slices); per slice the unnormalised
@@ -224,8 +323,8 @@ def _d512_lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn_bwd")
     if not getattr(lib, "_fgdm_typed", False):
-        _typed(lib, "fgdm_flash_attn_bwd_dq", 7, 4)
-        _typed(lib, "fgdm_flash_attn_bwd_dkv", 8, 4)
+        _typed(lib, "fgdm_flash_attn_bwd_dq", 7, 7)
+        _typed(lib, "fgdm_flash_attn_bwd_dkv", 8, 7)
         lib.fgdm_flash_attn_bwd_block_n.argtypes = [ctypes.c_int]
         lib.fgdm_flash_attn_bwd_block_n.restype = ctypes.c_int
         lib.fgdm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -427,6 +526,39 @@ def _bwd_args(fn, q, k, v, do, lse, delta):
     return lib, (b * h, nq, nk, d)
 
 
+def _flash_k5(q, k, v, do, lse, delta, scale, plan: BwdPlan):
+    """K5 at the tile ``plan`` on checked inputs."""
+    b, h, nq, d = q.shape
+    dq = torch.empty_like(q)
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.fgdm_flash_attn_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, nq,
+            k.shape[2], d, plan.bt, plan.stages, plan.wgs, float(scale),
+            stream)
+    _raise_on(lib, "flash_attention_bwd_dq", rc)
+    return dq
+
+
+def _flash_k6(q, k, v, do, lse, delta, scale, plan: BwdPlan):
+    """K6 at the tile ``plan`` on checked inputs."""
+    b, h, nq, d = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.fgdm_flash_attn_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b * h, nq, k.shape[2], d, plan.bt, plan.stages, plan.wgs,
+            float(scale), stream)
+    _raise_on(lib, "flash_attention_bwd_dkv", rc)
+    return dk, dv
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
     """dQ of flash attention (K5) from the forward's lse and
     ``delta = rowsum(dO * O)``, both f32 ``[B, H, Nq]``.  A CPU tensor takes
@@ -435,16 +567,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
     ``(d, nq, nk)``."""
     if q.device.type == "cpu":
         return _bwd_ref(q, k, v, do, lse, delta, scale)[0]
-    lib, (bh, nq, nk, d) = _bwd_args("flash_attention_bwd_dq", q, k, v, do,
-                                     lse, delta)
-    dq = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = lib.fgdm_flash_attn_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, nq, nk, d,
-            float(scale), stream)
-    _raise_on(lib, "flash_attention_bwd_dq", rc)
+    _, (bh, nq, nk, d) = _bwd_args("flash_attention_bwd_dq", q, k, v, do,
+                                   lse, delta)
+    dq = _flash_k5(q, k, v, do, lse, delta, scale,
+                   flash_bwd_plan(bh, nq, nk, d)[0])
     flash_attention_bwd_dq.launches[(d, nq, nk)] += 1
     return dq
 
@@ -459,17 +585,10 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
     ``flash_attention_bwd_dkv.launches`` keyed by ``(d, nq, nk)``."""
     if q.device.type == "cpu":
         return _bwd_ref(q, k, v, do, lse, delta, scale)[1:]
-    lib, (bh, nq, nk, d) = _bwd_args("flash_attention_bwd_dkv", q, k, v, do,
-                                     lse, delta)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = lib.fgdm_flash_attn_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, nq, nk, d, float(scale), stream)
-    _raise_on(lib, "flash_attention_bwd_dkv", rc)
+    _, (bh, nq, nk, d) = _bwd_args("flash_attention_bwd_dkv", q, k, v, do,
+                                   lse, delta)
+    dk, dv = _flash_k6(q, k, v, do, lse, delta, scale,
+                       flash_bwd_plan(bh, nq, nk, d)[1])
     flash_attention_bwd_dkv.launches[(d, nq, nk)] += 1
     return dk, dv
 
@@ -493,15 +612,17 @@ def flash_attention_backward(q, k, v, o, lse, do, scale):
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (``_flash_op``).
 
-    At the head dims in ``BWD_HEAD_DIMS`` the forward keeps the kernel's
-    lse and the backward runs ``flash_attention_backward``; at any other
-    head dim (the VAE's 512) the backward recomputes ``attention_ref``
-    under autograd.  On the CPU both directions are the plain versions."""
+    Where ``_FLASH_BWD and _use_flash_bwd(d)`` holds (by default d <= 96:
+    the UNet's 40 and 80) the forward keeps the kernel's lse and the
+    backward runs ``flash_attention_backward``, as ``_flash_op_fwd`` does;
+    else (the VAE's 512, or a switch off) the backward recomputes
+    ``attention_ref`` under autograd.  On the CPU both directions are the
+    plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
         ctx.scale = scale
-        if q.shape[-1] in BWD_HEAD_DIMS:
+        if _FLASH_BWD and _use_flash_bwd(q.shape[-1]):
             out, lse = flash_attention(q, k, v, scale, return_lse=True)
             ctx.save_for_backward(q, k, v, out, lse)
         else:
@@ -522,14 +643,20 @@ class FlashAttention(torch.autograd.Function):
         return (*torch.autograd.grad(out, (q, k, v), do), None)
 
 
+def flash_gate(nq: int, nk: int) -> bool:
+    """The shape and switch part of JAX's gate (``attention.py:665-673``):
+    long self-attention (Nq, Nk >= ``_MIN_N``, Nk % 512 == 0) unless
+    ``_DISABLE_FLASH``."""
+    return (not _DISABLE_FLASH and nq >= _MIN_N and nk >= _MIN_N
+            and nk % 512 == 0)
+
+
 def use_flash(q, k) -> bool:
-    """The gate of ``attention.py:660-673`` on this card, by device and shape
-    only: long self-attention (Nq, Nk >= 512, Nk % 512 == 0) of CUDA
-    tensors.  A dtype or head dim the kernel does not take then raises in
+    """The gate of ``attention.py:660-673`` on this card: ``flash_gate`` for
+    CUDA tensors, the device taking the place of JAX's backend test.  A
+    dtype or head dim the kernel does not take then raises in
     ``flash_attention`` rather than quietly taking the plain version."""
-    nq, nk = q.shape[2], k.shape[2]
-    return (q.device.type == "cuda"
-            and nq >= _MIN_N and nk >= _MIN_N and nk % 512 == 0)
+    return q.device.type == "cuda" and flash_gate(q.shape[2], k.shape[2])
 
 
 def multihead_attention(q, k, v, scale: Optional[float] = None,

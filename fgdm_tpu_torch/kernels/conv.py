@@ -20,7 +20,9 @@ changes, ``conv3x3_taps_ref`` is the kernel's algorithm in plain torch.  See
 the source for the kernels' design.
 
 Gates (``conv3x3_ok``, ``conv3x3_vae_ok``) keep the JAX package's shape
-rules and drop its backend test and its VMEM fit model
+rules and its kill switch ``FGDM_DISABLE_PALLAS_CONV`` (``_DISABLE``, read
+at import as ``conv.py:32`` reads it: both gates refuse every shape), and
+drop its backend test and its VMEM fit model
 (``_scoped_vmem``/``_pick_blocks``/``_pick_slabs``), a TPU residency limit.
 They take the compute dtype, as JAX's do, and admit bfloat16 only: K7 reads
 bf16 activations, so a float32 model keeps ``F.conv2d`` by the gate's
@@ -40,6 +42,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import os
 import weakref
 from typing import NamedTuple
 
@@ -56,6 +59,8 @@ __all__ = ["conv3x3_ref", "conv3x3_taps_ref", "conv3x3_kernel", "Conv3x3",
 
 SMS = 132                  # streaming multiprocessors of an H100
 SMEM_MAX = 232448          # dynamic shared memory one block may have
+# The JAX package's kill switch for the conv kernel (conv.py:32).
+_DISABLE = os.environ.get("FGDM_DISABLE_PALLAS_CONV", "0") == "1"
 _BN, _BK = 128, 64         # the kernel's output-channel tile and channel chunk
 _W_TILE = _BN * _BK * 2    # one (chunk, tap) of weights in shared memory
 
@@ -346,8 +351,8 @@ def _is3x3(x_shape, w_shape) -> bool:
 def conv3x3_ok(x_shape, w_shape, dtype) -> bool:
     """Whole-plane gate (``conv.py:131-154`` without the backend test and
     the VMEM fit): x ``[N, C, H, W]`` in bf16, w ``[Co, C, 3, 3]``; C,
-    Co >= 128, both multiples of 8, 16 <= H <= 64."""
-    if dtype != torch.bfloat16 or not _is3x3(x_shape, w_shape):
+    Co >= 128, both multiples of 8, 16 <= H <= 64; none with ``_DISABLE``."""
+    if _DISABLE or dtype != torch.bfloat16 or not _is3x3(x_shape, w_shape):
         return False
     co, c, h = w_shape[0], x_shape[1], x_shape[2]
     return c >= 128 and co >= 128 and c % 8 == 0 and co % 8 == 0 \
@@ -357,7 +362,7 @@ def conv3x3_ok(x_shape, w_shape, dtype) -> bool:
 def conv3x3_vae_ok(x_shape, w_shape, dtype) -> bool:
     """VAE-family gate (``conv.py:244-276`` without the backend test and
     the slab fit): x in bf16, C = Co = 128 and H >= 512 (the decoder's
-    level-0 ResBlocks)."""
-    if dtype != torch.bfloat16 or not _is3x3(x_shape, w_shape):
+    level-0 ResBlocks); none with ``_DISABLE``."""
+    if _DISABLE or dtype != torch.bfloat16 or not _is3x3(x_shape, w_shape):
         return False
     return x_shape[1] == 128 and w_shape[0] == 128 and x_shape[2] >= 512

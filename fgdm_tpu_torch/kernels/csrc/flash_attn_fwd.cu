@@ -109,11 +109,6 @@ struct Cfg {
   static_assert(V_PANEL % 1024 == 0, "swizzled tiles start 1024-aligned");
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -122,24 +117,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <int BN>
-__device__ __forceinline__ void qk_step(float (&s)[BN / 2], uint64_t a,
-                                        uint64_t b, int accumulate) {
-  if constexpr (BN == 64)
-    wgmma_m64n64k16_ss(s, a, b, accumulate);
-  else
-    wgmma_m64n128k16_ss(s, a, b, accumulate);
-}
-
-template <int D>
-__device__ __forceinline__ void pv_step(float (&o)[D / 2],
-                                        const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 40)
-    wgmma_m64n40k16_rs(o, a, b, 1);
-  else
-    wgmma_m64n80k16_rs(o, a, b, 1);
 }
 
 // q/k as 3-D maps {d, n, bh} with boxes {64, 64, 1} and {64, BN, 1}; vt

@@ -67,11 +67,6 @@ constexpr int SMEM = 1024 + HEADER + Q_BYTES + 2 * STAGES * KV_BYTES;
 constexpr int THREADS = 2 * 128 + 32;   // two consumer warpgroups, a producer
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));

@@ -232,6 +232,72 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float (&d)[128],
         "r"(scale_d));
 }
 
+// D[64x64] (+)= A[64x16] (registers) * B[16x64] (shared, MN-major: the
+// 64 columns are contiguous in 64-wide swizzle atoms, the transpose bit of
+// B is set).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t desc_b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D[64x128] (+)= A[64x16] (registers) * B[16x128] (shared, MN-major: the
+// 128 columns are contiguous in 64-wide swizzle atoms, the transpose bit of
+// B is set).
+__device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t desc_b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
 // D[64x32] (+)= A[64x16] * B[16x32], both K-major in shared memory.
 __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
                                                    uint64_t desc_a,
@@ -359,6 +425,34 @@ __device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40],
         "r"(scale_d));
 }
 
+// Two bf16 (lo in the low half) in one 32-bit A-fragment register.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One k16 step of a 64 x N product with both operands K-major in shared
+// memory, N = 64 or 128 (the flash kernels' score tiles).
+template <int N>
+__device__ __forceinline__ void qk_step(float (&s)[N / 2], uint64_t a,
+                                        uint64_t b, int accumulate) {
+  if constexpr (N == 64)
+    wgmma_m64n64k16_ss(s, a, b, accumulate);
+  else
+    wgmma_m64n128k16_ss(s, a, b, accumulate);
+}
+
+// One accumulating k16 step of a 64 x D product, A from registers, B
+// K-major in shared memory, D = 40 or 80 (the UNet's head dims).
+template <int D>
+__device__ __forceinline__ void pv_step(float (&o)[D / 2],
+                                        const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 40)
+    wgmma_m64n40k16_rs(o, a, b, 1);
+  else
+    wgmma_m64n80k16_rs(o, a, b, 1);
+}
+
 // Keeps the compiler from moving reads or writes of wgmma operands across a
 // wgmma_wait or wgmma_fence: an empty asm that "changes" each register,
 // placed right after the wait, or after the writes that must precede the
@@ -373,6 +467,20 @@ template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// --- per-warpgroup register budgets (every thread of the warpgroup runs
+// it; N a multiple of 8 in 24..256): a producer warpgroup gives registers
+// back, the consumers take them ------------------------------------------
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // --- named barriers (ids 1..15; 0 is __syncthreads') ----------------------

@@ -27,6 +27,11 @@ What bounds it on the card: memory.  It reads the activation twice and
 writes it once, against one read and one write at the bound; no tensor
 cores.  The second read often hits the 50 MB L2.
 
+The TPU kernel's tile knobs have no counterpart here: ``FGDM_GN_ROW_CHUNK``,
+``FGDM_GN_CHUNK_ELEMS`` and ``FGDM_GN_NATIVE_4D`` size or lay out its VMEM
+blocks (``groupnorm.py:42,51,56``); ``launch_geometry`` sizes the Triton
+programs.
+
 The programs are plain functions here and become Triton kernels in
 ``_programs()`` at the first launch: this module imports without Triton,
 which exists only where the card is.  Their bodies name ``tl``, the module

@@ -10,7 +10,8 @@ float32 and cast back to the input dtype.
 ``FGDM_PALLAS_CONV_VAE=1``, default off, as ``layers.py:23-32``) send the
 3x3 stride-1 pad-1 convs with a bias that ``kernels/conv.py``'s gates accept
 to the direct conv kernel K7.  The gates admit bf16 compute only, so a
-float32 ``Conv2d`` keeps ``F.conv2d`` with a flag on.  The Winograd branch
+float32 ``Conv2d`` keeps ``F.conv2d`` with a flag on; with
+``FGDM_DISABLE_PALLAS_CONV=1`` they admit nothing, as JAX's do.  The Winograd branch
 is not ported.
 """
 

@@ -523,8 +523,8 @@ def test_library_key_covers_the_shared_header(monkeypatch, tmp_path):
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = _build.library_path("flash_attn_bwd")
-    (tmp_path / "mma_bf16.cuh").write_text(
-        (tmp_path / "mma_bf16.cuh").read_text() + "\n// edited\n")
+    (tmp_path / "hopper.cuh").write_text(
+        (tmp_path / "hopper.cuh").read_text() + "\n// edited\n")
     assert _build.library_path("flash_attn_bwd") != before
 
 
