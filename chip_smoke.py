@@ -5,9 +5,11 @@
 With ``--sweep`` it builds the kernels, times K1 at each tile choice (keys
 per tile, ring stages, consumer warpgroups), K5 and K6 at each tile choice
 (streamed tile, ring stages, consumer warpgroups) at the ``BWD_CASES``
-shapes, K7 at each forced tile size and the d = 512 forward at forced KV
-slice counts (how ``flash_fwd_plan``, ``flash_bwd_plan``, ``conv3x3_plan``'s
-cost weights and ``kv_splits`` were chosen), and exits.  With no argument
+shapes, K4 at each cluster size and the host cost of the steps around its
+launch, K7 at each forced tile size and the d = 512 forward at forced KV
+slice counts (how ``flash_fwd_plan``, ``flash_bwd_plan``, ``gn_plan``, K4's
+wrapper, ``conv3x3_plan``'s cost weights and ``kv_splits`` were chosen),
+and exits.  With no argument
 it builds the port's kernels from the sources in this checkout (one
 ``nvcc`` per CUDA source, started together), then:
 
@@ -16,10 +18,13 @@ it builds the port's kernels from the sources in this checkout (one
    shapes the three paths below give it (the flash forward's lse output,
    K1 also at two ragged query lengths the gate admits,
    the d = 512 forward with and without a KV split and its combine pass,
-   the flash backward's dQ and dK/dV, the direct 3x3 conv with its
-   transposing pre-pass at the serving shapes and at three ragged shapes
-   the gates admit; each rerun must be bit-identical where the kernel has
-   no atomics), checks ``Conv3x3``'s gradients against autograd through
+   the flash backward's dQ and dK/dV, the fused GroupNorm+SiLU (K4, one
+   cluster launch a call) also at two ragged spans, in f16 and in f32, the
+   direct 3x3 conv with its transposing pre-pass at the serving shapes and
+   at three ragged shapes the gates admit; each rerun must be bit-identical
+   where the kernel has no atomics), prints K4's plan per shape, checks
+   ``Conv3x3``'s
+   gradients against autograd through
    the plain conv, and times kernel, plain version and the PyTorch library
    call that computes the same function (the yardstick, never used by the
    port).  Every kernel is timed as CUDA-graph replays (``ms``, device
@@ -53,7 +58,8 @@ it builds the port's kernels from the sources in this checkout (one
    that K1-K4 and K7 (both families, with the pre-pass) launched and that
    no conv weight was packed anew; times the engine's batch of 4 (images/s
    of the serving preset) with the conv flags on and off turn about, and
-   profiles one more batch of each; then holds K7 and
+   profiles one more batch of each, checking that the K4 kernels in the
+   trace are as many as the wrapper's calls; then holds K7 and
    its pre-pass against their plain versions at every other conv shape that
    the served batch launched, and times them there;
 6. the training path: ``builders.build_trainer`` (adapter-only fine-tuning
@@ -62,7 +68,9 @@ it builds the port's kernels from the sources in this checkout (one
    then 5 timed warm steps; checks the losses, the gradient norm, that the
    adapter moved and every frozen parameter did not, the EMA count; compares
    one loss and its adapter gradients kernels-on vs plain on injected
-   draws; profiles one more step;
+   draws; profiles one more step; then holds K4 against its plain version
+   at every other shape that the chain, the served batch or the training
+   step launched, and times it there;
 7. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, if there is no CUDA device, if any of
@@ -99,7 +107,7 @@ PEAK_EXPS = 3.9e12
 ATTN_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_fwd.cu"
 ATTN512_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_fwd_d512.cu"
 BWD_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_bwd.cu"
-GN_SRC = "fgdm_tpu_torch/kernels/groupnorm.py"
+GN_SRC = "fgdm_tpu_torch/kernels/csrc/groupnorm_silu.cu"
 CONV_SRC = "fgdm_tpu_torch/kernels/csrc/conv3x3.cu"
 K1 = "fgdm_tpu/kernels/attention.py:157"   # _flash_kernel_t
 K2 = "fgdm_tpu/kernels/attention.py:121"   # _flash_kernel
@@ -185,6 +193,31 @@ GN_CASES = [
     ("group_norm_silu [8,320,32,32] train", (8, 320, 32, 32), 1e-5, "train"),
     ("group_norm_silu [8,128,256,256] train", (8, 128, 256, 256), 1e-6,
      "train"),
+]
+# The two-launch Triton kernel that K4 replaced, at the GN_CASES shapes:
+# (device ms by graph replay, eager ms), H100 80GB HBM3, 700.00 W, as
+# PERF.md records them ("before" in the rows' log lines)
+GN_BEFORE = {(2, 320, 64, 64): (0.0102, 0.0953),
+             (2, 2560, 8, 8): (0.0058, 0.0817),
+             (1, 512, 64, 64): (0.0121, 0.0682),
+             (1, 128, 512, 512): (0.0804, 0.0989),
+             (8, 320, 32, 32): (0.0095, 0.0524),
+             (8, 128, 256, 256): (0.1489, 0.1540)}
+# (label, shape, eps, dtype, SiLU): shapes and types the gate admits and no
+# path runs: spans that are no whole number of 16-byte vectors (element
+# loads; one of them split over a cluster of 2), f16, and the f32 512^2
+# plane (streamed)
+GN_OTHER = [
+    ("group_norm_silu [3,128,5,7] ragged", (3, 128, 5, 7), 1e-5,
+     "bfloat16", True),
+    ("group_norm_silu [2,160,17,23] ragged", (2, 160, 17, 23), 1e-6,
+     "bfloat16", True),
+    ("group_norm [2,160,17,23] f32 ragged, no SiLU", (2, 160, 17, 23), 1e-5,
+     "float32", False),
+    ("group_norm_silu [2,320,64,64] f16", (2, 320, 64, 64), 1e-5, "float16",
+     True),
+    ("group_norm_silu [1,128,512,512] f32", (1, 128, 512, 512), 1e-6,
+     "float32", True),
 ]
 # K7's launch keys (N, C, Co, H, W) of the served batch's 3x3 convs, one per
 # family: the factor-2 UNet and ControlNet at batch 8 with CFG (levels 0-2,
@@ -290,27 +323,19 @@ def card_line():
 
 
 def build_kernels():
-    """nvcc every CUDA source at once and compile the Triton programs
-    meanwhile."""
-    import torch
+    """nvcc every CUDA source at once."""
     from fgdm_tpu_torch.kernels import _build, attention, conv, groupnorm
 
     t0 = time.perf_counter()
     names = ("flash_attn_fwd", "flash_attn_fwd_d512", "flash_attn_bwd",
-             "conv3x3")
+             "conv3x3", "groupnorm_silu")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        builds = [pool.submit(_build.build, n) for n in names]
-        x = torch.randn(1, 128, 8, 8, device="cuda", dtype=torch.bfloat16)
-        w = torch.ones(128, device="cuda")
-        for silu in (True, False):
-            groupnorm.group_norm_silu_kernel(x, w, w, 32, 1e-5, silu)
-        torch.cuda.synchronize()
-        log(f"compiled Triton GroupNorm in {time.perf_counter() - t0:.1f}s")
-        paths = [b.result() for b in builds]
+        paths = list(pool.map(_build.build, names))
     attention._lib()
     attention._d512_lib()
     attention._bwd_lib()
     conv._lib()
+    groupnorm._lib()
     log(f"built {', '.join(p.name for p in paths)} in "
         f"{time.perf_counter() - t0:.1f}s")
     for path in paths:
@@ -560,54 +585,133 @@ def bwd_rows(gen):
     return rows
 
 
-def gn_rows(gen):
+def gn_row(gen, label, shape, eps, path, dtype="bfloat16", silu=True):
+    """K4 at one shape: the output against ``group_norm_silu_ref`` and a
+    rerun bit-identical; kernel, plain version and ``F.group_norm``
+    (+ ``F.silu``) in x's dtype timed by graph replay (device time) and
+    eagerly; the plan the card runs."""
     import torch
     import torch.nn.functional as F
     from fgdm_tpu_torch.kernels import groupnorm
 
-    rows = []
-    for label, shape, eps, path in GN_CASES:
-        c = shape[1]
-        x = torch.randn(shape, device="cuda", generator=gen,
-                        dtype=torch.bfloat16)
-        w = 1 + 0.1 * torch.randn(c, device="cuda", generator=gen)
-        bias = 0.1 * torch.randn(c, device="cuda", generator=gen)
-        out = groupnorm.group_norm_silu_kernel(x, w, bias, 32, eps, True)
-        ref = groupnorm.group_norm_silu_ref(x, w, bias, 32, eps, True)
-        torch.cuda.synchronize()
-        rel = ((out.float() - ref.float()).abs()
-               / (1 + ref.float().abs())).max().item()
-        err = (out.float() - ref.float()).abs().max().item()
-        ok = math.isfinite(rel) and rel <= GN_TOL
-        reps = 20 if x.numel() > 1 << 24 else 100
+    dt = getattr(torch, dtype)
+    c = shape[1]
+    x = torch.randn(shape, device="cuda", generator=gen, dtype=dt)
+    w = 1 + 0.1 * torch.randn(c, device="cuda", generator=gen)
+    bias = 0.1 * torch.randn(c, device="cuda", generator=gen)
 
-        def kern():
-            return groupnorm.group_norm_silu_kernel(x, w, bias, 32, eps, True)
+    def kern():
+        return groupnorm.group_norm_silu_kernel(x, w, bias, 32, eps, silu)
 
-        wb, bb = w.to(x.dtype), bias.to(x.dtype)
+    out = kern()
+    same = torch.equal(out, kern())
+    ref = groupnorm.group_norm_silu_ref(x, w, bias, 32, eps, silu)
+    torch.cuda.synchronize()
+    rel = ((out.float() - ref.float()).abs()
+           / (1 + ref.float().abs())).max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = math.isfinite(rel) and rel <= GN_TOL and same
+    del out, ref
+    reps = 20 if x.numel() > 1 << 24 else 100
+    wb, bb = w.to(dt), bias.to(dt)
 
-        def lib():
-            return F.silu(F.group_norm(x, 32, wb, bb, eps))
+    def lib():
+        y = F.group_norm(x, 32, wb, bb, eps)
+        return F.silu(y) if silu else y
 
-        ms, eager_ms = graph_ms(kern, reps), cuda_ms(kern, reps)
-        plain_ms = graph_ms(lambda: groupnorm.group_norm_silu_ref(
-            x, w, bias, 32, eps, True), reps)
-        lib_ms, lib_eager = graph_ms(lib, reps), cuda_ms(lib, reps)
-        nbytes = 2.0 * x.numel() * x.element_size() + 2 * c * 4
-        flops = 8.0 * x.numel()   # sums, affine, SiLU: ~8 f32 ops/element
-        bound_ms, bound_by, term = bound(flops, nbytes, PEAK_F32_FLOPS)
-        rows.append(dict(
-            name=label, route="triton", source=GN_SRC, replaces=K4,
-            key=("gn", shape, eps), path=path, max_abs_err=err, tol=GN_TOL,
-            ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
-            library_ms=lib_ms))
-        log(f"{label} eps={eps}: max|d|={err:.3e} max|d|/(1+|ref|)={rel:.3e}"
-            f" (tol {GN_TOL}) {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms "
-            f"(eager {eager_ms:.4f})  plain {plain_ms:.4f} ms  "
-            f"F.group_norm+silu {lib_ms:.4f} ms (eager {lib_eager:.4f})  "
-            f"bound {bound_ms:.4f} ms ({term})")
+    ms, eager_ms = graph_ms(kern, reps), cuda_ms(kern, reps)
+    plain_ms = graph_ms(lambda: groupnorm.group_norm_silu_ref(
+        x, w, bias, 32, eps, silu), reps)
+    lib_ms, lib_eager = graph_ms(lib, reps), cuda_ms(lib, reps)
+    nbytes = 2.0 * x.numel() * x.element_size() + 2 * c * 4
+    flops = 8.0 * x.numel()   # sums, affine, SiLU: ~8 f32 ops/element
+    bound_ms, bound_by, term = bound(flops, nbytes, PEAK_F32_FLOPS)
+    plan = groupnorm.card_plan(tuple(shape), dt, 32)
+    before = GN_BEFORE.get(tuple(shape)) if dtype == "bfloat16" else None
+    log(f"{label} {dtype} eps={eps}: max|d|={err:.3e} max|d|/(1+|ref|)="
+        f"{rel:.3e} (tol {GN_TOL}), rerun bit-identical {same} "
+        f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms (eager {eager_ms:.4f};"
+        f" {100 * bound_ms / ms:.0f}% of bound; before: "
+        f"{'%.4f / %.4f' % before if before else '-'})  plain "
+        f"{plain_ms:.4f} ms  F.group_norm{'+silu' if silu else ''} "
+        f"{lib_ms:.4f} ms (eager {lib_eager:.4f})  bound {bound_ms:.4f} ms "
+        f"({term})  plan k={plan.k} per_sm={plan.per_sm} threads="
+        f"{plan.threads} slice="
+        f"{plan.slice} resident={plan.resident} smem={plan.smem} streams="
+        f"{plan.streams} aligned={plan.aligned} blocks={plan.blocks}")
+    return dict(
+        name=label, route="cuda", source=GN_SRC, replaces=K4,
+        key=("gn", tuple(shape), eps), path=path, max_abs_err=err,
+        tol=GN_TOL, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
+        library_ms=lib_ms)
+
+
+def gn_rows(gen):
+    """K4 at ``GN_CASES`` and ``GN_OTHER``."""
+    rows = [gn_row(gen, label, shape, eps, path)
+            for label, shape, eps, path in GN_CASES]
+    rows += [gn_row(gen, label, shape, eps, None, dtype, silu)
+             for label, shape, eps, dtype, silu in GN_OTHER]
     return rows
+
+
+def gn_path_rows(gen, by_path):
+    """K4 at every (shape, eps) that the chain, the served batch or the
+    training step launched and ``GN_CASES`` does not hold, in bf16 (the
+    paths' dtype)."""
+    import torch
+
+    done = {(shape, eps) for _, shape, eps, _ in GN_CASES}
+    rows = []
+    for path, counts in by_path.items():
+        for shape, eps in sorted(set(counts["gn"]) - done):
+            done.add((shape, eps))
+            label = f"group_norm_silu [{','.join(map(str, shape))}] {path}"
+            rows.append(gn_row(gen, label, shape, eps, path))
+            torch.cuda.empty_cache()
+    return rows
+
+
+def gn_host_costs():
+    """Host microseconds a call, each over 20,000 calls: the steps around
+    K4's launch (the device context and the stream object the wrapper
+    avoids, what it calls in their place, the output it allocates, its plan
+    lookup) and the whole wrapper at [2,320,8,8], where the host, not the
+    card, sets the pace."""
+    import torch
+    from fgdm_tpu_torch.kernels import groupnorm
+
+    x = torch.empty(2, 320, 8, 8, device="cuda", dtype=torch.bfloat16)
+    w = torch.ones(320, device="cuda")
+    groupnorm.card_plan(tuple(x.shape), x.dtype, 32)
+
+    def device_context():
+        with torch.cuda.device(x.device):
+            pass
+
+    steps = {
+        "with torch.cuda.device(x.device)": device_context,
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "torch.cuda.current_stream(x.device).cuda_stream":
+            lambda: torch.cuda.current_stream(x.device).cuda_stream,
+        "torch._C._cuda_getCurrentRawStream(i)":
+            lambda: torch._C._cuda_getCurrentRawStream(x.device.index),
+        "torch.empty_like(x)": lambda: torch.empty_like(x),
+        "card_plan lookup": lambda: groupnorm.card_plan(
+            tuple(x.shape), x.dtype, 32),
+        "group_norm_silu_kernel": lambda: groupnorm.group_norm_silu_kernel(
+            x, w, w, 32, 1e-5, True),
+    }
+    msgs = []
+    for name, fn in steps.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20000):
+            fn()
+        msgs.append(f"{name} {(time.perf_counter() - t0) / 20000 * 1e6:.2f}")
+    torch.cuda.synchronize()
+    log("K4 wrapper host cost, us a call (host clock): " + "; ".join(msgs))
 
 
 _PREPASS_SEEN = set()
@@ -1084,16 +1188,26 @@ def phase_serve(ld, cldm):
         f"{SERVE_TIMED} {[round(t, 3) for t in off]}), "
         f"{SERVE_BATCH / cold:.3f} images/s, {SERVE_BATCH / min(off):.3f} "
         f"at best")
+    from fgdm_tpu_torch.kernels import groupnorm
+
     with conv_flags():
-        profile("serve", run, warm)
+        reset_counts()
+        traced = profile("serve", run, warm)
+        calls = sum(groupnorm.group_norm_silu_kernel.launches.values())
+    n_k4 = k4_in_trace(traced)[0]
+    one_launch = n_k4 == calls > 0
+    log(f"serve: K4 kernels in the profiled batch's trace {n_k4}, K4 calls "
+        f"counted by the wrapper {calls}: one launch a call {one_launch}; "
+        f"{'OK' if one_launch else 'FAIL'}")
     profile("serve with the conv flags off", run, cold)
-    return ok, counts
+    return ok and one_launch, counts
 
 
 def profile(path, run, warm_s):
     """Device time by kernel over one more run of ``run`` (torch.profiler),
     and the device's busy share: that kernel time over the unprofiled warm
-    wall time.  Prints "not measured" if the trace holds no device time."""
+    wall time.  Prints "not measured" if the trace holds no device time.
+    Returns {kernel name: (launches, us)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1112,7 +1226,7 @@ def profile(path, run, warm_s):
     total_ms = sum(t for _, t in by_name.values()) / 1e3
     if total_ms == 0:
         log(f"{path} device time by kernel: not measured (no device events)")
-        return
+        return by_name
     log(f"{path} device kernel time {total_ms:.1f} ms over a warm wall of "
         f"{1e3 * warm_s:.1f} ms: device busy share "
         f"{total_ms / (1e3 * warm_s):.3f}")
@@ -1120,11 +1234,20 @@ def profile(path, run, warm_s):
     # the top 15, and every kernel of the port below them
     anon = "(anonymous namespace)::"
     ours = (anon + "flash_", anon + "conv3x3_", anon + "nchw_to_nhwc_",
-            "_gn_")
+            anon + "gn_silu_")
     for name, (n, t) in ranked[:15] + [
             kv for kv in ranked[15:] if any(o in kv[0] for o in ours)]:
         log(f"  {t / 1e3:9.2f} ms {100 * t / 1e3 / total_ms:5.1f}% "
             f"{n:6d}x  {name[:110]}")
+    n_k4, t_k4 = k4_in_trace(by_name)
+    log(f"{path}: K4 {t_k4 / 1e3:.2f} ms of device time in {n_k4} launches")
+    return by_name
+
+
+def k4_in_trace(by_name):
+    """(launches, us) of K4's kernels in a profile's {name: (n, us)}."""
+    hits = [v for name, v in by_name.items() if "gn_silu_kernel" in name]
+    return sum(n for n, _ in hits), sum(t for _, t in hits)
 
 
 def adapter_grads(ld, state, batch, draws):
@@ -1328,9 +1451,59 @@ def sweep_bwd(gen):
     return bad
 
 
+def sweep_k4(gen):
+    """K4 at the planned launch (*) and at every other cluster size k and
+    share of an SM (blocks an SM's shared memory is cut for, ``per_sm``)
+    that gives another plan and whose clusters schedule, at the
+    ``GN_CASES`` shapes, the served batch's [8,320,64,64] (the most K4 time
+    of a served batch) and the chain's streamed [1,256,512,512], each held
+    against the plain version; device times.  Returns the number of
+    failures."""
+    import torch
+    from fgdm_tpu_torch.kernels import groupnorm
+
+    bad = 0
+    cases = [(shape, eps) for _, shape, eps, _ in GN_CASES]
+    for shape, eps in cases + [((8, 320, 64, 64), 1e-5),
+                               ((1, 256, 512, 512), 1e-6)]:
+        x = torch.randn(shape, device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        w = 1 + 0.1 * torch.randn(shape[1], device="cuda", generator=gen)
+        b = 0.1 * torch.randn(shape[1], device="cuda", generator=gen)
+        ref = groupnorm.group_norm_silu_ref(x, w, b, 32, eps, True).float()
+        planned = groupnorm.card_plan(shape, x.dtype, 32)
+        msgs, seen = [], set()
+        for k, per_sm in itertools.product(groupnorm._CLUSTERS, (1, 2, 3, 4)):
+            plan = groupnorm.gn_tile(shape, x.dtype, 32, k, per_sm)
+            if plan._replace(per_sm=0) in seen:
+                continue   # another share gives the same launch
+            seen.add(plan._replace(per_sm=0))
+            active = groupnorm.max_active_clusters(x.dtype, plan)
+            if active < 1:
+                msgs.append(f"{k}x{per_sm} does not schedule")
+                continue
+            out = groupnorm._launch(x, w, b, 32, eps, True, plan)
+            rel = ((out.float() - ref).abs() / (1 + ref.abs())).max().item()
+            ok = math.isfinite(rel) and rel <= GN_TOL
+            bad += not ok
+            ms = graph_ms(lambda: groupnorm._launch(x, w, b, 32, eps, True,
+                                                    plan), 20)
+            star = plan._replace(per_sm=0) == planned._replace(per_sm=0)
+            msgs.append(f"{k}x{per_sm}{'*' if star else ''} "
+                        f"({active} clusters at once"
+                        f"{', streams' if plan.streams else ''}) {ms:.4f} ms "
+                        f"{'OK' if ok else 'FAIL'}")
+        log(f"group_norm_silu [{','.join(map(str, shape))}] (cluster size x "
+            f"blocks an SM): " + "; ".join(msgs))
+        del x, ref
+        torch.cuda.empty_cache()
+    return bad
+
+
 def sweep():
     """K1 at each tile choice (``sweep_k1``), K5 and K6 at each tile choice
-    (``sweep_bwd``), K7's ``wgmma`` kernel alone (no
+    (``sweep_bwd``), K4 at each cluster size (``sweep_k4``) and its
+    wrapper's host cost (``gn_host_costs``), K7's ``wgmma`` kernel alone (no
     pre-pass) at the planned tile (*) and at each forced size, and the d =
     512 forward at forced KV slice counts; each held against its plain
     version, device times."""
@@ -1338,7 +1511,8 @@ def sweep():
     from fgdm_tpu_torch.kernels import attention, conv
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bad = sweep_k1(gen) + sweep_bwd(gen)
+    bad = sweep_k1(gen) + sweep_bwd(gen) + sweep_k4(gen)
+    gn_host_costs()
     for n, c, co, h, w in CONV_CASES + RAGGED_CONV_CASES:
         x = torch.randn(n, c, h, w, device="cuda", generator=gen,
                         dtype=torch.bfloat16)
@@ -1428,6 +1602,13 @@ def main():
     log(f"K7 and its pre-pass at the served batch's other conv shapes "
         f"{time.perf_counter() - t0:.1f}s")
     train_ok, train = phase_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows += gn_path_rows(torch.Generator(device="cuda").manual_seed(6),
+                         {"chain": chain, "serve": serve, "train": train})
+    log(f"K4 at the chain's, the served batch's and the training step's "
+        f"other shapes {time.perf_counter() - t0:.1f}s")
 
     failures = [r["name"] for r in rows if not r["ok"]]
     by_path = {"chain": chain, "train": train, "serve": serve}

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the wgmma kernels: mbarriers,
-// named barriers, TMA tensor maps (host) and loads (device), ldmatrix,
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// named barriers, TMA tensor maps (host) and loads (device), 1-D bulk
+// copies, thread-block clusters and their shared memory, ldmatrix,
 // warpgroup matrix multiply (wgmma) with its shared-memory descriptors, and
 // the special-function unit's exp2.
 //
@@ -91,6 +92,73 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// --- 1-D bulk copy: `bytes` (a multiple of 16) from global memory into this
+// block's shared memory, both addresses 16-byte aligned; the barrier's
+// transaction count falls by `bytes` when they have landed ------------------
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Ask for `bytes` (a multiple of 16, 16-byte aligned) of global memory to be
+// brought into L2, without waiting.
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src,
+                                                 uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// --- thread-block clusters -------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives (release: its earlier
+// writes become visible across the cluster) and later waits (acquire) for
+// all of them; arrive and wait alternate.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The address that `addr` (in this block's shared memory) has in the shared
+// memory of the cluster's block `rank`, and a 32-bit load from such an
+// address (distributed shared memory).
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t ld_cluster_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // --- ldmatrix: four 8x8 bf16 matrices; lanes 8i..8i+7 give the row

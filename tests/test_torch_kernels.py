@@ -4,8 +4,8 @@ On the CPU each wrapper takes its kernel's plain version, so this file holds
 those plain versions against the JAX package's plain versions
 (``_xla_attention``, ``_xla_group_norm``) and against the Pallas kernels run
 in interpret mode (the pattern of ``tests/test_attention.py:30``), checks the
-dispatch gates, the launch geometry of the Triton GroupNorm, and that the
-wrappers refuse what they cannot run.  The kernels themselves run only on
+dispatch gates, and that the wrappers refuse what they cannot run (the
+GroupNorm kernel's launch plan is ``tests/test_torch_groupnorm.py``'s).  The kernels themselves run only on
 the card: ``chip_smoke.py`` holds them against the same plain versions there.
 
 The backward (K5, K6) and the two autograd Functions are held against the
@@ -338,32 +338,6 @@ def test_group_norm_ref_bf16_casts_once():
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(np.moveaxis(out.float().numpy(), 1, -1),
                                np.asarray(xla, np.float32), atol=2e-2)
-
-
-@pytest.mark.parametrize("shape", [
-    (2, 320, 64, 64), (2, 2560, 8, 8), (2, 1280, 4, 4), (1, 512, 64, 64),
-    (1, 128, 512, 512), (1, 256, 512, 512), (3, 128, 5, 7),
-])
-def test_group_norm_launch_geometry_covers_each_group(shape):
-    """The Triton launch's slices tile each (batch, group) span exactly,
-    and the two-pass statistics over them (partial sums of x and x^2,
-    var = E[x^2] - mean^2, as the TPU kernel) equal the plain version's."""
-    numel, split, chunk = tg.launch_geometry(shape)
-    assert numel == shape[1] // 32 * math.prod(shape[2:])
-    assert chunk % tg._BLOCK == 0 and split <= tg._MAX_SPLIT
-    assert split & (split - 1) == 0
-    assert (split - 1) * chunk < numel <= split * chunk
-    if numel > 1 << 16:
-        return
-    rng = np.random.default_rng(4)
-    span = (rng.standard_normal(numel) * 2 + 0.5).astype(np.float32)
-    parts = np.array([[span[s * chunk:(s + 1) * chunk].sum(dtype=np.float32),
-                       (span[s * chunk:(s + 1) * chunk] ** 2).sum(
-                           dtype=np.float32)] for s in range(split)])
-    mean = parts[:, 0].sum() / numel
-    var = parts[:, 1].sum() / numel - mean * mean
-    np.testing.assert_allclose(mean, span.mean(dtype=np.float64), atol=1e-5)
-    np.testing.assert_allclose(var, span.var(dtype=np.float64), rtol=1e-4)
 
 
 def test_group_norm_cpu_path_counts_no_launch():
