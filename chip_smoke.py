@@ -15,7 +15,7 @@ it builds the port's kernels from the sources in this checkout (one
 
 1. prints the card's name and power limit;
 2. holds every kernel against its plain PyTorch version on the card at the
-   shapes the three paths below give it (the flash forward's lse output,
+   shapes the paths below give it (the flash forward's lse output,
    K1 also at two ragged query lengths the gate admits,
    the d = 512 forward with and without a KV split and its combine pass,
    the flash backward's dQ and dK/dV, the fused GroupNorm+SiLU (K4, one
@@ -46,10 +46,29 @@ it builds the port's kernels from the sources in this checkout (one
    more run for the device time by kernel; then, with the conv-kernel flags
    on, compares one factor-2 UNet + ControlNet forward at [8, 4, 64, 64] and
    one 512^2 VAE decode kernels-on vs plain;
-5. the serving path, on the chain's models with both conv-kernel flags on:
-   a ``ChainEngine`` (batch 4, the fast preset: DPM-Solver++ 20 steps for
-   factor 1, DDIM 20 for factor 2, CLIP on hash-fallback tokens, 256^2 ->
-   512^2) warms up with one full ``generate()``; ``server.serve`` listens on
+5. the checkpoint and CLI path: writes the chain's seeded weights as the
+   reference's two checkpoints (``{"state_dict": ...}`` in its key schema:
+   ``fgdm_seg.pth`` with the adapter UNet, VAE, CLIP and three
+   ``model_ema.*`` keys, ``fgdm_control_sd15_seg.pth`` with the UNet
+   without adapter, ControlNet, VAE and CLIP) into a temporary directory
+   under ``build/``, loads them on the card through ``load_fgdm`` and
+   ``load_controlnet`` (on its own, then sharing the factor-1 VAE and CLIP)
+   and checks 0 missing, 0 unexpected keys and every tensor bit-equal to
+   its source (never more than two copies of a model on the card); frees
+   the chain's models; runs ``cli.txt2img_fgdm.main`` with
+   run_inference.sh's flags (``--config models/config.yaml``, 5 samples,
+   50 DDIM steps at CFG 7.5, 256^2, ``--use_controlnet``) on the two files,
+   both conv flags on and the hash-fallback tokenizer allowed, with every
+   launch count set to 0 just before, and checks 5 condition maps (256^2)
+   and 5 images (512^2) as valid PNGs and that K1-K4, K7 and its pre-pass
+   launched; then seg2image's compute: guess mode at strength 0.8 on those
+   five maps at 512^2, 20 steps (counts reset just before), and guess
+   mode's two forwards kernels on vs plain;
+6. the serving path, with both conv-kernel flags on, on the engine that
+   ``server.py --ckpt/--cn_ckpt`` assembles (``server.build_engine``) from
+   those two files: a ``ChainEngine`` (batch 4, the fast preset:
+   DPM-Solver++ 20 steps for factor 1, DDIM 20 for factor 2, CLIP on
+   hash-fallback tokens, 256^2 -> 512^2) warms up with one full ``generate()``; ``server.serve`` listens on
    an ephemeral localhost port with a 500 ms batch window; with every launch
    count set to 0, four client threads POST one prompt each (distinct seeds,
    one negative), then one solo request repeats one (prompt, seed), then
@@ -59,19 +78,23 @@ it builds the port's kernels from the sources in this checkout (one
    no conv weight was packed anew; times the engine's batch of 4 (images/s
    of the serving preset) with the conv flags on and off turn about, and
    profiles one more batch of each, checking that the K4 kernels in the
-   trace are as many as the wrapper's calls; then holds K7 and
-   its pre-pass against their plain versions at every other conv shape that
-   the served batch launched, and times them there;
-6. the training path: ``builders.build_trainer`` (adapter-only fine-tuning
+   trace are as many as the wrapper's calls; the checkpoint files are
+   deleted;
+7. the training path: ``builders.build_trainer`` (adapter-only fine-tuning
    at 256^2, batch 8, VAE encode + CLIP + UNet forward and backward + AdamW
    + EMA) takes one cold step with every launch count set to 0 just before,
    then 5 timed warm steps; checks the losses, the gradient norm, that the
    adapter moved and every frozen parameter did not, the EMA count; compares
    one loss and its adapter gradients kernels-on vs plain on injected
-   draws; profiles one more step; then holds K4 against its plain version
-   at every other shape that the chain, the served batch or the training
-   step launched, and times it there;
-7. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+   draws; profiles one more step;
+8. holds every kernel against its plain version, and times it, at every
+   other shape that a path above launched (the chain, the training step,
+   the served batch, the CLI, seg2image's sampling): K1-K3 and the combine
+   pass at each (batch, heads, N, d), K7 and its pre-pass at each conv
+   launch key, K4 at each (shape, eps), each held once, under the first
+   path that launched it; every row then reads its path's launch count and
+   fails at 0;
+9. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, if there is no CUDA device, if any of
 the reference's kernel switches the port honours (``FGDM_DISABLE_FLASH``,
@@ -90,9 +113,12 @@ import gc
 import itertools
 import json
 import math
+import os
+import shutil
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -241,6 +267,7 @@ LOSS_TOL = 1e-2           # relative difference of the training loss
 TRAIN_BATCH, WARM_STEPS = 8, 5
 SERVE_BATCH, SERVE_TIMED = 4, 3
 SERVE_SEEDS = (11, 22, -33, 44)   # one client each; the third repeats solo
+PROMPT_CLI = "a dog running on the beach"
 
 
 def log(msg):
@@ -360,8 +387,23 @@ def bound(flops, nbytes, peak_flops, exps=0.0):
             term)
 
 
+def attn_kernel(d, nk):
+    """The TPU kernel a forward at head dim ``d`` over ``nk`` keys stands
+    for: K1 (transposed layout) up to d = 96, else K3 where the reference
+    streams the keys (K+V, double-buffered and lane-padded, over its 8 MiB
+    residency budget, ``attention.py:612-618``), else K2."""
+    if d <= 96:
+        return K1
+    return K3 if 2 * 2 * nk * (-(-d // 128) * 128) * 2 > 8 << 20 else K2
+
+
 def attn_rows(gen):
-    """K1-K3 forward rows: the output against the plain version's, the lse
+    """K1-K3 forward rows at ``ATTN_CASES``."""
+    return [attn_row(gen, *case) for case in ATTN_CASES]
+
+
+def attn_row(gen, label, tpu, b, h, nq, nk, d, with_lse, path, splits):
+    """A K1-K3 forward row: the output against the plain version's, the lse
     output against the plain version's, the output with lse against the
     output without, and the rerun, bit for bit.  Kernel and SDPA are timed
     as device time (CUDA graph replays, ``ms``) and eagerly (``eager_ms``,
@@ -371,122 +413,125 @@ def attn_rows(gen):
     import torch.nn.functional as F
     from fgdm_tpu_torch.kernels import attention
 
-    rows = []
-    for label, tpu, b, h, nq, nk, d, with_lse, path, splits in ATTN_CASES:
-        q = torch.randn(b, h, nq, d, device="cuda", generator=gen,
-                        dtype=torch.bfloat16)
-        k, v = (torch.randn(b, h, nk, d, device="cuda", generator=gen,
-                            dtype=torch.bfloat16) for _ in range(2))
-        scale = d ** -0.5
-        kw = {"splits": splits} if d == 512 else {}
-        out = attention.flash_attention(q, k, v, scale, **kw)
-        ref, ref_lse = attention.attention_ref(q, k, v, scale,
-                                               return_lse=True)
-        err = (out.float() - ref.float()).abs().max().item()
-        lim = ATTN_TOL[0] * ref.float().abs().max().item() + ATTN_TOL[1]
-        ok = math.isfinite(err) and err <= lim
-        out_l, lse = attention.flash_attention(q, k, v, scale,
-                                               return_lse=True, **kw)
-        lse_err = (lse - ref_lse).abs().max().item()
-        same = torch.equal(out_l, out)
-        rerun = torch.equal(attention.flash_attention(q, k, v, scale, **kw),
-                            out)
-        ok = (ok and math.isfinite(lse_err) and lse_err <= LSE_TOL and same
-              and rerun)
-        note = (f"  lse max|d|={lse_err:.3e} (tol {LSE_TOL}), output "
-                f"with lse {'==' if same else '!='} without, rerun "
-                f"bit-identical {rerun}")
-        vt_ms = None
-        if d == 512:
-            used = splits or attention.kv_splits(b * h, nq, nk)
-            note += f", {used} KV slice(s)"
-        else:
-            plan = attention.flash_fwd_plan(b * h, nq, nk, d)
-            vt_ms = graph_ms(lambda: v.transpose(2, 3).contiguous(), 20)
-            note += (f", tile {plan.bn} keys x {plan.stages} stages x "
-                     f"{plan.wgs} warpgroup(s), "
-                     f"{plan.grid[0] * plan.grid[1]} blocks, of the kernel "
-                     f"time the V^T copy {vt_ms:.4f} ms")
-        reps = 20 if nq * b >= 8192 else 50
+    q = torch.randn(b, h, nq, d, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(b, h, nk, d, device="cuda", generator=gen,
+                        dtype=torch.bfloat16) for _ in range(2))
+    scale = d ** -0.5
+    kw = {"splits": splits} if d == 512 else {}
+    out = attention.flash_attention(q, k, v, scale, **kw)
+    ref, ref_lse = attention.attention_ref(q, k, v, scale,
+                                           return_lse=True)
+    err = (out.float() - ref.float()).abs().max().item()
+    lim = ATTN_TOL[0] * ref.float().abs().max().item() + ATTN_TOL[1]
+    ok = math.isfinite(err) and err <= lim
+    out_l, lse = attention.flash_attention(q, k, v, scale,
+                                           return_lse=True, **kw)
+    lse_err = (lse - ref_lse).abs().max().item()
+    same = torch.equal(out_l, out)
+    rerun = torch.equal(attention.flash_attention(q, k, v, scale, **kw),
+                        out)
+    ok = (ok and math.isfinite(lse_err) and lse_err <= LSE_TOL and same
+          and rerun)
+    note = (f"  lse max|d|={lse_err:.3e} (tol {LSE_TOL}), output "
+            f"with lse {'==' if same else '!='} without, rerun "
+            f"bit-identical {rerun}")
+    vt_ms = None
+    if d == 512:
+        used = splits or attention.kv_splits(b * h, nq, nk)
+        note += f", {used} KV slice(s)"
+    else:
+        plan = attention.flash_fwd_plan(b * h, nq, nk, d)
+        vt_ms = graph_ms(lambda: v.transpose(2, 3).contiguous(), 20)
+        note += (f", tile {plan.bn} keys x {plan.stages} stages x "
+                 f"{plan.wgs} warpgroup(s), "
+                 f"{plan.grid[0] * plan.grid[1]} blocks, of the kernel "
+                 f"time the V^T copy {vt_ms:.4f} ms")
+    reps = 20 if nq * b >= 8192 else 50
 
-        def run():
-            return attention.flash_attention(q, k, v, scale,
-                                             return_lse=with_lse, **kw)
+    def run():
+        return attention.flash_attention(q, k, v, scale,
+                                         return_lse=with_lse, **kw)
 
-        def sdpa():
-            return F.scaled_dot_product_attention(q, k, v, scale=scale)
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, scale=scale)
 
-        ms = graph_ms(run, reps)
-        eager_ms = cuda_ms(run, reps)
-        # the plain version's f32 scores take GBs at N = 4096: eagerly there
-        # (the launch cost is nothing beside it), not ``reps`` copies in one
-        # graph's pool
-        plain_timer = graph_ms if b * h * nq * nk <= 1 << 26 else cuda_ms
-        plain_ms = plain_timer(lambda: attention.attention_ref(
-            q, k, v, scale, return_lse=with_lse), reps)
-        lib_ms = graph_ms(sdpa, reps)
-        lib_eager = cuda_ms(sdpa, reps)
-        bound_ms, bound_by, term = bound(
-            4.0 * b * h * nq * nk * d,
-            2.0 * b * h * d * (2 * nq + 2 * nk)
-            + (4.0 * b * h * nq if with_lse else 0), PEAK_BF16_FLOPS,
-            exps=1.0 * b * h * nq * nk)
-        rows.append(dict(
-            name=label, route="cuda",
-            source=ATTN512_SRC if d == 512 else ATTN_SRC, replaces=tpu,
-            key=("attn", d, nq, nk, with_lse), path=path, max_abs_err=err,
-            tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, copy_ms=vt_ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            bound_term=term, library_ms=lib_ms))
-        log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}){note} "
-            f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms (eager "
-            f"{eager_ms:.4f})  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms "
-            f"(eager {lib_eager:.4f})  bound {bound_ms:.4f} ms ({term}; "
-            f"{100 * bound_ms / ms:.1f} % of it)")
-    return rows
+    ms = graph_ms(run, reps)
+    eager_ms = cuda_ms(run, reps)
+    # the plain version's f32 scores take GBs at N = 4096: eagerly there
+    # (the launch cost is nothing beside it), not ``reps`` copies in one
+    # graph's pool
+    plain_timer = graph_ms if b * h * nq * nk <= 1 << 26 else cuda_ms
+    plain_ms = plain_timer(lambda: attention.attention_ref(
+        q, k, v, scale, return_lse=with_lse), reps)
+    lib_ms = graph_ms(sdpa, reps)
+    lib_eager = cuda_ms(sdpa, reps)
+    bound_ms, bound_by, term = bound(
+        4.0 * b * h * nq * nk * d,
+        2.0 * b * h * d * (2 * nq + 2 * nk)
+        + (4.0 * b * h * nq if with_lse else 0), PEAK_BF16_FLOPS,
+        exps=1.0 * b * h * nq * nk)
+    row = dict(
+        name=label, route="cuda",
+        source=ATTN512_SRC if d == 512 else ATTN_SRC, replaces=tpu,
+        key=("attn", b, h, nq, nk, d, with_lse), path=path, max_abs_err=err,
+        tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, copy_ms=vt_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        bound_term=term, library_ms=lib_ms)
+    log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}){note} "
+        f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms (eager "
+        f"{eager_ms:.4f})  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms "
+        f"(eager {lib_eager:.4f})  bound {bound_ms:.4f} ms ({term}; "
+        f"{100 * bound_ms / ms:.1f} % of it)")
+    return row
 
 
 def combine_rows(gen):
-    """The combine pass of the d = 512 forward against ``combine_ref`` on
-    the plain split version's partials (the same f32 inputs to both)."""
+    """The combine pass at ``COMBINE_CASES``."""
+    return [combine_row(gen, 1, 1, n, splits, tpu, "chain")
+            for n, splits, tpu in COMBINE_CASES]
+
+
+def combine_row(gen, b, h, n, splits, tpu, path):
+    """The combine pass of the d = 512 forward at [b, h, n, 512] in
+    ``splits`` slices against ``combine_ref`` on the plain split version's
+    partials (the same f32 inputs to both)."""
     import torch
     from fgdm_tpu_torch.kernels import attention
 
-    rows = []
-    for n, splits, tpu in COMBINE_CASES:
-        label = f"flash_combine d512 N{n} {splits} slices"
-        q, k, v = (torch.randn(1, 1, n, 512, device="cuda", generator=gen,
-                               dtype=torch.bfloat16) for _ in range(3))
-        parts = attention.attention_split_ref(q, k, v, 512 ** -0.5, splits)
-        parts = tuple(p.contiguous() for p in parts)
-        out, lse = attention.flash_combine(*parts)
-        ref, ref_lse = attention.combine_ref(*parts, torch.bfloat16)
-        again = attention.flash_combine(*parts)
-        err = (out.float() - ref.float()).abs().max().item()
-        lim = ATTN_TOL[0] * ref.float().abs().max().item() + ATTN_TOL[1]
-        lse_err = (lse - ref_lse).abs().max().item()
-        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
-        ok = (math.isfinite(err) and err <= lim and math.isfinite(lse_err)
-              and lse_err <= LSE_TOL and same)
-        ms = graph_ms(lambda: attention.flash_combine(*parts), 50)
-        eager_ms = cuda_ms(lambda: attention.flash_combine(*parts), 50)
-        plain_ms = graph_ms(lambda: attention.combine_ref(
-            *parts, torch.bfloat16), 50)
-        nbytes = 4.0 * splits * n * (512 + 2) + n * (2.0 * 512 + 4)
-        bound_ms, bound_by, term = bound(3.0 * splits * n * 512, nbytes,
-                                         PEAK_F32_FLOPS)
-        rows.append(dict(
-            name=label, route="cuda", source=ATTN512_SRC, replaces=tpu,
-            key=("combine", n, splits), path="chain", max_abs_err=err,
-            tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
-            library_ms=None))
-        log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}), lse max|d|="
-            f"{lse_err:.3e} (tol {LSE_TOL}), rerun bit-identical {same} "
-            f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  "
-            f"(device times; eager {eager_ms:.4f} ms)")
-    return rows
+    label = f"flash_combine d512 N{n} [{b},{h}] {splits} slices"
+    q, k, v = (torch.randn(b, h, n, 512, device="cuda", generator=gen,
+                           dtype=torch.bfloat16) for _ in range(3))
+    parts = attention.attention_split_ref(q, k, v, 512 ** -0.5, splits)
+    parts = tuple(p.contiguous() for p in parts)
+    out, lse = attention.flash_combine(*parts)
+    ref, ref_lse = attention.combine_ref(*parts, torch.bfloat16)
+    again = attention.flash_combine(*parts)
+    err = (out.float() - ref.float()).abs().max().item()
+    lim = ATTN_TOL[0] * ref.float().abs().max().item() + ATTN_TOL[1]
+    lse_err = (lse - ref_lse).abs().max().item()
+    same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ok = (math.isfinite(err) and err <= lim and math.isfinite(lse_err)
+          and lse_err <= LSE_TOL and same)
+    ms = graph_ms(lambda: attention.flash_combine(*parts), 50)
+    eager_ms = cuda_ms(lambda: attention.flash_combine(*parts), 50)
+    plain_ms = graph_ms(lambda: attention.combine_ref(
+        *parts, torch.bfloat16), 50)
+    rows = b * h * n
+    nbytes = 4.0 * splits * rows * (512 + 2) + rows * (2.0 * 512 + 4)
+    bound_ms, bound_by, term = bound(3.0 * splits * rows * 512, nbytes,
+                                     PEAK_F32_FLOPS)
+    log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}), lse max|d|="
+        f"{lse_err:.3e} (tol {LSE_TOL}), rerun bit-identical {same} "
+        f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
+        f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  "
+        f"(device times; eager {eager_ms:.4f} ms)")
+    return dict(
+        name=label, route="cuda", source=ATTN512_SRC, replaces=tpu,
+        key=("combine", b, h, n, splits), path=path, max_abs_err=err,
+        tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
+        library_ms=None)
 
 
 def bwd_inputs(gen, b, h, nq, nk, d):
@@ -657,9 +702,9 @@ def gn_rows(gen):
 
 
 def gn_path_rows(gen, by_path):
-    """K4 at every (shape, eps) that the chain, the served batch or the
-    training step launched and ``GN_CASES`` does not hold, in bf16 (the
-    paths' dtype)."""
+    """K4 at every (shape, eps) that a path launched and ``GN_CASES`` does
+    not hold, in bf16 (the paths' dtype); a shape two paths launch is held
+    once, under the first."""
     import torch
 
     done = {(shape, eps) for _, shape, eps, _ in GN_CASES}
@@ -669,6 +714,55 @@ def gn_path_rows(gen, by_path):
             done.add((shape, eps))
             label = f"group_norm_silu [{','.join(map(str, shape))}] {path}"
             rows.append(gn_row(gen, label, shape, eps, path))
+            torch.cuda.empty_cache()
+    return rows
+
+
+def attn_path_rows(gen, by_path):
+    """K1-K3 and the combine pass at every forward shape a path launched
+    that ``ATTN_CASES`` and ``COMBINE_CASES`` do not hold (the served batch's
+    VAE decodes, the CLI's CFG batch of 10 and VAE batch of 5, seg2image's
+    two guess-mode forwards of 5), each under the first path that launched
+    it.  ``splits`` is the wrapper's own choice, as on the paths."""
+    import torch
+
+    done = {("attn", b, h, nq, nk, d, lse)
+            for _, _, b, h, nq, nk, d, lse, path, _ in ATTN_CASES if path}
+    done |= {("combine", 1, 1, n, s) for n, s, _ in COMBINE_CASES}
+    rows = []
+    for path, counts in by_path.items():
+        for b, h, nq, nk, d, lse in sorted(counts["attn"]):
+            if ("attn", b, h, nq, nk, d, lse) in done:
+                continue
+            done.add(("attn", b, h, nq, nk, d, lse))
+            label = (f"flash_attn_fwd{'+lse' if lse else ''} d{d} "
+                     f"N{nq}" + (f" Nk{nk}" if nk != nq else "")
+                     + f" [{b},{h}] {path}")
+            rows.append(attn_row(gen, label, attn_kernel(d, nk), b, h, nq,
+                                 nk, d, lse, path, None))
+            torch.cuda.empty_cache()
+        for b, h, n, splits in sorted(counts["combine"]):
+            if ("combine", b, h, n, splits) in done:
+                continue
+            done.add(("combine", b, h, n, splits))
+            rows.append(combine_row(gen, b, h, n, splits,
+                                    attn_kernel(512, n), path))
+    return rows
+
+
+def conv_path_rows(gen, by_path):
+    """K7 and its pre-pass at every launch key a path launched that
+    ``CONV_CASES`` does not hold, each under the first path that launched
+    it."""
+    import torch
+
+    done = set(CONV_CASES)
+    rows = []
+    for path, counts in by_path.items():
+        keys = sorted(set(counts["conv"]) - done)
+        done |= set(keys)
+        for key in keys:
+            rows += conv_rows(gen, [key], path=path)
             torch.cuda.empty_cache()
     return rows
 
@@ -1016,6 +1110,261 @@ def phase_conv_forwards(cldm):
     return ok
 
 
+# run_inference.sh's flags (its prompt aside), through the port's CLI
+CLI_FLAGS = ["--config", "models/config.yaml", "--ddim_eta", "0.0",
+             "--n_samples", "5", "--n_iter", "1", "--scale", "7.5",
+             "--ddim_steps", "50", "--H", "256", "--W", "256", "--C", "4",
+             "--use_controlnet"]
+CLI_BATCH = 5
+# three of the keys the reference's EMA writes beside the weights; the
+# loader drops them (ignore_keys)
+EMA_KEYS = ("model_ema.decay", "model_ema.num_updates",
+            "model_ema.diffusion_modelout2bias")
+
+
+@contextlib.contextmanager
+def hash_tokenizer_allowed():
+    """``FGDM_ALLOW_HASH_TOKENIZER=1``: the entry points load checkpoints
+    with the hash-fallback tokenizer (no CLIP vocabulary in the repo)."""
+    saved = os.environ.get("FGDM_ALLOW_HASH_TOKENIZER")
+    os.environ["FGDM_ALLOW_HASH_TOKENIZER"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["FGDM_ALLOW_HASH_TOKENIZER"]
+        else:
+            os.environ["FGDM_ALLOW_HASH_TOKENIZER"] = saved
+
+
+def write_checkpoints(ld, cldm, root):
+    """The chain's seeded weights as the reference's two checkpoints, each
+    a ``{"state_dict": ...}`` of CPU tensors: the factor-1 file (UNet with
+    the adapter, VAE, CLIP and three ``model_ema.*`` keys) and the control
+    file (UNet without adapter, ControlNet, VAE, the second CLIP).
+    Returns ``{name: path}``, the bytes written and the seconds taken."""
+    import torch
+    from fgdm_tpu_torch.checkpoint import torch_ingest as ti
+
+    files = {"f1": (os.path.join(root, "fgdm_seg.pth"),
+                    ((ti.UNET_PREFIX, ld.unet), (ti.VAE_PREFIX, ld.vae),
+                     (ti.CLIP_PREFIX, ld.clip))),
+             "cn": (os.path.join(root, "fgdm_control_sd15_seg.pth"),
+                    ((ti.UNET_PREFIX, cldm.unet),
+                     (ti.CONTROL_PREFIX, cldm.control),
+                     (ti.VAE_PREFIX, cldm.vae), (ti.CLIP_PREFIX, cldm.clip)))}
+    t0 = time.perf_counter()
+    nbytes, paths = 0, {}
+    for name, (path, parts) in files.items():
+        sd = {prefix + k: v.detach().cpu() for prefix, module in parts
+              for k, v in module.state_dict().items()}
+        if name == "f1":
+            sd[EMA_KEYS[0]] = torch.tensor(0.9999)
+            sd[EMA_KEYS[1]] = torch.tensor(1000, dtype=torch.int32)
+            sd[EMA_KEYS[2]] = sd[ti.UNET_PREFIX + "out.2.bias"].clone()
+        torch.save({"state_dict": sd}, path)
+        del sd
+        nbytes += os.path.getsize(path)
+        paths[name] = path
+    return paths, nbytes, time.perf_counter() - t0
+
+
+def same_weights(pairs):
+    """``[(label, loaded module, source module)]`` -> the labels whose
+    state dicts differ in a key or in any bit of a tensor."""
+    import torch
+
+    bad = []
+    for label, got, ref in pairs:
+        a, b = got.state_dict(), ref.state_dict()
+        if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in a):
+            bad.append(label)
+    return bad
+
+
+def clean_report(report, parts):
+    """Zero missing keys in each of ``parts`` and zero unexpected keys."""
+    return (not report["unexpected"]
+            and all(report["missing"][p] == [] for p in parts))
+
+
+def phase_checkpoints(ld, cldm, root):
+    """Write the chain's weights as reference-schema ``.pth`` files, then
+    load them on the card through ``load_fgdm`` and ``load_controlnet``
+    (once on its own, once sharing the factor-1 VAE and CLIP) and hold
+    every loaded tensor bit-equal to its source.  No more than two copies
+    of a model are on the card at once.  Returns the paths and the loaded
+    pipelines (factor 1, and the control stage sharing its first stage)."""
+    import torch
+    from fgdm_tpu_torch.checkpoint.loader import load_controlnet, load_fgdm
+
+    paths, written, secs = write_checkpoints(ld, cldm, root)
+    log(f"checkpoints: wrote {written / 2 ** 30:.2f} GiB ({written} bytes) "
+        f"in {secs:.1f}s: " + ", ".join(
+            f"{os.path.basename(p)} {os.path.getsize(p)}"
+            for p in paths.values()))
+    read, times = 0, {}
+
+    def load(label, fn, *a, **kw):
+        nonlocal read
+        t0 = time.perf_counter()
+        out = fn(*a, device="cuda", **kw)
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+        read += os.path.getsize(a[0])
+        return out
+
+    ld2 = load("load_fgdm", load_fgdm, paths["f1"])
+    cn_full = load("load_controlnet", load_controlnet, paths["cn"])
+    bad = same_weights([("f1 unet", ld2.unet, ld.unet),
+                        ("f1 vae", ld2.vae, ld.vae),
+                        ("f1 clip", ld2.clip, ld.clip),
+                        ("cn unet", cn_full.unet, cldm.unet),
+                        ("cn control", cn_full.control, cldm.control),
+                        ("cn vae", cn_full.vae, cldm.vae),
+                        ("cn clip", cn_full.clip, cldm.clip)])
+    reports = [ld2.load_report, cn_full.load_report]
+    ok = (clean_report(ld2.load_report, ("unet", "vae", "clip"))
+          and clean_report(cn_full.load_report,
+                           ("unet", "control", "vae", "clip")))
+    del cn_full
+    torch.cuda.empty_cache()
+    cldm2 = load("load_controlnet(share_first_stage)", load_controlnet,
+                 paths["cn"], share_first_stage=ld2)
+    bad += same_weights([("shared cn unet", cldm2.unet, cldm.unet),
+                         ("shared cn control", cldm2.control,
+                          cldm.control)])
+    shared = cldm2.vae is ld2.vae and cldm2.clip is ld2.clip
+    ok = (ok and not bad and shared
+          and clean_report(cldm2.load_report, ("unet", "control")))
+    reports.append(cldm2.load_report)
+    log("checkpoints: loaded on the card: " + ", ".join(
+        f"{k} {v:.2f}s" for k, v in times.items())
+        + f"; read {read / 2 ** 30:.2f} GiB ({read} bytes); missing "
+        + "; ".join(" ".join(f"{p}={len(m)}" for p, m in r["missing"].items())
+                    for r in reports)
+        + f"; unexpected {[len(r['unexpected']) for r in reports]} (the "
+        f"{len(EMA_KEYS)} model_ema.* keys dropped by ignore_keys); tensors "
+        f"not bit-equal to their source: {bad or 'none'}; control stage "
+        f"shares the factor-1 VAE and CLIP objects: {shared}; "
+        f"{'OK' if ok else 'FAIL'}")
+    return ok, paths, ld2, cldm2
+
+
+def phase_cli(paths, outdir):
+    """``python -m fgdm_tpu_torch.cli.txt2img_fgdm`` with run_inference.sh's
+    flags on the two checkpoints, conv flags on: the CLI path's counted run.
+    Checks 5 condition maps (256^2) and 5 images (512^2) as valid PNGs."""
+    import torch
+    from fgdm_tpu_torch.cli import txt2img_fgdm
+
+    argv = CLI_FLAGS + ["--prompt", PROMPT_CLI, "--ckpt", paths["f1"],
+                        "--cn_ckpt", paths["cn"], "--outdir", outdir]
+    log("cli: python -m fgdm_tpu_torch.cli.txt2img_fgdm " + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    with conv_flags(), hash_tokenizer_allowed():
+        reset_counts()
+        t0 = time.perf_counter()
+        out = txt2img_fgdm.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    maps = sorted(p for p in out["files"] if "sample1" + os.sep in p)
+    images = sorted(p for p in out["files"] if "seg_images" + os.sep in p)
+    shapes = {}
+    for p in maps + images:
+        with open(p, "rb") as f:
+            shapes[p] = png_rgb(f.read())[:2]
+    ok = (len(maps) == len(images) == CLI_BATCH
+          and len(out["files"]) == 2 * CLI_BATCH
+          and all(shapes[p] == (256, 256) for p in maps)
+          and all(shapes[p] == (512, 512) for p in images))
+    f1, f2 = out["factor1_s"][0], out["factor2_s"][0]
+    log(f"cli: {len(maps)} maps {sorted(set(shapes[p] for p in maps))}, "
+        f"{len(images)} images {sorted(set(shapes[p] for p in images))}; "
+        f"load {out['load_s']:.2f}s, [factor1] {f1:.2f}s, [factor2] "
+        f"{f2:.2f}s ({CLI_BATCH / (f1 + f2):.3f} images/s over both "
+        f"factors, first run: no warmup), main() {wall:.2f}s; peak memory "
+        f"{peak_gib:.2f} GiB; {'OK' if ok else 'FAIL'}")
+    log_counts("cli", counts)
+    return ok, counts, maps
+
+
+def phase_seg2image(ld, cldm, maps):
+    """seg2image's compute on the card: ``sample_image_factor`` in guess
+    mode at strength 0.8 on the CLI's five maps (NEAREST to 512^2, 20 DDIM
+    steps, CFG 9.0), conv flags on, with the counts reset just before; then
+    guess mode's two ``apply_model`` forwards kernels on vs plain at
+    [5, 4, 64, 64]."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from fgdm_tpu_torch.models.clip import CLIPTokenizer
+    from fgdm_tpu_torch.models.controlnet import guess_mode_scales
+    from fgdm_tpu_torch.sampling.chain import (A_PROMPT, N_PROMPT,
+                                               sample_image_factor)
+
+    arrs = []
+    for p in maps:
+        with open(p, "rb") as f:
+            arrs.append(png_rgb(f.read())[2])
+    hint = torch.from_numpy(np.stack(arrs)).permute(0, 3, 1, 2).float()
+    hint = F.interpolate(hint.cuda() / 255.0, size=(512, 512),
+                         mode="nearest")
+    tok = CLIPTokenizer()
+    n = len(maps)
+    with torch.inference_mode():
+        ctx = cldm.get_learned_conditioning(
+            tok([PROMPT_CLI + ", " + A_PROMPT] * n).cuda())
+        uc = cldm.get_learned_conditioning(tok([N_PROMPT] * n).cuda())
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    with conv_flags():
+        reset_counts()
+        t0 = time.perf_counter()
+        z = sample_image_factor(cldm, hint, ctx, uc, num_steps=20,
+                                cfg_scale=9.0, strength=0.8,
+                                guess_mode=True, generator=gen)
+        with torch.inference_mode():
+            img = cldm.decode_first_stage(z).float()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        g = dataclasses.replace(cldm, control_scales=guess_mode_scales(0.8))
+        x = torch.randn(n, 4, 64, 64, device="cuda", generator=gen)
+        t = torch.full((n,), 981, device="cuda")
+
+        def forwards():
+            """Guess mode's two ``apply_model`` forwards: the prompt with
+            the control residuals at the geometric scales, and the negative
+            prompt with none."""
+            with torch.inference_mode():
+                emb = g.encode_hint(hint)
+                return (g.apply_model(x, t, {"c_crossattn": ctx,
+                                             "c_hint_emb": emb}).float(),
+                        g.apply_model(x, t, {"c_crossattn": uc}).float())
+
+        on = forwards()
+        with plain_path():
+            off = forwards()
+    rels = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(on, off)]
+    finite = bool(torch.isfinite(img).all())
+    ok = (finite and tuple(img.shape) == (n, 3, 512, 512)
+          and img.std().item() > 1e-4
+          and all(math.isfinite(r) and r <= UNET_TOL for r in rels))
+    log(f"seg2image: guess mode, strength 0.8, {n} maps at 512^2, 20 DDIM "
+        f"steps: images {tuple(img.shape)} finite={finite} std="
+        f"{img.std().item():.4e}, {secs:.2f}s ({n / secs:.3f} images/s); "
+        f"guess-mode forwards [{n},4,64,64] kernels on vs plain "
+        f"max|d|/max|ref| = {rels[0]:.3e} (with the control residuals), "
+        f"{rels[1]:.3e} (without) (tol {UNET_TOL}); "
+        f"{'OK' if ok else 'FAIL'}")
+    log_counts("seg2image", counts)
+    return ok, counts
+
+
 def png_rgb(data: bytes):
     """``(height, width, pixels)`` of an 8-bit RGB PNG whose rows all use
     filter 0, as ``server.png_bytes`` writes them; checks every CRC."""
@@ -1053,20 +1402,33 @@ def _http(port, path, payload=None):
         return r.status, r.read(), time.perf_counter() - t0
 
 
-def phase_serve(ld, cldm):
-    """The serving path on the chain's models, conv flags on.  The four
-    coalesced requests are the path's counted run."""
+def phase_serve(paths):
+    """The serving path, conv flags on, on the engine that
+    ``server.py --ckpt/--cn_ckpt`` assembles (``server.build_engine``) from
+    the two checkpoints.  The four coalesced requests are the path's counted
+    run."""
     import torch
     from fgdm_tpu_torch import server
     from fgdm_tpu_torch.builders import PROMPTS
-    from fgdm_tpu_torch.models.clip import CLIPTokenizer
-    from fgdm_tpu_torch.serving import ChainEngine
 
     prompts = PROMPTS[:SERVE_BATCH]
     with conv_flags():
-        engine = ChainEngine(ld, cldm, tokenizer=CLIPTokenizer(),
-                             max_batch=SERVE_BATCH, f1_sampler="dpm",
-                             f1_steps=20)
+        t0 = time.perf_counter()
+        with hash_tokenizer_allowed():
+            engine = server.build_engine(
+                paths["f1"], paths["cn"], device="cuda",
+                max_batch=SERVE_BATCH, f1_sampler="dpm", f1_steps=20)
+        log(f"serve: server.build_engine(--ckpt, --cn_ckpt) loaded the two "
+            f"checkpoints and warmed up in {time.perf_counter() - t0:.2f}s; "
+            f"missing " + "; ".join(
+                " ".join(f"{k}={len(v)}" for k, v in
+                         p.load_report["missing"].items())
+                for p in (engine.ld, engine.cldm))
+            + f"; unexpected {len(engine.ld.load_report['unexpected'])}, "
+            f"{len(engine.cldm.load_report['unexpected'])}")
+        loaded = (clean_report(engine.ld.load_report, ("unet", "vae", "clip"))
+                  and clean_report(engine.cldm.load_report,
+                                   ("unet", "control", "vae", "clip")))
         log(f"serve: engine warmup (one full generate() of the preset "
             f"dpm-20 + ddim-20, batch {SERVE_BATCH}, 256^2 -> 512^2) "
             f"{engine.compile_seconds:.2f}s")
@@ -1139,7 +1501,7 @@ def phase_serve(ld, cldm):
                     any(k[3] >= 512 for k in conv_keys))
         launched = all(sum(counts[k].values()) > 0
                        for k in ("attn", "combine", "gn", "conv", "prepass"))
-        ok = (ok and solo[0] == 200 and delta == 0 and coalesced
+        ok = (ok and loaded and solo[0] == 200 and delta == 0 and coalesced
               and all(families) and launched and packs == 0
               and health["status"] == "ok"
               and vals.get("fgdm_images_total") == SERVE_BATCH + 1
@@ -1589,29 +1951,42 @@ def main():
     t0 = time.perf_counter()
     conv_ok = phase_conv_forwards(cldm)
     t1 = time.perf_counter()
-    serve_ok, serve = phase_serve(ld, cldm)
-    log(f"conv forwards {t1 - t0:.1f}s, serving phase "
-        f"{time.perf_counter() - t1:.1f}s")
-    del ld, cldm
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir="build")
+    try:
+        ckpt_ok, paths, ld2, cldm2 = phase_checkpoints(ld, cldm, root)
+        del ld, cldm
+        gc.collect()
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        cli_ok, cli, maps = phase_cli(paths, os.path.join(root, "out"))
+        seg_ok, seg = phase_seg2image(ld2, cldm2, maps)
+        del ld2, cldm2
+        gc.collect()
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        serve_ok, serve = phase_serve(paths)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    rows += conv_rows(torch.Generator(device="cuda").manual_seed(5),
-                      sorted(set(serve["conv"]) - set(CONV_CASES)))
-    torch.cuda.empty_cache()
-    log(f"K7 and its pre-pass at the served batch's other conv shapes "
-        f"{time.perf_counter() - t0:.1f}s")
+    log(f"conv forwards {t1 - t0:.1f}s, checkpoints {t2 - t1:.1f}s, CLI and "
+        f"seg2image {t3 - t2:.1f}s, serving phase "
+        f"{time.perf_counter() - t3:.1f}s")
     train_ok, train = phase_train()
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    rows += gn_path_rows(torch.Generator(device="cuda").manual_seed(6),
-                         {"chain": chain, "serve": serve, "train": train})
-    log(f"K4 at the chain's, the served batch's and the training step's "
-        f"other shapes {time.perf_counter() - t0:.1f}s")
+    by_path = {"chain": chain, "train": train, "serve": serve, "cli": cli,
+               "seg2image": seg}
+    for name, fn, seed in (("K1-K3 and the combine pass", attn_path_rows, 4),
+                           ("K7 and its pre-pass", conv_path_rows, 5),
+                           ("K4", gn_path_rows, 6)):
+        t0 = time.perf_counter()
+        rows += fn(torch.Generator(device="cuda").manual_seed(seed), by_path)
+        log(f"{name} at the other shapes the paths launched "
+            f"{time.perf_counter() - t0:.1f}s")
 
     failures = [r["name"] for r in rows if not r["ok"]]
-    by_path = {"chain": chain, "train": train, "serve": serve}
     for r in rows:
         kind, key = r["key"][0], r["key"][1:]
         r["launches"] = by_path.get(r["path"], {}).get(kind, {}).get(key, 0)
@@ -1626,6 +2001,20 @@ def main():
     for kind in ("attn", "combine", "gn", "conv", "prepass"):
         if sum(serve[kind].values()) == 0:
             failures.append(f"{kind} not launched by the served batch")
+        if sum(cli[kind].values()) == 0:
+            failures.append(f"{kind} not launched by the CLI")
+    for name, tpu in (("K1", K1), ("K2", K2), ("K3", K3)):
+        if not any(attn_kernel(k[4], k[3]) == tpu for k in cli["attn"]):
+            failures.append(f"{name} not launched by the CLI")
+    for kind in ("attn", "gn", "conv"):
+        if sum(seg[kind].values()) == 0:
+            failures.append(f"{kind} not launched by seg2image's sampling")
+    if not ckpt_ok:
+        failures.append("checkpoints written and loaded")
+    if not cli_ok:
+        failures.append("txt2img_fgdm CLI")
+    if not seg_ok:
+        failures.append("seg2image guess mode")
     if not grad_ok:
         failures.append("Conv3x3 gradient")
     if not unet_ok:

@@ -17,16 +17,32 @@ The weights are drawn on the device from explicit generators; the UNets and
 ControlNet then get the 0.02 N(0, 1) perturbation of
 ``tests/test_golden_chain.py:46-64`` so their zero-init heads do work (and
 pass gradients to the adapter).
+
+The config builders are the counterparts of ``fgdm_tpu/builders.py``: the
+targets behind ``config.TARGET_ALIASES``, so the reference's YAML files
+(``models/config.yaml``, the cldm YAMLs) instantiate unchanged.  Each
+returns a ``ModuleDef`` (a module class with its arguments, built only when
+asked), or a ``ModelSpec`` / ``ControlSpec`` whose ``load(ckpt_path)``
+builds the pipeline through ``checkpoint/loader.py``.  Torch-only knobs
+(``use_checkpoint``, ``legacy``, ``image_size`` of the UNet) are accepted
+and ignored; ``no_prompting`` means no adapter.  (``build_unet`` is taken by
+the seeded full-width UNet above, so the UNet's config builder is
+``build_unet_from_config``.)
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from fgdm_tpu_torch import resolve_device
+from fgdm_tpu_torch.checkpoint.loader import (SD_SCHEDULE, load_controlnet,
+                                              load_fgdm, sd_clip,
+                                              sd_controlnet, sd_unet, sd_vae,
+                                              seeded_init_)
 from fgdm_tpu_torch.core.schedules import DiffusionSchedule
 from fgdm_tpu_torch.diffusion.control import ControlLDM
 from fgdm_tpu_torch.diffusion.latent_diffusion import LatentDiffusion
@@ -34,33 +50,27 @@ from fgdm_tpu_torch.models.autoencoder import AutoencoderKL
 from fgdm_tpu_torch.models.clip import CLIPTextEncoder, CLIPTokenizer
 from fgdm_tpu_torch.models.controlnet import ControlNet
 from fgdm_tpu_torch.models.unet import UNetModel
-from fgdm_tpu_torch.nn.layers import init_params_
 from fgdm_tpu_torch.train.state import TrainState, adapter_filter, make_adamw
 from fgdm_tpu_torch.train.train_step import make_train_step
 
 __all__ = ["sd14_schedule", "build_unet", "build_chain", "Trainer",
-           "build_trainer", "PROMPTS"]
+           "build_trainer", "PROMPTS", "ModuleDef", "build_unet_from_config",
+           "build_autoencoder", "build_clip", "build_controlnet", "ModelSpec",
+           "build_latent_diffusion", "ControlSpec", "build_control_ldm"]
 
 _PERTURB = 0.02
 
 
 def sd14_schedule() -> DiffusionSchedule:
-    return DiffusionSchedule.create(1000, "linear", linear_start=0.00085,
-                                    linear_end=0.0120)
-
-
-def _seeded(module: torch.nn.Module, device, seed: int, perturb: float):
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return init_params_(module, gen, perturb).eval()
+    return DiffusionSchedule.create(**SD_SCHEDULE)
 
 
 def build_unet(device=None, dtype=torch.bfloat16, fused_norm: bool = True,
                use_adapter: bool = True, seed: int = 0) -> UNetModel:
     """A full-width SD-1.4 UNet (with or without the FG-DM adapter)."""
-    dev = resolve_device(device)
-    unet = UNetModel(use_adapter=use_adapter, fused_norm_silu=fused_norm,
-                     dtype=dtype, device=dev)
-    return _seeded(unet, dev, seed, _PERTURB)
+    unet = sd_unet(dtype, resolve_device(device), use_adapter=use_adapter,
+                   fused_norm_silu=fused_norm)
+    return seeded_init_(unet, seed, _PERTURB)
 
 
 def build_chain(device=None, dtype=torch.bfloat16, fused_norm: bool = True,
@@ -68,12 +78,12 @@ def build_chain(device=None, dtype=torch.bfloat16, fused_norm: bool = True,
     """``(LatentDiffusion, ControlLDM)`` of the FG-DM chain at SD-1.4 width,
     each with its CLIP text tower."""
     dev = resolve_device(device)
-    vae = _seeded(AutoencoderKL(fused_norm=fused_norm, dtype=dtype,
-                                device=dev), dev, seed + 3, 0.0)
-    control = _seeded(ControlNet(fused_norm_silu=fused_norm, dtype=dtype,
-                                 device=dev), dev, seed + 2, _PERTURB)
-    clip, cn_clip = (_seeded(CLIPTextEncoder(dtype=dtype, device=dev), dev,
-                             s, 0.0) for s in (seed + 4, seed + 5))
+    vae = seeded_init_(sd_vae(dtype, dev, fused_norm=fused_norm), seed + 3)
+    control = seeded_init_(sd_controlnet(dtype, dev,
+                                         fused_norm_silu=fused_norm),
+                           seed + 2, _PERTURB)
+    clip, cn_clip = (seeded_init_(sd_clip(dtype, dev), s)
+                     for s in (seed + 4, seed + 5))
     sched = sd14_schedule()
     ld = LatentDiffusion(build_unet(dev, dtype, fused_norm, True, seed), vae,
                          sched, clip=clip)
@@ -114,10 +124,8 @@ def build_trainer(device=None, seed: int = 0, batch: int = 8,
     dev = resolve_device(device)
     dtype = torch.bfloat16
     unet = build_unet(dev, dtype, True, True, seed)
-    vae = _seeded(AutoencoderKL(fused_norm=True, dtype=dtype, device=dev),
-                  dev, seed + 3, 0.0).requires_grad_(False)
-    clip = _seeded(CLIPTextEncoder(dtype=dtype, device=dev), dev, seed + 4,
-                   0.0).requires_grad_(False)
+    vae = seeded_init_(sd_vae(dtype, dev), seed + 3).requires_grad_(False)
+    clip = seeded_init_(sd_clip(dtype, dev), seed + 4).requires_grad_(False)
     ld = LatentDiffusion(unet, vae, sd14_schedule().to(dev), clip=clip)
     state = TrainState.create(unet, make_adamw(lr),
                               trainable_filter=adapter_filter(),
@@ -128,3 +136,208 @@ def build_trainer(device=None, seed: int = 0, batch: int = 8,
     ids = CLIPTokenizer()([PROMPTS[i % len(PROMPTS)] for i in range(batch)])
     return Trainer(ld, state, make_train_step(ld),
                    {"image": image, "input_ids": ids.to(dev)})
+
+
+# --- config builders (``fgdm_tpu/builders.py:25-310``) -----------------------
+
+@dataclasses.dataclass(frozen=True)
+class ModuleDef:
+    """A module class and its constructor arguments, as a parsed config
+    names them; ``build`` makes the module on a device (CUDA unless
+    named)."""
+
+    cls: type
+    kwargs: Dict[str, Any]
+
+    def build(self, device=None) -> nn.Module:
+        return self.cls(device=resolve_device(device), **self.kwargs)
+
+
+_UNET_NOT_PORTED = (("num_classes", None), ("resblock_updown", False),
+                    ("use_new_attention_order", False))
+
+
+def build_unet_from_config(dtype=torch.bfloat16, **p) -> ModuleDef:
+    for key, default in _UNET_NOT_PORTED:
+        if p.get(key, default) != default:
+            raise NotImplementedError(f"UNet {key}={p[key]!r} is not ported")
+    return ModuleDef(UNetModel, dict(
+        in_channels=p.get("in_channels", 4),
+        model_channels=p.get("model_channels", 320),
+        out_channels=p.get("out_channels", 4),
+        num_res_blocks=p.get("num_res_blocks", 2),
+        attention_resolutions=tuple(p.get("attention_resolutions", (4, 2, 1))),
+        channel_mult=tuple(p.get("channel_mult", (1, 2, 4, 4))),
+        num_heads=p.get("num_heads", 8),
+        num_head_channels=p.get("num_head_channels", -1),
+        transformer_depth=p.get("transformer_depth", 1),
+        context_dim=p.get("context_dim"),
+        use_spatial_transformer=p.get("use_spatial_transformer", True),
+        use_scale_shift_norm=p.get("use_scale_shift_norm", False),
+        use_adapter=not p.get("no_prompting", False),
+        adapter_channels=p.get("adapter_channels"),
+        use_time_adapter=p.get("use_time_adapter", False),
+        # the fused GroupNorm+SiLU (K4): the production configuration
+        fused_norm_silu=p.get("fused_norm_silu", True),
+        dtype=dtype))
+
+
+def build_autoencoder(dtype=torch.bfloat16, nple: Optional[int] = None, **p
+                      ) -> ModuleDef:
+    if nple:
+        raise NotImplementedError(
+            "NpleAutoencoderKL is not ported yet (ROADMAP Queue A item 7)")
+    dd = p.get("ddconfig", {})
+    return ModuleDef(AutoencoderKL, dict(
+        embed_dim=p.get("embed_dim", 4),
+        ch=dd.get("ch", 128),
+        ch_mult=tuple(dd.get("ch_mult", (1, 2, 4, 4))),
+        num_res_blocks=dd.get("num_res_blocks", 2),
+        attn_resolutions=tuple(dd.get("attn_resolutions", ()) or ()),
+        in_channels=dd.get("in_channels", 3),
+        out_ch=dd.get("out_ch", 3),
+        resolution=dd.get("resolution", 256),
+        z_channels=dd.get("z_channels", 4),
+        double_z=dd.get("double_z", True),
+        fused_norm=p.get("fused_norm", True),
+        dtype=dtype))
+
+
+def build_clip(dtype=torch.bfloat16, **p) -> ModuleDef:
+    return ModuleDef(CLIPTextEncoder, dict(
+        max_length=p.get("max_length", 77), dtype=dtype))
+
+
+def build_controlnet(dtype=torch.bfloat16, **p) -> ModuleDef:
+    """ControlNet from a ``control_stage_config`` params block."""
+    return ModuleDef(ControlNet, dict(
+        in_channels=p.get("in_channels", 4),
+        model_channels=p.get("model_channels", 320),
+        hint_channels=p.get("hint_channels", 3),
+        num_res_blocks=p.get("num_res_blocks", 2),
+        attention_resolutions=tuple(p.get("attention_resolutions", (4, 2, 1))),
+        channel_mult=tuple(p.get("channel_mult", (1, 2, 4, 4))),
+        num_heads=p.get("num_heads", 8),
+        num_head_channels=p.get("num_head_channels", -1),
+        transformer_depth=p.get("transformer_depth", 1),
+        context_dim=p.get("context_dim"),
+        use_scale_shift_norm=p.get("use_scale_shift_norm", False),
+        fused_norm_silu=p.get("fused_norm_silu", True),
+        dtype=dtype))
+
+
+def _schedule_args(p) -> Dict[str, Any]:
+    return dict(timesteps=p.get("timesteps", 1000),
+                beta_schedule=p.get("beta_schedule", "linear"),
+                linear_start=p.get("linear_start", 1e-4),
+                linear_end=p.get("linear_end", 2e-2),
+                cosine_s=p.get("cosine_s", 8e-3),
+                v_posterior=p.get("v_posterior", 0.0),
+                parameterization=p.get("parameterization", "eps"))
+
+
+def _clip_def(dtype, p) -> Optional[ModuleDef]:
+    cond_cfg = p.get("cond_stage_config", "__is_unconditional__")
+    if isinstance(cond_cfg, dict):
+        return build_clip(dtype=dtype, **(cond_cfg.get("params") or {}))
+    if cond_cfg in ("__is_unconditional__", None):
+        return None
+    return build_clip(dtype=dtype)
+
+
+def _params(p, key) -> Dict[str, Any]:
+    return p.get(key, {}).get("params") or {}
+
+
+@dataclasses.dataclass
+class ModelSpec:
+    """A parsed LatentDiffusion config: module definitions and what
+    inference reads (the training knobs stay in ``raw``, the params block
+    as parsed); ``load`` builds the pipeline."""
+
+    unet_def: ModuleDef
+    vae_def: ModuleDef
+    clip_def: Optional[ModuleDef]
+    schedule_args: Dict[str, Any]
+    conditioning_key: str = "crossattn"
+    scale_factor: float = 0.18215
+    ckpt_path: Optional[str] = None
+    raw: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def schedule(self) -> DiffusionSchedule:
+        return DiffusionSchedule.create(**self.schedule_args)
+
+    def load(self, ckpt_path: Optional[str] = None, device=None
+             ) -> LatentDiffusion:
+        """The pipeline with this config's modules, schedule, scale factor
+        and conditioning key (not SD-1.x's defaults), from ``ckpt_path``
+        (or the config's own) when given."""
+        dev = resolve_device(device)
+        return load_fgdm(
+            ckpt_path or self.ckpt_path, unet=self.unet_def.build(dev),
+            vae=self.vae_def.build(dev),
+            clip=self.clip_def.build(dev) if self.clip_def else None,
+            schedule=self.schedule(), scale_factor=self.scale_factor,
+            conditioning_key=self.conditioning_key, device=dev)
+
+
+def build_latent_diffusion(dtype=torch.bfloat16, **p) -> ModelSpec:
+    return ModelSpec(
+        unet_def=build_unet_from_config(dtype=dtype,
+                                        **_params(p, "unet_config")),
+        vae_def=build_autoencoder(dtype=dtype,
+                                  **_params(p, "first_stage_config")),
+        clip_def=_clip_def(dtype, p),
+        schedule_args=_schedule_args(p),
+        conditioning_key=p.get("conditioning_key", "crossattn"),
+        scale_factor=p.get("scale_factor", 1.0),
+        ckpt_path=p.get("ckpt_path"),
+        raw=p)
+
+
+@dataclasses.dataclass
+class ControlSpec:
+    """A parsed ControlLDM config (``cldm.cldm.ControlLDM``)."""
+
+    unet_def: ModuleDef
+    cn_def: ModuleDef
+    vae_def: ModuleDef
+    clip_def: Optional[ModuleDef]
+    schedule_args: Dict[str, Any]
+    scale_factor: float = 0.18215
+    only_mid_control: bool = False
+    ckpt_path: Optional[str] = None
+    raw: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def schedule(self) -> DiffusionSchedule:
+        return DiffusionSchedule.create(**self.schedule_args)
+
+    def load(self, ckpt_path: Optional[str] = None, device=None
+             ) -> ControlLDM:
+        dev = resolve_device(device)
+        cldm = load_controlnet(
+            ckpt_path or self.ckpt_path, unet=self.unet_def.build(dev),
+            cn=self.cn_def.build(dev), vae=self.vae_def.build(dev),
+            clip=self.clip_def.build(dev) if self.clip_def else None,
+            schedule=self.schedule(), scale_factor=self.scale_factor,
+            device=dev)
+        cldm.only_mid_control = self.only_mid_control
+        return cldm
+
+
+def build_control_ldm(dtype=torch.bfloat16, **p) -> ControlSpec:
+    unet_p = {k: v for k, v in _params(p, "unet_config").items()
+              if k != "no_prompting"}
+    return ControlSpec(
+        unet_def=build_unet_from_config(dtype=dtype, no_prompting=True,
+                                        **unet_p),
+        cn_def=build_controlnet(dtype=dtype,
+                                **_params(p, "control_stage_config")),
+        vae_def=build_autoencoder(dtype=dtype,
+                                  **_params(p, "first_stage_config")),
+        clip_def=_clip_def(dtype, p),
+        schedule_args=_schedule_args(p),
+        scale_factor=p.get("scale_factor", 0.18215),
+        only_mid_control=p.get("only_mid_control", False),
+        ckpt_path=p.get("ckpt_path"),
+        raw=p)

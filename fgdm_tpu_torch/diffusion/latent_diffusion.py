@@ -33,6 +33,9 @@ class LatentDiffusion:
     schedule: DiffusionSchedule
     scale_factor: float = 0.18215
     clip: Optional[CLIPTextEncoder] = None
+    # what ``checkpoint/loader.py`` read into the modules, if it built them
+    load_report: Optional[Dict[str, Any]] = dataclasses.field(default=None,
+                                                              repr=False)
 
     def get_learned_conditioning(self, input_ids) -> torch.Tensor:
         return self.clip(input_ids)

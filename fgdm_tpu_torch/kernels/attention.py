@@ -386,7 +386,7 @@ def flash_combine(part_o, part_m, part_l, dtype=torch.bfloat16):
     ``attention_split_ref``'s layout.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises.  Returns
     ``(out, lse)``.  Counts launches in ``flash_combine.launches`` keyed by
-    ``(nq, splits)``."""
+    ``(b, h, nq, splits)``."""
     if part_o.device.type == "cpu":
         return combine_ref(part_o, part_m, part_l, dtype)
     fn = "flash_combine"
@@ -412,7 +412,7 @@ def flash_combine(part_o, part_m, part_l, dtype=torch.bfloat16):
             part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b * h * nq, splits, stream)
     _raise_on(lib, fn, rc)
-    flash_combine.launches[(nq, splits)] += 1
+    flash_combine.launches[(b, h, nq, splits)] += 1
     return out, lse
 
 
@@ -488,7 +488,7 @@ def flash_attention(q, k, v, scale, return_lse: bool = False,
     d = 40/80 ``flash_fwd_plan`` picks the tile.
 
     Counts launches in ``flash_attention.launches`` keyed by
-    ``(d, nq, nk, return_lse)``.
+    ``(b, h, nq, nk, d, return_lse)``.
     """
     if q.device.type == "cpu":
         if return_lse:
@@ -500,7 +500,7 @@ def flash_attention(q, k, v, scale, return_lse: bool = False,
     if d == 512:
         out, lse = _flash_d512(q, k, v, scale, return_lse, splits, b, h, nq,
                                nk)
-        flash_attention.launches[(d, nq, nk, bool(return_lse))] += 1
+        flash_attention.launches[(b, h, nq, nk, d, bool(return_lse))] += 1
         return (out, lse) if return_lse else out
     if splits not in (None, 1):
         raise ValueError(f"flash_attention: no KV split at d={d}")
@@ -509,7 +509,7 @@ def flash_attention(q, k, v, scale, return_lse: bool = False,
              KERNEL_HEAD_DIMS)
     out, lse = _flash_k1(q, k, v, scale, return_lse,
                          flash_fwd_plan(b * h, nq, nk, d))
-    flash_attention.launches[(d, nq, nk, bool(return_lse))] += 1
+    flash_attention.launches[(b, h, nq, nk, d, bool(return_lse))] += 1
     return (out, lse) if return_lse else out
 
 

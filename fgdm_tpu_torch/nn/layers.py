@@ -131,8 +131,10 @@ class Conv2d(nn.Module):
             shapes = (xk.shape, self.weight.shape, xk.dtype)
             if ((_PALLAS_CONV and kconv.conv3x3_ok(*shapes))
                     or (_PALLAS_CONV_VAE and kconv.conv3x3_vae_ok(*shapes))):
-                # the weight is cast to xk's dtype inside; the bias stays f32
-                return kconv.conv3x3(xk, self.weight, self.bias)
+                # K7 reads a contiguous NCHW plane (an input permuted from
+                # HWC, e.g. a hint read from an image, is strided); the
+                # weight is cast to xk's dtype inside; the bias stays f32
+                return kconv.conv3x3(xk.contiguous(), self.weight, self.bias)
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
                         self.stride, self.padding)

@@ -6,12 +6,13 @@ condition-map latents with the adapter UNet (CFG 7.5), the VAE decodes them,
 resize, factor 2 renders the image with ControlNet (CFG 9.0), and a final
 decode gives the image.  Each factor samples with DDIM, PLMS or
 DPM-Solver++ (``sampler=``, ``_sample_factor_latents`` of ``chain.py:106``).
-Images are NCHW; condition maps in [0, 1], the image in [-1, 1].  Guess mode
-and ``fgdm_chain_n`` are not ported.
+Images are NCHW; condition maps in [0, 1], the image in [-1, 1].
+``fgdm_chain_n`` is not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -20,12 +21,14 @@ import torch.nn.functional as F
 from fgdm_tpu_torch.core.schedules import DDIMSchedule
 from fgdm_tpu_torch.diffusion.control import ControlLDM
 from fgdm_tpu_torch.diffusion.latent_diffusion import LatentDiffusion
+from fgdm_tpu_torch.models.controlnet import guess_mode_scales
 from fgdm_tpu_torch.sampling.ddim import ddim_sample, derive_seed
 from fgdm_tpu_torch.sampling.dpm_solver import dpm_solver_sample
 from fgdm_tpu_torch.sampling.plms import plms_sample
 
 __all__ = ["A_PROMPT", "N_PROMPT", "quantize_like_png", "condition_to_hint",
-           "factor_slot_seeds", "sample_condition_factor",
+           "latent_to_condition_image", "factor_slot_seeds",
+           "sample_condition_factor",
            "sample_image_factor", "fgdm_chain"]
 
 # factor 2's positive suffix and negative prompt (run_inference.sh)
@@ -52,6 +55,15 @@ def condition_to_hint(cond_img: torch.Tensor,
         return hint
     return F.interpolate(hint.float(), size=tuple(out_hw), mode="bilinear",
                          align_corners=False).to(hint.dtype)
+
+
+@torch.inference_mode()
+def latent_to_condition_image(ld: LatentDiffusion, samples: torch.Tensor,
+                              out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Factor-1 latents -> the [0, 1] hint at ``out_hw``: VAE decode, then
+    ``condition_to_hint`` (``chain.py:66-73``)."""
+    x = ld.decode_first_stage(samples)
+    return condition_to_hint(((x + 1.0) / 2.0).clamp(0.0, 1.0), out_hw)
 
 
 def factor_slot_seeds(slot_seeds: Sequence[int], factor: int) -> list:
@@ -110,17 +122,41 @@ def sample_condition_factor(ld: LatentDiffusion, cond_ctx, uncond_ctx,
 @torch.inference_mode()
 def sample_image_factor(cldm: ControlLDM, hint, cond_ctx, uncond_ctx,
                         num_steps: int = 20, cfg_scale: float = 9.0,
-                        eta: float = 0.0, guess_mode: bool = False,
-                        x_T=None, generator=None,
+                        eta: float = 0.0, strength: float = 1.0,
+                        guess_mode: bool = False, x_T=None, generator=None,
                         slot_seeds: Optional[Sequence[int]] = None,
                         sampler: str = "ddim"):
     """Factor 2: hint ``[B, 3, H, W]`` in [0, 1] -> image latents
-    ``[B, 4, H/8, W/8]`` via ControlNet.  The hint pyramid runs once."""
-    if guess_mode:
-        raise NotImplementedError("guess mode is not ported yet")
+    ``[B, 4, H/8, W/8]`` via ControlNet.  The hint pyramid runs once.
+
+    ``strength`` scales every control residual (``chain.py:205-207``).
+    ``guess_mode`` (``chain.py:183-203``, reference ``initialize_cn.py:
+    86-91``) samples with DDIM only; the control scales decay geometrically
+    from ``strength`` (``guess_mode_scales``), and the uncond branch runs
+    the UNet with no control residuals at all (a zero hint would still
+    give some), so the two branches are two forwards, not one batch."""
     b, _, hh, ww = hint.shape
     shape = (b, cldm.unet.in_channels, hh // 8, ww // 8)
     hint_emb = cldm.encode_hint(hint)
+    if guess_mode:
+        if sampler != "ddim":
+            raise ValueError("guess mode supports only the ddim sampler")
+        cldm = dataclasses.replace(cldm, control_scales=guess_mode_scales(
+            strength, num=len(cldm.control_scales)))
+
+        def fn(x, t, cond):
+            e_c = cldm.apply_model(x, t, cond)
+            e_uc = cldm.apply_model(x, t, {"c_crossattn": uncond_ctx})
+            return e_uc + cfg_scale * (e_c - e_uc)
+
+        return ddim_sample(
+            fn, shape, DDIMSchedule.create(cldm.schedule, num_steps, eta=eta),
+            cond={"c_crossattn": cond_ctx, "c_hint_emb": hint_emb},
+            uncond=None, cfg_scale=1.0, x_T=x_T, generator=generator,
+            slot_seeds=slot_seeds, device=_device(cldm))
+    if strength != 1.0:
+        cldm = dataclasses.replace(
+            cldm, control_scales=(strength,) * len(cldm.control_scales))
     return _sample_factor_latents(
         cldm, shape, {"c_crossattn": cond_ctx, "c_hint_emb": hint_emb},
         {"c_crossattn": uncond_ctx, "c_hint_emb": hint_emb}, num_steps,

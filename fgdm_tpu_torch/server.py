@@ -18,6 +18,10 @@ GET /metrics
 into one engine batch until it is full or the window has passed since the
 first arrival; the engine's per-slot seeds make a coalesced request equal to
 the same request run solo.  PNGs are written with ``zlib`` and ``struct``.
+
+``main`` (``python -m fgdm_tpu_torch.server``) serves the engine that
+``build_engine`` assembles: from the reference checkpoints ``--ckpt`` /
+``--cn_ckpt`` (``checkpoint/loader.py``), else from seeded random weights.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from typing import Optional
 import numpy as np
 
 __all__ = ["png_bytes", "RequestBatcher", "ServerMetrics", "make_handler",
-           "serve", "main"]
+           "serve", "build_engine", "main"]
 
 def png_bytes(arr: np.ndarray) -> bytes:
     """An 8-bit RGB PNG (IHDR, one IDAT, IEND; filter 0 on every row) of a
@@ -325,13 +329,47 @@ def serve(engine, host: str = "127.0.0.1", port: int = 8500,
     return httpd
 
 
+def build_engine(ckpt: Optional[str] = None, cn_ckpt: Optional[str] = None,
+                 device="cuda", **engine_kwargs):
+    """The ``ChainEngine`` that ``main`` serves (JAX ``server.py:320-337``).
+
+    With ``ckpt`` and/or ``cn_ckpt`` the two pipelines load through
+    ``checkpoint/loader.py`` (``load_fgdm``, ``load_controlnet``; a pipeline
+    without a file takes the seeded init) and the tokenizer must have the
+    real CLIP vocabulary, or ``FGDM_ALLOW_HASH_TOKENIZER=1``
+    (``check_production``).  With neither, the models are
+    ``builders.build_chain``'s seeded random weights.  ``engine_kwargs`` go
+    to ``ChainEngine``."""
+    from fgdm_tpu_torch.models.clip import CLIPTokenizer
+    from fgdm_tpu_torch.serving import ChainEngine
+
+    tok = CLIPTokenizer()
+    if ckpt is None and cn_ckpt is None:
+        from fgdm_tpu_torch.builders import build_chain
+
+        ld, cldm = build_chain(device=device)
+    else:
+        from fgdm_tpu_torch.checkpoint.loader import (load_controlnet,
+                                                      load_fgdm)
+
+        # real weights with the hash-fallback tokenizer degrade the output
+        # quietly, so refuse them (models/clip.py check_production)
+        tok.check_production("server")
+        ld = load_fgdm(ckpt, device=device)
+        cldm = load_controlnet(cn_ckpt, device=device)
+    return ChainEngine(ld, cldm, tokenizer=tok, **engine_kwargs)
+
+
 def main(argv=None):
     import argparse
 
     p = argparse.ArgumentParser(description="FG-DM chain HTTP server "
                                             "(PyTorch, one CUDA device)")
-    p.add_argument("--ckpt", type=str, default=None)
-    p.add_argument("--cn_ckpt", type=str, default=None)
+    p.add_argument("--ckpt", type=str, default=None,
+                   help="factor-1 checkpoint (fgdm_seg.pth)")
+    p.add_argument("--cn_ckpt", type=str, default=None,
+                   help="ControlNet stage checkpoint "
+                        "(fgdm_control_sd15_seg.pth)")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8500)
     p.add_argument("--max_batch", type=int, default=4)
@@ -351,21 +389,11 @@ def main(argv=None):
                    help="condition-factor sampler; --f1_sampler dpm "
                         "--f1_steps 20 is the fast preset")
     opt = p.parse_args(argv)
-    if opt.ckpt is not None or opt.cn_ckpt is not None:
-        raise NotImplementedError(
-            "--ckpt/--cn_ckpt: loading reference checkpoints is not ported "
-            "yet (ROADMAP Queue A item 12)")
 
-    from fgdm_tpu_torch.builders import build_chain
-    from fgdm_tpu_torch.models.clip import CLIPTokenizer
-    from fgdm_tpu_torch.serving import ChainEngine
-
-    # seeded random weights (no checkpoints yet); the conv-kernel flags come
-    # from FGDM_PALLAS_CONV / FGDM_PALLAS_CONV_VAE
-    ld, cldm = build_chain(device="cuda")
-    engine = ChainEngine(ld, cldm, tokenizer=CLIPTokenizer(),
-                         max_batch=opt.max_batch, staged=opt.staged,
-                         f1_steps=opt.f1_steps, f1_sampler=opt.f1_sampler)
+    # the conv-kernel flags come from FGDM_PALLAS_CONV / FGDM_PALLAS_CONV_VAE
+    engine = build_engine(opt.ckpt, opt.cn_ckpt, device="cuda",
+                          max_batch=opt.max_batch, staged=opt.staged,
+                          f1_steps=opt.f1_steps, f1_sampler=opt.f1_sampler)
     print(f"[server] ready on {opt.host}:{opt.port} "
           f"(warmup {engine.compile_seconds:.1f}s)", flush=True)
     serve(engine, opt.host, opt.port, batch_window_ms=opt.batch_window_ms)

@@ -373,10 +373,17 @@ def test_chain_needs_a_noise_source(tiny):
 
 
 def test_guess_mode_is_not_ported(tiny):
-    with pytest.raises(NotImplementedError, match="guess mode"):
-        tchain.sample_image_factor(tiny["cldm"], torch.zeros(1, 3, 64, 64),
-                                   torch.zeros(1, 77, 64),
-                                   torch.zeros(1, 77, 64), guess_mode=True)
+    """Guess mode runs with DDIM only (``chain.py:183-184`` refuses the
+    other samplers, as the port does); with DDIM it renders."""
+    args = (tiny["cldm"], torch.zeros(1, 3, 64, 64), torch.zeros(1, 77, 64),
+            torch.zeros(1, 77, 64))
+    for sampler in ("plms", "dpm"):
+        with pytest.raises(ValueError, match="guess mode"):
+            tchain.sample_image_factor(*args, num_steps=2, guess_mode=True,
+                                       sampler=sampler)
+    z = tchain.sample_image_factor(*args, num_steps=2, guess_mode=True,
+                                   generator=torch.Generator().manual_seed(0))
+    assert z.shape == (1, 4, 8, 8) and bool(torch.isfinite(z).all())
 
 
 @pytest.mark.parametrize("kw", [dict(use_time_adapter=True),

@@ -290,6 +290,28 @@ def test_conv2d_flags_route_gated_convs_only(monkeypatch):
     assert len(calls) == 1
 
 
+def test_conv2d_flags_hand_the_kernel_a_contiguous_input(monkeypatch):
+    """K7 reads a contiguous NCHW plane and its wrapper refuses anything
+    else; an input permuted from HWC (a hint read from an image) is
+    channels-last strided, and reached the kernel so on the card."""
+    seen = []
+    real = tc.conv3x3
+    monkeypatch.setattr(tc, "conv3x3", lambda x, w, b: seen.append(
+        x.is_contiguous()) or real(x, w, b))
+    monkeypatch.setattr(tlayers, "_PALLAS_CONV", True)
+    gen = torch.Generator().manual_seed(2)
+    m = tlayers.init_params_(tlayers.Conv2d(128, 128, 3,
+                                            dtype=torch.bfloat16), gen, 0.1)
+    hwc = torch.randn(1, 16, 16, 128, generator=gen).to(torch.bfloat16)
+    x = hwc.permute(0, 3, 1, 2)
+    assert not x.is_contiguous()
+    with torch.no_grad():
+        out = m(x)
+    assert seen == [True]
+    torch.testing.assert_close(out, tc.conv3x3_ref(x.contiguous(), m.weight,
+                                                   m.bias), rtol=0, atol=0)
+
+
 def test_conv2d_gated_bf16_adds_the_bias_in_f32(monkeypatch):
     """Flag on, the bias is added to the f32 sum before the one rounding
     (the JAX kernel path); flag off, ``F.conv2d`` adds a bf16 bias."""

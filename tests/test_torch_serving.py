@@ -404,6 +404,13 @@ def test_png_bytes_takes_rgb_uint8_only(arr):
         server.png_bytes(arr)
 
 
-def test_main_refuses_checkpoints():
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        server.main(["--ckpt", "model.ckpt"])
+def test_main_refuses_checkpoints(monkeypatch):
+    """Checkpoints load now (``tests/test_torch_server_ckpt.py``), but not
+    with the hash-fallback tokenizer: without a CLIP vocabulary and without
+    ``FGDM_ALLOW_HASH_TOKENIZER=1``, ``check_production`` refuses them
+    before anything is built, as JAX ``server.py:333-336`` does."""
+    monkeypatch.delenv("FGDM_ALLOW_HASH_TOKENIZER", raising=False)
+    monkeypatch.delenv("FGDM_CLIP_VOCAB_DIR", raising=False)
+    for argv in (["--ckpt", "model.ckpt"], ["--cn_ckpt", "cn.pth"]):
+        with pytest.raises(SystemExit, match="no CLIP vocab"):
+            server.main(argv)
