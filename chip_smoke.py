@@ -63,7 +63,14 @@ it builds the port's kernels from the sources in this checkout (one
    and 5 images (512^2) as valid PNGs and that K1-K4, K7 and its pre-pass
    launched; then seg2image's compute: guess mode at strength 0.8 on those
    five maps at 512^2, 20 steps (counts reset just before), and guess
-   mode's two forwards kernels on vs plain;
+   mode's two forwards kernels on vs plain; then the guided path:
+   ``cli.txt2img_fgdm.main`` with ``--inference_loss`` and the same
+   factor-1 flags (no ``--use_controlnet``) on the factor-1 file, conv
+   flags on, counts reset just before: 5 condition maps, K4 and K2
+   launched and no K1 (the guidance captures ``"probs"``, which runs every
+   attention explicitly, as in JAX), its ``[factor1]`` wall beside the
+   unguided one; and one ``guided_update`` at step 10 (two unconditional
+   iterations) on the CLI's CFG batch of 10, kernels on vs plain;
 6. the serving path, with both conv-kernel flags on, on the engine that
    ``server.py --ckpt/--cn_ckpt`` assembles (``server.build_engine``) from
    those two files: a ``ChainEngine`` (batch 4, the fast preset:
@@ -86,14 +93,22 @@ it builds the port's kernels from the sources in this checkout (one
    then 5 timed warm steps; checks the losses, the gradient norm, that the
    adapter moved and every frozen parameter did not, the EMA count; compares
    one loss and its adapter gradients kernels-on vs plain on injected
-   draws; profiles one more step;
+   draws; profiles one more step; then the distillation path on the same
+   trainer: one distill step (the reference config's recipe: capture batch
+   2 of 8, the teacher at the 2x latent) with every launch count set to 0
+   just before, then ten steps of the config's cadence (one distill step,
+   nine plain); checks ``loss_distill``, the adapter and frozen weights and
+   that K1 with lse, K4, K5 and K6 launched; compares one distill loss, its
+   adapter gradients and the student's and teacher's maps kernels-on vs
+   plain on injected draws; profiles one distill step;
 8. holds every kernel against its plain version, and times it, at every
    other shape that a path above launched (the chain, the training step,
-   the served batch, the CLI, seg2image's sampling): K1-K3 and the combine
-   pass at each (batch, heads, N, d), K7 and its pre-pass at each conv
-   launch key, K4 at each (shape, eps), each held once, under the first
-   path that launched it; every row then reads its path's launch count and
-   fails at 0;
+   the served batch, the CLI, seg2image's sampling, the guided CLI, the
+   distillation step): K1-K3 and the combine pass at each (batch, heads,
+   N, d), K5 and K6 at each (batch, heads, N, d), K7 and its pre-pass at
+   each conv launch key, K4 at each (shape, eps), each held once, under
+   the first path that launched it; every row then reads its path's launch
+   count and fails at 0;
 9. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, if there is no CUDA device, if any of
@@ -563,6 +578,14 @@ def bwd_errors(got, refs):
 
 
 def bwd_rows(gen):
+    """K5 and K6 at ``BWD_CASES``."""
+    rows = []
+    for case in BWD_CASES:
+        rows += bwd_row(gen, *case)
+    return rows
+
+
+def bwd_row(gen, suffix, b, h, nq, nk, d, path):
     """K5 (dQ) and K6 (dK/dV) against ``attention_bwd_ref`` on the same
     bf16 inputs and the forward kernel's output and lse, each rerun bit for
     bit.  The plain version of each is the whole plain backward (the
@@ -573,60 +596,59 @@ def bwd_rows(gen):
     from fgdm_tpu_torch.kernels import attention
 
     rows = []
-    for suffix, b, h, nq, nk, d, path in BWD_CASES:
-        q, k, v, do, o, lse, delta, scale = bwd_inputs(gen, b, h, nq, nk, d)
-        dq = attention.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
-        dk, dv = attention.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                   scale)
-        again = attention.flash_attention_backward(q, k, v, o, lse, do, scale)
-        refs = attention.attention_bwd_ref(q, k, v, o, lse, do, scale)
-        errs = bwd_errors((dq, dk, dv), refs)
-        oks = {c: math.isfinite(errs[c][0]) and errs[c][0] <= errs[c][1]
-               and torch.equal(got, rep)
-               for c, got, rep in zip("qkv", (dq, dk, dv), again)}
-        reps = 10 if nq >= 4096 else 30
-        plans = attention.flash_bwd_plan(b * h, nq, nk, d)
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-        lib_ms = profiled_ms(lambda: torch.autograd.grad(
-            out, (qg, kg, vg), do, retain_graph=True), reps)
-        plain_ms = cuda_ms(lambda: attention.attention_bwd_ref(
-            q, k, v, o, lse, do, scale), reps)
-        bh, ops = b * h, 1.0 * b * h * nq * nk * d
-        for kern, tpu, plan, names, flops, nbytes, run in (
-                ("flash_attn_bwd_dq", K5, plans[0], "q", 6.0 * ops,
-                 2.0 * d * bh * (3 * nq + 2 * nk) + 8.0 * bh * nq,
-                 lambda: attention.flash_attention_bwd_dq(
-                     q, k, v, do, lse, delta, scale)),
-                ("flash_attn_bwd_dkv", K6, plans[1], "kv", 8.0 * ops,
-                 2.0 * d * bh * (2 * nq + 4 * nk) + 8.0 * bh * nq,
-                 lambda: attention.flash_attention_bwd_dkv(
-                     q, k, v, do, lse, delta, scale))):
-            # each recomputes P: one exp per score
-            bound_ms, bound_by, term = bound(flops, nbytes, PEAK_BF16_FLOPS,
-                                             exps=1.0 * b * h * nq * nk)
-            ms = graph_ms(run, reps)
-            eager_ms = cuda_ms(run, reps)
-            err = max(errs[c][0] for c in names)
-            ok = all(oks[c] for c in names)
-            rows.append(dict(
-                name=f"{kern} {suffix}", route="cuda", source=BWD_SRC,
-                replaces=tpu, key=(kern, d, nq, nk), path=path,
-                max_abs_err=err, ok=ok, ms=ms, eager_ms=eager_ms, copy_ms=0.0,
-                plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bound_term=term, library_ms=lib_ms))
-            log(f"{kern} {suffix}: "
-                + " ".join(f"d{c} max|d|={errs[c][0]:.3e} (tol "
-                           f"{errs[c][1]:.3e})" for c in names)
-                + f", rerun bit-identical {all(oks[c] for c in names)}, tile "
-                f"{plan.bt} x {plan.stages} stages x {plan.wgs} warpgroup(s)"
-                f", {plan.grid[0] * plan.grid[1]} blocks "
-                f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms (eager "
-                f"{eager_ms:.4f})"
-                f"  plain backward {plain_ms:.4f} ms  sdpa backward "
-                f"{'not measured' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-                f" (profiled kernel time)  bound {bound_ms:.4f} ms ({term}; "
-                f"{100 * bound_ms / ms:.1f} % of it)")
+    q, k, v, do, o, lse, delta, scale = bwd_inputs(gen, b, h, nq, nk, d)
+    dq = attention.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    dk, dv = attention.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                               scale)
+    again = attention.flash_attention_backward(q, k, v, o, lse, do, scale)
+    refs = attention.attention_bwd_ref(q, k, v, o, lse, do, scale)
+    errs = bwd_errors((dq, dk, dv), refs)
+    oks = {c: math.isfinite(errs[c][0]) and errs[c][0] <= errs[c][1]
+           and torch.equal(got, rep)
+           for c, got, rep in zip("qkv", (dq, dk, dv), again)}
+    reps = 10 if nq >= 4096 else 30
+    plans = attention.flash_bwd_plan(b * h, nq, nk, d)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    lib_ms = profiled_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), reps)
+    plain_ms = cuda_ms(lambda: attention.attention_bwd_ref(
+        q, k, v, o, lse, do, scale), reps)
+    bh, ops = b * h, 1.0 * b * h * nq * nk * d
+    for kern, tpu, plan, names, flops, nbytes, run in (
+            ("flash_attn_bwd_dq", K5, plans[0], "q", 6.0 * ops,
+             2.0 * d * bh * (3 * nq + 2 * nk) + 8.0 * bh * nq,
+             lambda: attention.flash_attention_bwd_dq(
+                 q, k, v, do, lse, delta, scale)),
+            ("flash_attn_bwd_dkv", K6, plans[1], "kv", 8.0 * ops,
+             2.0 * d * bh * (2 * nq + 4 * nk) + 8.0 * bh * nq,
+             lambda: attention.flash_attention_bwd_dkv(
+                 q, k, v, do, lse, delta, scale))):
+        # each recomputes P: one exp per score
+        bound_ms, bound_by, term = bound(flops, nbytes, PEAK_BF16_FLOPS,
+                                         exps=1.0 * b * h * nq * nk)
+        ms = graph_ms(run, reps)
+        eager_ms = cuda_ms(run, reps)
+        err = max(errs[c][0] for c in names)
+        ok = all(oks[c] for c in names)
+        rows.append(dict(
+            name=f"{kern} {suffix}", route="cuda", source=BWD_SRC,
+            replaces=tpu, key=(kern, b, h, nq, nk, d), path=path,
+            max_abs_err=err, ok=ok, ms=ms, eager_ms=eager_ms, copy_ms=0.0,
+            plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, bound_term=term, library_ms=lib_ms))
+        log(f"{kern} {suffix}: "
+            + " ".join(f"d{c} max|d|={errs[c][0]:.3e} (tol "
+                       f"{errs[c][1]:.3e})" for c in names)
+            + f", rerun bit-identical {all(oks[c] for c in names)}, tile "
+            f"{plan.bt} x {plan.stages} stages x {plan.wgs} warpgroup(s)"
+            f", {plan.grid[0] * plan.grid[1]} blocks "
+            f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms (eager "
+            f"{eager_ms:.4f})"
+            f"  plain backward {plain_ms:.4f} ms  sdpa backward "
+            f"{'not measured' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f" (profiled kernel time)  bound {bound_ms:.4f} ms ({term}; "
+            f"{100 * bound_ms / ms:.1f} % of it)")
     return rows
 
 
@@ -747,6 +769,27 @@ def attn_path_rows(gen, by_path):
             done.add(("combine", b, h, n, splits))
             rows.append(combine_row(gen, b, h, n, splits,
                                     attn_kernel(512, n), path))
+    return rows
+
+
+def bwd_path_rows(gen, by_path):
+    """K5 and K6 at every (B, H, Nq, Nk, d) a path launched that
+    ``BWD_CASES`` does not hold (the distillation step's split batch), each
+    under the first path that launched it."""
+    import torch
+
+    done = {(b, h, nq, nk, d) for _, b, h, nq, nk, d, path in BWD_CASES
+            if path}
+    rows = []
+    for path, counts in by_path.items():
+        keys = set(counts["flash_attn_bwd_dq"]) | set(
+            counts["flash_attn_bwd_dkv"])
+        for b, h, nq, nk, d in sorted(keys - done):
+            done.add((b, h, nq, nk, d))
+            rows += bwd_row(gen, f"d{d} N{nq}" + (f" Nk{nk}" if nk != nq
+                                                  else "")
+                            + f" [{b},{h}] {path}", b, h, nq, nk, d, path)
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1116,6 +1159,11 @@ CLI_FLAGS = ["--config", "models/config.yaml", "--ddim_eta", "0.0",
              "--ddim_steps", "50", "--H", "256", "--W", "256", "--C", "4",
              "--use_controlnet"]
 CLI_BATCH = 5
+# the guided path: the factor-1 stage of run_inference.sh's flow with the
+# reference's attention-alignment guidance
+GUIDED_FLAGS = [f for f in CLI_FLAGS if f != "--use_controlnet"] + [
+    "--inference_loss"]
+DISTILL_CADENCE = 10   # steps of the distillation cadence timed
 # three of the keys the reference's EMA writes beside the weights; the
 # loader drops them (ignore_keys)
 EMA_KEYS = ("model_ema.decay", "model_ema.num_updates",
@@ -1287,7 +1335,7 @@ def phase_cli(paths, outdir):
         f"factors, first run: no warmup), main() {wall:.2f}s; peak memory "
         f"{peak_gib:.2f} GiB; {'OK' if ok else 'FAIL'}")
     log_counts("cli", counts)
-    return ok, counts, maps
+    return ok, counts, maps, f1
 
 
 def phase_seg2image(ld, cldm, maps):
@@ -1569,12 +1617,13 @@ def profile(path, run, warm_s):
     """Device time by kernel over one more run of ``run`` (torch.profiler),
     and the device's busy share: that kernel time over the unprofiled warm
     wall time.  Prints "not measured" if the trace holds no device time.
-    Returns {kernel name: (launches, us)}."""
+    Returns {kernel name: (launches, us)}.  Traces the device alone: the
+    kernels' times are all it reads, and host op records slow the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
     by_name = {}
     for e in prof.events():
@@ -1586,6 +1635,7 @@ def profile(path, run, warm_s):
             n, t = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, t + us)
     total_ms = sum(t for _, t in by_name.values()) / 1e3
+    log(f"{path}: traced in {time.perf_counter() - t0:.1f}s (host clock)")
     if total_ms == 0:
         log(f"{path} device time by kernel: not measured (no device events)")
         return by_name
@@ -1612,9 +1662,9 @@ def k4_in_trace(by_name):
     return sum(n for n, _ in hits), sum(t for _, t in hits)
 
 
-def adapter_grads(ld, state, batch, draws):
-    """Loss and adapter gradients of one forward/backward on injected t,
-    noise and posterior eps (no optimizer step)."""
+def adapter_grads(ld, state, batch, draws, distill=False):
+    """Loss terms and adapter gradients of one forward/backward on injected
+    t, noise and posterior eps (no optimizer step)."""
     import torch
     from fgdm_tpu_torch.diffusion.losses import diffusion_loss
 
@@ -1622,12 +1672,13 @@ def adapter_grads(ld, state, batch, draws):
     with torch.no_grad():
         x0 = ld.encode_first_stage(batch["image"], eps=eps)
         ctx = ld.get_learned_conditioning(batch["input_ids"])
-    loss, _ = diffusion_loss(ld, x0, {"c_crossattn": ctx}, t=t, noise=noise)
+    loss, parts = diffusion_loss(ld, x0, {"c_crossattn": ctx}, t=t,
+                                 noise=noise, distill=distill)
     loss.backward()
     grads = {k: p.grad.float() for k, p in state.params.items()}
     for p in state.params.values():
         p.grad = None
-    return loss.item(), grads
+    return {k: v.item() for k, v in parts.items()}, grads
 
 
 def frozen_checksum(state):
@@ -1702,9 +1753,10 @@ def phase_train():
     draws = (torch.randint(0, 1000, (b,), device="cuda", generator=gen),
              torch.randn(b, 4, 32, 32, device="cuda", generator=gen),
              torch.randn(b, 4, 32, 32, device="cuda", generator=gen))
-    loss_on, g_on = adapter_grads(ld, state, batch, draws)
+    parts_on, g_on = adapter_grads(ld, state, batch, draws)
     with plain_path():
-        loss_off, g_off = adapter_grads(ld, state, batch, draws)
+        parts_off, g_off = adapter_grads(ld, state, batch, draws)
+    loss_on, loss_off = parts_on["loss"], parts_off["loss"]
     loss_rel = abs(loss_on - loss_off) / abs(loss_off)
     g_err = max((g_on[k] - g_off[k]).abs().max().item() for k in g_on)
     g_scale = max(g.abs().max().item() for g in g_off.values())
@@ -1720,7 +1772,218 @@ def phase_train():
         torch.cuda.synchronize()
 
     profile("train", run, warm)
+    return ok and cmp_ok, counts, tr
+
+
+def phase_distill(tr):
+    """The reference config's distillation step (``apply_distill_loss``,
+    every ``distill_every_n_step`` = 10 steps) at full width, batch 8,
+    256^2, on the training phase's trainer: one distill step with every
+    launch count set to 0 just before (the path's counted run), then ten
+    steps of the cadence (``Trainer.step_fn``: one distill step, nine
+    plain), each timed to its synchronize.  Checks ``loss_distill``, the
+    adapter and the frozen weights and the launches; compares one distill
+    loss, its adapter gradients and the student's and teacher's maps
+    kernels on vs plain on injected draws; profiles one distill step."""
+    import torch
+    from fgdm_tpu_torch.diffusion.losses import teacher_attention_maps
+    from fgdm_tpu_torch.nn.attention import CaptureSpec
+    from fgdm_tpu_torch.utils.attention_maps import get_token_maps
+
+    ld, state, batch = tr.ld, tr.state, tr.batch
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    adapter0 = {k: p.detach().clone() for k, p in state.params.items()}
+    frozen0 = frozen_checksum(state)
+    metrics = []
+
+    def step(fn):
+        t0 = time.perf_counter()
+        _, m = fn(state, batch, gen)
+        torch.cuda.synchronize()
+        metrics.append(m)
+        return time.perf_counter() - t0
+
+    reset_counts()
+    cold = step(tr.distill_step)
+    counts = read_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = [step(tr.step_fn(i)) for i in range(DISTILL_CADENCE)]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    distills = [m["loss_distill"].item() for m in metrics
+                if "loss_distill" in m]
+    losses = [m["loss"].item() for m in metrics]
+    moved = max((p - adapter0[k]).abs().max().item()
+                for k, p in state.params.items())
+    frozen_same = torch.equal(frozen_checksum(state), frozen0)
+    n = {k: sum(c.values()) for k, c in counts.items()}
+    lse = sum(v for k, v in counts["attn"].items() if k[5])
+    launched = (lse > 0 and n["gn"] > 0 and n["flash_attn_bwd_dq"] > 0
+                and n["flash_attn_bwd_dkv"] > 0)
+    ok = (len(distills) == 2
+          and all(math.isfinite(x) and x > 0 for x in distills)
+          and all(math.isfinite(x) for x in losses) and moved > 0
+          and frozen_same and launched)
+    plain_ms = 1e3 * sum(times[1:]) / (len(times) - 1)
+    log(f"distill: losses {[round(x, 5) for x in losses]}, loss_distill "
+        f"{distills}; adapter max|moved|={moved:.3e}; frozen bit-identical "
+        f"{frozen_same}; K1 with lse {lse}, K4 {n['gn']}, K5 "
+        f"{n['flash_attn_bwd_dq']}, K6 {n['flash_attn_bwd_dkv']} launches; "
+        f"{'OK' if ok else 'FAIL'}")
+    log(f"distill: first distill step {1e3 * cold:.1f} ms (new shapes' "
+        f"first launches included); in the cadence the distill step "
+        f"{1e3 * times[0]:.1f} ms, the plain steps {plain_ms:.1f} ms each "
+        f"(mean of {len(times) - 1}); {DISTILL_CADENCE} steps in "
+        f"{sum(times):.3f} s, {DISTILL_CADENCE * TRAIN_BATCH / sum(times):.2f}"
+        f" images/s at batch {TRAIN_BATCH} (host clock, a synchronize after "
+        f"each step); peak memory {peak_gib:.2f} GiB")
+    log_counts("distill", counts)
+
+    # kernels on vs plain: one distill loss, its adapter gradients, the maps
+    b = batch["image"].shape[0]
+    draws = (torch.randint(0, 1000, (b,), device="cuda", generator=gen),
+             torch.randn(b, 4, 32, 32, device="cuda", generator=gen),
+             torch.randn(b, 4, 32, 32, device="cuda", generator=gen))
+    parts_on, g_on = adapter_grads(ld, state, batch, draws, distill=True)
+    with plain_path():
+        parts_off, g_off = adapter_grads(ld, state, batch, draws,
+                                         distill=True)
+    rel = {k: abs(parts_on[k] - parts_off[k]) / abs(parts_off[k])
+           for k in ("loss", "loss_distill")}
+    g_err = max((g_on[k] - g_off[k]).abs().max().item() for k in g_on)
+    g_scale = max(g.abs().max().item() for g in g_off.values())
+
+    def maps():
+        t, noise, eps = draws
+        tb = 2
+        with torch.no_grad():
+            x0 = ld.encode_first_stage(batch["image"][:tb], eps=eps[:tb])
+            cond = {"c_crossattn": ld.get_learned_conditioning(
+                batch["input_ids"][:tb])}
+            _, sa, ca = ld.apply_model(
+                ld.q_sample(x0, t[:tb], noise[:tb]), t[:tb], cond,
+                capture=CaptureSpec(self_n=32 * 32))
+            return (*get_token_maps(sa, ca, resn=32),
+                    *teacher_attention_maps(ld, x0, noise[:tb], t[:tb], cond))
+
+    on = maps()
+    with plain_path():
+        off = maps()
+    map_rel = [((a - r).abs().max() / r.abs().max()).item()
+               for a, r in zip(on, off)]
+    cmp_ok = (all(math.isfinite(x) and x <= LOSS_TOL for x in rel.values())
+              and g_scale > 0 and g_err / g_scale <= UNET_TOL
+              and all(math.isfinite(x) and x <= UNET_TOL for x in map_rel))
+    log(f"distill kernels on vs plain: loss {parts_on['loss']:.6f} vs "
+        f"{parts_off['loss']:.6f} (rel {rel['loss']:.3e}), loss_distill "
+        f"{parts_on['loss_distill']:.6f} vs {parts_off['loss_distill']:.6f} "
+        f"(rel {rel['loss_distill']:.3e}; tol {LOSS_TOL}); adapter grads "
+        f"max|d|/max|ref| = {g_err / max(g_scale, 1e-30):.3e}; maps "
+        f"max|d|/max|ref|: student self {map_rel[0]:.3e}, cross "
+        f"{map_rel[1]:.3e}, teacher self {map_rel[2]:.3e}, cross "
+        f"{map_rel[3]:.3e} (tol {UNET_TOL}); {'OK' if cmp_ok else 'FAIL'}")
+    del on, off, g_on, g_off
+
+    def run():
+        step(tr.distill_step)
+
+    profile("distill", run, times[0])
     return ok and cmp_ok, counts
+
+
+def phase_guided(paths, outdir, ld, f1_unguided):
+    """``txt2img_fgdm --inference_loss`` with run_inference.sh's factor-1
+    flags (no ControlNet stage) on the factor-1 checkpoint, conv flags on as
+    in the CLI phase: the guided path's counted run.  Checks 5 condition
+    maps (256^2), that K4 and K2 launched and that no K1 did (the guidance's
+    ``"probs"`` capture runs every attention explicitly, as in JAX); then
+    one ``guided_update`` at step 10 (two unconditional iterations) on the
+    CLI's CFG batch, kernels on vs plain, on ``ld`` (the same file)."""
+    import torch
+    from fgdm_tpu_torch.cli import txt2img_fgdm
+    from fgdm_tpu_torch.core.schedules import DDIMSchedule
+    from fgdm_tpu_torch.models.clip import CLIPTokenizer
+    from fgdm_tpu_torch.sampling.guidance import alignment_loss, guided_update
+
+    argv = GUIDED_FLAGS + ["--prompt", PROMPT_CLI, "--ckpt", paths["f1"],
+                           "--outdir", outdir]
+    log("guided: python -m fgdm_tpu_torch.cli.txt2img_fgdm " + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    with conv_flags(), hash_tokenizer_allowed():
+        reset_counts()
+        t0 = time.perf_counter()
+        out = txt2img_fgdm.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    maps = sorted(out["files"])
+    shapes = set()
+    for p in maps:
+        with open(p, "rb") as f:
+            shapes.add(png_rgb(f.read())[:2])
+    k1 = sum(v for k, v in counts["attn"].items() if k[4] <= 96)
+    k2 = sum(v for k, v in counts["attn"].items()
+             if attn_kernel(k[4], k[3]) == K2)
+    n_gn = sum(counts["gn"].values())
+    ok = (len(maps) == CLI_BATCH and shapes == {(256, 256)} and k1 == 0
+          and k2 > 0 and n_gn > 0)
+    f1 = out["factor1_s"][0]
+    log(f"guided: {len(maps)} maps {sorted(shapes)}; [factor1] {f1:.2f}s "
+        f"with the guidance against {f1_unguided:.2f}s without (the CLI "
+        f"phase, this run; both first runs), load {out['load_s']:.2f}s, "
+        f"main() {wall:.2f}s; peak memory {peak_gib:.2f} GiB; launches K1 "
+        f"{k1}, K2 {k2}, K4 {n_gn}, K7 {sum(counts['conv'].values())}; "
+        f"{'OK' if ok else 'FAIL'}")
+    log_counts("guided", counts)
+
+    # one guided_update at step 10 on the CLI's CFG batch, kernels on vs
+    # plain: x_out - x_in within UNET_TOL of the update, plus the float32
+    # rounding of x; and the first iteration's loss.  Its gradient is
+    # printed, not held: at seeded weights the loss is ~1.5e-4, a sum of
+    # squared differences of near-equal maps, and the gradient's relative
+    # difference between the two bf16 paths read 4.800e-2 and 4.894e-2 in
+    # two runs of the same code on an H100, too near UNET_TOL to hold
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    tok = CLIPTokenizer()
+    ld.unet.requires_grad_(False)
+    with torch.no_grad():
+        ctx = torch.cat([ld.get_learned_conditioning(tok([p] * CLI_BATCH)
+                                                     .cuda())
+                         for p in ("", PROMPT_CLI)])
+    sched = DDIMSchedule.create(ld.schedule, 50)
+    t = sched.timesteps[50 - 1 - 10].expand(2 * CLI_BATCH).cuda()
+    x_in = torch.randn(2 * CLI_BATCH, 4, 32, 32, device="cuda", generator=gen)
+    fn = ld.capture_fn()
+
+    def update():
+        with torch.no_grad():
+            return guided_update(fn, x_in, t, {"c_crossattn": ctx}, 10,
+                                 num=CLI_BATCH)
+
+    def loss_grad():
+        x = x_in.clone().requires_grad_()
+        _, sa, ca = fn(x, t, {"c_crossattn": ctx})
+        loss = alignment_loss(sa, ca, CLI_BATCH, 1.0)
+        return loss.item(), torch.autograd.grad(loss, x)[0]
+
+    with conv_flags():
+        x_on, (l_on, g_on) = update(), loss_grad()
+        with plain_path():
+            x_off, (l_off, g_off) = update(), loss_grad()
+    step_max = (x_off - x_in).abs().max().item()
+    err = (x_on - x_off).abs().max().item()
+    lim = UNET_TOL * step_max + 4 * 2.0 ** -24 * x_in.abs().max().item()
+    l_rel = abs(l_on - l_off) / abs(l_off)
+    g_rel = ((g_on - g_off).abs().max() / g_off.abs().max()).item()
+    upd_ok = (math.isfinite(err) and step_max > 0 and err <= lim
+              and l_rel <= LOSS_TOL and math.isfinite(g_rel))
+    log(f"guided_update at step 10 [{2 * CLI_BATCH},4,32,32] kernels on vs "
+        f"plain: max|x_on - x_off| = {err:.3e}, the update max|x_off - x_in|"
+        f" = {step_max:.3e} (tol {lim:.3e}: {UNET_TOL} of the update + 4 "
+        f"half-ulps of max|x|); the alignment loss {l_on:.6e} vs "
+        f"{l_off:.6e} (rel {l_rel:.3e}, tol {LOSS_TOL}), its gradient "
+        f"max|d|/max|ref| = {g_rel:.3e} (printed, not held; max|ref| "
+        f"{g_off.abs().max().item():.3e}); {'OK' if upd_ok else 'FAIL'}")
+    return ok and upd_ok, counts
 
 
 def sweep_k1(gen):
@@ -1959,8 +2222,12 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         t2 = time.perf_counter()
-        cli_ok, cli, maps = phase_cli(paths, os.path.join(root, "out"))
+        cli_ok, cli, maps, f1 = phase_cli(paths, os.path.join(root, "out"))
         seg_ok, seg = phase_seg2image(ld2, cldm2, maps)
+        t_guided = time.perf_counter()
+        guided_ok, guided = phase_guided(paths, os.path.join(root, "guided"),
+                                         ld2, f1)
+        t_guided = time.perf_counter() - t_guided
         del ld2, cldm2
         gc.collect()
         torch.cuda.empty_cache()
@@ -1970,15 +2237,22 @@ def main():
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"conv forwards {t1 - t0:.1f}s, checkpoints {t2 - t1:.1f}s, CLI and "
-        f"seg2image {t3 - t2:.1f}s, serving phase "
-        f"{time.perf_counter() - t3:.1f}s")
-    train_ok, train = phase_train()
+    log(f"conv forwards {t1 - t0:.1f}s, checkpoints {t2 - t1:.1f}s, CLI, "
+        f"seg2image and the guided CLI {t3 - t2:.1f}s (the guided CLI "
+        f"{t_guided:.1f}s), serving phase {time.perf_counter() - t3:.1f}s")
+    t0 = time.perf_counter()
+    train_ok, train, tr = phase_train()
+    t1 = time.perf_counter()
+    distill_ok, distill = phase_distill(tr)
+    del tr
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"training phase {t1 - t0:.1f}s, distillation phase "
+        f"{time.perf_counter() - t1:.1f}s")
     by_path = {"chain": chain, "train": train, "serve": serve, "cli": cli,
-               "seg2image": seg}
+               "seg2image": seg, "guided": guided, "distill": distill}
     for name, fn, seed in (("K1-K3 and the combine pass", attn_path_rows, 4),
+                           ("K5 and K6", bwd_path_rows, 7),
                            ("K7 and its pre-pass", conv_path_rows, 5),
                            ("K4", gn_path_rows, 6)):
         t0 = time.perf_counter()
@@ -2009,6 +2283,17 @@ def main():
     for kind in ("attn", "gn", "conv"):
         if sum(seg[kind].values()) == 0:
             failures.append(f"{kind} not launched by seg2image's sampling")
+    for kind in ("attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "gn"):
+        if sum(distill[kind].values()) == 0:
+            failures.append(f"{kind} not launched by the distillation step")
+    if not any(k[5] for k in distill["attn"]):
+        failures.append("K1 with lse not launched by the distillation step")
+    if any(k[4] <= 96 for k in guided["attn"]):
+        failures.append("K1 launched by the guided factor 1")
+    if not any(attn_kernel(k[4], k[3]) == K2 for k in guided["attn"]):
+        failures.append("K2 not launched by the guided CLI")
+    if sum(guided["gn"].values()) == 0:
+        failures.append("gn not launched by the guided CLI")
     if not ckpt_ok:
         failures.append("checkpoints written and loaded")
     if not cli_ok:
@@ -2027,6 +2312,10 @@ def main():
         failures.append("chain output")
     if not train_ok:
         failures.append("training step")
+    if not distill_ok:
+        failures.append("distillation step")
+    if not guided_ok:
+        failures.append("guided CLI (--inference_loss)")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "copy_ms", "plain_ms", "bound_ms", "bound_by",
             "bound_term", "library_ms", "path")

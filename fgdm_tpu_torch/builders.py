@@ -11,7 +11,9 @@ float32.
 
 ``build_trainer`` is the counterpart of ``tools/bench_train.py:49-79``: the
 adapter-only fine-tuning step at 256^2 (UNet with adapter, VAE and CLIP,
-AdamW on the adapter partition), with a seeded synthetic batch.
+AdamW on the adapter partition), with a seeded synthetic batch, and the
+attention-distillation step the reference config takes every
+``distill_every_n_step`` steps (``fgdm_tpu/cli/train.py:282-286,383-385``).
 
 The weights are drawn on the device from explicit generators; the UNets and
 ControlNet then get the 0.02 N(0, 1) perturbation of
@@ -105,12 +107,23 @@ PROMPTS = [
 @dataclasses.dataclass
 class Trainer:
     """What ``build_trainer`` returns: the pipeline, the train state over
-    ``ld.unet``, the step, and a seeded synthetic batch for it."""
+    ``ld.unet``, the plain and the distillation step, the cadence, and a
+    seeded synthetic batch for them."""
 
     ld: LatentDiffusion
     state: TrainState
     train_step: Callable
     batch: Dict[str, torch.Tensor]
+    distill_step: Callable
+    distill_every_n_step: int = 10   # models/config.yaml:25
+
+    def step_fn(self, step: int) -> Callable:
+        """The step to take at training step ``step``: the distillation
+        step where ``step % distill_every_n_step == 0``, else the plain
+        one (``fgdm_tpu/cli/train.py:383-385``)."""
+        if step % self.distill_every_n_step == 0:
+            return self.distill_step
+        return self.train_step
 
 
 def build_trainer(device=None, seed: int = 0, batch: int = 8,
@@ -120,7 +133,9 @@ def build_trainer(device=None, seed: int = 0, batch: int = 8,
     activation checkpointing), VAE (fused norms) and CLIP in bf16, the
     linear 0.00085-0.012 schedule, AdamW(``lr``) on the adapter partition.
     The batch holds ``batch`` seeded 256^2 images in [-1, 1] and the
-    hash-fallback tokens of ``PROMPTS``."""
+    hash-fallback tokens of ``PROMPTS``.  The distillation step and its
+    cadence are the reference config's (``apply_distill_loss``,
+    ``distill_every_n_step``, ``models/config.yaml:24-25``)."""
     dev = resolve_device(device)
     dtype = torch.bfloat16
     unet = build_unet(dev, dtype, True, True, seed)
@@ -135,7 +150,8 @@ def build_trainer(device=None, seed: int = 0, batch: int = 8,
                         generator=gen).clamp_(-1.0, 1.0)
     ids = CLIPTokenizer()([PROMPTS[i % len(PROMPTS)] for i in range(batch)])
     return Trainer(ld, state, make_train_step(ld),
-                   {"image": image, "input_ids": ids.to(dev)})
+                   {"image": image, "input_ids": ids.to(dev)},
+                   make_train_step(ld, distill=True))
 
 
 # --- config builders (``fgdm_tpu/builders.py:25-310``) -----------------------
@@ -251,9 +267,9 @@ def _params(p, key) -> Dict[str, Any]:
 
 @dataclasses.dataclass
 class ModelSpec:
-    """A parsed LatentDiffusion config: module definitions and what
-    inference reads (the training knobs stay in ``raw``, the params block
-    as parsed); ``load`` builds the pipeline."""
+    """A parsed LatentDiffusion config: module definitions, what inference
+    reads and the distillation recipe (the other training knobs stay in
+    ``raw``, the params block as parsed); ``load`` builds the pipeline."""
 
     unet_def: ModuleDef
     vae_def: ModuleDef
@@ -261,6 +277,8 @@ class ModelSpec:
     schedule_args: Dict[str, Any]
     conditioning_key: str = "crossattn"
     scale_factor: float = 0.18215
+    apply_distill_loss: bool = False
+    distill_every_n_step: int = 10
     ckpt_path: Optional[str] = None
     raw: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
@@ -291,6 +309,8 @@ def build_latent_diffusion(dtype=torch.bfloat16, **p) -> ModelSpec:
         schedule_args=_schedule_args(p),
         conditioning_key=p.get("conditioning_key", "crossattn"),
         scale_factor=p.get("scale_factor", 1.0),
+        apply_distill_loss=p.get("apply_distill_loss", False),
+        distill_every_n_step=p.get("distill_every_n_step", 10),
         ckpt_path=p.get("ckpt_path"),
         raw=p)
 

@@ -11,11 +11,14 @@ ControlNet stage (20 DDIM steps, CFG 9.0, the reference's positive and
 negative prompt suffixes) under ``samples/<cond>_images/``.  The hop
 between the factors stays on the device.  ``--device`` (default ``cuda``)
 names where the models run; ``--precision full`` computes in float32,
-``autocast`` in bf16.
+``autocast`` in bf16.  ``--inference_loss`` runs the DDIM sampler with the
+attention-alignment guidance of ``sampling/guidance.py`` (the capture
+forward ``capture_fn`` as its guidance function; ignored by ``--plms`` and
+``--dpm``, as in the JAX CLI).
 
 Not ported, and refused with ``NotImplementedError``: ``--factors`` and
 ``--all_pconds`` (``fgdm_chain_n`` and the multi-adapter UNet, ROADMAP
-Queue A item 7) and ``--inference_loss`` (attention capture, item 13).
+Queue A item 7).
 
     python -m fgdm_tpu_torch.cli.txt2img_fgdm --config models/config.yaml \\
         --ckpt models/fgdm_seg.pth --n_samples 5 --ddim_steps 50 \\
@@ -98,8 +101,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_rows", type=int, default=0,
                    help="grid row count (0 = no grid)")
     p.add_argument("--inference_loss", action="store_true",
-                   help="attention-alignment guidance inside DDIM "
-                        "(not ported)")
+                   help="attention-alignment guidance inside DDIM")
     p.add_argument("--factors", type=str, default=None,
                    help="comma list of condition factors to chain "
                         "(not ported)")
@@ -113,13 +115,13 @@ def get_parser() -> argparse.ArgumentParser:
     return p
 
 
-@torch.inference_mode()
 def sample_condition_maps(ld, cond_ctx, uncond_ctx, shape, steps: int,
                           scale: float, eta: float = 0.0,
                           sampler: str = "ddim", adapter_on: bool = True,
-                          x_T=None, generator=None):
+                          x_T=None, generator=None, guided: bool = False):
     """The factor-1 stage (JAX ``sample_f1``): condition latents ``z`` of
-    ``shape`` (NCHW) and their decode in [-1, 1]."""
+    ``shape`` (NCHW) and their decode in [-1, 1].  ``guided`` adds the
+    attention-alignment guidance to the DDIM sampler."""
     fn = ld.denoise_fn(adapter_on=adapter_on)
     cond, uncond = {"c_crossattn": cond_ctx}, {"c_crossattn": uncond_ctx}
     noise = dict(x_T=x_T, generator=generator)
@@ -128,9 +130,14 @@ def sample_condition_maps(ld, cond_ctx, uncond_ctx, shape, steps: int,
                               steps=steps, **noise)
     else:
         sched = DDIMSchedule.create(ld.schedule, steps, eta=eta)
-        run = plms_sample if sampler == "plms" else ddim_sample
-        z = run(fn, shape, sched, cond, uncond, scale, **noise)
-    return z, ld.decode_first_stage(z)
+        if sampler == "plms":
+            z = plms_sample(fn, shape, sched, cond, uncond, scale, **noise)
+        else:
+            gfn = ld.capture_fn(adapter_on=adapter_on) if guided else None
+            z = ddim_sample(fn, shape, sched, cond, uncond, scale,
+                            guidance_fn=gfn, **noise)
+    with torch.inference_mode():
+        return z, ld.decode_first_stage(z)
 
 
 @torch.inference_mode()
@@ -165,10 +172,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--factors/--all_pconds: fgdm_chain_n and the multi-adapter UNet "
             "are not ported yet (ROADMAP Queue A item 7)")
-    if opt.inference_loss:
-        raise NotImplementedError(
-            "--inference_loss: attention capture is not ported yet (ROADMAP "
-            "Queue A item 13)")
 
     dev = resolve_device(opt.device)
     dtype = torch.float32 if opt.precision == "full" else torch.bfloat16
@@ -195,6 +198,9 @@ def main(argv=None):
     # the parsed config's modules, schedule and scale factor when there is one
     ld = (spec.load(ckpt, device=dev) if spec is not None
           else load_fgdm(ckpt, dtype=dtype, device=dev))
+    if opt.inference_loss:
+        # the guidance differentiates with respect to x alone
+        ld.unet.requires_grad_(False)
     cldm = None
     if opt.use_controlnet:
         cldm = load_controlnet(cn_ckpt, dtype=dtype, device=dev)
@@ -236,7 +242,8 @@ def main(argv=None):
             z, cond_img = sample_condition_maps(
                 ld, c, uc, shape, opt.ddim_steps, opt.scale,
                 eta=opt.ddim_eta, sampler=sampler,
-                adapter_on=not opt.use_original, x_T=x_T, generator=gen)
+                adapter_on=not opt.use_original, x_T=x_T, generator=gen,
+                guided=opt.inference_loss)
             cond8 = to_uint8_nhwc(cond_img)
             f1_s.append(time.perf_counter() - t0)
             print(f"[factor1] {b} maps in {f1_s[-1]:.2f}s "

@@ -3,7 +3,7 @@
 Counterpart of ``fgdm_tpu/diffusion/control.py:38-74``: ``apply_model`` runs
 ControlNet on the hint (or on its precomputed pyramid, ``c_hint_emb``),
 scales its 13 residuals by ``control_scales`` and feeds them to the frozen
-SD UNet (adapter off).
+SD UNet (adapter off); ``capture`` returns the UNet's attention maps too.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ class ControlLDM(LatentDiffusion):
     only_mid_control: bool = False
 
     def apply_model(self, x_noisy, t, cond: Optional[Cond],
-                    adapter_on: bool = True):
+                    adapter_on: bool = True, capture=False):
         cond = cond or {}
         context = cond.get("c_crossattn")
         hint, hint_emb = cond.get("c_concat"), cond.get("c_hint_emb")
@@ -38,7 +38,7 @@ class ControlLDM(LatentDiffusion):
                                                   self.control_scales))
         return self.unet(x_noisy, t, context=context, control=control,
                          only_mid_control=self.only_mid_control,
-                         adapter_on=False)
+                         adapter_on=False, capture=capture)
 
     def encode_hint(self, hint: torch.Tensor) -> torch.Tensor:
         """Hint pyramid only: ``[B, 3, H, W]`` in [0, 1] ->

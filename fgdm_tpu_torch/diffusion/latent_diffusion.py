@@ -5,8 +5,10 @@ Counterpart of ``fgdm_tpu/diffusion/latent_diffusion.py:50-121``:
 ``encode_first_stage`` / ``decode_first_stage`` apply and undo the 0.18215
 ``scale_factor``; ``apply_model`` is the ``crossattn`` route of the
 reference's conditioning router, with ``pcond`` as the adapter prompt and
-``adapter_on=False`` for the frozen-SD path; ``denoise_fn`` closes over it
-for the samplers; ``q_sample`` is the schedule's.
+``adapter_on=False`` for the frozen-SD path and ``capture`` for the
+attention maps; ``denoise_fn`` closes over it for the samplers and
+``capture_fn`` for the attention-guided sampler; ``q_sample`` is the
+schedule's.
 """
 
 from __future__ import annotations
@@ -57,21 +59,34 @@ class LatentDiffusion:
         return self.vae.decode(z / self.scale_factor)
 
     def apply_model(self, x_noisy, t, cond: Optional[Cond],
-                    adapter_on: bool = True):
+                    adapter_on: bool = True, capture=False):
         """eps for x_noisy ``[B, 4, h, w]`` at timesteps t ``[B]``; cond
-        carries ``c_crossattn`` and optionally ``pcond``."""
+        carries ``c_crossattn`` and optionally ``pcond``.  With ``capture``,
+        ``(eps, selfattn, crossattn)`` (``UNetModel.forward``)."""
         cond = cond or {}
         if cond.get("extra_pconds") is not None:
             raise NotImplementedError("multi-adapter composition is not "
                                       "ported yet")
         return self.unet(x_noisy, t, context=cond["c_crossattn"],
-                         pcond=cond.get("pcond"), adapter_on=adapter_on)
+                         pcond=cond.get("pcond"), adapter_on=adapter_on,
+                         capture=capture)
 
     def denoise_fn(self, adapter_on: bool = True):
         """``(x, t, cond) -> eps`` for the samplers."""
 
         def fn(x, t, cond):
             return self.apply_model(x, t, cond, adapter_on=adapter_on)
+
+        return fn
+
+    def capture_fn(self, adapter_on: bool = True, mode="probs"):
+        """``(x, t, cond) -> (eps, selfattn, crossattn)`` for the
+        attention-guided sampler; ``"probs"`` captures per-head
+        probabilities."""
+
+        def fn(x, t, cond):
+            return self.apply_model(x, t, cond, adapter_on=adapter_on,
+                                    capture=mode)
 
         return fn
 

@@ -46,6 +46,11 @@ saves the forward's lse and launches both backward kernels where
 ``_FLASH_BWD and _use_flash_bwd(d)`` holds, as ``_flash_op_fwd`` does; else
 its backward recomputes through ``attention_ref`` under autograd, as the
 JAX VJP's XLA branch does.  See the sources for the kernels' design.
+
+``attention_with_scores`` (``attention.py:74-115``) adds the head-averaged
+pre-softmax scores that attention-map capture reads to the output of
+``multihead_attention``; the score contraction is a torch einsum, as it is
+an XLA einsum outside any Pallas kernel in the JAX package.
 """
 
 from __future__ import annotations
@@ -66,7 +71,8 @@ __all__ = ["attention_ref", "attention_bwd_ref", "attention_split_ref",
            "flash_combine", "flash_attention",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_backward", "FlashAttention", "flash_gate",
-           "use_flash", "multihead_attention", "KERNEL_HEAD_DIMS",
+           "use_flash", "multihead_attention", "attention_with_scores",
+           "KERNEL_HEAD_DIMS",
            "BWD_HEAD_DIMS"]
 
 # Head dims the CUDA sources instantiate: the chain's self-attention heads
@@ -564,14 +570,14 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
     ``delta = rowsum(dO * O)``, both f32 ``[B, H, Nq]``.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel or raises.  Counts
     launches in ``flash_attention_bwd_dq.launches`` keyed by
-    ``(d, nq, nk)``."""
+    ``(b, h, nq, nk, d)``."""
     if q.device.type == "cpu":
         return _bwd_ref(q, k, v, do, lse, delta, scale)[0]
     _, (bh, nq, nk, d) = _bwd_args("flash_attention_bwd_dq", q, k, v, do,
                                    lse, delta)
     dq = _flash_k5(q, k, v, do, lse, delta, scale,
                    flash_bwd_plan(bh, nq, nk, d)[0])
-    flash_attention_bwd_dq.launches[(d, nq, nk)] += 1
+    flash_attention_bwd_dq.launches[(*q.shape[:2], nq, nk, d)] += 1
     return dq
 
 
@@ -582,14 +588,14 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
     """``(dK, dV)`` of flash attention (K6); the arguments of
     ``flash_attention_bwd_dq``.  A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel or raises.  Counts launches in
-    ``flash_attention_bwd_dkv.launches`` keyed by ``(d, nq, nk)``."""
+    ``flash_attention_bwd_dkv.launches`` keyed by ``(b, h, nq, nk, d)``."""
     if q.device.type == "cpu":
         return _bwd_ref(q, k, v, do, lse, delta, scale)[1:]
     _, (bh, nq, nk, d) = _bwd_args("flash_attention_bwd_dkv", q, k, v, do,
                                    lse, delta)
     dk, dv = _flash_k6(q, k, v, do, lse, delta, scale,
                        flash_bwd_plan(bh, nq, nk, d)[1])
-    flash_attention_bwd_dkv.launches[(d, nq, nk)] += 1
+    flash_attention_bwd_dkv.launches[(*q.shape[:2], nq, nk, d)] += 1
     return dk, dv
 
 
@@ -678,3 +684,29 @@ def multihead_attention(q, k, v, scale: Optional[float] = None,
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, float(scale))
     return flash_attention(q, k, v, float(scale))
+
+
+def attention_with_scores(q, k, v, scale: float, pool_kq: int = 1):
+    """``(out [B, H, Nq, D], scores [B, Nq/p, Nk/p] float32)``: the output
+    of ``multihead_attention`` (K1 through the gate) and the head-averaged
+    pre-softmax scores mean_h(Q_h K_h^T) * scale.
+
+    ``scale / H`` is folded into the f32 q before the product, and k is
+    upcast (never q downcast), as type promotion does in the JAX einsum.
+    ``pool_kq`` > 1 average-pools flat windows of ``pool_kq`` consecutive
+    tokens on both token axes, on q and k before the product: pooling a
+    bilinear form equals pooling its factors, so the map comes out already
+    pooled (``attention.py:104-111``)."""
+    h = q.shape[1]
+    out = multihead_attention(q, k, v, scale)
+    qs = q.float() * (float(scale) / h)
+    ks = k.float()
+    if pool_kq > 1:
+        b, _, nq, d = qs.shape
+        nk = ks.shape[2]
+        if nq % pool_kq or nk % pool_kq:
+            raise ValueError(f"attention_with_scores: Nq={nq}, Nk={nk} not "
+                             f"divisible by pool_kq={pool_kq}")
+        qs = qs.reshape(b, h, nq // pool_kq, pool_kq, d).mean(dim=3)
+        ks = ks.reshape(b, h, nk // pool_kq, pool_kq, d).mean(dim=3)
+    return out, torch.einsum("bhid,bhjd->bij", qs, ks)

@@ -313,7 +313,7 @@ class Conv3x3(torch.autograd.Function):
     is ``_conv3x3_vjp_bwd`` in plain torch, as the JAX package computes it
     outside Pallas: dx and dw from f32 conv gradients against the weight
     cast to x's dtype (dx in x's dtype, dw rounded to x's dtype, then to
-    w's), db an f32 sum."""
+    w's), db an f32 sum; each only where its input needs it."""
 
     @staticmethod
     def forward(ctx, x, w, b):
@@ -323,12 +323,18 @@ class Conv3x3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
         gf = g.float()
-        wf = w.to(x.dtype).float()
-        dx = torch.nn.grad.conv2d_input(x.shape, wf, gf, 1, 1).to(x.dtype)
-        dw = torch.nn.grad.conv2d_weight(x.float(), w.shape, gf, 1, 1)
-        db = gf.sum(dim=(0, 2, 3))
-        return dx, dw.to(x.dtype).to(w.dtype), db
+        dx = dw = db = None
+        if need_x:
+            dx = torch.nn.grad.conv2d_input(
+                x.shape, w.to(x.dtype).float(), gf, 1, 1).to(x.dtype)
+        if need_w:
+            dw = torch.nn.grad.conv2d_weight(x.float(), w.shape, gf, 1, 1)
+            dw = dw.to(x.dtype).to(w.dtype)
+        if need_b:
+            db = gf.sum(dim=(0, 2, 3))
+        return dx, dw, db
 
 
 def conv3x3(x, w, b):

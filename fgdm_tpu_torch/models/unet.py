@@ -12,8 +12,13 @@ blocks with skip concatenation, GroupNorm -> SiLU -> zero-conv head.
 * ControlNet residual injection (``unet.py:255-266``): the last residual
   goes into the middle output, the rest onto the encoder skips in reverse.
 
-Attention capture, ``num_prompts > 1``, the time adapter, pixel attention
-and ``seq_axis`` are not ported and raise ``NotImplementedError``.
+* Attention capture (``unet.py:170-200,293-295``): with ``capture`` set
+  the forward also returns the maps of every SpatialTransformer, in two
+  dicts keyed as the JAX package keys them (``"input_blocks.{i}.1"``,
+  ``"middle_block.1"``, ``"output_blocks.{i}.1"``).
+
+``num_prompts > 1``, the time adapter, pixel attention and ``seq_axis`` are
+not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,13 +54,22 @@ def embed_timesteps(te: nn.ModuleList, timesteps, mc: int):
     return te[2](silu(te[0](timestep_embedding(timesteps, mc))))
 
 
-def run_block(block: nn.ModuleList, h, emb, context):
-    """Apply one TimestepEmbedSequential-style block."""
-    for layer in block:
+def run_block(block: nn.ModuleList, h, emb, context, capture=False,
+              maps=None, name: str = ""):
+    """Apply one TimestepEmbedSequential-style block.  With ``capture`` its
+    SpatialTransformer's self and cross maps go into ``maps = (selfattn,
+    crossattn)`` under ``"{name}.{index in the block}"``."""
+    for j, layer in enumerate(block):
         if isinstance(layer, ResBlock):
             h = layer(h, emb)
         elif isinstance(layer, SpatialTransformer):
-            h = layer(h, context=context)
+            if not capture:
+                h = layer(h, context=context)
+                continue
+            h, probs = layer(h, context=context, capture=capture)
+            for store, m in zip(maps, probs):
+                if m is not None:
+                    store[f"{name}.{j}"] = m
         else:
             h = layer(h)
     return h
@@ -173,31 +187,37 @@ class UNetModel(nn.Module):
 
     def forward(self, x, timesteps, context=None, pcond=None,
                 adapter_on: bool = True, control=None,
-                only_mid_control: bool = False, capture: bool = False):
+                only_mid_control: bool = False, capture=False):
         """x ``[B, C, H, W]``, timesteps ``[B]``, context ``[B, 77, D]``;
-        ``control`` holds ControlNet's 13 residuals.  Returns float32 eps."""
-        if capture:
-            raise NotImplementedError("attention capture is not ported yet")
+        ``control`` holds ControlNet's 13 residuals.  Returns float32 eps;
+        with ``capture`` (``nn.attention.CrossAttention``'s modes)
+        ``(eps, selfattn, crossattn)``."""
         emb = embed_timesteps(self.time_embed, timesteps, self.model_channels)
         h = x.to(self.dtype)
         feats = None
         if self.adapter is not None and adapter_on:
             feats = list(self.adapter(h if pcond is None
                                       else pcond.to(self.dtype)))
+        maps = ({}, {})
+
+        def block(blk, h, name):
+            return run_block(blk, h, emb, context, capture, maps, name)
+
         hs = []
-        for i, block in enumerate(self.input_blocks):
-            h = run_block(block, h, emb, context)
+        for i, blk in enumerate(self.input_blocks):
+            h = block(blk, h, f"input_blocks.{i}")
             if feats is not None and i in self._adapter_at:
                 h = h + feats.pop(0).to(h.dtype)
             hs.append(h)
-        h = run_block(self.middle_block, h, emb, context)
+        h = block(self.middle_block, h, "middle_block")
         ctrl = list(control) if control is not None else None
         if ctrl is not None:
             h = h + ctrl.pop().to(h.dtype)
-        for block in self.output_blocks:
+        for i, blk in enumerate(self.output_blocks):
             skip = hs.pop()
             if ctrl is not None and not only_mid_control:
                 skip = skip + ctrl.pop().to(h.dtype)
-            h = run_block(block, torch.cat([h, skip], dim=1), emb, context)
+            h = block(blk, torch.cat([h, skip], dim=1), f"output_blocks.{i}")
         h = silu(self.out[0](h))
-        return self.out[2](h).float()
+        eps = self.out[2](h).float()
+        return (eps, *maps) if capture else eps

@@ -4,7 +4,9 @@ Counterpart of ``fgdm_tpu/sampling/ddim.py:47-207``: ``ddim_step`` is the
 update of reference ``ddim.py:248-273``; ``cfg_eps`` batches the [uncond,
 cond] branches into one model call; ``ddim_sample`` walks the sub-schedule
 from the noisiest step, with x_T injection and eta.  The JAX ``lax.scan``
-becomes a Python loop.
+becomes a Python loop.  ``guidance_fn`` (a capture-mode ``apply_model``)
+turns on the attention-alignment inner loop of ``sampling/guidance.py``
+(reference ``inference_loss=True``, ``ddim.py:190-191,228-231``).
 
 Noise comes from explicit ``torch.Generator``s.  With ``slot_seeds`` every
 draw is per slot (``slot_noise``): slot b's stream depends only on its own
@@ -22,7 +24,7 @@ import torch
 from fgdm_tpu_torch.core.schedules import DDIMSchedule
 
 __all__ = ["derive_seed", "slot_noise", "initial_noise", "ddim_step",
-           "cfg_eps", "ddim_sample"]
+           "cfg_inputs", "cfg_eps", "ddim_sample"]
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
 
@@ -93,43 +95,65 @@ def _cat(u, c):
     return torch.cat([u, c], dim=0)
 
 
+def cfg_inputs(x, t, cond: Dict[str, Any], uncond: Dict[str, Any]):
+    """The doubled model input ``(x_in, t_in, c_in)`` of CFG, [uncond,
+    cond] along the batch."""
+    if set(uncond) != set(cond):
+        raise ValueError(f"cond keys {sorted(cond)} != uncond {sorted(uncond)}")
+    c_in = {k: _cat(uncond[k], cond[k]) for k in cond}
+    return torch.cat([x, x]), torch.cat([t, t]), c_in
+
+
 def cfg_eps(denoise_fn: DenoiseFn, x, t, cond: Dict[str, Any],
             uncond: Optional[Dict[str, Any]], scale: float):
     """Classifier-free guidance with one batched forward, [uncond, cond]."""
     if uncond is None or scale == 1.0:
         return denoise_fn(x, t, cond)
-    if set(uncond) != set(cond):
-        raise ValueError(f"cond keys {sorted(cond)} != uncond {sorted(uncond)}")
-    c_in = {k: _cat(uncond[k], cond[k]) for k in cond}
-    e = denoise_fn(torch.cat([x, x]), torch.cat([t, t]), c_in)
-    e_uc, e_c = e.chunk(2, dim=0)
+    e_uc, e_c = denoise_fn(*cfg_inputs(x, t, cond, uncond)).chunk(2, dim=0)
     return e_uc + scale * (e_c - e_uc)
 
 
-@torch.inference_mode()
 def ddim_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
                 sched: DDIMSchedule, cond: Dict[str, Any],
                 uncond: Optional[Dict[str, Any]] = None,
                 cfg_scale: float = 7.5, x_T: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 slot_seeds: Optional[Sequence[int]] = None,
-                device=None) -> torch.Tensor:
+                device=None,
+                guidance_fn: Optional[Callable] = None) -> torch.Tensor:
     """Full DDIM loop; returns x_0 (float32, ``shape``).
 
     Noise: see ``initial_noise``; with eta > 0 the step noise comes from the
-    same source (per slot, or ``generator``)."""
-    x, device = initial_noise(shape, x_T, generator, slot_seeds, device)
-    sched = sched.to(device)
-    per_slot = slot_seeds is not None
-    steps = sched.num_steps
-    for i in range(steps):
-        index = steps - 1 - i
-        t = sched.timesteps[index].expand(shape[0])
-        e_t = cfg_eps(denoise_fn, x, t, cond, uncond, cfg_scale)
-        noise = None
-        if sched.eta != 0.0:
-            noise = (slot_noise(slot_seeds, shape, SLOT_STEP_TAG, device, i)
-                     if per_slot else
-                     torch.randn(shape, generator=generator, device=device))
-        x, _ = ddim_step(x, e_t, index, sched, noise)
+    same source (per slot, or ``generator``).  ``guidance_fn`` ``(x, t,
+    cond) -> (eps, selfattn, crossattn)`` replaces ``denoise_fn`` with the
+    guided CFG of ``guidance.guided_cfg_eps`` at sampling step ``i`` (0 at
+    the noisiest step); the loop then runs under ``torch.no_grad()``, since
+    the guidance differentiates through the UNet, else under
+    ``torch.inference_mode()``."""
+    mode = torch.inference_mode()
+    if guidance_fn is not None:
+        from fgdm_tpu_torch.sampling.guidance import guided_cfg_eps
+
+        mode = torch.no_grad()
+    with mode:
+        x, device = initial_noise(shape, x_T, generator, slot_seeds, device)
+        sched = sched.to(device)
+        per_slot = slot_seeds is not None
+        steps = sched.num_steps
+        for i in range(steps):
+            index = steps - 1 - i
+            t = sched.timesteps[index].expand(shape[0])
+            if guidance_fn is not None:
+                e_t = guided_cfg_eps(guidance_fn, x, t, cond, uncond,
+                                     cfg_scale, i)
+            else:
+                e_t = cfg_eps(denoise_fn, x, t, cond, uncond, cfg_scale)
+            noise = None
+            if sched.eta != 0.0:
+                noise = (slot_noise(slot_seeds, shape, SLOT_STEP_TAG, device,
+                                    i)
+                         if per_slot else
+                         torch.randn(shape, generator=generator,
+                                     device=device))
+            x, _ = ddim_step(x, e_t, index, sched, noise)
     return x

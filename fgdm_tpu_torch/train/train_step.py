@@ -6,13 +6,14 @@ frozen VAE (a posterior sample) and runs the frozen CLIP, both under
 ``torch.no_grad()`` (never ``inference_mode``: its tensors cannot be saved
 for the backward), then ``diffusion_loss``, the backward, the optimizer
 step and the EMA.  It returns ``(state, metrics)`` with the loss dict and
-``grad_norm``, the global norm of the raw gradients.
+``grad_norm``, the global norm of the raw gradients.  ``distill=True``
+builds the distillation step (``loss_distill`` in the metrics; the
+trainer takes it every ``distill_every_n_step`` steps).
 
 torch cannot reproduce ``jax.random``'s bits: the timesteps ``t``, the
 ``noise`` and the posterior's ``posterior_eps`` may be injected; whatever is
 not injected is drawn from ``generator``.  The annotator synthesis of the
-``condition`` targets (ROADMAP Queue A item 14) and distillation (item 13)
-are not ported.
+``condition`` targets (ROADMAP Queue A item 14) is not ported.
 """
 
 from __future__ import annotations
@@ -30,10 +31,7 @@ __all__ = ["make_train_step", "make_eval_step"]
 Batch = Dict[str, torch.Tensor]
 
 
-def _not_ported(distill: bool, condition) -> None:
-    if distill:
-        raise NotImplementedError(
-            "the distill step is not ported yet (ROADMAP Queue A item 13)")
+def _not_ported(condition) -> None:
     if condition is not None:
         raise NotImplementedError(
             "condition-target synthesis is not ported yet (ROADMAP Queue A "
@@ -57,6 +55,7 @@ def make_train_step(ld: LatentDiffusion, distill: bool = False,
                     parameterization: str = "eps",
                     l_simple_weight: float = 1.0,
                     original_elbo_weight: float = 0.0,
+                    distill_weight: float = 0.1,
                     encode_first_stage: bool = True, condition=None):
     """Builds ``train_step(state, batch, generator, *, t=None, noise=None,
     posterior_eps=None) -> (state, metrics)``.
@@ -64,7 +63,7 @@ def make_train_step(ld: LatentDiffusion, distill: bool = False,
     ``batch``: ``{"image": [B, 3, H, W] in [-1, 1]`` (or ``"latent"``),
     ``"input_ids": [B, 77]}`` on the model's device.  ``state.model`` must be
     ``ld.unet``."""
-    _not_ported(distill, condition)
+    _not_ported(condition)
 
     def train_step(state: TrainState, batch: Batch,
                    generator: torch.Generator, *,
@@ -75,7 +74,8 @@ def make_train_step(ld: LatentDiffusion, distill: bool = False,
             ld, batch, generator, t, noise, posterior_eps,
             encode_first_stage, parameterization=parameterization,
             l_simple_weight=l_simple_weight,
-            original_elbo_weight=original_elbo_weight)
+            original_elbo_weight=original_elbo_weight, distill=distill,
+            distill_weight=distill_weight)
         loss.backward()
         metrics = {k: v.detach() for k, v in loss_dict.items()}
         metrics["grad_norm"] = global_norm(
@@ -91,7 +91,7 @@ def make_eval_step(ld: LatentDiffusion, parameterization: str = "eps",
     ``validation_step``, ``ddpm.py:442-450``): ``eval_step(state, batch,
     generator) -> {"val/<key>", "val/<key>_ema"}``.  Both passes draw the
     same t, noise and posterior sample, as the JAX step reuses its key."""
-    _not_ported(False, condition)
+    _not_ported(condition)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch,

@@ -16,8 +16,12 @@ under ``FGDM_ALLOW_HASH_TOKENIZER=1``.
   uint8 quantize may flip one 1/255 step on at most 1 % of its pixels, so
   factor 2 is fed JAX's hint, as ``tests/test_torch_chain.py`` does.
 * The CLIs write the files the JAX CLIs write, at the same shapes.
-* ``--factors``, ``--all_pconds``, ``--inference_loss`` and ``--detect``
-  raise ``NotImplementedError`` citing their ROADMAP items.
+* ``--inference_loss`` (the attention-guided DDIM, 128^2 so the tiny UNet
+  has the 256-token maps the guidance reads, q and k sharpened x4 so it
+  moves x) writes the maps JAX's factor-1 stage gives for the CLI's own
+  x_T, within one uint8 step.
+* ``--factors``, ``--all_pconds`` and ``--detect`` raise
+  ``NotImplementedError`` citing their ROADMAP items.
 """
 
 import os
@@ -351,6 +355,51 @@ def test_txt2img_cli_sampler_flags(files, tmp_path, flags):
         assert len(out["factor1_s"]) == 2
 
 
+def test_txt2img_inference_loss_matches_jax_stage(files, tmp_path):
+    """``--inference_loss --fixed_code``: the maps the port's CLI writes
+    against JAX's ``sample_f1`` (DDIM with ``capture_fn`` as the guidance,
+    decode, uint8) on the same file, contexts and x_T (the CLI's
+    ``torch.randn`` draw from ``--seed``)."""
+    sd = torch.load(files["f1.pth"])
+    for k, v in sd["state_dict"].items():
+        if k.endswith(("to_q.weight", "to_k.weight")):
+            v.mul_(4.0)
+    ckpt = str(tmp_path / "sharp.pth")
+    torch.save(sd, ckpt)
+    args = ["--prompt", "a cat", "--config", files["f1.yaml"], "--ckpt",
+            ckpt, "--n_samples", "2", "--ddim_steps", "2", "--H", "128",
+            "--W", "128", "--precision", "full", "--seed", "3",
+            "--fixed_code", "--device", "cpu"]
+    txt2img_fgdm.main(args + ["--inference_loss", "--outdir",
+                              str(tmp_path / "g")])
+    txt2img_fgdm.main(args + ["--outdir", str(tmp_path / "p")])
+
+    def maps(d):
+        return np.stack([np.asarray(Image.open(
+            tmp_path / d / "samples" / "sample1" / f"sample1_00_{i:04}.png"))
+            for i in range(2)])
+
+    jld = jconfig.instantiate_from_config(
+        jconfig.load_config(files["f1.yaml"])["model"],
+        dtype=jnp.float32).load(ckpt)
+    tok = JCLIPTokenizer()
+    c, uc = (jld.get_learned_conditioning(jnp.asarray(tok([p] * 2)))
+             for p in ("a cat", ""))
+    xt = torch.randn((2, 4, 16, 16),
+                     generator=torch.Generator().manual_seed(3))
+    sched = JDDIMSchedule.create(jld.schedule, 2, eta=0.0)
+    z, _ = jddim.ddim_sample(
+        jld.denoise_fn(), jax.random.PRNGKey(0), (2, 16, 16, 4), sched,
+        {"c_crossattn": c}, {"c_crossattn": uc}, cfg_scale=7.5,
+        x_T=jnp.asarray(nhwc(xt)), guidance_fn=jld.capture_fn())
+    ref = to_uint8(np.asarray(jld.decode_first_stage(z)))
+    got = maps("g")
+    assert got.shape == ref.shape == (2, 128, 128, 3) and ref.std() > 1
+    d = np.abs(got.astype(int) - ref.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() <= 0.01
+    assert np.abs(maps("p").astype(int) - got.astype(int)).max() > 1
+
+
 def _seg_map(root):
     d = root / "maps" / "sample2"
     d.mkdir(parents=True)
@@ -384,9 +433,8 @@ def test_seg2image_cli_writes_the_files_jax_writes(files, tmp_path):
 # --- refusals ------------------------------------------------------------------
 
 @pytest.mark.parametrize("argv,item", [
-    (["--factors", "seg,depth"], 7), (["--all_pconds"], 7),
-    (["--inference_loss"], 13)],
-    ids=["factors", "all_pconds", "inference_loss"])
+    (["--factors", "seg,depth"], 7), (["--all_pconds"], 7)],
+    ids=["factors", "all_pconds"])
 def test_txt2img_refuses_what_is_not_ported(argv, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}\\b"):
         txt2img_fgdm.main(argv + ["--outdir", str(tmp_path), "--device",

@@ -185,11 +185,10 @@ def test_diffusion_loss_matches_jax(tiny, param):
 
 
 def test_distill_and_condition_raise(tiny):
+    """The distillation step is ported (``tests/test_torch_distill.py``);
+    condition-target synthesis still raises."""
     ld = tiny["port"]()
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        diffusion_loss(ld, torch.zeros(1, 4, 8, 8), {}, distill=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_train_step(ld, distill=True)
+    assert callable(make_train_step(ld, distill=True))
     with pytest.raises(NotImplementedError, match="item 14"):
         make_train_step(ld, condition=object())
 
