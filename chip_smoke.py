@@ -70,7 +70,17 @@ it builds the port's kernels from the sources in this checkout (one
    launched and no K1 (the guidance captures ``"probs"``, which runs every
    attention explicitly, as in JAX), its ``[factor1]`` wall beside the
    unguided one; and one ``guided_update`` at step 10 (two unconditional
-   iterations) on the CLI's CFG batch of 10, kernels on vs plain;
+   iterations) on the CLI's CFG batch of 10, kernels on vs plain; then
+   the N-factor path: ``cli.txt2img_fgdm.main`` with the same flags plus
+   ``--factors seg,depth,normal --all_pconds --n_samples 2`` (the build
+   of ``tools/bench_chain_n.py:49-88``: factor 1 from ``fgdm_seg.pth``,
+   depth and normal at the seeded init on the card, factor 3 with one
+   extra adapter fed factor 1's latent, the ControlNet stage from the
+   control file rendering the normal map), conv flags on, counts reset
+   just before: 2 maps a factor (256^2) and 2 images (512^2), K1-K4, K7
+   and its pre-pass launched; and one forward of factor 3's multi-adapter
+   UNet (full width, one ``extra_pcond``, the CLI's CFG batch of 4,
+   seeded weights perturbed as the chain's), kernels on vs plain;
 6. the serving path, with both conv-kernel flags on, on the engine that
    ``server.py --ckpt/--cn_ckpt`` assembles (``server.build_engine``) from
    those two files: a ``ChainEngine`` (batch 4, the fast preset:
@@ -85,7 +95,8 @@ it builds the port's kernels from the sources in this checkout (one
    no conv weight was packed anew; times the engine's batch of 4 (images/s
    of the serving preset) with the conv flags on and off turn about, and
    profiles one more batch of each, checking that the K4 kernels in the
-   trace are as many as the wrapper's calls; the checkpoint files are
+   trace are as many as the wrapper's calls in that batch and that the
+   tracer lost none of its kernel records; the checkpoint files are
    deleted;
 7. the training path: ``builders.build_trainer`` (adapter-only fine-tuning
    at 256^2, batch 8, VAE encode + CLIP + UNet forward and backward + AdamW
@@ -93,18 +104,19 @@ it builds the port's kernels from the sources in this checkout (one
    then 5 timed warm steps; checks the losses, the gradient norm, that the
    adapter moved and every frozen parameter did not, the EMA count; compares
    one loss and its adapter gradients kernels-on vs plain on injected
-   draws; profiles one more step; then the distillation path on the same
+   draws; profiles one more step (printing its K4 kernels in the trace
+   beside the wrapper's calls); then the distillation path on the same
    trainer: one distill step (the reference config's recipe: capture batch
    2 of 8, the teacher at the 2x latent) with every launch count set to 0
    just before, then ten steps of the config's cadence (one distill step,
    nine plain); checks ``loss_distill``, the adapter and frozen weights and
    that K1 with lse, K4, K5 and K6 launched; compares one distill loss, its
    adapter gradients and the student's and teacher's maps kernels-on vs
-   plain on injected draws; profiles one distill step;
+   plain on injected draws; profiles one distill step (the same print);
 8. holds every kernel against its plain version, and times it, at every
    other shape that a path above launched (the chain, the training step,
    the served batch, the CLI, seg2image's sampling, the guided CLI, the
-   distillation step): K1-K3 and the combine pass at each (batch, heads,
+   distillation step, the N-factor CLI): K1-K3 and the combine pass at each (batch, heads,
    N, d), K5 and K6 at each (batch, heads, N, d), K7 and its pre-pass at
    each conv launch key, K4 at each (shape, eps), each held once, under
    the first path that launched it; every row then reads its path's launch
@@ -329,22 +341,71 @@ def graph_ms(fn, reps):
 def profiled_ms(fn, reps):
     """Device time of ``fn`` per call: the summed kernel time that
     ``torch.profiler`` records over ``reps`` calls after three warm-up
-    calls; None if the trace holds no device time."""
+    calls (``trace_run``); None if the trace holds no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False))
+    by_name, _ = trace_run(lambda: [fn() for _ in range(reps)])
+    us = sum(t for _, t in by_name.values())
     return us / 1e3 / reps if us > 0 else None
+
+
+# The tracer loses the kernel records of the first few launches of a trace
+# and, in some traces, of its last ones (up to thousands), whatever the
+# kernel; their launch records stay.  So a traced run sits between two pads
+# of spin kernels (about 50 us each on an H100) that take those losses.
+PAD_LAUNCHES = (512, 4096)
+PAD_CYCLES = 100_000
+TRACE_TRIES = 3
+
+
+def trace_run(run):
+    """{kernel name: (launches, us)} of the device events that ``run``
+    issued, from a trace of ``run`` between the two pads, and the trace's
+    lost kernel records ``(in the first pad, in the run, in the last pad)``:
+    launches whose kernel the trace does not hold (launches and kernels are
+    matched by their correlation ids).  A run with a lost record is traced
+    again, at most ``TRACE_TRIES`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    lead, trail = PAD_LAUNCHES
+
+    def pad(n):
+        for _ in range(n):
+            torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
+
+    for _ in range(TRACE_TRIES):
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad(lead)
+            run()
+            torch.cuda.synchronize()
+            pad(trail)
+        events = prof.profiler.kineto_results.events()
+        launches = sorted(e.correlation_id() for e in events
+                          if e.device_type() == cpu and "Launch" in e.name()
+                          and "Kernel" in e.name())
+        lo, hi = launches[lead - 1], launches[-trail]
+        by_name, recorded = {}, set()
+        for e in events:
+            # user annotations (e.g. "Optimizer.step#AdamW.step") span
+            # kernels that are counted on their own
+            if e.device_type() != cuda or e.is_user_annotation():
+                continue
+            recorded.add(e.correlation_id())
+            if lo < e.correlation_id() < hi:
+                n, t = by_name.get(e.name(), (0, 0.0))
+                by_name[e.name()] = (n + 1, t + e.duration_ns() / 1e3)
+        lost = tuple(sum(c not in recorded for c in part) for part in (
+            launches[:lead], launches[lead:-trail], launches[-trail:]))
+        if lost[1] == 0:
+            break
+    return by_name, lost
 
 
 def switches_off_default():
@@ -1163,6 +1224,9 @@ CLI_BATCH = 5
 # reference's attention-alignment guidance
 GUIDED_FLAGS = [f for f in CLI_FLAGS if f != "--use_controlnet"] + [
     "--inference_loss"]
+# the N-factor chain of tools/bench_chain_n.py (its default batch of 2)
+CHAIN_N_FACTORS = ("seg", "depth", "normal")
+CHAIN_N_BATCH = 2
 DISTILL_CADENCE = 10   # steps of the distillation cadence timed
 # three of the keys the reference's EMA writes beside the weights; the
 # loader drops them (ignore_keys)
@@ -1598,47 +1662,32 @@ def phase_serve(paths):
         f"{SERVE_TIMED} {[round(t, 3) for t in off]}), "
         f"{SERVE_BATCH / cold:.3f} images/s, {SERVE_BATCH / min(off):.3f} "
         f"at best")
-    from fgdm_tpu_torch.kernels import groupnorm
 
     with conv_flags():
         reset_counts()
-        traced = profile("serve", run, warm)
-        calls = sum(groupnorm.group_norm_silu_kernel.launches.values())
-    n_k4 = k4_in_trace(traced)[0]
-    one_launch = n_k4 == calls > 0
-    log(f"serve: K4 kernels in the profiled batch's trace {n_k4}, K4 calls "
-        f"counted by the wrapper {calls}: one launch a call {one_launch}; "
-        f"{'OK' if one_launch else 'FAIL'}")
+        one_launch = k4_match("serve", *profile("serve", run, warm))
+    log(f"serve: one K4 launch a call {'OK' if one_launch else 'FAIL'}")
     profile("serve with the conv flags off", run, cold)
     return ok and one_launch, counts
 
 
 def profile(path, run, warm_s):
-    """Device time by kernel over one more run of ``run`` (torch.profiler),
+    """Device time by kernel over one more run of ``run`` (``trace_run``),
     and the device's busy share: that kernel time over the unprofiled warm
     wall time.  Prints "not measured" if the trace holds no device time.
-    Returns {kernel name: (launches, us)}.  Traces the device alone: the
-    kernels' times are all it reads, and host op records slow the run."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
+    Returns ({kernel name: (launches, us)}, the run's lost kernel records).
+    Traces the device alone: the kernels' times are all it reads, and host
+    op records slow the run."""
     t0 = time.perf_counter()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-    by_name = {}
-    for e in prof.events():
-        # user annotations (e.g. "Optimizer.step#AdamW.step") span kernels
-        # that are counted on their own
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            us = e.time_range.end - e.time_range.start
-            n, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t + us)
+    by_name, lost = trace_run(run)
+    log(f"{path}: kernel records the tracer lost: {lost[0]} of "
+        f"{PAD_LAUNCHES[0]} in the first pad, {lost[1]} in the run, "
+        f"{lost[2]} of {PAD_LAUNCHES[1]} in the last pad")
     total_ms = sum(t for _, t in by_name.values()) / 1e3
     log(f"{path}: traced in {time.perf_counter() - t0:.1f}s (host clock)")
     if total_ms == 0:
         log(f"{path} device time by kernel: not measured (no device events)")
-        return by_name
+        return by_name, lost[1]
     log(f"{path} device kernel time {total_ms:.1f} ms over a warm wall of "
         f"{1e3 * warm_s:.1f} ms: device busy share "
         f"{total_ms / (1e3 * warm_s):.3f}")
@@ -1653,7 +1702,22 @@ def profile(path, run, warm_s):
             f"{n:6d}x  {name[:110]}")
     n_k4, t_k4 = k4_in_trace(by_name)
     log(f"{path}: K4 {t_k4 / 1e3:.2f} ms of device time in {n_k4} launches")
-    return by_name
+    return by_name, lost[1]
+
+
+def k4_match(path, traced, lost):
+    """Whether a trace holds one K4 kernel for each K4 call the wrapper
+    counted since the last ``reset_counts``, and lost no kernel record of
+    the run; logged."""
+    from fgdm_tpu_torch.kernels import groupnorm
+
+    calls = sum(groupnorm.group_norm_silu_kernel.launches.values())
+    n_k4 = k4_in_trace(traced)[0]
+    ok = lost == 0 and n_k4 == calls > 0
+    log(f"{path}: K4 kernels in the profiled run's trace {n_k4}, K4 calls "
+        f"counted by the wrapper in that run {calls}, kernel records of the "
+        f"run lost by the tracer {lost}: one launch a call {ok}")
+    return ok
 
 
 def k4_in_trace(by_name):
@@ -1771,7 +1835,8 @@ def phase_train():
         step()
         torch.cuda.synchronize()
 
-    profile("train", run, warm)
+    reset_counts()
+    k4_match("train", *profile("train", run, warm))
     return ok and cmp_ok, counts, tr
 
 
@@ -1886,7 +1951,8 @@ def phase_distill(tr):
     def run():
         step(tr.distill_step)
 
-    profile("distill", run, times[0])
+    reset_counts()
+    k4_match("distill", *profile("distill", run, times[0]))
     return ok and cmp_ok, counts
 
 
@@ -1984,6 +2050,85 @@ def phase_guided(paths, outdir, ld, f1_unguided):
         f"max|d|/max|ref| = {g_rel:.3e} (printed, not held; max|ref| "
         f"{g_off.abs().max().item():.3e}); {'OK' if upd_ok else 'FAIL'}")
     return ok and upd_ok, counts
+
+
+def phase_chain_n(paths, outdir):
+    """``txt2img_fgdm --factors seg,depth,normal --all_pconds
+    --use_controlnet`` with the CLI phase's flags at batch 2 on the two
+    files (depth and normal at the seeded init, built on the card), conv
+    flags on: the N-factor path's counted run.  Checks 2 maps a factor
+    (256^2) and 2 images (512^2) as valid PNGs; then one forward of factor
+    3's multi-adapter UNet (``num_prompts`` 2, one ``extra_pcond``) at the
+    CFG batch of 4, kernels on vs plain."""
+    import torch
+    from fgdm_tpu_torch.checkpoint.loader import seeded_init_
+    from fgdm_tpu_torch.cli import txt2img_fgdm
+    from fgdm_tpu_torch.config import instantiate_from_config, load_config
+
+    n = CHAIN_N_BATCH
+    argv = CLI_FLAGS + [
+        "--factors", ",".join(CHAIN_N_FACTORS), "--factor_ckpts",
+        paths["f1"] + "," * (len(CHAIN_N_FACTORS) - 1), "--all_pconds",
+        "--cn_ckpt", paths["cn"], "--n_samples", str(n), "--prompt",
+        PROMPT_CLI, "--outdir", outdir]
+    log("chain_n: python -m fgdm_tpu_torch.cli.txt2img_fgdm "
+        + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    with conv_flags(), hash_tokenizer_allowed():
+        reset_counts()
+        t0 = time.perf_counter()
+        out = txt2img_fgdm.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {os.path.join(outdir, f"factor_{m}", f"{m}_00_{i:04}.png"):
+            (256, 256) for m in CHAIN_N_FACTORS for i in range(n)}
+    want.update({os.path.join(outdir, f"{CHAIN_N_FACTORS[-1]}_images",
+                              f"image_00_{i:04}.png"): (512, 512)
+                 for i in range(n)})
+    shapes = {}
+    for p in out["files"]:
+        with open(p, "rb") as f:
+            shapes[p] = png_rgb(f.read())[:2]
+    ok = shapes == want
+    secs = out["chain_s"][0]
+    log(f"chain_n: {len(shapes)} PNGs ({len(CHAIN_N_FACTORS)} x {n} maps "
+        f"256^2, {n} images 512^2: {ok}); load {out['load_s']:.2f}s, "
+        f"[chain_n] {secs:.2f}s ({n / secs:.3f} images/s, first run: no "
+        f"warmup), main() {wall:.2f}s; peak memory {peak_gib:.2f} GiB; "
+        f"{'OK' if ok else 'FAIL'}")
+    log_counts("chain_n", counts)
+
+    # factor 3's UNet as the CLI builds it (the config's, one extra
+    # adapter), seeded and perturbed so that its zero-init heads work
+    spec = instantiate_from_config(load_config("models/config.yaml")["model"])
+    unet = seeded_init_(spec.unet_def.clone(num_prompts=2).build("cuda"), 8,
+                        0.02)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    b = 2 * n
+    x, pcond, extra = (torch.randn(b, 4, 32, 32, device="cuda",
+                                   generator=gen) for _ in range(3))
+    t = torch.full((b,), 981, device="cuda")
+    ctx = torch.randn(b, 77, 768, device="cuda", generator=gen)
+    with torch.inference_mode(), conv_flags():
+        on = unet(x, t, context=ctx, pcond=pcond, extra_pconds=[extra])
+        base = unet(x, t, context=ctx, pcond=pcond)
+        with plain_path():
+            off = unet(x, t, context=ctx, pcond=pcond, extra_pconds=[extra])
+        torch.cuda.synchronize()
+    rel = ((on - off).abs().max() / off.abs().max()).item()
+    moved = (on - base).abs().max().item()
+    fwd_ok = (math.isfinite(rel) and rel <= UNET_TOL and moved > 0
+              and bool(torch.isfinite(on).all()))
+    log(f"multi-adapter UNet forward [{b},4,32,32] (num_prompts 2, one "
+        f"extra_pcond), conv flags on: kernels on vs plain max|d|/max|ref| "
+        f"= {rel:.3e} (tol {UNET_TOL}); the extra adapter moves eps by "
+        f"{moved:.3e}; {'OK' if fwd_ok else 'FAIL'}")
+    del unet, on, off, base
+    torch.cuda.empty_cache()
+    return ok and fwd_ok, counts
 
 
 def sweep_k1(gen):
@@ -2231,15 +2376,20 @@ def main():
         del ld2, cldm2
         gc.collect()
         torch.cuda.empty_cache()
+        t_chain_n = time.perf_counter()
+        chain_n_ok, chain_n = phase_chain_n(paths,
+                                            os.path.join(root, "chain_n"))
         t3 = time.perf_counter()
+        t_chain_n = t3 - t_chain_n
         serve_ok, serve = phase_serve(paths)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"conv forwards {t1 - t0:.1f}s, checkpoints {t2 - t1:.1f}s, CLI, "
-        f"seg2image and the guided CLI {t3 - t2:.1f}s (the guided CLI "
-        f"{t_guided:.1f}s), serving phase {time.perf_counter() - t3:.1f}s")
+        f"seg2image, the guided CLI and the N-factor CLI {t3 - t2:.1f}s "
+        f"(the guided CLI {t_guided:.1f}s, the N-factor CLI "
+        f"{t_chain_n:.1f}s), serving phase {time.perf_counter() - t3:.1f}s")
     t0 = time.perf_counter()
     train_ok, train, tr = phase_train()
     t1 = time.perf_counter()
@@ -2250,7 +2400,8 @@ def main():
     log(f"training phase {t1 - t0:.1f}s, distillation phase "
         f"{time.perf_counter() - t1:.1f}s")
     by_path = {"chain": chain, "train": train, "serve": serve, "cli": cli,
-               "seg2image": seg, "guided": guided, "distill": distill}
+               "seg2image": seg, "guided": guided, "distill": distill,
+               "chain_n": chain_n}
     for name, fn, seed in (("K1-K3 and the combine pass", attn_path_rows, 4),
                            ("K5 and K6", bwd_path_rows, 7),
                            ("K7 and its pre-pass", conv_path_rows, 5),
@@ -2277,9 +2428,14 @@ def main():
             failures.append(f"{kind} not launched by the served batch")
         if sum(cli[kind].values()) == 0:
             failures.append(f"{kind} not launched by the CLI")
+    for kind in ("attn", "gn", "conv", "prepass"):
+        if sum(chain_n[kind].values()) == 0:
+            failures.append(f"{kind} not launched by the N-factor CLI")
     for name, tpu in (("K1", K1), ("K2", K2), ("K3", K3)):
         if not any(attn_kernel(k[4], k[3]) == tpu for k in cli["attn"]):
             failures.append(f"{name} not launched by the CLI")
+        if not any(attn_kernel(k[4], k[3]) == tpu for k in chain_n["attn"]):
+            failures.append(f"{name} not launched by the N-factor CLI")
     for kind in ("attn", "gn", "conv"):
         if sum(seg[kind].values()) == 0:
             failures.append(f"{kind} not launched by seg2image's sampling")
@@ -2316,6 +2472,8 @@ def main():
         failures.append("distillation step")
     if not guided_ok:
         failures.append("guided CLI (--inference_loss)")
+    if not chain_n_ok:
+        failures.append("N-factor CLI (--factors)")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "copy_ms", "plain_ms", "bound_ms", "bound_by",
             "bound_term", "library_ms", "path")

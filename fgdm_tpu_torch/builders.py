@@ -48,7 +48,8 @@ from fgdm_tpu_torch.checkpoint.loader import (SD_SCHEDULE, load_controlnet,
 from fgdm_tpu_torch.core.schedules import DiffusionSchedule
 from fgdm_tpu_torch.diffusion.control import ControlLDM
 from fgdm_tpu_torch.diffusion.latent_diffusion import LatentDiffusion
-from fgdm_tpu_torch.models.autoencoder import AutoencoderKL
+from fgdm_tpu_torch.models.autoencoder import (AutoencoderKL,
+                                               NpleAutoencoderKL)
 from fgdm_tpu_torch.models.clip import CLIPTextEncoder, CLIPTokenizer
 from fgdm_tpu_torch.models.controlnet import ControlNet
 from fgdm_tpu_torch.models.unet import UNetModel
@@ -168,6 +169,11 @@ class ModuleDef:
     def build(self, device=None) -> nn.Module:
         return self.cls(device=resolve_device(device), **self.kwargs)
 
+    def clone(self, **overrides) -> "ModuleDef":
+        """The same definition with ``overrides`` replacing arguments (flax's
+        ``Module.clone``; the CLI's ``num_prompts`` per chain factor)."""
+        return ModuleDef(self.cls, {**self.kwargs, **overrides})
+
 
 _UNET_NOT_PORTED = (("num_classes", None), ("resblock_updown", False),
                     ("use_new_attention_order", False))
@@ -200,11 +206,10 @@ def build_unet_from_config(dtype=torch.bfloat16, **p) -> ModuleDef:
 
 def build_autoencoder(dtype=torch.bfloat16, nple: Optional[int] = None, **p
                       ) -> ModuleDef:
-    if nple:
-        raise NotImplementedError(
-            "NpleAutoencoderKL is not ported yet (ROADMAP Queue A item 7)")
+    """``AutoencoderKL``, or ``NpleAutoencoderKL`` when ``nple`` is set."""
     dd = p.get("ddconfig", {})
-    return ModuleDef(AutoencoderKL, dict(
+    extra = {"nple": nple} if nple else {}
+    return ModuleDef(NpleAutoencoderKL if nple else AutoencoderKL, dict(
         embed_dim=p.get("embed_dim", 4),
         ch=dd.get("ch", 128),
         ch_mult=tuple(dd.get("ch_mult", (1, 2, 4, 4))),
@@ -216,7 +221,7 @@ def build_autoencoder(dtype=torch.bfloat16, nple: Optional[int] = None, **p
         z_channels=dd.get("z_channels", 4),
         double_z=dd.get("double_z", True),
         fused_norm=p.get("fused_norm", True),
-        dtype=dtype))
+        dtype=dtype, **extra))
 
 
 def build_clip(dtype=torch.bfloat16, **p) -> ModuleDef:

@@ -6,9 +6,12 @@ np.asarray, params)``, with or without the ``"params"`` root) and returns
 ``AutoencoderKL`` and ``CLIPTextEncoder``.  The port's own copy of the path
 rules of ``fgdm_tpu/checkpoint/torch_export.py:18-171``, writing the
 reference's CompVis / ControlNet / HF CLIP key schema in OIHW layout, with
-one difference: an ``Adapter`` block's channel-changing conv is
+two differences: an ``Adapter`` block's channel-changing conv is
 ``adapter.body.N.in_conv`` (the reference T2I-Adapter's name;
-``torch_export`` writes the TimeAdapter ResBlock's ``in_layers.2``).
+``torch_export`` writes the TimeAdapter ResBlock's ``in_layers.2``), and
+the multi-adapter UNet's ``adapters_{k}`` become ``adapters.{k}.*``
+(``torch_export`` drops them).  A ``TimeAdapter``'s blocks are ResBlocks
+and take the ResBlock names.
 
 Every leaf must map to a key; an unknown path raises ``KeyError``.
 """
@@ -76,7 +79,22 @@ def _transformer(parts) -> str:
     return f"transformer_blocks.{d}.{rest}"
 
 
-def _unet_path(path: Tuple[str, ...]) -> Optional[str]:
+def _adapter_path(name: str, rest, time_adapter: bool) -> Optional[str]:
+    if rest == ["conv_in"]:
+        return f"{name}.conv_in"
+    m = re.match(r"body_(\d+)$", rest[0]) if rest else None
+    if not m or len(rest) != 2:
+        return None
+    leaf = rest[1]
+    if time_adapter:   # TimeAdapter blocks are ResBlocks
+        leaf = _RES.get(leaf)
+    elif leaf not in _ADAPTER_LEAVES:
+        leaf = None
+    return None if leaf is None else f"{name}.body.{m.group(1)}.{leaf}"
+
+
+def _unet_path(path: Tuple[str, ...], time_adapter: bool = False
+               ) -> Optional[str]:
     head, rest = path[0], list(path[1:])
     m = re.match(r"time_embed_(\d+)$", head)
     if m:
@@ -85,13 +103,11 @@ def _unet_path(path: Tuple[str, ...]) -> Optional[str]:
         return "out.0"
     if head == "out_conv":
         return "out.2"
-    if head == "adapter" and rest:
-        if rest == ["conv_in"]:
-            return "adapter.conv_in"
-        m = re.match(r"body_(\d+)$", rest[0])
-        if m and len(rest) == 2 and rest[1] in _ADAPTER_LEAVES:
-            return f"adapter.body.{m.group(1)}.{rest[1]}"
-        return None
+    if head == "adapter":
+        return _adapter_path("adapter", rest, time_adapter)
+    m = re.match(r"adapters_(\d+)$", head)
+    if m:
+        return _adapter_path(f"adapters.{m.group(1)}", rest, False)
     m = re.match(r"(input|output)_blocks_(\d+)_(\d+)$", head)
     if m:
         stage, i, j = m.groups()
@@ -175,8 +191,11 @@ def _convert(params, path_fn):
 
 
 def unet_state_dict(params) -> Dict[str, torch.Tensor]:
-    """``UNetModel`` state dict from a flax UNet (with or without adapter)."""
-    return _convert(params, _unet_path)
+    """``UNetModel`` state dict from a flax UNet (with or without adapter,
+    a time adapter or extra adapters)."""
+    time_adapter = any(p[:1] == ("adapter",) and "emb_proj" in p
+                       for p in flatten(params))
+    return _convert(params, lambda p: _unet_path(p, time_adapter))
 
 
 def controlnet_state_dict(params) -> Dict[str, torch.Tensor]:

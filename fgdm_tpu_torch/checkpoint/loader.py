@@ -111,6 +111,7 @@ def _ingest(sd, parts, path, label, verbose):
 
 
 def load_fgdm(ckpt_path: Optional[str] = None, dtype=torch.bfloat16,
+              use_time_adapter: bool = False,
               ignore_keys: Sequence[str] = ("model_ema.",),
               verbose: bool = True, unet: Optional[UNetModel] = None,
               vae: Optional[AutoencoderKL] = None,
@@ -121,14 +122,19 @@ def load_fgdm(ckpt_path: Optional[str] = None, dtype=torch.bfloat16,
               device=None) -> LatentDiffusion:
     """The condition-factor pipeline (UNet + adapter, VAE, CLIP), from
     ``ckpt_path`` when given.  Module definitions, schedule, scale factor
-    and conditioning key default to SD-1.x; a parsed config passes its own
-    (``builders.ModelSpec.load``).  Modules the caller passes keep their
-    device; the rest are built on ``device`` (CUDA unless named)."""
+    and conditioning key default to SD-1.x (with a ``TimeAdapter`` when
+    ``use_time_adapter``); a parsed config passes its own
+    (``builders.ModelSpec.load``).  A UNet with ``num_prompts > 1`` loads
+    as any other: its extra adapters keep the seeded init and are counted
+    as missing (``torch_ingest.ingest_unet``).  Modules the caller passes
+    keep their device; the rest are built on ``device`` (CUDA unless
+    named)."""
     if conditioning_key != "crossattn":
         raise NotImplementedError(
             f"conditioning_key {conditioning_key!r}: only crossattn is ported")
     dev = resolve_device(device)
-    unet = unet if unet is not None else sd_unet(dtype, dev)
+    unet = (unet if unet is not None
+            else sd_unet(dtype, dev, use_time_adapter=use_time_adapter))
     vae = vae if vae is not None else sd_vae(dtype, dev)
     clip = clip if clip is not None else sd_clip(dtype, dev)
     for seed, module in enumerate((unet, vae, clip)):

@@ -16,13 +16,23 @@ attention-alignment guidance of ``sampling/guidance.py`` (the capture
 forward ``capture_fn`` as its guidance function; ignored by ``--plms`` and
 ``--dpm``, as in the JAX CLI).
 
-Not ported, and refused with ``NotImplementedError``: ``--factors`` and
-``--all_pconds`` (``fgdm_chain_n`` and the multi-adapter UNet, ROADMAP
-Queue A item 7).
+``--factors seg,depth,normal`` runs the N-factor chain instead
+(``sampling.chain.fgdm_chain_n``, JAX ``_run_factor_chain``): one
+condition factor per name, from ``--factor_ckpts`` (comma list, an empty
+entry or a missing file meaning the seeded init; default
+``models/fgdm_<name>.pth``), each adapter-prompted by the previous one;
+``--all_pconds`` gives factor k ``max(1, k)`` adapters, every earlier
+factor feeding one.  ``--prompt`` splits on ``|`` into per-factor prompts.
+The maps go to ``factor_<name>/``, the ControlNet stage's images (from
+``--cn_ckpt``, else ``models/fgdm_control_sd15_<last>.pth``) to
+``<last>_images/``.  ``--all_pconds`` without ``--factors`` is ignored, as
+in JAX.
 
     python -m fgdm_tpu_torch.cli.txt2img_fgdm --config models/config.yaml \\
         --ckpt models/fgdm_seg.pth --n_samples 5 --ddim_steps 50 \\
         --H 256 --W 256 --use_controlnet
+    python -m fgdm_tpu_torch.cli.txt2img_fgdm --config models/config.yaml \\
+        --factors seg,depth,normal --all_pconds --use_controlnet
 
 PNGs are written by ``server.png_bytes`` (no Pillow); ``--resize`` needs
 Pillow.  ``main`` returns the files it wrote and its timings.
@@ -31,6 +41,7 @@ Pillow.  ``main`` returns the files it wrote and its timings.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -38,6 +49,7 @@ import numpy as np
 import torch
 
 from fgdm_tpu_torch import resolve_device
+from fgdm_tpu_torch.checkpoint import loader
 from fgdm_tpu_torch.checkpoint.loader import load_controlnet, load_fgdm
 from fgdm_tpu_torch.config import instantiate_from_config, load_config
 from fgdm_tpu_torch.core.schedules import DDIMSchedule
@@ -103,13 +115,16 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--inference_loss", action="store_true",
                    help="attention-alignment guidance inside DDIM")
     p.add_argument("--factors", type=str, default=None,
-                   help="comma list of condition factors to chain "
-                        "(not ported)")
+                   help="comma list of condition factors to chain, e.g. "
+                        "'seg,depth,normal': each factor is adapter-prompted "
+                        "by the previous one; the last map drives the "
+                        "ControlNet stage")
     p.add_argument("--factor_ckpts", type=str, default=None,
-                   help="comma list of per-factor checkpoints (with "
-                        "--factors, not ported)")
+                   help="comma list of per-factor checkpoints (default "
+                        "models/fgdm_<factor>.pth)")
     p.add_argument("--all_pconds", action="store_true",
-                   help="multi-adapter composition (not ported)")
+                   help="multi-adapter composition: every earlier factor "
+                        "feeds an extra adapter of each later factor")
     p.add_argument("--device", type=str, default="cuda",
                    help="where the models run (cpu for tests)")
     return p
@@ -166,23 +181,124 @@ def _write_png(path: str, arr: np.ndarray, resize: bool = False) -> str:
     return path
 
 
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _run_factor_chain(opt, spec, dtype, dev):
+    """The N-factor path (JAX ``_run_factor_chain``): load one pipeline per
+    factor (factor k with ``max(1, k)`` adapters under ``--all_pconds``)
+    and the ControlNet stage, run ``fgdm_chain_n`` ``--n_iter`` times and
+    write the maps and images.  Returns the files, the load time and each
+    run's wall time."""
+    names = [s.strip() for s in opt.factors.split(",") if s.strip()]
+    if not names:
+        raise SystemExit("--factors given but empty")
+    if opt.factor_ckpts:
+        cks = [c.strip() or None for c in opt.factor_ckpts.split(",")]
+        if len(cks) != len(names):
+            raise SystemExit(f"--factor_ckpts has {len(cks)} entries for "
+                             f"{len(names)} factors")
+    else:
+        cks = [f"models/fgdm_{n}.pth" for n in names]
+    cks = [ck if ck and os.path.exists(ck) else None for ck in cks]
+    cn_ckpt = None
+    if opt.use_controlnet:
+        cn_ckpt = opt.cn_ckpt or f"models/fgdm_control_sd15_{names[-1]}.pth"
+        cn_ckpt = cn_ckpt if os.path.exists(cn_ckpt) else None
+    tok = CLIPTokenizer(vocab_dir=opt.vocab_dir)
+    if any(cks) or cn_ckpt is not None:
+        tok.check_production("txt2img_fgdm")
+
+    t0 = time.perf_counter()
+    factors = []
+    for k, (name, ck) in enumerate(zip(names, cks)):
+        if ck is None:
+            print(f"[txt2img_fgdm] factor '{name}': ckpt missing: random "
+                  "init")
+        n_prompts = max(1, k) if opt.all_pconds else 1
+        if spec is not None:
+            # the config's pipeline with factor k's adapters, from ck alone
+            # (not the config's own ckpt_path)
+            factors.append(dataclasses.replace(
+                spec, unet_def=spec.unet_def.clone(num_prompts=n_prompts),
+                ckpt_path=None).load(ck, device=dev))
+        else:
+            factors.append(load_fgdm(ck, dtype=dtype, device=dev,
+                                     unet=loader.sd_unet(
+                                         dtype, dev, num_prompts=n_prompts)))
+    cldm = (load_controlnet(cn_ckpt, dtype=dtype, device=dev)
+            if opt.use_controlnet else None)
+    _sync(dev)
+    load_s = time.perf_counter() - t0
+    print(f"[txt2img_fgdm] models loaded in {load_s:.2f}s")
+
+    def embed(pipe, texts):
+        with torch.inference_mode():
+            return pipe.get_learned_conditioning(tok(texts).to(dev))
+
+    b = opt.n_samples
+    # '|' splits per-factor prompts; the last one drives the factors after
+    prompts = [s.strip() for s in opt.prompt.split("|")]
+    prompts = (prompts + [prompts[-1]] * len(names))[:len(names)]
+    factor_ctxs = [embed(ld_k, [p] * b) for ld_k, p in zip(factors, prompts)]
+    empty_ctx = embed(factors[0], [opt.n_prompt] * b)
+    cn_ctx = cn_neg = None
+    if cldm is not None:
+        cn_ctx = embed(cldm, [prompts[0] + ", " + chain_mod.A_PROMPT] * b)
+        cn_neg = embed(cldm, [chain_mod.N_PROMPT] * b)
+    image_hw = CN_HW if cldm is not None else (opt.H, opt.W)
+    sampler = "plms" if opt.plms else ("dpm" if opt.dpm else "ddim")
+    gen = torch.Generator(device=dev).manual_seed(opt.seed)
+
+    os.makedirs(opt.outdir, exist_ok=True)
+    written, chain_s = [], []
+    for it in range(opt.n_iter):
+        t0 = time.perf_counter()
+        out = chain_mod.fgdm_chain_n(
+            factors, cldm, factor_ctxs, empty_ctx, cn_prompt_ctx=cn_ctx,
+            cn_neg_ctx=cn_neg, cond_hw=(opt.H, opt.W), image_hw=image_hw,
+            factor_steps=opt.ddim_steps, factor_scale=opt.scale,
+            f2_steps=CN_STEPS, f2_scale=CN_SCALE, all_pconds=opt.all_pconds,
+            generator=gen, factor_sampler=sampler)
+        _sync(dev)
+        chain_s.append(time.perf_counter() - t0)
+        print(f"[chain_n] {len(names)} factors"
+              f"{' + image' if cldm is not None else ''}: {b} samples in "
+              f"{chain_s[-1]:.2f}s ({b / chain_s[-1]:.3f} img/s)")
+        for name, cond in zip(names, out["conditions"]):
+            d = os.path.join(opt.outdir, f"factor_{name}")
+            os.makedirs(d, exist_ok=True)
+            # [0, 1] -> uint8 by truncation, as the JAX CLI writes them
+            arr = (cond * 255).float().permute(0, 2, 3, 1).cpu().numpy()
+            for i, a in enumerate(arr.astype(np.uint8)):
+                written.append(_write_png(
+                    os.path.join(d, f"{name}_{it:02}_{i:04}.png"), a))
+        if out["image"] is not None:
+            d = os.path.join(opt.outdir, f"{names[-1]}_images")
+            os.makedirs(d, exist_ok=True)
+            for i, a in enumerate(to_uint8_nhwc(out["image"])):
+                written.append(_write_png(
+                    os.path.join(d, f"image_{it:02}_{i:04}.png"), a))
+    print(f"Samples written to {opt.outdir}")
+    return {"files": written, "load_s": load_s, "chain_s": chain_s}
+
+
 def main(argv=None):
     opt = get_parser().parse_args(argv)
-    if opt.factors or opt.all_pconds:
-        raise NotImplementedError(
-            "--factors/--all_pconds: fgdm_chain_n and the multi-adapter UNet "
-            "are not ported yet (ROADMAP Queue A item 7)")
-
     dev = resolve_device(opt.device)
     dtype = torch.float32 if opt.precision == "full" else torch.bfloat16
-    sample_path = os.path.join(opt.outdir, "samples")
-    os.makedirs(os.path.join(sample_path, "sample1"), exist_ok=True)
 
     # -- model assembly -----------------------------------------------------
     spec = None
     if opt.config and os.path.exists(opt.config):
         spec = instantiate_from_config(load_config(opt.config)["model"],
                                        dtype=dtype)
+    if opt.factors:
+        return _run_factor_chain(opt, spec, dtype, dev)
+    sample_path = os.path.join(opt.outdir, "samples")
+    os.makedirs(os.path.join(sample_path, "sample1"), exist_ok=True)
     ckpt = opt.ckpt if os.path.exists(opt.ckpt) else None
     if ckpt is None:
         print(f"[txt2img_fgdm] ckpt {opt.ckpt} not found: random init")
@@ -204,8 +320,7 @@ def main(argv=None):
     cldm = None
     if opt.use_controlnet:
         cldm = load_controlnet(cn_ckpt, dtype=dtype, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     load_s = time.perf_counter() - t0
     print(f"[txt2img_fgdm] models loaded in {load_s:.2f}s")
 

@@ -10,7 +10,7 @@ strings to the port's builders, so the reference's own YAML files
 
 PyYAML is imported when a YAML is read, not when this module is.  The
 training targets (the dataset, the Lightning data module and image logger)
-and ``NpleAutoencoderKL`` are not ported and raise ``NotImplementedError``.
+are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -149,8 +149,8 @@ TARGET_ALIASES: Dict[str, Callable[..., Any]] = {
     "controlnet.cldm.cldm.ControlledUnetModel": _build_controlled_unet,
     "cldm.cldm.ControlledUnetModel": _build_controlled_unet,
     "ldm.models.autoencoder.AutoencoderKL": _builder("build_autoencoder"),
-    "ldm.models.autoencoder.NpleAutoencoderKL": _not_ported(
-        "ldm.models.autoencoder.NpleAutoencoderKL", 7),
+    "ldm.models.autoencoder.NpleAutoencoderKL":
+        _builder("build_autoencoder"),
     "ldm.modules.encoders.modules.FrozenCLIPEmbedder": _builder("build_clip"),
     "ldm.data.semantic.load_data": _not_ported(
         "ldm.data.semantic.load_data", 13),

@@ -3,21 +3,24 @@
 Counterpart of ``fgdm_tpu/models/adapter.py:29-93``: ``AdapterResnetBlock``
 (optional 2x down, optional in-conv on channel changes, conv3x3 -> ReLU ->
 conv(ksize), identity or learned skip) and ``Adapter`` (``conv_in`` then
-``len(channels) * nums_rb`` blocks, one feature per scale).  ``TimeAdapter``,
-``AdapterLight`` and ``Extractor`` are not ported.
+``len(channels) * nums_rb`` blocks, one feature per scale) and
+``TimeAdapter`` (``:165-197``: the same pyramid with the UNet's
+timestep-conditioned ``ResBlock``s as its blocks, unfused GroupNorm as in
+JAX).  ``AdapterLight`` and ``Extractor`` are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fgdm_tpu_torch.nn.blocks import ResBlock
 from fgdm_tpu_torch.nn.layers import Conv2d, avg_pool_2x2
 
-__all__ = ["AdapterResnetBlock", "Adapter"]
+__all__ = ["AdapterResnetBlock", "Adapter", "TimeAdapter"]
 
 
 class AdapterResnetBlock(nn.Module):
@@ -62,11 +65,46 @@ class Adapter(nn.Module):
                     ksize=ksize, sk=sk, use_conv=use_conv, dtype=dtype))
         self.body = nn.ModuleList(blocks)
 
-    def forward(self, x) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x, emb: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, ...]:
+        """One feature per level; ``emb`` is ignored (``TimeAdapter``'s
+        signature)."""
         x = self.conv_in(x)
         feats = []
         for i, blk in enumerate(self.body):
             x = blk(x)
+            if (i + 1) % self.nums_rb == 0:
+                feats.append(x)
+        return tuple(feats)
+
+
+class TimeAdapter(nn.Module):
+    """The adapter pyramid with timestep-conditioned blocks: ``conv_in``,
+    then ``ResBlock(x, emb)``s, the first of each level after the first
+    downsampling by 2x2 average pooling.  ``ksize`` and ``sk`` are accepted
+    for ``Adapter``'s signature and unused, as in JAX."""
+
+    def __init__(self, channels: Sequence[int] = (320, 640, 1280, 1280),
+                 nums_rb: int = 2, cin: int = 4, ksize: int = 1,
+                 sk: bool = True, emb_ch: int = 1280, use_conv: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.nums_rb = nums_rb
+        self.conv_in = Conv2d(cin, channels[0], 3, padding=1, dtype=dtype)
+        blocks = []
+        for i, ch in enumerate(channels):
+            for j in range(nums_rb):
+                trans = i != 0 and j == 0
+                blocks.append(ResBlock(
+                    channels[i - 1] if trans else ch, emb_ch, ch,
+                    use_conv=use_conv, down=trans, dtype=dtype))
+        self.body = nn.ModuleList(blocks)
+
+    def forward(self, x, emb) -> Tuple[torch.Tensor, ...]:
+        x = self.conv_in(x)
+        feats = []
+        for i, blk in enumerate(self.body):
+            x = blk(x, emb)
             if (i + 1) % self.nums_rb == 0:
                 feats.append(x)
         return tuple(feats)

@@ -4,8 +4,9 @@ Counterpart of ``fgdm_tpu/models/autoencoder.py``: ``VaeResnetBlock``,
 ``VaeAttnBlock`` (``:74-115``), ``VaeDownsample`` (``:118``), ``VaeUpsample``,
 ``Encoder`` (``:144``), ``Decoder`` (``:193-240``), ``DiagonalGaussian``
 (``:244``) and ``AutoencoderKL`` (``:277``) with ``quant_conv`` /
-``post_quant_conv``.  All GroupNorms use eps 1e-6.  ``NpleAutoencoderKL`` is
-not ported.
+``post_quant_conv``, and ``NpleAutoencoderKL`` (``:328-343``), which
+encodes and decodes N latents stacked along the channels.  All GroupNorms
+use eps 1e-6.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from fgdm_tpu_torch.nn.layers import (Conv2d, FusedGroupNormSiLU, GroupNorm32,
                                       nearest_upsample_2x)
 
 __all__ = ["VaeResnetBlock", "VaeAttnBlock", "VaeDownsample", "VaeUpsample",
-           "Encoder", "Decoder", "DiagonalGaussian", "AutoencoderKL"]
+           "Encoder", "Decoder", "DiagonalGaussian", "AutoencoderKL",
+           "NpleAutoencoderKL"]
 
 
 class VaeResnetBlock(nn.Module):
@@ -281,3 +283,25 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z):
         return self.decoder(self.post_quant_conv(z))
+
+
+class NpleAutoencoderKL(AutoencoderKL):
+    """The VAE of joint factor latents (reference ``autoencoder.py:
+    426-483``): ``nple`` latents stacked along the channels, e.g. an
+    8-channel latent holding two 4-channel factors.  The weights are
+    ``AutoencoderKL``'s."""
+
+    def __init__(self, *args, nple: int = 2, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.nple = nple
+
+    def encode_nple(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Each image's posterior mode, concatenated along the channels."""
+        return torch.cat([self.encode(x).mode() for x in xs], dim=1)
+
+    def decode_nple(self, z: torch.Tensor):
+        """``nple`` equal channel chunks of ``z``, each decoded."""
+        if z.shape[1] % self.nple:
+            raise ValueError(f"{z.shape[1]} latent channels do not split "
+                             f"into {self.nple} equal chunks")
+        return tuple(self.decode(c) for c in z.chunk(self.nple, dim=1))

@@ -8,7 +8,12 @@ blocks with skip concatenation, GroupNorm -> SiLU -> zero-conv head.
 * Adapter injection (``unet.py:223-229``): the adapter reads ``pcond`` if
   given, else the noisy latent itself, and its per-level feature is added
   after the last ResBlock of each level.  ``adapter_on=False`` is the
-  frozen-SD path on the same weights.
+  frozen-SD path on the same weights.  ``use_time_adapter`` makes it a
+  ``TimeAdapter`` fed the timestep embedding (``unet.py:121-125``).
+* Multi-adapter composition (``num_prompts > 1``, ``unet.py:130-139``):
+  ``num_prompts - 1`` more plain adapters, ``adapters.{k}``, each reading
+  ``extra_pconds[k]``; their features are added to the main adapter's,
+  level by level.  With ``extra_pconds=None`` they do not run.
 * ControlNet residual injection (``unet.py:255-266``): the last residual
   goes into the middle output, the rest onto the encoder skips in reverse.
 
@@ -17,8 +22,8 @@ blocks with skip concatenation, GroupNorm -> SiLU -> zero-conv head.
   dicts keyed as the JAX package keys them (``"input_blocks.{i}.1"``,
   ``"middle_block.1"``, ``"output_blocks.{i}.1"``).
 
-``num_prompts > 1``, the time adapter, pixel attention and ``seq_axis`` are
-not ported and raise ``NotImplementedError``.
+Pixel attention and ``seq_axis`` are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 from torch import nn
 
 from fgdm_tpu_torch import resolve_device
-from fgdm_tpu_torch.models.adapter import Adapter
+from fgdm_tpu_torch.models.adapter import Adapter, TimeAdapter
 from fgdm_tpu_torch.nn.attention import SpatialTransformer
 from fgdm_tpu_torch.nn.blocks import Downsample, ResBlock, Upsample, silu
 from fgdm_tpu_torch.nn.layers import (Conv2d, Dense, GroupNorm32,
@@ -135,9 +140,6 @@ class UNetModel(nn.Module):
                  fused_norm_silu: bool = False,
                  seq_axis: Optional[str] = None, device=None):
         super().__init__()
-        if use_time_adapter or num_prompts > 1:
-            raise NotImplementedError(
-                "the time adapter and multi-adapter UNet are not ported yet")
         if not use_spatial_transformer:
             raise NotImplementedError("pixel attention is not ported yet")
         if seq_axis is not None:
@@ -148,11 +150,15 @@ class UNetModel(nn.Module):
         with torch.device(resolve_device(device)):
             self.time_embed = time_embed(mc, dtype)
             self.adapter = None
+            ad = dict(channels=tuple(m * mc for m in channel_mult),
+                      nums_rb=2, cin=adapter_channels or in_channels,
+                      ksize=1, sk=True, use_conv=False, dtype=dtype)
             if use_adapter:
-                self.adapter = Adapter(
-                    channels=tuple(m * mc for m in channel_mult), nums_rb=2,
-                    cin=adapter_channels or in_channels, ksize=1, sk=True,
-                    use_conv=False, dtype=dtype)
+                self.adapter = (TimeAdapter(emb_ch=4 * mc, **ad)
+                                if use_time_adapter else Adapter(**ad))
+            self.adapters = nn.ModuleList(
+                Adapter(**ad) for _ in range(num_prompts - 1 if use_adapter
+                                             else 0))
             (self.input_blocks, self.middle_block, chans, level_ends,
              ds) = build_encoder(
                 in_channels, mc, num_res_blocks, attention_resolutions,
@@ -187,17 +193,24 @@ class UNetModel(nn.Module):
 
     def forward(self, x, timesteps, context=None, pcond=None,
                 adapter_on: bool = True, control=None,
-                only_mid_control: bool = False, capture=False):
+                only_mid_control: bool = False, capture=False,
+                extra_pconds=None):
         """x ``[B, C, H, W]``, timesteps ``[B]``, context ``[B, 77, D]``;
-        ``control`` holds ControlNet's 13 residuals.  Returns float32 eps;
-        with ``capture`` (``nn.attention.CrossAttention``'s modes)
-        ``(eps, selfattn, crossattn)``."""
+        ``control`` holds ControlNet's 13 residuals; ``extra_pconds`` the
+        extra adapters' prompts (the first ``num_prompts - 1`` are read).
+        Returns float32 eps; with ``capture`` (``nn.attention.
+        CrossAttention``'s modes) ``(eps, selfattn, crossattn)``."""
         emb = embed_timesteps(self.time_embed, timesteps, self.model_channels)
         h = x.to(self.dtype)
         feats = None
         if self.adapter is not None and adapter_on:
-            feats = list(self.adapter(h if pcond is None
-                                      else pcond.to(self.dtype)))
+            feats = self.adapter(h if pcond is None
+                                 else pcond.to(self.dtype), emb)
+            if extra_pconds is not None:
+                for ad, ep in zip(self.adapters, extra_pconds):
+                    feats = [a + b for a, b in
+                             zip(feats, ad(ep.to(self.dtype)))]
+            feats = list(feats)
         maps = ({}, {})
 
         def block(blk, h, name):

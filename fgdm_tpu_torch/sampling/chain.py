@@ -6,8 +6,10 @@ condition-map latents with the adapter UNet (CFG 7.5), the VAE decodes them,
 resize, factor 2 renders the image with ControlNet (CFG 9.0), and a final
 decode gives the image.  Each factor samples with DDIM, PLMS or
 DPM-Solver++ (``sampler=``, ``_sample_factor_latents`` of ``chain.py:106``).
+``fgdm_chain_n`` (``chain.py:219-296``) chains N condition factors
+(text -> seg -> depth -> normal -> ...), each adapter-prompted by the
+previous factor's latent, and renders the last map with ControlNet.
 Images are NCHW; condition maps in [0, 1], the image in [-1, 1].
-``fgdm_chain_n`` is not ported.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from fgdm_tpu_torch.sampling.plms import plms_sample
 __all__ = ["A_PROMPT", "N_PROMPT", "quantize_like_png", "condition_to_hint",
            "latent_to_condition_image", "factor_slot_seeds",
            "sample_condition_factor",
-           "sample_image_factor", "fgdm_chain"]
+           "sample_image_factor", "fgdm_chain_n", "fgdm_chain"]
 
 # factor 2's positive suffix and negative prompt (run_inference.sh)
 A_PROMPT = "best quality, extremely detailed"
@@ -67,8 +69,9 @@ def latent_to_condition_image(ld: LatentDiffusion, samples: torch.Tensor,
 
 
 def factor_slot_seeds(slot_seeds: Sequence[int], factor: int) -> list:
-    """Factor ``factor``'s per-slot seeds (1 = condition, 2 = image), each a
-    function of its slot's seed alone (``chain.py:44 factor_slot_keys``)."""
+    """Factor ``factor``'s per-slot seeds (1 = the first condition factor,
+    2 = the next factor or the image render, ...), each a function of its
+    slot's seed alone (``chain.py:44 factor_slot_keys``)."""
     return [derive_seed(s, factor) for s in slot_seeds]
 
 
@@ -164,6 +167,69 @@ def sample_image_factor(cldm: ControlLDM, hint, cond_ctx, uncond_ctx,
 
 
 @torch.inference_mode()
+def fgdm_chain_n(factors: Sequence[LatentDiffusion],
+                 cldm: Optional[ControlLDM], factor_ctxs, empty_ctx,
+                 cn_prompt_ctx=None, cn_neg_ctx=None,
+                 cond_hw: Tuple[int, int] = (256, 256),
+                 image_hw: Tuple[int, int] = (512, 512),
+                 factor_steps: int = 50, factor_scale: float = 7.5,
+                 f2_steps: int = 20, f2_scale: float = 9.0,
+                 all_pconds: bool = False, generator=None,
+                 slot_seeds: Optional[Sequence[int]] = None,
+                 factor_sampler: str = "ddim", f2_sampler: str = "ddim"
+                 ) -> Dict[str, object]:
+    """The N-factor chain (text -> seg -> depth -> normal -> ... -> image).
+
+    Factor k > 0 is adapter-prompted by factor k - 1's latent (``pcond``,
+    in both CFG branches); with ``all_pconds`` factor k > 1 also gets every
+    earlier latent as ``extra_pconds`` (the extra adapters of a
+    ``num_prompts > 1`` UNet).  Each condition is decoded once; with
+    ``cldm`` the ControlNet stage renders the last one.  Noise comes from
+    ``slot_seeds`` (factor k's per-slot seeds are ``factor_slot_seeds(
+    slot_seeds, k + 1)``, the render's ``len(factors) + 1``; a slot's
+    result does not depend on its batch) or else from ``generator``, drawn
+    factor by factor.  So ``fgdm_chain_n([ld], cldm, ...)`` is
+    ``fgdm_chain(ld, cldm, ...)``.
+
+    Returns ``conditions`` (one [0, 1] map per factor, at cond_hw),
+    ``hint`` (the last map as the ControlNet reads it) and ``image``
+    ([-1, 1] at image_hw); both None without ``cldm``."""
+    if len(factors) != len(factor_ctxs):
+        raise ValueError("one prompt context per factor")
+    if slot_seeds is None and generator is None:
+        raise ValueError("fgdm_chain_n needs slot_seeds or a generator")
+
+    def seeds(factor):
+        return (None if slot_seeds is None
+                else factor_slot_seeds(slot_seeds, factor))
+
+    latent_hw = (cond_hw[0] // 8, cond_hw[1] // 8)
+    zs = []
+    for k, (ld_k, ctx_k) in enumerate(zip(factors, factor_ctxs)):
+        cond = {"c_crossattn": ctx_k}
+        uncond = {"c_crossattn": empty_ctx}
+        if k > 0:
+            cond["pcond"] = uncond["pcond"] = zs[-1]
+            if all_pconds and k > 1:
+                cond["extra_pconds"] = uncond["extra_pconds"] = zs[:-1]
+        shape = (ctx_k.shape[0], ld_k.unet.in_channels) + latent_hw
+        zs.append(_sample_factor_latents(
+            ld_k, shape, cond, uncond, factor_steps, factor_scale, 0.0, None,
+            generator, seeds(k + 1), factor_sampler))
+    conditions = [((ld_k.decode_first_stage(z) + 1.0) / 2.0).clamp(0.0, 1.0)
+                  for ld_k, z in zip(factors, zs)]
+    hint = image = None
+    if cldm is not None:
+        hint = condition_to_hint(conditions[-1], image_hw)
+        z_img = sample_image_factor(
+            cldm, hint, cn_prompt_ctx, cn_neg_ctx, num_steps=f2_steps,
+            cfg_scale=f2_scale, generator=generator,
+            slot_seeds=seeds(len(factors) + 1), sampler=f2_sampler)
+        image = cldm.decode_first_stage(z_img)
+    return {"conditions": conditions, "hint": hint, "image": image}
+
+
+@torch.inference_mode()
 def fgdm_chain(ld: LatentDiffusion, cldm: ControlLDM, prompt_ctx, empty_ctx,
                cn_prompt_ctx, cn_neg_ctx,
                cond_hw: Tuple[int, int] = (256, 256),
@@ -181,20 +247,12 @@ def fgdm_chain(ld: LatentDiffusion, cldm: ControlLDM, prompt_ctx, empty_ctx,
     batch it ran in) or else from ``generator``."""
     if slot_seeds is None and generator is None:
         raise ValueError("fgdm_chain needs slot_seeds or a generator")
-    s1 = s2 = None
-    if slot_seeds is not None:
-        s1 = factor_slot_seeds(slot_seeds, 1)
-        s2 = factor_slot_seeds(slot_seeds, 2)
-    z_cond = sample_condition_factor(
-        ld, prompt_ctx, empty_ctx,
-        latent_hw=(cond_hw[0] // 8, cond_hw[1] // 8), num_steps=f1_steps,
-        cfg_scale=f1_scale, generator=generator, slot_seeds=s1,
-        sampler=f1_sampler)
-    cond_img = ((ld.decode_first_stage(z_cond) + 1.0) / 2.0).clamp(0.0, 1.0)
-    hint = condition_to_hint(cond_img, image_hw)
-    z_img = sample_image_factor(cldm, hint, cn_prompt_ctx, cn_neg_ctx,
-                                num_steps=f2_steps, cfg_scale=f2_scale,
-                                generator=generator, slot_seeds=s2,
-                                sampler=f2_sampler)
-    image = cldm.decode_first_stage(z_img)
-    return {"condition": cond_img, "hint": hint, "image": image}
+    out = fgdm_chain_n([ld], cldm, [prompt_ctx], empty_ctx,
+                       cn_prompt_ctx=cn_prompt_ctx, cn_neg_ctx=cn_neg_ctx,
+                       cond_hw=cond_hw, image_hw=image_hw,
+                       factor_steps=f1_steps, factor_scale=f1_scale,
+                       f2_steps=f2_steps, f2_scale=f2_scale,
+                       generator=generator, slot_seeds=slot_seeds,
+                       factor_sampler=f1_sampler, f2_sampler=f2_sampler)
+    return {"condition": out["conditions"][0], "hint": out["hint"],
+            "image": out["image"]}

@@ -90,8 +90,14 @@ def ddim_step(x, e_t, index: int, sched: DDIMSchedule,
 
 
 def _cat(u, c):
+    """[u, c] along the batch, leaf by leaf through lists and tuples (the
+    ``extra_pconds`` of the N-factor chain), as ``jax.tree.map`` does."""
     if u is None and c is None:
         return None
+    if isinstance(c, (list, tuple)):
+        if not isinstance(u, (list, tuple)) or len(u) != len(c):
+            raise ValueError("cond and uncond lists differ in length")
+        return type(c)(_cat(a, b) for a, b in zip(u, c))
     return torch.cat([u, c], dim=0)
 
 

@@ -386,9 +386,7 @@ def test_guess_mode_is_not_ported(tiny):
     assert z.shape == (1, 4, 8, 8) and bool(torch.isfinite(z).all())
 
 
-@pytest.mark.parametrize("kw", [dict(use_time_adapter=True),
-                                dict(num_prompts=2),
-                                dict(use_spatial_transformer=False),
+@pytest.mark.parametrize("kw", [dict(use_spatial_transformer=False),
                                 dict(seq_axis="seq")])
 def test_unported_unet_options_raise(kw):
     with pytest.raises(NotImplementedError):

@@ -558,8 +558,7 @@ def test_config_reads_floats_and_overrides_as_jax():
 @pytest.mark.parametrize("target,item", [
     ("ldm.data.semantic.load_data", 13),
     ("main.DataModuleFromConfig", 13),
-    ("main.ImageLogger", 13),
-    ("ldm.models.autoencoder.NpleAutoencoderKL", 7)])
+    ("main.ImageLogger", 13)])
 def test_unported_targets_raise(target, item):
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}\\b"):
         config.instantiate_from_config({"target": target, "params": {}})

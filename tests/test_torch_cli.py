@@ -20,8 +20,16 @@ under ``FGDM_ALLOW_HASH_TOKENIZER=1``.
   has the 256-token maps the guidance reads, q and k sharpened x4 so it
   moves x) writes the maps JAX's factor-1 stage gives for the CLI's own
   x_T, within one uint8 step.
-* ``--factors``, ``--all_pconds`` and ``--detect`` raise
-  ``NotImplementedError`` citing their ROADMAP items.
+* ``--factors`` (the N-factor chain, ``fgdm_chain_n``) writes the
+  per-factor maps and the last factor's images the JAX CLI writes
+  (``tests/test_txt2img_cli.py:100-170``), builds factor k with
+  ``max(1, k)`` adapters under ``--all_pconds``, hands ``--dpm``/``--plms``
+  to every factor and refuses a ``--factor_ckpts`` count mismatch with
+  JAX's message.  Against JAX's CLI, with x_T injected into each stage of
+  both (their ``_sample_factor_latents`` patched) and the ControlNet stage
+  at 64^2 and 2 steps in both, the maps and images agree within one uint8
+  step on at most 1 % of their pixels.
+* ``--detect`` raises ``NotImplementedError`` citing its ROADMAP item.
 """
 
 import os
@@ -39,13 +47,17 @@ import fgdm_tpu.sampling.chain as jchain  # noqa: E402
 import fgdm_tpu.sampling.ddim as jddim  # noqa: E402
 from fgdm_tpu import builders as jbuilders  # noqa: E402
 from fgdm_tpu import config as jconfig  # noqa: E402
+from fgdm_tpu.checkpoint import loader as jloader  # noqa: E402
 from fgdm_tpu.cli import seg2image as jseg2image  # noqa: E402
 from fgdm_tpu.cli import txt2img_fgdm as jtxt2img  # noqa: E402
 from fgdm_tpu.core.schedules import DDIMSchedule as JDDIMSchedule  # noqa: E402
 from fgdm_tpu.models.clip import CLIPTextEncoder as JCLIPTextEncoder  # noqa: E402
 from fgdm_tpu.models.clip import CLIPTokenizer as JCLIPTokenizer  # noqa: E402
+from fgdm_tpu.models.autoencoder import AutoencoderKL as JAutoencoderKL  # noqa: E402
+from fgdm_tpu.models.controlnet import ControlNet as JControlNet  # noqa: E402
+from fgdm_tpu.models.unet import UNetModel as JUNetModel  # noqa: E402
 from fgdm_tpu_torch import builders, config  # noqa: E402
-from fgdm_tpu_torch.checkpoint import loader  # noqa: E402
+from fgdm_tpu_torch.checkpoint import convert, loader  # noqa: E402
 from fgdm_tpu_torch.checkpoint import torch_ingest as ti  # noqa: E402
 from fgdm_tpu_torch.cli import seg2image, txt2img_fgdm  # noqa: E402
 from fgdm_tpu_torch.models.autoencoder import AutoencoderKL  # noqa: E402
@@ -57,6 +69,7 @@ from fgdm_tpu_torch.sampling import chain as tchain  # noqa: E402
 from fgdm_tpu_torch.train.metrics import make_grid, to_uint8  # noqa: E402
 from test_torch_chain import (CHAIN_TOL, TINY, VAE_TINY, nchw,  # noqa: E402
                               nhwc)
+from test_torch_chain_n import injected_latents  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -430,16 +443,195 @@ def test_seg2image_cli_writes_the_files_jax_writes(files, tmp_path):
     assert img.shape == (64, 64, 3) and img.std() > 0
 
 
+# --- the N-factor chain (--factors) ----------------------------------------------
+
+def _factor_args(files, factors, ckpts, n=2, steps=2):
+    return ["--prompt", "a dog | a depth map of a dog", "--config",
+            files["f1.yaml"], "--factors", factors, "--factor_ckpts", ckpts,
+            "--n_samples", str(n), "--ddim_steps", str(steps), "--H", "32",
+            "--W", "32", "--precision", "full", "--seed", "3"]
+
+
+def _factor_files(names, n, shape=(32, 32, 3)):
+    return {os.path.join(f"factor_{m}", f"{m}_00_{i:04}.png"): shape
+            for m in names for i in range(n)}
+
+
+@pytest.fixture()
+def chain_calls(monkeypatch):
+    """Records what the CLI hands ``fgdm_chain_n``."""
+    calls = []
+    real = tchain.fgdm_chain_n
+
+    def spy(factors, cldm, *a, **kw):
+        calls.append(dict(kw, adapters=[len(f.unet.adapters)
+                                        for f in factors], cldm=cldm))
+        return real(factors, cldm, *a, **kw)
+
+    monkeypatch.setattr(tchain, "fgdm_chain_n", spy)
+    return calls
+
+
+def test_factor_chain_cli_writes_per_factor_dirs(files, tmp_path,
+                                                 chain_calls):
+    """``--factors seg,depth``: the first factor from its file, the second
+    at the seeded init (an empty ``--factor_ckpts`` entry); one directory
+    of maps per factor, no ControlNet stage."""
+    out = txt2img_fgdm.main(_factor_args(files, "seg,depth",
+                                         files["f1.pth"] + ",")
+                            + ["--outdir", str(tmp_path / "o"),
+                               "--device", "cpu"])
+    assert _pngs(tmp_path / "o") == _factor_files(("seg", "depth"), 2)
+    assert len(out["files"]) == 4 and len(out["chain_s"]) == 1
+    seg = np.asarray(Image.open(tmp_path / "o" / "factor_seg"
+                                / "seg_00_0000.png"))
+    assert seg.astype(np.float64).std() > 1.0
+    (call,) = chain_calls
+    assert call["adapters"] == [0, 0] and not call["all_pconds"]
+    assert call["cldm"] is None and call["factor_sampler"] == "ddim"
+
+
+def test_factor_chain_cli_all_pconds_and_controlnet(files, tmp_path,
+                                                    monkeypatch, chain_calls):
+    """``--factors seg,depth,normal --all_pconds --use_controlnet``: factor
+    3 gets one extra adapter (fed factor 1's latent), the ControlNet stage
+    renders the last map under ``normal_images/``."""
+    monkeypatch.setattr(txt2img_fgdm, "CN_HW", IMAGE_HW)
+    monkeypatch.setattr(txt2img_fgdm, "CN_STEPS", 2)
+    out = txt2img_fgdm.main(_factor_args(files, "seg,depth,normal",
+                                         files["f1.pth"] + ",,")
+                            + ["--all_pconds", "--use_controlnet",
+                               "--cn_ckpt", files["cn.pth"], "--outdir",
+                               str(tmp_path / "o"), "--device", "cpu"])
+    want = _factor_files(("seg", "depth", "normal"), 2)
+    want.update({os.path.join("normal_images", f"image_00_{i:04}.png"):
+                 IMAGE_HW + (3,) for i in range(2)})
+    assert _pngs(tmp_path / "o") == want and len(out["files"]) == 8
+    (call,) = chain_calls
+    assert call["adapters"] == [0, 0, 1] and call["all_pconds"]
+    assert call["cldm"] is not None and call["image_hw"] == IMAGE_HW
+    img = np.asarray(Image.open(tmp_path / "o" / "normal_images"
+                                / "image_00_0001.png"))
+    assert img.std() > 0
+
+
+@pytest.mark.parametrize("flag", ["--dpm", "--plms"])
+def test_factor_chain_cli_sampler_flags(files, tmp_path, flag, chain_calls):
+    txt2img_fgdm.main(_factor_args(files, "seg,depth", ",", n=1, steps=3)
+                      + [flag, "--outdir", str(tmp_path / "o"), "--device",
+                         "cpu"])
+    assert _pngs(tmp_path / "o") == _factor_files(("seg", "depth"), 1)
+    assert chain_calls[0]["factor_sampler"] == flag[2:]
+
+
+@pytest.mark.parametrize("factors,ckpts,msg", [
+    ("seg,depth,normal", "a.pth,b.pth", "2 entries for 3 factors"),
+    (",", ",", "given but empty")], ids=["count", "empty"])
+def test_factor_chain_cli_refusals(files, tmp_path, factors, ckpts, msg):
+    with pytest.raises(SystemExit, match=msg):
+        txt2img_fgdm.main(_factor_args(files, factors, ckpts)
+                          + ["--outdir", str(tmp_path), "--device", "cpu"])
+
+
+def test_all_pconds_without_factors_is_ignored(files, tmp_path):
+    """Only the factor chain reads ``--all_pconds``, as in JAX."""
+    out = txt2img_fgdm.main([
+        "--prompt", "a cat", "--config", files["f1.yaml"], "--ckpt",
+        files["f1.pth"], "--all_pconds", "--n_samples", "1",
+        "--ddim_steps", "2", "--H", "32", "--W", "32", "--precision",
+        "full", "--device", "cpu", "--skip_grid", "--outdir",
+        str(tmp_path / "o")])
+    assert sorted(_pngs(tmp_path / "o")) == [
+        os.path.join("samples", "sample1", "sample1_00_0000.png")]
+    assert len(out["factor1_s"]) == 1
+
+
+def _tiny_jax_presets(mp):
+    """The JAX loader's SD presets made tiny: its factor CLI builds the
+    ControlNet stage from them (no config)."""
+    mp.setattr(jloader, "sd_unet", lambda dtype=jnp.bfloat16, **o: (
+        JUNetModel(**TINY, dtype=dtype, **o)))
+    mp.setattr(jloader, "sd_controlnet", lambda dtype=jnp.bfloat16, **o: (
+        JControlNet(**TINY, dtype=dtype, **o)))
+    mp.setattr(jloader, "sd_vae", lambda dtype=jnp.bfloat16, **o: (
+        JAutoencoderKL(**VAE_TINY, dtype=dtype, **o)))
+    mp.setattr(jloader, "sd_clip", lambda dtype=jnp.bfloat16: (
+        JCLIPTextEncoder(**CLIP_TINY, dtype=dtype)))
+
+
+def test_factor_chain_cli_writes_the_files_jax_writes(files, tmp_path,
+                                                      monkeypatch):
+    """Both CLIs on ``--factors seg,depth,normal --all_pconds
+    --use_controlnet`` with a file for every factor (the packages' seeded
+    inits differ; factors 2 and 3 share one of other weights), the same x_T injected into each stage, factor 3's extra
+    adapter (which no file holds) given JAX's init, and the ControlNet stage
+    at 64^2 with 2 steps in both: the same maps and images, each within one
+    uint8 step on at most 1 % of its pixels.  This
+    holds the CLI's orchestration against JAX's: the ``|`` prompt split,
+    each factor's own text embedding, the uncond from factor 1, the
+    ControlNet's prompt from the first factor's, the render of the last map
+    and the uint8 truncation."""
+    _tiny_jax_presets(monkeypatch)
+    rng = np.random.default_rng(34)
+    xts = [rng.standard_normal((2, 4, 4, 4)).astype(np.float32)
+           for _ in range(3)]
+    xts.append(rng.standard_normal((2, 4, 8, 8)).astype(np.float32))
+    # factors 2 and 3 from a second file, its UNet and CLIP perturbed, so
+    # that each factor's embedding and the uncond's source show
+    sd, g = torch.load(files["f1.pth"]), torch.Generator().manual_seed(35)
+    for k, v in sd["state_dict"].items():
+        if k.startswith((ti.UNET_PREFIX, ti.CLIP_PREFIX)):
+            v.add_(0.02 * torch.randn(v.shape, generator=g))
+    torch.save(sd, tmp_path / "f1b.pth")
+    args = _factor_args(files, "seg,depth,normal", ",".join(
+        [files["f1.pth"]] + [str(tmp_path / "f1b.pth")] * 2)) + [
+        "--all_pconds", "--use_controlnet", "--cn_ckpt", files["cn.pth"]]
+    jlds, real_load = [], jloader.load_fgdm
+    monkeypatch.setattr(jloader, "load_fgdm", lambda *a, **kw: (
+        jlds.append(real_load(*a, **kw)) or jlds[-1]))
+    # the ControlNet stage at the port's patched size and steps below (the
+    # JAX CLI passes its 512^2 and 20 steps to fgdm_chain_n)
+    real_jchain = jchain.fgdm_chain_n
+    monkeypatch.setattr(jchain, "fgdm_chain_n", lambda *a, **kw: real_jchain(
+        *a, **{**kw, "image_hw": IMAGE_HW, "f2_steps": 2}))
+    monkeypatch.setattr(txt2img_fgdm, "CN_HW", IMAGE_HW)
+    monkeypatch.setattr(txt2img_fgdm, "CN_STEPS", 2)
+    jzs = injected_latents(monkeypatch, jchain, xts)
+    jtxt2img.main(args + ["--outdir", str(tmp_path / "jax")])
+
+    real_chain, copied = tchain.fgdm_chain_n, []
+
+    def with_jax_extra_adapters(factors, *a, **kw):
+        for ld, jld in zip(factors, jlds):
+            sd = {k: v for k, v in convert.unet_state_dict(jax.tree.map(
+                np.asarray, jld.unet_params)).items()
+                  if k.startswith("adapters.")}
+            res = ld.unet.load_state_dict(sd, strict=False)
+            assert not res.unexpected_keys
+            copied.append(len(sd))
+        return real_chain(factors, *a, **kw)
+
+    monkeypatch.setattr(tchain, "fgdm_chain_n", with_jax_extra_adapters)
+    zs = injected_latents(monkeypatch, tchain, xts)
+    out = txt2img_fgdm.main(args + ["--outdir", str(tmp_path / "port"),
+                                    "--device", "cpu"])
+    assert len(jzs) == len(zs) == 4 and copied[:2] == [0, 0] and copied[2]
+    ref = _pngs(tmp_path / "jax")
+    want = _factor_files(("seg", "depth", "normal"), 2)
+    want.update({os.path.join("normal_images", f"image_00_{i:04}.png"):
+                 IMAGE_HW + (3,) for i in range(2)})
+    assert ref == want
+    assert _pngs(tmp_path / "port") == ref and len(out["files"]) == 8
+    for name in ref:
+        a, b = (np.asarray(Image.open(tmp_path / d / name)).astype(int)
+                for d in ("port", "jax"))
+        assert b.std() > 1.0, name
+        d = np.abs(a - b)
+        assert d.max() <= 1 and (d > 0).mean() <= 0.01, (name, d.max(),
+                                                         (d > 0).mean())
+
+
 # --- refusals ------------------------------------------------------------------
-
-@pytest.mark.parametrize("argv,item", [
-    (["--factors", "seg,depth"], 7), (["--all_pconds"], 7)],
-    ids=["factors", "all_pconds"])
-def test_txt2img_refuses_what_is_not_ported(argv, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}\\b"):
-        txt2img_fgdm.main(argv + ["--outdir", str(tmp_path), "--device",
-                                  "cpu"])
-
 
 def test_seg2image_refuses_detect(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue A item 14\\b"):
