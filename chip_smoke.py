@@ -80,7 +80,22 @@ it builds the port's kernels from the sources in this checkout (one
    just before: 2 maps a factor (256^2) and 2 images (512^2), K1-K4, K7
    and its pre-pass launched; and one forward of factor 3's multi-adapter
    UNet (full width, one ``extra_pcond``, the CLI's CFG batch of 4,
-   seeded weights perturbed as the chain's), kernels on vs plain;
+   seeded weights perturbed as the chain's), kernels on vs plain; between
+   the guided and the N-factor paths, four paths on the factor-1 file's
+   pipeline, conv flags on, counts reset before each: prompt-to-prompt
+   editing (``ptp_sample`` at its defaults, 64^2, 50 steps, CFG 7.5, two
+   prompts, a replace edit and ``LocalBlend``, CLIP contexts, both latents
+   decoded at 512^2; no K1, K3 and K4 launched; the kept share printed;
+   one edited UNet forward per kind at [4,4,64,64] kernels on vs plain),
+   img2img (the ptp base image encoded, ``stochastic_encode`` to step 37 of
+   50, ``ddim_decode`` at CFG 7.5, decoded; K1, K3, K4; then
+   ``augmented_cfg_eps`` and ``composable_cfg_eps`` kernels on vs plain),
+   the ancestral sampler (``p_sample_loop`` over T = 1,000 at batch 1,
+   32^2, no CFG, a 256^2 decode; K1 at [1,8,1024,40], K2, K4) and the
+   tiled VAE (``tiled_decode`` of a 128^2 latent as 9 tiles in one batch
+   of 512^2 decodes, then ``tiled_encode``; K3 at [9,1,4096,512], K4 at
+   [9,128|256,512,512], K7 at batch 9; the corner one tile alone covers
+   against that tile's own decode);
 6. the serving path, with both conv-kernel flags on, on the engine that
    ``server.py --ckpt/--cn_ckpt`` assembles (``server.build_engine``) from
    those two files: a ``ChainEngine`` (batch 4, the fast preset:
@@ -116,7 +131,8 @@ it builds the port's kernels from the sources in this checkout (one
 8. holds every kernel against its plain version, and times it, at every
    other shape that a path above launched (the chain, the training step,
    the served batch, the CLI, seg2image's sampling, the guided CLI, the
-   distillation step, the N-factor CLI): K1-K3 and the combine pass at each (batch, heads,
+   distillation step, the N-factor CLI, ptp, img2img, the ancestral
+   sampler, the tiled VAE): K1-K3 and the combine pass at each (batch, heads,
    N, d), K5 and K6 at each (batch, heads, N, d), K7 and its pre-pass at
    each conv launch key, K4 at each (shape, eps), each held once, under
    the first path that launched it; every row then reads its path's launch
@@ -2131,6 +2147,303 @@ def phase_chain_n(paths, outdir):
     return ok and fwd_ok, counts
 
 
+PTP_PROMPTS = ["a photo of a cat riding a bike",
+               "a photo of a dog riding a bike"]
+PTP_STEPS, PTP_STEP_HELD = 50, 10
+IMG2IMG_STRENGTH = 0.75       # t_enc = int(0.75 * 50) = 37 DDIM steps
+
+
+def _edit_controllers(tok, prompts):
+    """The replace controller of the ptp run (0.8 of the steps for the
+    cross maps, 0.4 for the self maps), and a refine and a reweight one
+    (``dog`` x2, ``inner`` the replace controller) on the same prompts."""
+    from fgdm_tpu_torch.utils.ptp import get_equalizer, make_controller
+
+    kw = dict(cross_replace_steps=0.8, self_replace_steps=0.4)
+    replace = make_controller(prompts, tok, PTP_STEPS, kind="replace", **kw)
+    return {"replace": replace,
+            "refine": make_controller(prompts, tok, PTP_STEPS,
+                                      kind="refine", **kw),
+            "reweight": make_controller(
+                prompts, tok, PTP_STEPS, kind="reweight",
+                equalizer=get_equalizer(prompts[1], "dog", [2.0], tok),
+                inner=replace, **kw)}
+
+
+def _rel(on, off):
+    return ((on.float() - off.float()).abs().max()
+            / off.float().abs().max()).item()
+
+
+def phase_ptp(ld):
+    """Prompt-to-prompt editing at ``ptp_sample``'s defaults (64^2 latent,
+    50 DDIM steps, CFG 7.5, eta 0) for two prompts with a replace edit and
+    ``LocalBlend`` on cat/dog, CLIP contexts, the two latents decoded at
+    512^2, conv flags on: the ptp path's counted run.  Checks both images
+    finite and distinct, no K1 (the editor runs every attention
+    explicitly, as in JAX), K3 and K4 launched; prints the share of latent
+    positions where the edit equals the base bit for bit (the blend's kept
+    region).  Then one edited UNet forward per kind at the CFG batch
+    [4,4,64,64] at step 10, kernels on vs plain.  Returns the base image
+    for the img2img phase."""
+    import torch
+    from fgdm_tpu_torch.core.schedules import DDIMSchedule
+    from fgdm_tpu_torch.models.clip import CLIPTokenizer
+    from fgdm_tpu_torch.sampling.ptp_sampler import ptp_sample
+    from fgdm_tpu_torch.utils.ptp import LocalBlend
+
+    tok = CLIPTokenizer()
+    ctls = _edit_controllers(tok, PTP_PROMPTS)
+    blend = LocalBlend.create(PTP_PROMPTS, [["cat"], ["dog"]], tok)
+    with torch.inference_mode():
+        ctx = ld.get_learned_conditioning(tok(PTP_PROMPTS).cuda())
+        uc = ld.get_learned_conditioning(tok([""] * 2).cuda())
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    log(f"ptp: ptp_sample {PTP_PROMPTS}, replace (cross 0.8, self 0.4), "
+        f"LocalBlend cat/dog, 64^2 latent, {PTP_STEPS} steps, CFG 7.5")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with conv_flags():
+        reset_counts()
+        t0 = time.perf_counter()
+        # its defaults: 64^2, CFG 7.5, eta 0; the controller's step count
+        z = ptp_sample(ld, ctls["replace"], ctx, uc, num_steps=PTP_STEPS,
+                       local_blend=blend, generator=gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            img = ld.decode_first_stage(z)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    k1 = sum(v for k, v in counts["attn"].items() if k[4] <= 96)
+    k3 = sum(v for k, v in counts["attn"].items()
+             if attn_kernel(k[4], k[3]) == K3)
+    n_gn = sum(counts["gn"].values())
+    finite = bool(torch.isfinite(img).all())
+    distinct = (img[0].float() - img[1].float()).abs().max().item()
+    kept = (z[1] == z[0]).all(dim=0).float().mean().item()
+    ok = (finite and distinct > 0 and k1 == 0 and k3 > 0 and n_gn > 0
+          and tuple(img.shape) == (2, 3, 512, 512))
+    log(f"ptp: images {tuple(img.shape)} finite={finite}, max|image 1 - "
+        f"image 0| = {distinct:.3e}; latent positions of the edit equal to "
+        f"the base bit for bit (LocalBlend's kept region, printed, not held):"
+        f" {kept:.4f}; wall {t1 - t0:.2f}s sampling + {t2 - t1:.2f}s decode "
+        f"(first run), peak memory {peak_gib:.2f} GiB; launches K1 {k1}, K3 "
+        f"{k3}, K4 {n_gn}, K7 {sum(counts['conv'].values())}; "
+        f"{'OK' if ok else 'FAIL'}")
+    log_counts("ptp", counts)
+
+    sched = DDIMSchedule.create(ld.schedule, PTP_STEPS)
+    index = PTP_STEPS - 1 - PTP_STEP_HELD
+    t = sched.timesteps[index].expand(4).cuda()
+    x = torch.randn(2, 4, 64, 64, device="cuda", generator=gen)
+    x_in, ctx_in = torch.cat([x, x]), torch.cat([uc, ctx])
+    fwd_ok = True
+    for kind, ctl in ctls.items():
+        editor = ctl.to("cuda").editor(PTP_STEP_HELD)
+        with torch.inference_mode(), conv_flags():
+            on = ld.unet(x_in, t, context=ctx_in, attn_editor=editor)
+            with plain_path():
+                off = ld.unet(x_in, t, context=ctx_in, attn_editor=editor)
+            torch.cuda.synchronize()
+        rel = _rel(on, off)
+        good = (math.isfinite(rel) and rel <= UNET_TOL
+                and bool(torch.isfinite(on).all()))
+        fwd_ok = fwd_ok and good
+        log(f"ptp: {kind}-edited UNet forward [4,4,64,64] at step "
+            f"{PTP_STEP_HELD}, conv flags on: kernels on vs plain "
+            f"max|d|/max|ref| = {rel:.3e} (tol {UNET_TOL}); "
+            f"{'OK' if good else 'FAIL'}")
+    del on, off, z
+    torch.cuda.empty_cache()
+    return ok and fwd_ok, counts, img[:1], ctx, uc
+
+
+def phase_img2img(ld, image, ctx, uc):
+    """img2img on the ptp run's base image (512^2), conv flags on: the
+    img2img path's counted run.  The VAE encoder (its mid block at N =
+    4096 on K3), ``stochastic_encode`` to DDIM step t_enc = 37 of 50,
+    ``ddim_decode`` over 37 steps at CFG 7.5, batch 1, and a decode.
+    Checks the image finite and that K1, K3 and K4 launched.  Then one
+    call each of ``augmented_cfg_eps`` and ``composable_cfg_eps`` (the two
+    ptp prompts) on a 64^2 latent, kernels on vs plain: within UNET_TOL of
+    the sum of the combination's weights times max|eps| of the batched
+    forward."""
+    import torch
+    from fgdm_tpu_torch.core.schedules import DDIMSchedule
+    from fgdm_tpu_torch.sampling.ddim import (augmented_cfg_eps,
+                                              composable_cfg_eps, ddim_decode,
+                                              stochastic_encode)
+
+    sched = DDIMSchedule.create(ld.schedule, PTP_STEPS)
+    t_enc = int(IMG2IMG_STRENGTH * PTP_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cond, uncond = {"c_crossattn": ctx[:1]}, {"c_crossattn": uc[:1]}
+    torch.cuda.synchronize()
+    with conv_flags():
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            z0 = ld.encode_first_stage(image)
+            noise = torch.randn(z0.shape, device="cuda", generator=gen)
+            zt = stochastic_encode(ld.schedule, sched, z0, t_enc, noise)
+        z = ddim_decode(ld.denoise_fn(), zt, sched, t_enc, cond, uncond, 7.5)
+        with torch.inference_mode():
+            img = ld.decode_first_stage(z)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    kinds = {attn_kernel(k[4], k[3]) for k in counts["attn"]}
+    finite = bool(torch.isfinite(img).all())
+    moved = (img.float() - image.float()).abs().max().item()
+    ok = (finite and tuple(img.shape) == (1, 3, 512, 512) and K1 in kinds
+          and K3 in kinds and sum(counts["gn"].values()) > 0)
+    log(f"img2img: encode, stochastic_encode to step {t_enc} of "
+        f"{PTP_STEPS}, ddim_decode {t_enc} steps at CFG 7.5, decode: image "
+        f"{tuple(img.shape)} finite={finite}, max|out - in| = {moved:.3e}; "
+        f"wall {wall:.2f}s (first run); launches K1 "
+        f"{sum(v for k, v in counts['attn'].items() if k[4] <= 96)}, K3 "
+        f"{sum(v for k, v in counts['attn'].items() if attn_kernel(k[4], k[3]) == K3)}"
+        f", K4 {sum(counts['gn'].values())}, K7 "
+        f"{sum(counts['conv'].values())}; {'OK' if ok else 'FAIL'}")
+    log_counts("img2img", counts)
+
+    x = torch.randn(1, 4, 64, 64, device="cuda", generator=gen)
+    t = sched.timesteps[PTP_STEPS - 1 - PTP_STEP_HELD].expand(1).cuda()
+    scale = 7.5
+    calls = (
+        ("augmented_cfg_eps (scale 7.5)", abs(1 - scale)
+         + abs(scale * (1 - scale)) + scale * scale,
+         lambda fn: augmented_cfg_eps(fn, x, t, cond, {"c_crossattn":
+                                                       ctx[1:]}, uncond,
+                                      scale)),
+        ("composable_cfg_eps (2 prompts)", 3.0,
+         lambda fn: composable_cfg_eps(fn, x, t, {"c_crossattn": ctx},
+                                       uncond, 2)))
+    eps_ok = True
+    for label, weight, call in calls:
+        seen = []
+
+        def fn(xx, tt, c):
+            e = ld.denoise_fn()(xx, tt, c)
+            seen.append(e)
+            return e
+
+        with torch.inference_mode(), conv_flags():
+            on = call(fn)
+            with plain_path():
+                off = call(fn)
+            torch.cuda.synchronize()
+        err = (on - off).abs().max().item()
+        eps_max = seen[1].abs().max().item()
+        lim = UNET_TOL * weight * eps_max
+        good = (math.isfinite(err) and err <= lim and _rel(seen[0], seen[1])
+                <= UNET_TOL and bool(torch.isfinite(on).all()))
+        eps_ok = eps_ok and good
+        log(f"img2img: {label} [1,4,64,64] (batch {seen[0].shape[0]}), conv "
+            f"flags on: kernels on vs plain max|d| = {err:.3e} (tol "
+            f"{lim:.3e}: {UNET_TOL} x {weight:g}, the sum of the weights, x "
+            f"max|eps| {eps_max:.3e}), the batched eps max|d|/max|ref| = "
+            f"{_rel(seen[0], seen[1]):.3e} (tol {UNET_TOL}); "
+            f"{'OK' if good else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return ok and eps_ok, counts
+
+
+def phase_ancestral(ld, ctx):
+    """``p_sample_loop`` over the model's full T = 1,000 at batch 1 on a
+    32^2 latent (256^2, factor 1's size), no CFG (the ``log_images`` use),
+    the base prompt's context, then a 256^2 decode, conv flags on: the
+    ancestral path's counted run.  Checks the image finite and that K1 at
+    [1,8,1024,40], K2 and K4 launched."""
+    import torch
+    from fgdm_tpu_torch.sampling.ancestral import p_sample_loop
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    T = ld.schedule.num_timesteps
+    torch.cuda.synchronize()
+    with conv_flags():
+        reset_counts()
+        t0 = time.perf_counter()
+        z, _ = p_sample_loop(ld.denoise_fn(), (1, 4, 32, 32), ld.schedule,
+                             {"c_crossattn": ctx[:1]}, generator=gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            img = ld.decode_first_stage(z)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finite = bool(torch.isfinite(img).all())
+    k1 = counts["attn"].get((1, 8, 1024, 1024, 40, False), 0)
+    k2 = sum(v for k, v in counts["attn"].items()
+             if attn_kernel(k[4], k[3]) == K2)
+    n_gn = sum(counts["gn"].values())
+    ok = (finite and tuple(img.shape) == (1, 3, 256, 256) and k1 > 0
+          and k2 > 0 and n_gn > 0)
+    log(f"ancestral: p_sample_loop T={T} [1,4,32,32], decode 256^2: image "
+        f"{tuple(img.shape)} finite={finite} std="
+        f"{img.float().std().item():.4e}; wall {t1 - t0:.2f}s sampling "
+        f"({1e3 * (t1 - t0) / T:.2f} ms a step, host clock), "
+        f"{time.perf_counter() - t1:.2f}s decode; launches K1 [1,8,1024,40] "
+        f"{k1}, K2 {k2}, K4 {n_gn}, K7 {sum(counts['conv'].values())}; "
+        f"{'OK' if ok else 'FAIL'}")
+    log_counts("ancestral", counts)
+    return ok, counts
+
+
+def phase_tiled(ld):
+    """``tiled_decode`` of a 128^2 latent (a 1024^2 image: 9 tiles of 64^2,
+    overlap 16, one VAE decode at batch 9 of 512^2), then ``tiled_encode``
+    of that image (9 tiles of 512^2, overlap 128), conv flags on: the tiled
+    path's counted run.  Checks shapes and finiteness, that K3 launched at
+    [9,1,4096,512], K4 at [9,128,512,512] and [9,256,512,512], K7 at batch
+    9; then the output where tile (0, 0) alone covers it (its window
+    normalises to 1) against ``ld.decode_first_stage`` of that tile."""
+    import torch
+    from fgdm_tpu_torch.sampling.tiled import tiled_decode, tiled_encode
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    z = torch.randn(1, 4, 128, 128, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with conv_flags():
+        reset_counts()
+        t0 = time.perf_counter()
+        img = tiled_decode(ld, z)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lat = tiled_encode(ld, img)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        with torch.inference_mode():
+            alone = ld.decode_first_stage(z[:, :, :64, :64])
+    finite = bool(torch.isfinite(img).all() and torch.isfinite(lat).all())
+    k3 = counts["attn"].get((9, 1, 4096, 4096, 512, False), 0)
+    gn9 = {c: counts["gn"].get(((9, c, 512, 512), 1e-6), 0)
+           for c in (128, 256)}
+    k7 = sum(v for k, v in counts["conv"].items() if k[0] == 9)
+    rel = _rel(img[:, :, :384, :384], alone[:, :, :384, :384])
+    ok = (finite and tuple(img.shape) == (1, 3, 1024, 1024)
+          and tuple(lat.shape) == (1, 4, 128, 128) and k3 > 0
+          and all(gn9.values()) and k7 > 0 and rel <= UNET_TOL)
+    log(f"tiled: tiled_decode [1,4,128,128] -> {tuple(img.shape)} in "
+        f"{t1 - t0:.2f}s, tiled_encode -> {tuple(lat.shape)} in "
+        f"{t2 - t1:.2f}s (first runs), finite={finite}, peak memory "
+        f"{peak_gib:.2f} GiB; the corner one tile alone covers [:384,:384] "
+        f"against decode_first_stage of that tile max|d|/max|ref| = "
+        f"{rel:.3e} (tol {UNET_TOL}); launches K3 [9,1,4096,512] {k3}, K4 "
+        f"[9,128|256,512,512] {gn9[128]}|{gn9[256]}, K7 at batch 9 {k7}; "
+        f"{'OK' if ok else 'FAIL'}")
+    log_counts("tiled", counts)
+    del img, lat, alone
+    torch.cuda.empty_cache()
+    return ok, counts
+
+
 def sweep_k1(gen):
     """K1 at the planned tile (*) and at every tile the kernel takes (keys
     per tile, ring stages, consumer warpgroups) at the ``K1_SWEEP`` shapes,
@@ -2373,7 +2686,23 @@ def main():
         guided_ok, guided = phase_guided(paths, os.path.join(root, "guided"),
                                          ld2, f1)
         t_guided = time.perf_counter() - t_guided
-        del ld2, cldm2
+        del cldm2
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_edit = time.perf_counter()
+        ptp_ok, ptp, base_img, ctx, uc = phase_ptp(ld2)
+        t_ptp = time.perf_counter()
+        img2img_ok, img2img = phase_img2img(ld2, base_img, ctx, uc)
+        t_img2img = time.perf_counter()
+        ancestral_ok, ancestral = phase_ancestral(ld2, ctx)
+        t_ancestral = time.perf_counter()
+        tiled_ok, tiled = phase_tiled(ld2)
+        t_tiled = time.perf_counter()
+        log(f"ptp phase {t_ptp - t_edit:.1f}s, img2img phase "
+            f"{t_img2img - t_ptp:.1f}s, ancestral phase "
+            f"{t_ancestral - t_img2img:.1f}s, tiled phase "
+            f"{t_tiled - t_ancestral:.1f}s")
+        del ld2, base_img, ctx, uc
         gc.collect()
         torch.cuda.empty_cache()
         t_chain_n = time.perf_counter()
@@ -2387,8 +2716,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     log(f"conv forwards {t1 - t0:.1f}s, checkpoints {t2 - t1:.1f}s, CLI, "
-        f"seg2image, the guided CLI and the N-factor CLI {t3 - t2:.1f}s "
-        f"(the guided CLI {t_guided:.1f}s, the N-factor CLI "
+        f"seg2image, the guided CLI, the four editing and sampler phases and"
+        f" the N-factor CLI {t3 - t2:.1f}s (the guided CLI {t_guided:.1f}s, "
+        f"the four phases {t_tiled - t_edit:.1f}s, the N-factor CLI "
         f"{t_chain_n:.1f}s), serving phase {time.perf_counter() - t3:.1f}s")
     t0 = time.perf_counter()
     train_ok, train, tr = phase_train()
@@ -2401,7 +2731,8 @@ def main():
         f"{time.perf_counter() - t1:.1f}s")
     by_path = {"chain": chain, "train": train, "serve": serve, "cli": cli,
                "seg2image": seg, "guided": guided, "distill": distill,
-               "chain_n": chain_n}
+               "chain_n": chain_n, "ptp": ptp, "img2img": img2img,
+               "ancestral": ancestral, "tiled": tiled}
     for name, fn, seed in (("K1-K3 and the combine pass", attn_path_rows, 4),
                            ("K5 and K6", bwd_path_rows, 7),
                            ("K7 and its pre-pass", conv_path_rows, 5),
@@ -2450,6 +2781,31 @@ def main():
         failures.append("K2 not launched by the guided CLI")
     if sum(guided["gn"].values()) == 0:
         failures.append("gn not launched by the guided CLI")
+    if any(k[4] <= 96 for k in ptp["attn"]):
+        failures.append("K1 launched by the ptp sampler")
+    for path, counts, names in (("ptp", ptp, ("K3",)),
+                                ("img2img", img2img, ("K1", "K3")),
+                                ("ancestral", ancestral, ("K1", "K2"))):
+        for name in names:
+            tpu = {"K1": K1, "K2": K2, "K3": K3}[name]
+            if not any(attn_kernel(k[4], k[3]) == tpu for k in counts["attn"]):
+                failures.append(f"{name} not launched by the {path} path")
+    for path, counts in (("ptp", ptp), ("img2img", img2img),
+                         ("ancestral", ancestral), ("tiled", tiled)):
+        for kind in ("gn", "conv", "prepass"):
+            if sum(counts[kind].values()) == 0:
+                failures.append(f"{kind} not launched by the {path} path")
+    if ancestral["attn"].get((1, 8, 1024, 1024, 40, False), 0) == 0:
+        failures.append("K1 not launched at [1,8,1024,40] by the ancestral "
+                        "sampler")
+    if tiled["attn"].get((9, 1, 4096, 4096, 512, False), 0) == 0:
+        failures.append("K3 not launched at [9,1,4096,512] by the tiled VAE")
+    for c in (128, 256):
+        if tiled["gn"].get(((9, c, 512, 512), 1e-6), 0) == 0:
+            failures.append(f"K4 not launched at [9,{c},512,512] by the "
+                            "tiled VAE")
+    if not any(k[0] == 9 for k in tiled["conv"]):
+        failures.append("K7 not launched at batch 9 by the tiled VAE")
     if not ckpt_ok:
         failures.append("checkpoints written and loaded")
     if not cli_ok:
@@ -2474,6 +2830,12 @@ def main():
         failures.append("guided CLI (--inference_loss)")
     if not chain_n_ok:
         failures.append("N-factor CLI (--factors)")
+    for good, label in ((ptp_ok, "prompt-to-prompt sampler"),
+                        (img2img_ok, "img2img"),
+                        (ancestral_ok, "ancestral sampler"),
+                        (tiled_ok, "tiled VAE decode and encode")):
+        if not good:
+            failures.append(label)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "eager_ms", "copy_ms", "plain_ms", "bound_ms", "bound_by",
             "bound_term", "library_ms", "path")

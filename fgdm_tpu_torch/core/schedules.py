@@ -84,6 +84,13 @@ class DiffusionSchedule:
     alphas_cumprod_prev: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
+    log_one_minus_alphas_cumprod: torch.Tensor
+    sqrt_recip_alphas_cumprod: torch.Tensor
+    sqrt_recipm1_alphas_cumprod: torch.Tensor
+    posterior_variance: torch.Tensor
+    posterior_log_variance_clipped: torch.Tensor
+    posterior_mean_coef1: torch.Tensor
+    posterior_mean_coef2: torch.Tensor
     lvlb_weights: torch.Tensor
     alphas_cumprod_f64: np.ndarray = dataclasses.field(repr=False)
 
@@ -98,9 +105,9 @@ class DiffusionSchedule:
         alphas = 1.0 - betas
         acp = np.cumprod(alphas, axis=0)
         acp_prev = np.append(1.0, acp[:-1])
+        post_var = ((1 - v_posterior) * betas * (1.0 - acp_prev)
+                    / (1.0 - acp) + v_posterior * betas)
         if parameterization == "eps":
-            post_var = ((1 - v_posterior) * betas * (1.0 - acp_prev)
-                        / (1.0 - acp) + v_posterior * betas)
             with np.errstate(divide="ignore", invalid="ignore"):
                 lvlb = betas ** 2 / (2 * post_var * alphas * (1 - acp))
             # t=0 is 0/0; the reference pins it to t=1 (ddpm.py:225-227)
@@ -119,6 +126,17 @@ class DiffusionSchedule:
             alphas_cumprod_prev=_f32(acp_prev),
             sqrt_alphas_cumprod=_f32(np.sqrt(acp)),
             sqrt_one_minus_alphas_cumprod=_f32(np.sqrt(1.0 - acp)),
+            log_one_minus_alphas_cumprod=_f32(np.log(1.0 - acp)),
+            sqrt_recip_alphas_cumprod=_f32(np.sqrt(1.0 / acp)),
+            sqrt_recipm1_alphas_cumprod=_f32(np.sqrt(1.0 / acp - 1)),
+            posterior_variance=_f32(post_var),
+            # the variance is 0 at t = 0: clipped before the log
+            posterior_log_variance_clipped=_f32(
+                np.log(np.maximum(post_var, 1e-20))),
+            posterior_mean_coef1=_f32(betas * np.sqrt(acp_prev)
+                                      / (1.0 - acp)),
+            posterior_mean_coef2=_f32((1.0 - acp_prev) * np.sqrt(alphas)
+                                      / (1.0 - acp)),
             lvlb_weights=_f32(lvlb),
             alphas_cumprod_f64=acp,
         )
@@ -133,6 +151,13 @@ class DiffusionSchedule:
                 * x_start.float()
                 + _gather(self.sqrt_one_minus_alphas_cumprod, t,
                           x_start.dim()) * noise.float())
+
+    def predict_start_from_noise(self, x_t, t, noise):
+        """x_0 from the model's eps: ``x_t / a_t - sqrt(1 / a_t^2 - 1)
+        noise`` with the float32 tables."""
+        return (_gather(self.sqrt_recip_alphas_cumprod, t, x_t.dim()) * x_t
+                - _gather(self.sqrt_recipm1_alphas_cumprod, t, x_t.dim())
+                * noise)
 
     def get_v(self, x, noise, t):
         """The v-prediction target ``a_t noise - s_t x``."""

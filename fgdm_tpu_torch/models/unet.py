@@ -21,6 +21,8 @@ blocks with skip concatenation, GroupNorm -> SiLU -> zero-conv head.
   the forward also returns the maps of every SpatialTransformer, in two
   dicts keyed as the JAX package keys them (``"input_blocks.{i}.1"``,
   ``"middle_block.1"``, ``"output_blocks.{i}.1"``).
+* Attention editing (``unet.py:91,185-196``): ``attn_editor`` reaches every
+  attention layer with its block's place (prompt-to-prompt).
 
 Pixel attention and ``seq_axis`` are not ported and raise
 ``NotImplementedError``.
@@ -60,18 +62,28 @@ def embed_timesteps(te: nn.ModuleList, timesteps, mc: int):
 
 
 def run_block(block: nn.ModuleList, h, emb, context, capture=False,
-              maps=None, name: str = ""):
+              maps=None, name: str = "", attn_editor=None):
     """Apply one TimestepEmbedSequential-style block.  With ``capture`` its
     SpatialTransformer's self and cross maps go into ``maps = (selfattn,
-    crossattn)`` under ``"{name}.{index in the block}"``."""
+    crossattn)`` under ``"{name}.{index in the block}"``.  ``attn_editor``
+    ``(probs, is_cross, place)`` reaches every attention layer of the block
+    with the block's place, ``"down"``, ``"mid"`` or ``"up"`` by the first
+    letter of ``name`` (``unet.py:185-196``)."""
+    editor = None
+    if attn_editor is not None:
+        place = {"i": "down", "m": "mid", "o": "up"}[name[0]]
+
+        def editor(p, is_cross):
+            return attn_editor(p, is_cross, place)
     for j, layer in enumerate(block):
         if isinstance(layer, ResBlock):
             h = layer(h, emb)
         elif isinstance(layer, SpatialTransformer):
             if not capture:
-                h = layer(h, context=context)
+                h = layer(h, context=context, attn_editor=editor)
                 continue
-            h, probs = layer(h, context=context, capture=capture)
+            h, probs = layer(h, context=context, capture=capture,
+                             attn_editor=editor)
             for store, m in zip(maps, probs):
                 if m is not None:
                     store[f"{name}.{j}"] = m
@@ -194,12 +206,15 @@ class UNetModel(nn.Module):
     def forward(self, x, timesteps, context=None, pcond=None,
                 adapter_on: bool = True, control=None,
                 only_mid_control: bool = False, capture=False,
-                extra_pconds=None):
+                extra_pconds=None, attn_editor=None):
         """x ``[B, C, H, W]``, timesteps ``[B]``, context ``[B, 77, D]``;
         ``control`` holds ControlNet's 13 residuals; ``extra_pconds`` the
         extra adapters' prompts (the first ``num_prompts - 1`` are read).
         Returns float32 eps; with ``capture`` (``nn.attention.
-        CrossAttention``'s modes) ``(eps, selfattn, crossattn)``."""
+        CrossAttention``'s modes) ``(eps, selfattn, crossattn)``.
+        ``attn_editor`` ``(probs, is_cross, place) -> probs`` edits every
+        attention layer's probabilities (prompt-to-prompt,
+        ``utils/ptp.py``)."""
         emb = embed_timesteps(self.time_embed, timesteps, self.model_channels)
         h = x.to(self.dtype)
         feats = None
@@ -214,7 +229,8 @@ class UNetModel(nn.Module):
         maps = ({}, {})
 
         def block(blk, h, name):
-            return run_block(blk, h, emb, context, capture, maps, name)
+            return run_block(blk, h, emb, context, capture, maps, name,
+                             attn_editor)
 
         hs = []
         for i, blk in enumerate(self.input_blocks):

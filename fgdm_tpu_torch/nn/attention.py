@@ -15,8 +15,10 @@ package's static flag does: the head-averaged pre-softmax scores through
 probabilities of an explicit f32 softmax (the guided sampler's).  With
 ``capture`` falsy each module returns its output alone and runs exactly
 the no-capture path.  ``adapt_q`` adds the attention of an external query
-over the same keys and values.  The prompt-to-prompt ``attn_editor`` is not
-ported (ROADMAP Queue A entry 1, ``ptp_sampler``).
+over the same keys and values.  ``attn_editor`` ``(probs, is_cross) ->
+probs`` (prompt-to-prompt, ``utils/ptp.py``) rewrites the probabilities of
+the explicit f32 softmax in every layer it is given, as JAX's
+``attention.py:111-127`` does; K1 then runs nowhere.
 """
 
 from __future__ import annotations
@@ -66,12 +68,15 @@ class CrossAttention(nn.Module):
         # index 1 of the reference's to_out is a Dropout
         self.to_out = nn.ModuleList([Dense(inner, query_dim, dtype=dtype)])
 
-    def forward(self, x, context=None, adapt_q=None, capture=False):
+    def forward(self, x, context=None, adapt_q=None, capture=False,
+                attn_editor=None):
         """The attention output ``[B, N, query_dim]``; with ``capture`` set,
         ``(output, maps)``: ``[B, N, M]`` f32 head-averaged scores
         (``True``/``"sim"``), ``[B, h, N, M]`` f32 probabilities
-        (``"probs"``), or None for a self layer a ``CaptureSpec`` filters
-        out."""
+        (``"probs"``, after the editor), or None for a self layer a
+        ``CaptureSpec`` filters out.  With ``attn_editor`` every capture
+        mode but ``"probs"`` gives the head-averaged scores, unfiltered and
+        unpooled, as in JAX."""
         is_cross = context is not None
         ctx = x if context is None else context
         scale = self.dim_head ** -0.5
@@ -85,11 +90,19 @@ class CrossAttention(nn.Module):
         spec = capture if isinstance(capture, CaptureSpec) else None
         mode = spec.mode if spec is not None else capture
         probs = None
-        if mode == "probs":
+        if mode == "probs" or attn_editor is not None:
             # the explicit f32 path: every layer, K1's shapes included
-            sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-            probs = torch.softmax(sim, dim=-1)
-            out = torch.matmul(probs.to(v.dtype), v)
+            sim = torch.matmul(q.float(),
+                               k.float().transpose(-1, -2)).mul_(scale)
+            attn = torch.softmax(sim, dim=-1)
+            if capture and mode != "probs":
+                probs = sim.mean(dim=1)
+            del sim   # f32 [B, h, N, M]: 2 GiB a self layer at 64^2, CFG 4
+            if attn_editor is not None:
+                attn = attn_editor(attn, is_cross)
+            out = torch.matmul(attn.to(v.dtype), v)
+            if mode == "probs":
+                probs = attn
         elif (spec is not None and not is_cross and spec.self_n is not None
               and x.shape[1] != spec.self_n):
             out = multihead_attention(q, k, v, scale)
@@ -146,11 +159,12 @@ class BasicTransformerBlock(nn.Module):
         self.norm2 = LayerNorm32(dim)
         self.norm3 = LayerNorm32(dim)
 
-    def forward(self, x, context=None, adapt_q=None, capture=False):
+    def forward(self, x, context=None, adapt_q=None, capture=False,
+                attn_editor=None):
         """x ``[B, N, dim]``; with ``capture`` set, ``(x, (self_maps,
-        cross_maps))``."""
+        cross_maps))``.  ``attn_editor`` edits both layers' maps."""
         def attend(attn, h, **kw):
-            out = attn(h, capture=capture, **kw)
+            out = attn(h, capture=capture, attn_editor=attn_editor, **kw)
             return out if capture else (out, None)
 
         y, self_maps = attend(self.attn1, self.norm1(x))
@@ -177,7 +191,8 @@ class SpatialTransformer(nn.Module):
         self.proj_out = Conv2d(inner, in_channels, 1, padding=0,
                                zero_init=True, dtype=dtype)
 
-    def forward(self, x, context=None, adapt_q=None, capture=False):
+    def forward(self, x, context=None, adapt_q=None, capture=False,
+                attn_editor=None):
         """x ``[B, C, H, W]``; with ``capture`` set, ``(x, maps)`` with the
         last block's ``(self_maps, cross_maps)``."""
         b, _, hh, ww = x.shape
@@ -188,9 +203,10 @@ class SpatialTransformer(nn.Module):
         for blk in self.transformer_blocks:
             if capture:
                 h, maps = blk(h, context=context, adapt_q=adapt_q,
-                              capture=capture)
+                              capture=capture, attn_editor=attn_editor)
             else:
-                h = blk(h, context=context, adapt_q=adapt_q)
+                h = blk(h, context=context, adapt_q=adapt_q,
+                        attn_editor=attn_editor)
         h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2).contiguous()
         out = self.proj_out(h) + x
         return (out, maps) if capture else out

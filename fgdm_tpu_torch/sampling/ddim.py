@@ -7,6 +7,10 @@ from the noisiest step, with x_T injection and eta.  The JAX ``lax.scan``
 becomes a Python loop.  ``guidance_fn`` (a capture-mode ``apply_model``)
 turns on the attention-alignment inner loop of ``sampling/guidance.py``
 (reference ``inference_loss=True``, ``ddim.py:190-191,228-231``).
+img2img is ``stochastic_encode`` then ``ddim_decode`` (``ddim.py:210-246``,
+reference ``ddim.py:378-413``); ``augmented_cfg_eps`` and
+``composable_cfg_eps`` are the three-way and composable guidance of
+``ddim.py:249-289``.
 
 Noise comes from explicit ``torch.Generator``s.  With ``slot_seeds`` every
 draw is per slot (``slot_noise``): slot b's stream depends only on its own
@@ -24,7 +28,8 @@ import torch
 from fgdm_tpu_torch.core.schedules import DDIMSchedule
 
 __all__ = ["derive_seed", "slot_noise", "initial_noise", "ddim_step",
-           "cfg_inputs", "cfg_eps", "ddim_sample"]
+           "cfg_inputs", "cfg_eps", "ddim_sample", "stochastic_encode",
+           "ddim_decode", "augmented_cfg_eps", "composable_cfg_eps"]
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
 
@@ -101,13 +106,26 @@ def _cat(u, c):
     return torch.cat([u, c], dim=0)
 
 
+def _cat_conds(*conds: Dict[str, Any]) -> Dict[str, Any]:
+    """The conds concatenated along the batch, key by key and leaf by
+    leaf, in order."""
+    keys = set(conds[0])
+    if any(set(c) != keys for c in conds):
+        raise ValueError("cond keys differ: "
+                         + " != ".join(str(sorted(c)) for c in conds))
+    out = {}
+    for k in conds[0]:
+        v = conds[0][k]
+        for c in conds[1:]:
+            v = _cat(v, c[k])
+        out[k] = v
+    return out
+
+
 def cfg_inputs(x, t, cond: Dict[str, Any], uncond: Dict[str, Any]):
     """The doubled model input ``(x_in, t_in, c_in)`` of CFG, [uncond,
     cond] along the batch."""
-    if set(uncond) != set(cond):
-        raise ValueError(f"cond keys {sorted(cond)} != uncond {sorted(uncond)}")
-    c_in = {k: _cat(uncond[k], cond[k]) for k in cond}
-    return torch.cat([x, x]), torch.cat([t, t]), c_in
+    return torch.cat([x, x]), torch.cat([t, t]), _cat_conds(uncond, cond)
 
 
 def cfg_eps(denoise_fn: DenoiseFn, x, t, cond: Dict[str, Any],
@@ -163,3 +181,62 @@ def ddim_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
                                      device=device))
             x, _ = ddim_step(x, e_t, index, sched, noise)
     return x
+
+
+def _bshape(v, x):
+    return v.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+def stochastic_encode(schedule, sched: DDIMSchedule, x0, t_index, noise):
+    """img2img's forward encode of x0 to DDIM step ``t_index`` (an int or
+    ``[B]``): ``sqrt(a) x0 + sqrt(1 - a) noise`` with a the step's
+    alpha_cumprod, as JAX reads it (``ddim.py:210``).  ``schedule`` (the
+    DDPM one) is unused, as in JAX."""
+    del schedule
+    idx = torch.as_tensor(t_index, device=x0.device)
+    sqrt_alphas = torch.sqrt(sched.alphas.to(x0.device))
+    sqrt_one_minus = sched.sqrt_one_minus_alphas.to(x0.device)
+    return (_bshape(sqrt_alphas[idx], x0) * x0
+            + _bshape(sqrt_one_minus[idx], x0) * noise)
+
+
+def ddim_decode(denoise_fn: DenoiseFn, x_latent, sched: DDIMSchedule,
+                t_start: int, cond: Dict[str, Any],
+                uncond: Optional[Dict[str, Any]] = None,
+                cfg_scale: float = 1.0) -> torch.Tensor:
+    """img2img's partial denoise from DDIM step ``t_start`` down to x_0
+    (``ddim.py:226``), eta-free steps, under ``torch.inference_mode()``."""
+    with torch.inference_mode():
+        sched = sched.to(x_latent.device)
+        b = x_latent.shape[0]
+        x = x_latent
+        for i in range(t_start):
+            index = t_start - 1 - i
+            t = sched.timesteps[index].expand(b)
+            e_t = cfg_eps(denoise_fn, x, t, cond, uncond, cfg_scale)
+            x, _ = ddim_step(x, e_t, index, sched)
+    return x
+
+
+def augmented_cfg_eps(denoise_fn: DenoiseFn, x, t, cond: Dict[str, Any],
+                      aug_cond: Dict[str, Any], uncond: Dict[str, Any],
+                      scale: float) -> torch.Tensor:
+    """Augmented-conditioning guidance (``ddim.py:249``): one forward over
+    [uncond, cond, aug]; ``e = uc + s((ac + s(c - ac)) - uc)``."""
+    e = denoise_fn(torch.cat([x, x, x]), torch.cat([t, t, t]),
+                   _cat_conds(uncond, cond, aug_cond))
+    e_uc, e_c, e_ac = e.chunk(3, dim=0)
+    e_t = e_ac + scale * (e_c - e_ac)
+    return e_uc + scale * (e_t - e_uc)
+
+
+def composable_cfg_eps(denoise_fn: DenoiseFn, x, t, conds: Dict[str, Any],
+                       uncond: Dict[str, Any],
+                       num_prompts: int) -> torch.Tensor:
+    """Composable-diffusion guidance (``ddim.py:272``): x of batch 1, conds
+    stacked ``[num_prompts, ...]``; ``e = uc + sum_p (c_p - uc)``."""
+    n = num_prompts + 1
+    e = denoise_fn(torch.cat([x] * n), torch.cat([t] * n),
+                   _cat_conds(uncond, conds))
+    e_uc, e_cs = e[:1], e[1:]
+    return e_uc + (e_cs - e_uc).sum(dim=0, keepdim=True)
