@@ -128,12 +128,24 @@ it builds the port's kernels from the sources in this checkout (one
    that K1 with lse, K4, K5 and K6 launched; compares one distill loss, its
    adapter gradients and the student's and teacher's maps kernels-on vs
    plain on injected draws; profiles one distill step (the same print);
+   then the training-CLI path: a seeded COCO-layout tree (24 + 8 JPEGs of
+   320x288, L-mode label PNGs, captions) under ``build/``,
+   ``cli.train.main`` on ``models/config.yaml`` at full width (batch 8 at
+   256^2, ``use_checkpoint`` recomputing the UNet's blocks, distillation at
+   steps 0 and 10, the config's ImageLogger at step 0) for 11 steps with
+   ``--ckpt_every 10 --val_every 5``, then ``-r`` to step 13, launch counts
+   reset before the first run and read after the second (the recompute's
+   forwards count as launches); checks the metrics rows, the ten image
+   keys, the resume, the checkpoints (frozen parameters bit-equal between
+   the first and the last, the adapter moved) and that K1 with lse, K2,
+   K4, K5 and K6 launched; prints the load, step, image-log, save and
+   resume times and the peak memory; deletes the checkpoints;
 8. holds every kernel against its plain version, and times it, at every
    other shape that a path above launched (the chain, the training step,
    the served batch, the CLI, seg2image's sampling, the guided CLI, the
    distillation step, the N-factor CLI, ptp, img2img, the ancestral
-   sampler, the tiled VAE): K1-K3 and the combine pass at each (batch, heads,
-   N, d), K5 and K6 at each (batch, heads, N, d), K7 and its pre-pass at
+   sampler, the tiled VAE, the training CLI): K1-K3 and the combine pass
+   at each (batch, heads, N, d), K5 and K6 at each (batch, heads, N, d), K7 and its pre-pass at
    each conv launch key, K4 at each (shape, eps), each held once, under
    the first path that launched it; every row then reads its path's launch
    count and fails at 0;
@@ -157,6 +169,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -1972,6 +1985,205 @@ def phase_distill(tr):
     return ok and cmp_ok, counts
 
 
+TRAIN_CLI_TREE = (24, 8, (288, 320))   # train, val images; H x W
+TRAIN_CLI_KEYS = ("inputs", "reconstruction", "conditioning", "samples",
+                  "samples_inpainting", "samples_outpainting", "mask",
+                  "denoise_row", "diffusion_row", "progressive_row")
+
+
+def write_coco_tree(root, seed=0):
+    """A seeded tree in COCO's layout: JPEG RGB images, L-mode label PNGs
+    (ids 0-181 in 16-pixel blocks, a void 255 band) and the captions
+    JSON of each split."""
+    import numpy as np
+    from fgdm_tpu_torch.builders import PROMPTS
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    n_train, n_val, (h, w) = TRAIN_CLI_TREE
+    for split, n in (("train2017", n_train), ("val2017", n_val)):
+        img_dir = os.path.join(root, "images", split)
+        lab_dir = os.path.join(root, "annotations", split)
+        os.makedirs(img_dir)
+        os.makedirs(lab_dir)
+        anns = []
+        for i in range(n):
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                            ).save(os.path.join(img_dir, f"{i:012d}.jpg"))
+            lab = np.kron(rng.integers(0, 182, (h // 16, w // 16)),
+                          np.ones((16, 16), np.int64)).astype(np.uint8)
+            lab[: h // 8] = 255
+            Image.fromarray(lab, "L").save(os.path.join(lab_dir,
+                                                        f"{i:012d}.png"))
+            anns += [{"image_id": i, "caption": PROMPTS[(i + j) % 8]}
+                     for j in range(2)]
+        with open(os.path.join(root, "annotations",
+                               f"captions_{split}.json"), "w") as f:
+            json.dump({"annotations": anns}, f)
+
+
+class _Tee:
+    """stdout to the log and to a buffer the checks read."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def _timed_steps(times):
+    """Wrap ``make_train_step`` so each step is timed to its synchronize
+    (``times``: (distill, ms) in step order)."""
+    import torch
+    from fgdm_tpu_torch.train import train_step
+
+    real = train_step.make_train_step
+
+    def make(*a, **kw):
+        fn = real(*a, **kw)
+
+        def step(*sa, **skw):
+            t0 = time.perf_counter()
+            out = fn(*sa, **skw)
+            torch.cuda.synchronize()
+            times.append((kw.get("distill", False),
+                          1e3 * (time.perf_counter() - t0)))
+            return out
+
+        return step
+
+    return real, make
+
+
+def phase_train_cli(root):
+    """The training CLI (``python -m fgdm_tpu_torch.cli.train``) at full
+    width on the shipped recipe (``models/config.yaml``: UNet 320 with the
+    adapter and activation checkpointing, VAE 128, CLIP 768, batch 8 at
+    256^2, AdamW under the LambdaLinear schedule, distillation every 10th
+    step, the config's ImageLogger) on a seeded COCO tree: 11 steps with
+    ``--ckpt_every 10 --val_every 5``, then ``-r`` to step 13.  The launch
+    counts are reset before the first run and read after the second."""
+    import torch
+    from fgdm_tpu_torch.cli import train as train_cli
+    from fgdm_tpu_torch.data import native
+    from fgdm_tpu_torch.train import train_step
+
+    tree = os.path.join(root, "coco")
+    write_coco_tree(tree)
+    logdir = os.path.join(root, "logs")
+    log(f"train_cli: data transforms "
+        f"{'native ' + str(native.library_path()) if native.HAS_NATIVE else 'numpy (no library built)'}")
+    over = [f"data.params.{s}.params.data_dir={tree}"
+            for s in ("train", "validation")]
+    times = []
+    real, make = _timed_steps(times)
+    saved_env = os.environ.get("FGDM_RANDOMIZE_ZERO_HEADS")
+    os.environ["FGDM_RANDOMIZE_ZERO_HEADS"] = "1"
+    tee = _Tee(sys.stdout)
+    train_step.make_train_step = make
+    t_runs = []
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with contextlib.redirect_stdout(tee):
+            for args in (["-b", "models/config.yaml", "-t", "--max_steps",
+                          "11", "--ckpt_every", "10", "--val_every", "5",
+                          "-l", logdir, "-n", "chip", *over],
+                         ["-r", None, "-t", "--max_steps", "13"]):
+                if args[1] is None:
+                    args[1] = os.path.join(logdir, os.listdir(logdir)[0])
+                t0 = time.perf_counter()
+                train_cli.main(args)
+                torch.cuda.synchronize()
+                t_runs.append(time.perf_counter() - t0)
+                gc.collect()
+                torch.cuda.empty_cache()
+        counts = read_counts()
+    finally:
+        train_step.make_train_step = real
+        if saved_env is None:
+            del os.environ["FGDM_RANDOMIZE_ZERO_HEADS"]
+        else:
+            os.environ["FGDM_RANDOMIZE_ZERO_HEADS"] = saved_env
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = tee.text()
+    run = os.path.join(logdir, os.listdir(logdir)[0])
+    rows = [json.loads(line) for line in open(os.path.join(run,
+                                                           "metrics.jsonl"))]
+    train_rows = {r["step"]: r for r in rows if "train/loss" in r}
+    losses_ok = (sorted(train_rows) == list(range(13)) and all(
+        math.isfinite(r["train/loss"]) for r in train_rows.values()))
+    distill_steps = sorted(s for s, r in train_rows.items()
+                           if "train/loss_distill" in r)
+    val_steps = sorted(r["step"] for r in rows
+                       if any(k.startswith("val/") for k in r))
+    pngs = set(os.listdir(os.path.join(run, "images")))
+    missing = [k for k in TRAIN_CLI_KEYS if f"{k}_gs-000000.png" not in pngs]
+    resumed = re.search(r"resumed from \S+ at step 11 \(([\d.]+)s\)", out)
+    done = "done at step 13" in out
+    ckdir = os.path.join(run, "checkpoints")
+    steps = sorted(int(f[:-3]) for f in os.listdir(ckdir) if f.endswith(".pt"))
+    first = torch.load(os.path.join(ckdir, f"{steps[0]}.pt"),
+                       map_location="cpu", weights_only=True)
+    last = torch.load(os.path.join(ckdir, f"{steps[-1]}.pt"),
+                      map_location="cpu", weights_only=True)
+    frozen_same = (set(first["frozen"]) == set(last["frozen"]) and all(
+        torch.equal(v, last["frozen"][k]) for k, v in first["frozen"].items()))
+    adapter_moved = any(not torch.equal(v, last["params"][k])
+                        for k, v in first["params"].items())
+    state_steps = (first["step"], last["step"])
+    del first, last
+    shutil.rmtree(ckdir, ignore_errors=True)
+    n = {k: sum(c.values()) for k, c in counts.items()}
+    lse = sum(v for k, v in counts["attn"].items() if k[5])
+    k2 = sum(v for k, v in counts["attn"].items()
+             if attn_kernel(k[4], k[3]) == K2)
+    launched = (lse > 0 and k2 > 0 and n["gn"] > 0
+                and n["flash_attn_bwd_dq"] > 0 and n["flash_attn_bwd_dkv"] > 0)
+    ok = (losses_ok and distill_steps == [0, 10] and val_steps == [5, 10]
+          and not missing and resumed is not None and done and frozen_same
+          and adapter_moved and steps == [0, 10, 12]
+          and state_steps == (1, 13) and launched)
+    log(f"train_cli: runs {t_runs[0]:.1f}s + {t_runs[1]:.1f}s; train/loss "
+        f"finite at steps 0-12 {losses_ok}; loss_distill at {distill_steps};"
+        f" val rows at {val_steps}; missing images {missing}; resumed "
+        f"{resumed is not None}, done at 13 {done}; checkpoints {steps} "
+        f"(state steps {state_steps}), frozen bit-equal {frozen_same}, "
+        f"adapter moved {adapter_moved}; K1 with lse {lse}, K2 {k2}, K4 "
+        f"{n['gn']}, K5 {n['flash_attn_bwd_dq']}, K6 "
+        f"{n['flash_attn_bwd_dkv']} launches; {'OK' if ok else 'FAIL'}")
+    loads = [float(x) for x in re.findall(r"model on cuda\S* in ([\d.]+)s",
+                                          out)]
+    logged = [float(x) for x in re.findall(r"images logged at step \d+ "
+                                           r"\(([\d.]+)s\)", out)]
+    saves = re.findall(r"saved step (\d+) \((\d+) bytes, ([\d.]+)s\)", out)
+    plain = [ms for i, (distill, ms) in enumerate(times)
+             if not distill and i not in (0, 1, 11)]
+    distill_ms = [ms for distill, ms in times if distill]
+    warm = sum(plain) / max(len(plain), 1)
+    log(f"train_cli: load {loads} s; warm plain step {warm:.1f} ms (mean of "
+        f"{len(plain)}, each to its synchronize, host clock; "
+        f"{TRAIN_BATCH * 1e3 / warm:.2f} images/s at batch {TRAIN_BATCH}); "
+        f"distill steps {[round(x, 1) for x in distill_ms]} ms (the first "
+        f"cold); image log {logged} s; saves "
+        + ", ".join(f"step {st}: {int(b) / 1e9:.2f} GB in {t}s"
+                    for st, b, t in saves)
+        + f"; resume {resumed.group(1) if resumed else '?'} s; peak memory "
+        f"{peak_gib:.2f} GiB; {card_line()}")
+    log_counts("train_cli", counts)
+    return ok, counts
+
+
 def phase_guided(paths, outdir, ld, f1_unguided):
     """``txt2img_fgdm --inference_loss`` with run_inference.sh's factor-1
     flags (no ControlNet stage) on the factor-1 checkpoint, conv flags on as
@@ -2727,12 +2939,21 @@ def main():
     del tr
     gc.collect()
     torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_", dir="build")
+    try:
+        train_cli_ok, train_cli = phase_train_cli(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"training phase {t1 - t0:.1f}s, distillation phase "
-        f"{time.perf_counter() - t1:.1f}s")
+        f"{t2 - t1:.1f}s, training CLI phase {time.perf_counter() - t2:.1f}s")
     by_path = {"chain": chain, "train": train, "serve": serve, "cli": cli,
                "seg2image": seg, "guided": guided, "distill": distill,
                "chain_n": chain_n, "ptp": ptp, "img2img": img2img,
-               "ancestral": ancestral, "tiled": tiled}
+               "ancestral": ancestral, "tiled": tiled,
+               "train_cli": train_cli}
     for name, fn, seed in (("K1-K3 and the combine pass", attn_path_rows, 4),
                            ("K5 and K6", bwd_path_rows, 7),
                            ("K7 and its pre-pass", conv_path_rows, 5),
@@ -2775,6 +2996,13 @@ def main():
             failures.append(f"{kind} not launched by the distillation step")
     if not any(k[5] for k in distill["attn"]):
         failures.append("K1 with lse not launched by the distillation step")
+    for kind in ("attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "gn"):
+        if sum(train_cli[kind].values()) == 0:
+            failures.append(f"{kind} not launched by the training CLI")
+    if not any(k[5] for k in train_cli["attn"]):
+        failures.append("K1 with lse not launched by the training CLI")
+    if not any(attn_kernel(k[4], k[3]) == K2 for k in train_cli["attn"]):
+        failures.append("K2 not launched by the training CLI")
     if any(k[4] <= 96 for k in guided["attn"]):
         failures.append("K1 launched by the guided factor 1")
     if not any(attn_kernel(k[4], k[3]) == K2 for k in guided["attn"]):
@@ -2826,6 +3054,8 @@ def main():
         failures.append("training step")
     if not distill_ok:
         failures.append("distillation step")
+    if not train_cli_ok:
+        failures.append("training CLI (cli/train.py, -r resume)")
     if not guided_ok:
         failures.append("guided CLI (--inference_loss)")
     if not chain_n_ok:

@@ -25,9 +25,11 @@ targets behind ``config.TARGET_ALIASES``, so the reference's YAML files
 (``models/config.yaml``, the cldm YAMLs) instantiate unchanged.  Each
 returns a ``ModuleDef`` (a module class with its arguments, built only when
 asked), or a ``ModelSpec`` / ``ControlSpec`` whose ``load(ckpt_path)``
-builds the pipeline through ``checkpoint/loader.py``.  Torch-only knobs
-(``use_checkpoint``, ``legacy``, ``image_size`` of the UNet) are accepted
-and ignored; ``no_prompting`` means no adapter.  (``build_unet`` is taken by
+builds the pipeline through ``checkpoint/loader.py``.  ``use_checkpoint``
+turns on the UNet's activation checkpointing (JAX's ``remat``; the seeded
+``build_trainer`` keeps it off, as ``tools/bench_train.py`` does);
+``legacy`` and the UNet's ``image_size`` are accepted and ignored;
+``no_prompting`` means no adapter.  (``build_unet`` is taken by
 the seeded full-width UNet above, so the UNet's config builder is
 ``build_unet_from_config``.)
 """
@@ -201,6 +203,8 @@ def build_unet_from_config(dtype=torch.bfloat16, **p) -> ModuleDef:
         use_time_adapter=p.get("use_time_adapter", False),
         # the fused GroupNorm+SiLU (K4): the production configuration
         fused_norm_silu=p.get("fused_norm_silu", True),
+        # activation checkpointing
+        remat=p.get("use_checkpoint", False),
         dtype=dtype))
 
 
@@ -272,9 +276,9 @@ def _params(p, key) -> Dict[str, Any]:
 
 @dataclasses.dataclass
 class ModelSpec:
-    """A parsed LatentDiffusion config: module definitions, what inference
-    reads and the distillation recipe (the other training knobs stay in
-    ``raw``, the params block as parsed); ``load`` builds the pipeline."""
+    """A parsed LatentDiffusion config: module definitions and the training
+    knobs of JAX's ``ModelSpec`` (``fgdm_tpu/builders.py:84-113``), with
+    ``raw`` the params block as parsed; ``load`` builds the pipeline."""
 
     unet_def: ModuleDef
     vae_def: ModuleDef
@@ -282,13 +286,43 @@ class ModelSpec:
     schedule_args: Dict[str, Any]
     conditioning_key: str = "crossattn"
     scale_factor: float = 0.18215
+    image_size: int = 32
+    base_learning_rate: float = 1e-5
+    use_ema: bool = False
+    freeze_backbone: bool = False
     apply_distill_loss: bool = False
     distill_every_n_step: int = 10
+    monitor: str = "val/loss_simple_ema"
     ckpt_path: Optional[str] = None
+    scheduler_config: Optional[Dict[str, Any]] = None
+    parameterization: str = "eps"
+    # the condition-synthesis flags (reference ddpm.py:137-150)
+    use_depth: bool = False
+    use_normal: bool = False
+    use_sketch: bool = False
+    use_hed: bool = False
+    sketch_to_normal: bool = False
+    img_factor_train: bool = False
+    scale_by_std: bool = False
     raw: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def schedule(self) -> DiffusionSchedule:
         return DiffusionSchedule.create(**self.schedule_args)
+
+    def condition_kind(self) -> Optional[str]:
+        """The condition-synthesis kind of the config's flags
+        (``ddpm.py:137-150``; JAX ``train/condition.py:74-89``).  A seg
+        config sets none of them: its colourised label map is the target
+        (None)."""
+        if self.sketch_to_normal:
+            return "sketch_to_normal"
+        if self.use_sketch:
+            return "sketch_hed" if self.use_hed else "sketch"
+        if self.use_depth and self.use_normal:
+            return "normal"
+        if self.use_depth:
+            return "depth"
+        return None
 
     def load(self, ckpt_path: Optional[str] = None, device=None
              ) -> LatentDiffusion:
@@ -314,9 +348,23 @@ def build_latent_diffusion(dtype=torch.bfloat16, **p) -> ModelSpec:
         schedule_args=_schedule_args(p),
         conditioning_key=p.get("conditioning_key", "crossattn"),
         scale_factor=p.get("scale_factor", 1.0),
+        image_size=p.get("image_size", 32),
+        base_learning_rate=p.get("base_learning_rate", 1e-5),
+        use_ema=p.get("use_ema", True),
+        freeze_backbone=p.get("freeze_backbone", False),
         apply_distill_loss=p.get("apply_distill_loss", False),
         distill_every_n_step=p.get("distill_every_n_step", 10),
+        monitor=p.get("monitor", "val/loss_simple_ema"),
         ckpt_path=p.get("ckpt_path"),
+        scheduler_config=p.get("scheduler_config"),
+        parameterization=p.get("parameterization", "eps"),
+        use_depth=p.get("use_depth", False),
+        use_normal=p.get("use_normal", False),
+        use_sketch=p.get("use_sketch", False),
+        use_hed=p.get("use_hed", False),
+        sketch_to_normal=p.get("sketch_to_normal", False),
+        img_factor_train=p.get("img_factor_train", False),
+        scale_by_std=p.get("scale_by_std", False),
         raw=p)
 
 

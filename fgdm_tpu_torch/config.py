@@ -9,8 +9,9 @@ strings to the port's builders, so the reference's own YAML files
 ``controlnet/models/cldm_v15_*.yaml``) instantiate unchanged.
 
 PyYAML is imported when a YAML is read, not when this module is.  The
-training targets (the dataset, the Lightning data module and image logger)
-are not ported and raise ``NotImplementedError``.
+training targets resolve as in ``fgdm_tpu/config.py:141-206``: the dataset
+to ``data.dataset.load_data``, the Lightning data module to its params dict
+and the image logger to a ``logdir -> train.metrics.ImageLogger`` factory.
 """
 
 from __future__ import annotations
@@ -125,12 +126,25 @@ def _identity(**params):
     return lambda x: x
 
 
-def _not_ported(target: str, item: int):
-    def build(**params):
-        raise NotImplementedError(
-            f"{target} is not ported yet (ROADMAP Queue A item {item})")
+def _build_load_data(**params):
+    from fgdm_tpu_torch.data.dataset import load_data
 
-    return build
+    return load_data(**params)
+
+
+def _data_module(**params):
+    """``main.DataModuleFromConfig``: the parsed data spec; the training CLI
+    builds its loaders from it."""
+    return dict(params)
+
+
+def _image_logger(**params):
+    """``main.ImageLogger``: a ``logdir -> ImageLogger`` factory."""
+    from fgdm_tpu_torch.train.metrics import ImageLogger
+
+    return lambda logdir: ImageLogger(
+        logdir, batch_frequency=params.get("batch_frequency", 800),
+        max_images=params.get("max_images", 8))
 
 
 TARGET_ALIASES: Dict[str, Callable[..., Any]] = {
@@ -152,12 +166,11 @@ TARGET_ALIASES: Dict[str, Callable[..., Any]] = {
     "ldm.models.autoencoder.NpleAutoencoderKL":
         _builder("build_autoencoder"),
     "ldm.modules.encoders.modules.FrozenCLIPEmbedder": _builder("build_clip"),
-    "ldm.data.semantic.load_data": _not_ported(
-        "ldm.data.semantic.load_data", 13),
+    "ldm.data.semantic.load_data": _build_load_data,
     "ldm.lr_scheduler.LambdaLinearScheduler": _build_lambda_linear,
     "torch.nn.Identity": _identity,
-    "main.DataModuleFromConfig": _not_ported("main.DataModuleFromConfig", 13),
-    "main.ImageLogger": _not_ported("main.ImageLogger", 13),
+    "main.DataModuleFromConfig": _data_module,
+    "main.ImageLogger": _image_logger,
     # the port's own dotted names resolve by import
 }
 

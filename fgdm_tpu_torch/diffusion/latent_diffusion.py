@@ -8,7 +8,8 @@ reference's conditioning router, with ``pcond`` as the adapter prompt,
 ``extra_pconds`` as the extra adapters' prompts, ``adapter_on=False`` for
 the frozen-SD path and ``capture`` for the attention maps; ``denoise_fn``
 closes over it for the samplers and ``capture_fn`` for the attention-guided
-sampler; ``q_sample`` is the schedule's.
+sampler; ``q_sample`` is the schedule's; ``calibrate_scale_by_std``
+(``:123-132``) is the ``scale_by_std`` calibration.
 """
 
 from __future__ import annotations
@@ -92,3 +93,17 @@ class LatentDiffusion:
 
     def q_sample(self, x_start, t, noise):
         return self.schedule.q_sample(x_start, t, noise)
+
+    def calibrate_scale_by_std(self, probe, eps: Optional[torch.Tensor] = None,
+                               generator: Optional[torch.Generator] = None
+                               ) -> "LatentDiffusion":
+        """``scale_by_std``: this pipeline (the same modules) with
+        ``scale_factor = 1 / std`` of the unscaled latents of ``probe``, the
+        population std in float32, as the reference calibrates on its first
+        training batch (``ddpm.py:580-597``).  The latents are a posterior
+        sample with ``eps`` or from ``generator``, else the mode."""
+        with torch.no_grad():
+            z = dataclasses.replace(self, scale_factor=1.0).encode_first_stage(
+                probe, eps=eps, generator=generator)
+            std = float(torch.std(z.float(), correction=0))
+        return dataclasses.replace(self, scale_factor=1.0 / std)

@@ -639,11 +639,13 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         do = do.contiguous()
-        if len(ctx.saved_tensors) == 5:
-            q, k, v, out, lse = ctx.saved_tensors
+        # read once: under activation checkpointing each read unpacks
+        saved = ctx.saved_tensors
+        if len(saved) == 5:
+            q, k, v, out, lse = saved
             return (*flash_attention_backward(q, k, v, out, lse, do,
                                               ctx.scale), None)
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        q, k, v = (t.detach().requires_grad_() for t in saved)
         with torch.enable_grad():
             out = attention_ref(q, k, v, ctx.scale).to(q.dtype)
         return (*torch.autograd.grad(out, (q, k, v), do), None)

@@ -23,6 +23,10 @@ blocks with skip concatenation, GroupNorm -> SiLU -> zero-conv head.
   ``"middle_block.1"``, ``"output_blocks.{i}.1"``).
 * Attention editing (``unet.py:91,185-196``): ``attn_editor`` reaches every
   attention layer with its block's place (prompt-to-prompt).
+* Activation checkpointing (``remat``, the config's ``use_checkpoint``,
+  ``unet.py:144-190``): ``torch.utils.checkpoint`` over each ResBlock and
+  each SpatialTransformer that neither captures nor edits.  The recompute
+  runs the kernels' forwards again, so their launch counts include it.
 
 Pixel attention and ``seq_axis`` are not ported and raise
 ``NotImplementedError``.
@@ -34,6 +38,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fgdm_tpu_torch import resolve_device
 from fgdm_tpu_torch.models.adapter import Adapter, TimeAdapter
@@ -61,26 +66,40 @@ def embed_timesteps(te: nn.ModuleList, timesteps, mc: int):
     return te[2](silu(te[0](timestep_embedding(timesteps, mc))))
 
 
+def _recompute(layer, *args):
+    # the blocks draw no random numbers: no RNG state to save and restore
+    return checkpoint(layer, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def run_block(block: nn.ModuleList, h, emb, context, capture=False,
-              maps=None, name: str = "", attn_editor=None):
+              maps=None, name: str = "", attn_editor=None,
+              remat: bool = False):
     """Apply one TimestepEmbedSequential-style block.  With ``capture`` its
     SpatialTransformer's self and cross maps go into ``maps = (selfattn,
     crossattn)`` under ``"{name}.{index in the block}"``.  ``attn_editor``
     ``(probs, is_cross, place)`` reaches every attention layer of the block
     with the block's place, ``"down"``, ``"mid"`` or ``"up"`` by the first
-    letter of ``name`` (``unet.py:185-196``)."""
+    letter of ``name`` (``unet.py:185-196``).  ``remat`` recomputes the
+    ResBlocks, and the SpatialTransformers unless they capture or edit, in
+    the backward instead of keeping their activations (``unet.py:144-190``);
+    it acts only where autograd records."""
     editor = None
     if attn_editor is not None:
         place = {"i": "down", "m": "mid", "o": "up"}[name[0]]
 
         def editor(p, is_cross):
             return attn_editor(p, is_cross, place)
+    remat = remat and torch.is_grad_enabled()
     for j, layer in enumerate(block):
         if isinstance(layer, ResBlock):
-            h = layer(h, emb)
+            h = _recompute(layer, h, emb) if remat else layer(h, emb)
         elif isinstance(layer, SpatialTransformer):
             if not capture:
-                h = layer(h, context=context, attn_editor=editor)
+                if remat and editor is None:
+                    h = _recompute(layer, h, context)
+                else:
+                    h = layer(h, context=context, attn_editor=editor)
                 continue
             h, probs = layer(h, context=context, capture=capture,
                              attn_editor=editor)
@@ -150,7 +169,8 @@ class UNetModel(nn.Module):
                  use_spatial_transformer: bool = True,
                  dtype: torch.dtype = torch.bfloat16,
                  fused_norm_silu: bool = False,
-                 seq_axis: Optional[str] = None, device=None):
+                 seq_axis: Optional[str] = None, remat: bool = False,
+                 device=None):
         super().__init__()
         if not use_spatial_transformer:
             raise NotImplementedError("pixel attention is not ported yet")
@@ -158,6 +178,7 @@ class UNetModel(nn.Module):
             raise NotImplementedError("context parallelism is not ported yet")
         mc = model_channels
         self.model_channels, self.dtype = mc, dtype
+        self.remat = remat
         self.in_channels = in_channels
         with torch.device(resolve_device(device)):
             self.time_embed = time_embed(mc, dtype)
@@ -230,7 +251,7 @@ class UNetModel(nn.Module):
 
         def block(blk, h, name):
             return run_block(blk, h, emb, context, capture, maps, name,
-                             attn_editor)
+                             attn_editor, self.remat)
 
         hs = []
         for i, blk in enumerate(self.input_blocks):

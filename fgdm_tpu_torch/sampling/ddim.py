@@ -10,7 +10,9 @@ turns on the attention-alignment inner loop of ``sampling/guidance.py``
 img2img is ``stochastic_encode`` then ``ddim_decode`` (``ddim.py:210-246``,
 reference ``ddim.py:378-413``); ``augmented_cfg_eps`` and
 ``composable_cfg_eps`` are the three-way and composable guidance of
-``ddim.py:249-289``.
+``ddim.py:249-289``.  ``ddim_sample`` also takes JAX's ``log_every_t``
+(the x and x0-hat intermediates), ``mask``/``x0``/``schedule`` inpainting
+and ``ucg_schedule`` (``ddim.py:122-187``), as ``log_images`` uses them.
 
 Noise comes from explicit ``torch.Generator``s.  With ``slot_seeds`` every
 draw is per slot (``slot_noise``): slot b's stream depends only on its own
@@ -20,7 +22,7 @@ bits; the tests inject x_T instead.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +38,7 @@ DenoiseFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
 # tags separating a slot's noise streams
 SLOT_INIT_TAG = 0   # x_T
 SLOT_STEP_TAG = 1   # per-step sigma noise (eta > 0)
+SLOT_MASK_TAG = 2   # inpainting's re-noise of x0
 
 
 def derive_seed(*parts: int) -> int:
@@ -144,8 +147,18 @@ def ddim_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
                 generator: Optional[torch.Generator] = None,
                 slot_seeds: Optional[Sequence[int]] = None,
                 device=None,
-                guidance_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Full DDIM loop; returns x_0 (float32, ``shape``).
+                guidance_fn: Optional[Callable] = None,
+                log_every_t: int = 0,
+                mask: Optional[torch.Tensor] = None,
+                x0: Optional[torch.Tensor] = None,
+                schedule=None,
+                mask_noise: Union[None, torch.Tensor,
+                                  Callable[[int], torch.Tensor]] = None,
+                ucg_schedule: Optional[Sequence[float]] = None):
+    """Full DDIM loop; returns x_0 (float32, ``shape``), or ``(x_0,
+    intermediates)`` when ``log_every_t`` is set: ``"x_inter"`` and
+    ``"pred_x0"`` stack x and x0-hat after every ``log_every_t``-th step
+    (from the first), ``[S', *shape]``.
 
     Noise: see ``initial_noise``; with eta > 0 the step noise comes from the
     same source (per slot, or ``generator``).  ``guidance_fn`` ``(x, t,
@@ -153,25 +166,51 @@ def ddim_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
     guided CFG of ``guidance.guided_cfg_eps`` at sampling step ``i`` (0 at
     the noisiest step); the loop then runs under ``torch.no_grad()``, since
     the guidance differentiates through the UNet, else under
-    ``torch.inference_mode()``."""
+    ``torch.inference_mode()``.
+
+    Inpainting (``ddim.py:150-155`` of the reference): with ``mask`` (1
+    marks kept regions, ``[B, 1, h, w]``), ``x0`` and the DDPM ``schedule``
+    every step first sets ``x = q_sample(x0, t, n) * mask + (1 - mask) * x``;
+    ``mask_noise`` gives n for step i (a ``[S, *shape]`` tensor or a
+    callable of i), else it is drawn per slot or from ``generator`` before
+    that step's eta noise.  ``ucg_schedule[i]`` replaces ``cfg_scale`` at
+    step i (cldm's ``ddim_hacked``)."""
+    if mask is not None and (x0 is None or schedule is None):
+        raise ValueError("inpainting needs x0 and the DDPM schedule")
     mode = torch.inference_mode()
     if guidance_fn is not None:
         from fgdm_tpu_torch.sampling.guidance import guided_cfg_eps
 
         mode = torch.no_grad()
+    inter = {"x_inter": [], "pred_x0": []}
     with mode:
         x, device = initial_noise(shape, x_T, generator, slot_seeds, device)
         sched = sched.to(device)
+        if mask is not None:
+            schedule = schedule.to(device)
         per_slot = slot_seeds is not None
         steps = sched.num_steps
         for i in range(steps):
             index = steps - 1 - i
             t = sched.timesteps[index].expand(shape[0])
+            if mask is not None:
+                if mask_noise is None:
+                    n = (slot_noise(slot_seeds, shape, SLOT_MASK_TAG, device,
+                                    i)
+                         if per_slot else
+                         torch.randn(shape, generator=generator,
+                                     device=device))
+                else:
+                    n = mask_noise(i) if callable(mask_noise) else \
+                        mask_noise[i]
+                x = (schedule.q_sample(x0, t, n.to(device)) * mask
+                     + (1.0 - mask) * x)
+            scale = cfg_scale if ucg_schedule is None else ucg_schedule[i]
             if guidance_fn is not None:
                 e_t = guided_cfg_eps(guidance_fn, x, t, cond, uncond,
-                                     cfg_scale, i)
+                                     scale, i)
             else:
-                e_t = cfg_eps(denoise_fn, x, t, cond, uncond, cfg_scale)
+                e_t = cfg_eps(denoise_fn, x, t, cond, uncond, scale)
             noise = None
             if sched.eta != 0.0:
                 noise = (slot_noise(slot_seeds, shape, SLOT_STEP_TAG, device,
@@ -179,8 +218,13 @@ def ddim_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
                          if per_slot else
                          torch.randn(shape, generator=generator,
                                      device=device))
-            x, _ = ddim_step(x, e_t, index, sched, noise)
-    return x
+            x, pred_x0 = ddim_step(x, e_t, index, sched, noise)
+            if log_every_t and i % log_every_t == 0:
+                inter["x_inter"].append(x)
+                inter["pred_x0"].append(pred_x0)
+    if not log_every_t:
+        return x
+    return x, {k: torch.stack(v) for k, v in inter.items()}
 
 
 def _bshape(v, x):

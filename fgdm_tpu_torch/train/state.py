@@ -19,7 +19,9 @@ Counterpart of ``fgdm_tpu/train/state.py``:
   in place; the optimizer's ``step`` reads their ``.grad``.
 * ``randomize_zero_heads`` (``:52-73``), seeded by crc32 of the name.
 
-``state_to_pytree``/``state_from_pytree`` (orbax resume) come with the CLI.
+* ``state_to_pytree``/``state_from_pytree`` (``:169-199``): the whole
+  state as a tree of tensors, and back in place, for
+  ``checkpoint/state_io.py`` (JAX's orbax resume).
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ import torch
 from torch import nn
 
 __all__ = ["adapter_filter", "randomize_zero_heads", "global_norm",
-           "EmaState", "AdamW", "Optimizer", "make_adamw", "TrainState"]
+           "EmaState", "AdamW", "Optimizer", "make_adamw", "TrainState",
+           "state_to_pytree", "state_from_pytree"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -155,6 +158,21 @@ class Optimizer:
             p.grad = None
         self.count += 1
 
+    def state_dict(self) -> Dict:
+        """torch AdamW's state, the update count and the accumulation."""
+        return {"inner": self.inner.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "acc": self.acc}
+
+    @torch.no_grad()
+    def load_state_dict(self, tree: Dict) -> None:
+        """Restore ``state_dict()``; the accumulation buffers are copied
+        into in place, AdamW's moments moved to the parameters' device."""
+        self.inner.load_state_dict(tree["inner"])
+        self.count, self.mini_step = tree["count"], tree["mini_step"]
+        if self.acc is not None:
+            for a, v in zip(self.acc, tree["acc"]):
+                a.copy_(v)
+
 
 def make_adamw(lr: float, schedule_fn: Optional[Callable] = None,
                weight_decay: float = 0.01, b1: float = 0.9, b2: float = 0.999,
@@ -216,3 +234,39 @@ class TrainState:
         return TrainState(model, params, tx.init(params),
                           EmaState.create(params, ema_decay) if use_ema
                           else None)
+
+
+def state_to_pytree(state: TrainState, include_frozen: bool = True) -> Dict:
+    """The whole train state, as JAX's ``state_to_pytree`` (``:169-185``):
+    ``step``, the trainable ``params``, ``opt_state`` (the optimizer's
+    ``state_dict``), with ``include_frozen`` the ``frozen`` parameters, and
+    with EMA ``ema`` (``shadow`` and ``num_updates``).  Tensors are the live
+    ones, detached: save it before the next step changes them."""
+    tree = {"step": state.step,
+            "params": {k: p.detach() for k, p in state.params.items()},
+            "opt_state": state.optimizer.state_dict()}
+    if include_frozen:
+        tree["frozen"] = {k: p.detach() for k, p in state.frozen.items()}
+    if state.ema is not None:
+        tree["ema"] = {"shadow": state.ema.shadow,
+                       "num_updates": state.ema.num_updates}
+    return tree
+
+
+@torch.no_grad()
+def state_from_pytree(state: TrainState, tree: Dict) -> TrainState:
+    """Restore ``state_to_pytree``'s output into ``state``, in place: every
+    saved tensor is copied into the live one (a host tree costs no second
+    copy on the device); what was not saved (the frozen parameters without
+    ``include_frozen``) keeps its value."""
+    live = dict(state.model.named_parameters())
+    for part in ("params", "frozen"):
+        for k, v in tree.get(part, {}).items():
+            live[k].copy_(v)
+    state.optimizer.load_state_dict(tree["opt_state"])
+    if state.ema is not None and "ema" in tree:
+        for k, v in tree["ema"]["shadow"].items():
+            state.ema.shadow[k].copy_(v)
+        state.ema.num_updates = int(tree["ema"]["num_updates"])
+    state.step = int(tree["step"])
+    return state

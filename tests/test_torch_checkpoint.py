@@ -559,9 +559,31 @@ def test_config_reads_floats_and_overrides_as_jax():
     ("ldm.data.semantic.load_data", 13),
     ("main.DataModuleFromConfig", 13),
     ("main.ImageLogger", 13)])
-def test_unported_targets_raise(target, item):
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}\\b"):
-        config.instantiate_from_config({"target": target, "params": {}})
+def test_unported_targets_raise(target, item, tmp_path):
+    """The training targets of ROADMAP Queue A item ``item`` resolve as the
+    JAX package's: the dataset (a missing directory raises in both), the
+    data module's params dict and the image logger's factory."""
+    params = {"ldm.data.semantic.load_data": {
+                  "dataset_mode": "coco", "data_dir": str(tmp_path / "none"),
+                  "image_size": 32},
+              "main.DataModuleFromConfig": {"batch_size": 8, "wrap": True},
+              "main.ImageLogger": {"batch_frequency": 7,
+                                   "max_images": 3}}[target]
+    spec = {"target": target, "params": params}
+    if target == "ldm.data.semantic.load_data":
+        for cfg in (config, jconfig):
+            with pytest.raises(FileNotFoundError):
+                cfg.instantiate_from_config(spec)
+        return
+    got = config.instantiate_from_config(spec)
+    want = jconfig.instantiate_from_config(spec)
+    if target == "main.ImageLogger":
+        got, want = got(str(tmp_path / "a")), want(str(tmp_path / "b"))
+        assert (got.freq, got.max_images) == (want.freq, want.max_images)
+        assert os.path.relpath(got.dir, tmp_path / "a") == os.path.relpath(
+            want.dir, tmp_path / "b")
+    else:
+        assert got == want == params
 
 
 def test_targets_resolve_like_jax():
