@@ -139,12 +139,31 @@ it builds the port's kernels from the sources in this checkout (one
    keys, the resume, the checkpoints (frozen parameters bit-equal between
    the first and the last, the adapter moved) and that K1 with lse, K2,
    K4, K5 and K6 launched; prints the load, step, image-log, save and
-   resume times and the peak memory; deletes the checkpoints;
+   resume times and the peak memory; deletes the checkpoints; then, on a
+   fresh seeded tree, the recipes of ``cli/recipes.py``, counts reset
+   before each: ControlNet fine-tuning (``build_control``/``train_control``:
+   the UNet frozen under ``remat``, AdamW on the ControlNet, ``sd_locked``,
+   512^2, batch 2, 12 steps, the checkpoint round trip, 2 steps more;
+   checks the losses, that the first step's gradient reaches the zero convs
+   and not the ControlNet's interior and the second's the interior, the
+   ControlNet moved and the UNet, VAE and CLIP bit-identical, K1 with lse,
+   K3, K4, and K5/K6 at [2,8,4096,40] and [2,8,1024,80]; one loss and its
+   gradients kernels on vs plain), joint two-factor training
+   (``SeqTwoUNet(image_adapter, remat)``, 256^2, batch 4, 14 steps, the
+   round trip after step 11; ``unet1.adapter`` and the channel mapper
+   moved, both backbones bit-identical, K1 with lse, K2, K4, K5, K6; one
+   loss and its gradients kernels on vs plain), co-denoising
+   (``joint_denoise_fn`` under ``ddim_sample``, 20 steps at CFG 7.5, batch
+   2, 32^2 of 8 channels; both halves finite with nonzero std; one forward
+   kernels on vs plain) and one forward of a UNet with the config's
+   variants (pixel attention in the new qkv order, ``resblock_updown``,
+   ``num_classes``) kernels on vs plain, no K1;
 8. holds every kernel against its plain version, and times it, at every
    other shape that a path above launched (the chain, the training step,
    the served batch, the CLI, seg2image's sampling, the guided CLI, the
    distillation step, the N-factor CLI, ptp, img2img, the ancestral
-   sampler, the tiled VAE, the training CLI): K1-K3 and the combine pass
+   sampler, the tiled VAE, the training CLI, the two recipes, co-denoising,
+   the variant UNet): K1-K3 and the combine pass
    at each (batch, heads, N, d), K5 and K6 at each (batch, heads, N, d), K7 and its pre-pass at
    each conv launch key, K4 at each (shape, eps), each held once, under
    the first path that launched it; every row then reads its path's launch
@@ -248,13 +267,13 @@ K1_SWEEP = [(2, 8, 4096, 40), (8, 8, 4096, 40), (8, 8, 1024, 40),
 # chain's two VAE decodes (256^2 and 512^2 images)
 COMBINE_CASES = [(1024, 8, K2), (4096, 2, K3)]
 # (label suffix, batch, heads, Nq, Nk, d, path): backward shapes, each
-# giving a K5 (dQ) and a K6 (dK/dV) row: the training step's, the 512^2
-# training shapes (no path here; they exercise N=4096 and d=80), and a
-# ragged query length the gate admits (Nq != Nk, Nq % 64 != 0; no path).
+# giving a K5 (dQ) and a K6 (dK/dV) row: the training step's, the
+# ControlNet recipe's 512^2 shapes (N=4096 and d=80), and a ragged query
+# length the gate admits (Nq != Nk, Nq % 64 != 0; no path).
 BWD_CASES = [
     ("d40 N1024 [8,8] train", 8, 8, 1024, 1024, 40, "train"),
-    ("d40 N4096 [2,8]", 2, 8, 4096, 4096, 40, None),
-    ("d80 N1024 [2,8]", 2, 8, 1024, 1024, 80, None),
+    ("d40 N4096 [2,8] control", 2, 8, 4096, 4096, 40, "control"),
+    ("d80 N1024 [2,8] control", 2, 8, 1024, 1024, 80, "control"),
     ("d40 Nq520 Nk1024 [1,3] ragged", 1, 3, 520, 1024, 40, None),
 ]
 # The reference's kernel switches the port reads, with their defaults.
@@ -1774,12 +1793,17 @@ def adapter_grads(ld, state, batch, draws, distill=False):
     return {k: v.item() for k, v in parts.items()}, grads
 
 
-def frozen_checksum(state):
-    """One int64 per frozen parameter: the sum of its bit patterns."""
+def checksum(params):
+    """One int64 per float32 tensor of ``params``: the sum of its bit
+    patterns."""
     import torch
 
     return torch.stack([p.detach().view(torch.int32).sum(dtype=torch.int64)
-                        for p in state.frozen.values()])
+                        for p in params])
+
+
+def frozen_checksum(state):
+    return checksum(state.frozen.values())
 
 
 def phase_train():
@@ -2181,6 +2205,329 @@ def phase_train_cli(root):
         + f"; resume {resumed.group(1) if resumed else '?'} s; peak memory "
         f"{peak_gib:.2f} GiB; {card_line()}")
     log_counts("train_cli", counts)
+    return ok, counts
+
+
+def record_grad_maxima(state, groups, n):
+    """Wrap ``state.optimizer.step`` so that each of its first ``n`` calls
+    records ``{group: max|grad|}`` over each group of trainable names (a
+    missing gradient counts 0) before the update."""
+    import torch
+
+    seen, step = [], state.optimizer.step
+
+    def recording():
+        if len(seen) < n:
+            seen.append({g: torch.stack([
+                state.params[k].grad.abs().max()
+                if state.params[k].grad is not None
+                else state.params[k].new_zeros(()) for k in names]
+            ).max().item() for g, names in groups.items()})
+        return step()
+
+    state.optimizer.step = recording
+    return seen
+
+
+def trainable_grads(state, loss_fn):
+    """Loss terms and the trainable gradients of one ``loss_fn()`` forward
+    and backward (no optimizer step)."""
+    loss, parts = loss_fn()
+    loss.backward()
+    grads = {k: p.grad.float() for k, p in state.params.items()
+             if p.grad is not None}
+    for p in state.params.values():
+        p.grad = None
+    return {k: float(v.detach()) for k, v in parts.items()}, grads
+
+
+def grads_on_off(label, state, loss_fn, key):
+    """One loss and its trainable gradients, kernels on vs plain."""
+    parts_on, g_on = trainable_grads(state, loss_fn)
+    with plain_path():
+        parts_off, g_off = trainable_grads(state, loss_fn)
+    loss_rel = abs(parts_on[key] - parts_off[key]) / abs(parts_off[key])
+    g_err = max((g_on[k] - g_off[k]).abs().max().item() for k in g_off)
+    g_scale = max(g.abs().max().item() for g in g_off.values())
+    ok = (set(g_on) == set(g_off) and math.isfinite(loss_rel)
+          and loss_rel <= LOSS_TOL and g_scale > 0
+          and g_err / g_scale <= UNET_TOL)
+    log(f"{label} kernels on vs plain: {key} {parts_on[key]:.6f} vs "
+        f"{parts_off[key]:.6f} (rel {loss_rel:.3e}, tol {LOSS_TOL}); "
+        f"trainable grads max|d|/max|ref| = {g_err / max(g_scale, 1e-30):.3e}"
+        f" (tol {UNET_TOL}); {'OK' if ok else 'FAIL'}")
+    return ok
+
+
+@contextlib.contextmanager
+def coco_env(tree):
+    """``FGDM_COCO_DIR`` set to ``tree`` for the recipes' loaders."""
+    saved = os.environ.get("FGDM_COCO_DIR")
+    os.environ["FGDM_COCO_DIR"] = tree
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["FGDM_COCO_DIR"]
+        else:
+            os.environ["FGDM_COCO_DIR"] = saved
+
+
+def _launched(counts):
+    n = {k: sum(c.values()) for k, c in counts.items()}
+    kinds = {attn_kernel(k[4], k[3]) for k in counts["attn"]}
+    return n, any(k[5] for k in counts["attn"]), kinds
+
+
+def _recipe_log(name, out, build_s):
+    ms = out["step_ms"]
+    warm = ms[2:-2] if name == "control" else ms[2:]
+    mean = sum(warm) / len(warm)
+    log(f"{name}: built in {build_s:.1f}s; {out['steps']} steps in "
+        f"{out['wall_s']}s, losses {out['losses']}; step ms {ms}; warm "
+        f"{mean:.1f} ms/step (mean of {len(warm)}, to the metrics' "
+        f"read-back, host clock), {out['batch'] * 1e3 / mean:.2f} images/s "
+        f"at batch {out['batch']}, {out['res']}^2; peak memory "
+        f"{out['peak_gib']} GiB; {card_line()}")
+
+
+def phase_control(root, tree):
+    """ControlNet fine-tuning at full width (``cli.recipes control``: the
+    UNet frozen under ``remat``, the VAE and CLIP outside the optimizer,
+    AdamW on the ControlNet, ``sd_locked``) at 512^2, batch 2, 12 steps, the
+    checkpoint round trip, 2 more steps from a fresh loader; counts reset
+    just before.  Checks the losses, that the first step's gradient reaches
+    the zero convs and not the ControlNet's interior (all-zero zero convs)
+    and the second step's reaches the interior, that the control branch
+    moved and the UNet, VAE and CLIP did not, the launches; then one loss
+    and its ControlNet gradients kernels on vs plain."""
+    import torch
+    from fgdm_tpu_torch.cli import recipes
+    from fgdm_tpu_torch.diffusion.losses import diffusion_loss
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cldm, state = recipes.build_control("cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    zero = [k for k in state.params if k.startswith(
+        ("control.zero_convs.", "control.middle_block_out."))]
+    interior = [k for k in state.params if k not in zero]
+    n_train = sum(p.numel() for p in state.params.values())
+    n_frozen = sum(p.numel() for p in state.frozen.values())
+    log(f"control: {n_train} trainable (ControlNet) and {n_frozen} frozen "
+        f"UNet parameters; zero convs all zero "
+        f"{not any(state.params[k].any() for k in zero)}")
+    control0 = checksum(cldm.control.parameters())
+    frozen0 = frozen_checksum(state)
+    others0 = [checksum(m.parameters()) for m in (cldm.vae, cldm.clip)]
+    maxima = record_grad_maxima(state, {"zero": zero, "interior": interior},
+                                2)
+    reset_counts()
+    with coco_env(tree):
+        out = recipes.train_control(cldm, state,
+                                    logdir=os.path.join(root, "hw_control"))
+    counts = read_counts()
+    _recipe_log("control", out, build_s)
+    moved = not torch.equal(checksum(cldm.control.parameters()), control0)
+    frozen_same = torch.equal(frozen_checksum(state), frozen0)
+    others_same = all(torch.equal(checksum(m.parameters()), c)
+                      for m, c in zip((cldm.vae, cldm.clip), others0))
+    grads_ok = (len(maxima) == 2 and maxima[0]["zero"] > 0
+                and maxima[0]["interior"] == 0
+                and maxima[1]["interior"] > 0)
+    n, lse, kinds = _launched(counts)
+    bwd = [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80)]
+    launched = (lse and K3 in kinds and n["gn"] > 0 and all(
+        counts[k].get(key, 0) > 0 for key in bwd
+        for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")))
+    ok = (out["steps"] == 14 and all(math.isfinite(x) for x in out["losses"])
+          and grads_ok and moved and frozen_same and others_same
+          and launched)
+    log(f"control: max|grad| step 1 zero convs {maxima[0]['zero']:.3e}, "
+        f"interior {maxima[0]['interior']:.3e}; step 2 interior "
+        f"{maxima[1]['interior']:.3e}; control moved {moved}; UNet "
+        f"bit-identical {frozen_same}, VAE and CLIP {others_same}; round "
+        f"trip equal (checked in the recipe); K1 with lse {lse}, K3 "
+        f"{K3 in kinds}, K4 {n['gn']}, K5 {n['flash_attn_bwd_dq']}, K6 "
+        f"{n['flash_attn_bwd_dkv']} launches; {'OK' if ok else 'FAIL'}")
+    log_counts("control", counts)
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b = 2
+    image = torch.rand(b, 3, 512, 512, device="cuda", generator=gen) * 2 - 1
+    hint = torch.rand(b, 3, 512, 512, device="cuda", generator=gen)
+    t = torch.randint(0, 1000, (b,), device="cuda", generator=gen)
+    noise = torch.randn(b, 4, 64, 64, device="cuda", generator=gen)
+    with torch.no_grad():
+        x0 = cldm.encode_first_stage(image)
+        ctx = torch.randn(b, 77, 768, device="cuda", generator=gen)
+    cmp_ok = grads_on_off("control", state, lambda: diffusion_loss(
+        cldm, x0, {"c_crossattn": ctx, "c_concat": hint}, t=t, noise=noise),
+        "loss")
+    del cldm, state, x0
+    return ok and cmp_ok, counts
+
+
+def phase_joint(root, tree):
+    """Joint two-factor training at full width (``cli.recipes joint``:
+    ``SeqTwoUNet(image_adapter, remat)``, both halves VAE encodes) at
+    256^2, batch 4, 14 steps with the round trip after step 11; counts
+    reset just before.  Checks the losses, that ``unet1.adapter`` and the
+    channel mapper moved and both backbones did not, the launches; then one
+    loss and its adapter gradients kernels on vs plain.  Returns the
+    trained model and the CLIP for the co-denoising phase."""
+    import torch
+    from fgdm_tpu_torch.checkpoint.loader import SD_SCHEDULE
+    from fgdm_tpu_torch.cli import recipes
+    from fgdm_tpu_torch.core.schedules import DiffusionSchedule
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, state, vae, clip = recipes.build_joint("cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params0 = {k: p.detach().clone() for k, p in state.params.items()}
+    frozen0 = frozen_checksum(state)
+    reset_counts()
+    with coco_env(tree):
+        out = recipes.train_joint(model, state, vae, clip,
+                                  logdir=os.path.join(root, "hw_joint"))
+    counts = read_counts()
+    _recipe_log("joint", out, build_s)
+    moved = {g: any(not torch.equal(p, params0[k])
+                    for k, p in state.params.items() if k.startswith(g))
+             for g in ("unet1.adapter.", "channel_mapper.")}
+    frozen_same = torch.equal(frozen_checksum(state), frozen0)
+    n, lse, kinds = _launched(counts)
+    launched = (lse and K2 in kinds and n["gn"] > 0
+                and n["flash_attn_bwd_dq"] > 0 and n["flash_attn_bwd_dkv"] > 0)
+    ok = (out["steps"] == 14 and all(math.isfinite(x) for x in out["losses"])
+          and all(moved.values()) and frozen_same and launched)
+    log(f"joint: moved {moved}; both backbones bit-identical {frozen_same}; "
+        f"round trip equal (checked in the recipe); K1 with lse {lse}, K2 "
+        f"{K2 in kinds}, K4 {n['gn']}, K5 {n['flash_attn_bwd_dq']}, K6 "
+        f"{n['flash_attn_bwd_dkv']} launches; {'OK' if ok else 'FAIL'}")
+    log_counts("joint", counts)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b = 4
+    lat = torch.randn(b, 8, 32, 32, device="cuda", generator=gen)
+    ctx = torch.randn(b, 77, 768, device="cuda", generator=gen)
+    t = torch.randint(0, 1000, (b,), device="cuda", generator=gen)
+    noise = torch.randn(b, 4, 32, 32, device="cuda", generator=gen)
+    sched = DiffusionSchedule.create(**SD_SCHEDULE).to("cuda")
+    fc = model.factor_channels
+
+    def loss_fn():   # the joint step's loss on injected draws
+        x_in = torch.cat([sched.q_sample(lat[:, :fc], t, noise),
+                          lat[:, fc:]], dim=1)
+        eps = model(x_in, t, context=ctx, cond_map=lat[:, fc:])
+        loss = ((eps[:, :fc].float() - noise) ** 2).mean()
+        return loss, {"train/loss": loss.detach()}
+
+    cmp_ok = grads_on_off("joint", state, loss_fn, "train/loss")
+    del state, vae
+    return ok and cmp_ok, counts, model, clip
+
+
+def phase_codenoise(model, clip):
+    """Co-denoising of both factors (``joint_denoise_fn`` under
+    ``ddim_sample``): 20 DDIM steps at CFG 7.5, batch 2, a 32^2 latent of
+    8 channels, the joint phase's model at full width; counts reset just
+    before.  Checks both halves finite with nonzero std, K1 launched, and
+    one ``SeqTwoUNet`` forward kernels on vs plain."""
+    import torch
+    from fgdm_tpu_torch.builders import PROMPTS
+    from fgdm_tpu_torch.checkpoint.loader import SD_SCHEDULE
+    from fgdm_tpu_torch.core.schedules import DDIMSchedule, DiffusionSchedule
+    from fgdm_tpu_torch.models.clip import CLIPTokenizer
+    from fgdm_tpu_torch.models.seq_two_unet import joint_denoise_fn
+    from fgdm_tpu_torch.sampling.ddim import ddim_sample
+
+    tok = CLIPTokenizer()
+    with torch.no_grad():
+        ctx = clip(tok(PROMPTS[:2]).cuda())
+        uc = clip(tok(["", ""]).cuda())
+    sched = DDIMSchedule.create(DiffusionSchedule.create(**SD_SCHEDULE), 20)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x_T = torch.randn(2, 8, 32, 32, device="cuda", generator=gen)
+    fn = joint_denoise_fn(model)
+    runs = []
+    for run in range(2):   # the first is the counted run
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = ddim_sample(fn, (2, 8, 32, 32), sched,
+                              {"c_crossattn": ctx}, {"c_crossattn": uc},
+                              cfg_scale=7.5, x_T=x_T, device="cuda")
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        if run == 0:
+            counts = read_counts()
+    halves = out[:, :4], out[:, 4:]
+    stds = [h.float().std().item() for h in halves]
+    finite = bool(torch.isfinite(out).all())
+    n, lse, kinds = _launched(counts)
+    t = torch.tensor([501, 501, 501, 501], device="cuda")
+    x = torch.randn(4, 8, 32, 32, device="cuda", generator=gen)
+    c4 = torch.cat([uc, ctx])
+    with torch.no_grad():
+        on = model(x, t, context=c4)
+        with plain_path():
+            off = model(x, t, context=c4)
+    rel = _rel(on, off)
+    ok = (finite and all(s > 0 for s in stds) and K1 in kinds
+          and math.isfinite(rel) and rel <= UNET_TOL)
+    log(f"codenoise: 20 DDIM steps at CFG 7.5, batch 2, [2,8,32,32] in "
+        f"{runs[0]:.3f}s (counted run) and {runs[1]:.3f}s (host clock); "
+        f"finite {finite}, std image half {stds[0]:.4f}, condition half "
+        f"{stds[1]:.4f}; K1 {n['attn']} launches (with lse {lse}); "
+        f"SeqTwoUNet forward [4,8,32,32] kernels on vs plain max|d|/max|ref| "
+        f"= {rel:.3e} (tol {UNET_TOL}); {'OK' if ok else 'FAIL'}")
+    log_counts("codenoise", counts)
+    return ok, counts
+
+
+def phase_variant():
+    """One forward of a UNet at SD-1.4 width with the config-reachable
+    variants on (pixel attention in the new qkv order, ``resblock_updown``,
+    ``num_classes`` with labels; fused GroupNorm+SiLU), batch 2 at 32^2,
+    counts reset just before; kernels on vs plain.  Pixel attention is torch
+    ops in both packages: no K1 may run."""
+    import torch
+    from fgdm_tpu_torch.checkpoint.loader import sd_unet, seeded_init_
+
+    unet = seeded_init_(sd_unet(
+        torch.bfloat16, "cuda", use_adapter=False, context_dim=None,
+        use_spatial_transformer=False, use_new_attention_order=True,
+        resblock_updown=True, num_classes=1000), 15, 0.02)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn(2, 4, 32, 32, device="cuda", generator=gen)
+    t = torch.tensor([17, 733], device="cuda")
+    y = torch.tensor([207, 981], device="cuda")
+    with torch.inference_mode():
+        reset_counts()
+        on = unet(x, t, y=y)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        with plain_path():
+            off = unet(x, t, y=y)
+    rel = _rel(on, off)
+    n = {k: sum(c.values()) for k, c in counts.items()}
+    ok = (bool(torch.isfinite(on).all()) and math.isfinite(rel)
+          and rel <= UNET_TOL and n["gn"] > 0 and n["attn"] == 0)
+    log(f"variant UNet (pixel attention, new qkv order, resblock_updown, "
+        f"num_classes) forward [2,4,32,32]: kernels on vs plain "
+        f"max|d|/max|ref| = {rel:.3e} (tol {UNET_TOL}); K4 {n['gn']}, K1 "
+        f"{n['attn']} launches; {'OK' if ok else 'FAIL'}")
+    log_counts("variant", counts)
+    del unet
     return ok, counts
 
 
@@ -2947,13 +3294,38 @@ def main():
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    t3 = time.perf_counter()
     log(f"training phase {t1 - t0:.1f}s, distillation phase "
-        f"{t2 - t1:.1f}s, training CLI phase {time.perf_counter() - t2:.1f}s")
+        f"{t2 - t1:.1f}s, training CLI phase {t3 - t2:.1f}s")
+    root = tempfile.mkdtemp(prefix="chip_smoke_recipes_", dir="build")
+    try:
+        tree = os.path.join(root, "coco")
+        write_coco_tree(tree)
+        control_ok, control = phase_control(root, tree)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t4 = time.perf_counter()
+        joint_ok, joint, model, clip = phase_joint(root, tree)
+        t5 = time.perf_counter()
+        codenoise_ok, codenoise = phase_codenoise(model, clip)
+        del model, clip
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t6 = time.perf_counter()
+    variant_ok, variant = phase_variant()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"control phase {t4 - t3:.1f}s, joint phase {t5 - t4:.1f}s, "
+        f"codenoise phase {t6 - t5:.1f}s, variant forward "
+        f"{time.perf_counter() - t6:.1f}s")
     by_path = {"chain": chain, "train": train, "serve": serve, "cli": cli,
                "seg2image": seg, "guided": guided, "distill": distill,
                "chain_n": chain_n, "ptp": ptp, "img2img": img2img,
                "ancestral": ancestral, "tiled": tiled,
-               "train_cli": train_cli}
+               "train_cli": train_cli, "control": control, "joint": joint,
+               "codenoise": codenoise, "variant": variant}
     for name, fn, seed in (("K1-K3 and the combine pass", attn_path_rows, 4),
                            ("K5 and K6", bwd_path_rows, 7),
                            ("K7 and its pre-pass", conv_path_rows, 5),
@@ -3003,6 +3375,19 @@ def main():
         failures.append("K1 with lse not launched by the training CLI")
     if not any(attn_kernel(k[4], k[3]) == K2 for k in train_cli["attn"]):
         failures.append("K2 not launched by the training CLI")
+    for path, counts, names in (("control", control, ("K1", "K3")),
+                                ("joint", joint, ("K1", "K2")),
+                                ("codenoise", codenoise, ("K1",))):
+        for name in names:
+            tpu = {"K1": K1, "K2": K2, "K3": K3}[name]
+            if not any(attn_kernel(k[4], k[3]) == tpu for k in counts["attn"]):
+                failures.append(f"{name} not launched by the {path} path")
+    for path, counts in (("control", control), ("joint", joint)):
+        if not any(k[5] for k in counts["attn"]):
+            failures.append(f"K1 with lse not launched by the {path} path")
+        for kind in ("gn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+            if sum(counts[kind].values()) == 0:
+                failures.append(f"{kind} not launched by the {path} path")
     if any(k[4] <= 96 for k in guided["attn"]):
         failures.append("K1 launched by the guided factor 1")
     if not any(attn_kernel(k[4], k[3]) == K2 for k in guided["attn"]):
@@ -3056,6 +3441,12 @@ def main():
         failures.append("distillation step")
     if not train_cli_ok:
         failures.append("training CLI (cli/train.py, -r resume)")
+    for good, label in ((control_ok, "ControlNet fine-tuning recipe"),
+                        (joint_ok, "joint two-factor recipe"),
+                        (codenoise_ok, "co-denoising sampler"),
+                        (variant_ok, "variant UNet kernels-on vs plain")):
+        if not good:
+            failures.append(label)
     if not guided_ok:
         failures.append("guided CLI (--inference_loss)")
     if not chain_n_ok:

@@ -177,14 +177,7 @@ class ModuleDef:
         return ModuleDef(self.cls, {**self.kwargs, **overrides})
 
 
-_UNET_NOT_PORTED = (("num_classes", None), ("resblock_updown", False),
-                    ("use_new_attention_order", False))
-
-
 def build_unet_from_config(dtype=torch.bfloat16, **p) -> ModuleDef:
-    for key, default in _UNET_NOT_PORTED:
-        if p.get(key, default) != default:
-            raise NotImplementedError(f"UNet {key}={p[key]!r} is not ported")
     return ModuleDef(UNetModel, dict(
         in_channels=p.get("in_channels", 4),
         model_channels=p.get("model_channels", 320),
@@ -197,7 +190,10 @@ def build_unet_from_config(dtype=torch.bfloat16, **p) -> ModuleDef:
         transformer_depth=p.get("transformer_depth", 1),
         context_dim=p.get("context_dim"),
         use_spatial_transformer=p.get("use_spatial_transformer", True),
+        use_new_attention_order=p.get("use_new_attention_order", False),
         use_scale_shift_norm=p.get("use_scale_shift_norm", False),
+        resblock_updown=p.get("resblock_updown", False),
+        num_classes=p.get("num_classes"),
         use_adapter=not p.get("no_prompting", False),
         adapter_channels=p.get("adapter_channels"),
         use_time_adapter=p.get("use_time_adapter", False),

@@ -11,7 +11,11 @@ two differences: an ``Adapter`` block's channel-changing conv is
 ``torch_export`` writes the TimeAdapter ResBlock's ``in_layers.2``), and
 the multi-adapter UNet's ``adapters_{k}`` become ``adapters.{k}.*``
 (``torch_export`` drops them).  A ``TimeAdapter``'s blocks are ResBlocks
-and take the ResBlock names.
+and take the ResBlock names.  A pixel-attention block's ``qkv`` and
+``proj_out`` (flax ``Dense``) become the reference's conv1d weights
+``[out, in, 1]``, and ``label_emb`` the class-embedding table.
+``seq_two_state_dict`` carries a ``SeqTwoUNet``: both UNets by the UNet
+rules, ``channel_mapper`` as a 1x1 OIHW conv.
 
 Every leaf must map to a key; an unknown path raises ``KeyError``.
 """
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 __all__ = ["flatten", "unet_state_dict", "controlnet_state_dict",
-           "vae_state_dict", "clip_state_dict"]
+           "vae_state_dict", "clip_state_dict", "seq_two_state_dict"]
 
 _RES = {
     "in_norm": "in_layers.0",
@@ -103,6 +107,8 @@ def _unet_path(path: Tuple[str, ...], time_adapter: bool = False
         return "out.0"
     if head == "out_conv":
         return "out.2"
+    if head == "label_emb":
+        return "label_emb"
     if head == "adapter":
         return _adapter_path("adapter", rest, time_adapter)
     m = re.match(r"adapters_(\d+)$", head)
@@ -190,12 +196,37 @@ def _convert(params, path_fn):
     return out
 
 
+def _conv1d(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Pixel attention's dense ``qkv``/``proj_out`` as conv1d weights (a
+    SpatialTransformer's ``proj_out`` is a 4-d conv and stays)."""
+    return {k: v[..., None] if v.dim() == 2 and k.endswith(
+        (".qkv.weight", ".proj_out.weight")) else v for k, v in sd.items()}
+
+
 def unet_state_dict(params) -> Dict[str, torch.Tensor]:
     """``UNetModel`` state dict from a flax UNet (with or without adapter,
-    a time adapter or extra adapters)."""
+    a time adapter or extra adapters, pixel attention, a label
+    embedding)."""
     time_adapter = any(p[:1] == ("adapter",) and "emb_proj" in p
                        for p in flatten(params))
-    return _convert(params, lambda p: _unet_path(p, time_adapter))
+    return _conv1d(_convert(params, lambda p: _unet_path(p, time_adapter)))
+
+
+def _seq_two_path(path: Tuple[str, ...]) -> Optional[str]:
+    head = path[0]
+    if head == "channel_mapper" and len(path) == 1:
+        return head
+    if head in ("unet1", "unet2") and len(path) > 1:
+        # unet1's adapter (image_adapter mode) is a plain Adapter
+        sub = _unet_path(path[1:])
+        return None if sub is None else f"{head}.{sub}"
+    return None
+
+
+def seq_two_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``SeqTwoUNet`` state dict from a flax SeqTwoUNet (concat or
+    ``image_adapter`` mode)."""
+    return _conv1d(_convert(params, _seq_two_path))
 
 
 def controlnet_state_dict(params) -> Dict[str, torch.Tensor]:

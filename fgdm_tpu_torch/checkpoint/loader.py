@@ -122,16 +122,14 @@ def load_fgdm(ckpt_path: Optional[str] = None, dtype=torch.bfloat16,
               device=None) -> LatentDiffusion:
     """The condition-factor pipeline (UNet + adapter, VAE, CLIP), from
     ``ckpt_path`` when given.  Module definitions, schedule, scale factor
-    and conditioning key default to SD-1.x (with a ``TimeAdapter`` when
+    and conditioning key (any key JAX's router takes,
+    ``latent_diffusion.CONDITIONING_KEYS``) default to SD-1.x (with a ``TimeAdapter`` when
     ``use_time_adapter``); a parsed config passes its own
     (``builders.ModelSpec.load``).  A UNet with ``num_prompts > 1`` loads
     as any other: its extra adapters keep the seeded init and are counted
     as missing (``torch_ingest.ingest_unet``).  Modules the caller passes
     keep their device; the rest are built on ``device`` (CUDA unless
     named)."""
-    if conditioning_key != "crossattn":
-        raise NotImplementedError(
-            f"conditioning_key {conditioning_key!r}: only crossattn is ported")
     dev = resolve_device(device)
     unet = (unet if unet is not None
             else sd_unet(dtype, dev, use_time_adapter=use_time_adapter))
@@ -149,7 +147,8 @@ def load_fgdm(ckpt_path: Optional[str] = None, dtype=torch.bfloat16,
                          ckpt_path, "load_fgdm", verbose)
     return LatentDiffusion(
         unet, vae, schedule or DiffusionSchedule.create(**SD_SCHEDULE),
-        scale_factor=scale_factor, clip=clip, load_report=report)
+        scale_factor=scale_factor, clip=clip, load_report=report,
+        conditioning_key=conditioning_key)
 
 
 def load_controlnet(ckpt_path: Optional[str] = None, dtype=torch.bfloat16,

@@ -12,7 +12,10 @@ hold one flat state dict whose prefixes name the four models:
 The port's module tree carries the reference's names and its OIHW layout
 (``checkpoint/convert.py``), so a prefix's keys load with
 ``load_state_dict(strict=False)`` as they stand: none of JAX's layout rules
-are needed.  Two spellings are normalized first, as JAX's key mappers accept
+are needed.  That holds for the variants' keys too: a pixel-attention
+block's conv1d ``qkv``/``proj_out`` ``[out, in, 1]`` and a ``num_classes``
+UNet's ``label_emb.weight`` (which JAX's ``map_unet_key`` reads into a
+dense kernel its ``nn.Embed`` lacks, so JAX keeps that table at its init).  Two spellings are normalized first, as JAX's key mappers accept
 both: a plain ``Adapter`` block's conv written as
 ``adapter.body.N.in_layers.2`` (what ``fgdm_tpu``'s exporter writes) becomes
 ``adapter.body.N.in_conv`` (a ``TimeAdapter``'s blocks are ResBlocks, whose

@@ -12,7 +12,8 @@ C++ compiler, or if the build fails, every function takes its numpy (or
 Pillow) version, as the JAX package does without its library.
 
 ``HAS_NATIVE`` (read at first access, which builds) says which path runs;
-``library_path()`` names the loaded library, or None.
+``library_path()`` names the loaded library, or None.  The first access
+builds under a lock: the loader's threads may all ask at once.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -66,8 +68,18 @@ def _build() -> Optional[Path]:
     return out
 
 
-@functools.lru_cache(maxsize=None)
+_LOCK = threading.Lock()
+
+
 def _load():
+    """The loaded library, or None; built once, whichever thread asks first
+    (the loader's worker threads reach it together)."""
+    with _LOCK:
+        return _load_once()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_once():
     path = _build()
     if path is None:
         return None

@@ -3,10 +3,14 @@
 Counterpart of ``fgdm_tpu/diffusion/latent_diffusion.py:50-121``:
 ``get_learned_conditioning`` runs CLIP on token ids;
 ``encode_first_stage`` / ``decode_first_stage`` apply and undo the 0.18215
-``scale_factor``; ``apply_model`` is the ``crossattn`` route of the
-reference's conditioning router, with ``pcond`` as the adapter prompt,
-``extra_pconds`` as the extra adapters' prompts, ``adapter_on=False`` for
-the frozen-SD path and ``capture`` for the attention maps; ``denoise_fn``
+``scale_factor``; ``apply_model`` is the reference's conditioning router
+(``DiffusionWrapper``, JAX ``:81-89``): by ``conditioning_key``,
+``concat`` concatenates ``c_concat`` onto the latent's channels,
+``crossattn`` passes ``c_crossattn`` as the context, ``hybrid`` does both
+and ``adm`` passes ``c_adm`` as the class labels ``y``; with ``pcond`` as the
+adapter prompt, ``extra_pconds`` as the extra adapters' prompts,
+``adapter_on=False`` for the frozen-SD path and ``capture`` for the
+attention maps, under every key; ``denoise_fn``
 closes over it for the samplers and ``capture_fn`` for the attention-guided
 sampler; ``q_sample`` is the schedule's; ``calibrate_scale_by_std``
 (``:123-132``) is the ``scale_by_std`` calibration.
@@ -24,9 +28,12 @@ from fgdm_tpu_torch.models.autoencoder import AutoencoderKL
 from fgdm_tpu_torch.models.clip import CLIPTextEncoder
 from fgdm_tpu_torch.models.unet import UNetModel
 
-__all__ = ["LatentDiffusion"]
+__all__ = ["LatentDiffusion", "CONDITIONING_KEYS"]
 
 Cond = Dict[str, Any]
+
+# the keys JAX's router takes (None: no conditioning input)
+CONDITIONING_KEYS = (None, "crossattn", "concat", "hybrid", "adm")
 
 
 @dataclasses.dataclass
@@ -39,6 +46,12 @@ class LatentDiffusion:
     # what ``checkpoint/loader.py`` read into the modules, if it built them
     load_report: Optional[Dict[str, Any]] = dataclasses.field(default=None,
                                                               repr=False)
+    conditioning_key: Optional[str] = "crossattn"
+
+    def __post_init__(self):
+        if self.conditioning_key not in CONDITIONING_KEYS:
+            raise ValueError(f"conditioning_key {self.conditioning_key!r}: "
+                             f"not one of {CONDITIONING_KEYS}")
 
     def get_learned_conditioning(self, input_ids) -> torch.Tensor:
         return self.clip(input_ids)
@@ -62,15 +75,23 @@ class LatentDiffusion:
     def apply_model(self, x_noisy, t, cond: Optional[Cond],
                     adapter_on: bool = True, capture=False):
         """eps for x_noisy ``[B, 4, h, w]`` at timesteps t ``[B]``; cond
-        carries ``c_crossattn`` and optionally ``pcond`` and
+        carries what ``conditioning_key`` routes (``c_crossattn``,
+        ``c_concat``, ``c_adm``) and optionally ``pcond`` and
         ``extra_pconds`` (a list of earlier factors' latents for the extra
         adapters).  With ``capture``, ``(eps, selfattn, crossattn)``
         (``UNetModel.forward``)."""
         cond = cond or {}
-        return self.unet(x_noisy, t, context=cond["c_crossattn"],
-                         pcond=cond.get("pcond"), adapter_on=adapter_on,
-                         capture=capture,
-                         extra_pconds=cond.get("extra_pconds"))
+        key = self.conditioning_key
+        xc, kw = x_noisy, {}
+        if key in ("concat", "hybrid"):
+            xc = torch.cat([x_noisy, cond["c_concat"]], dim=1)
+        if key in ("crossattn", "hybrid"):
+            kw["context"] = cond["c_crossattn"]
+        if key == "adm":
+            kw["y"] = cond["c_adm"]
+        return self.unet(xc, t, pcond=cond.get("pcond"),
+                         adapter_on=adapter_on, capture=capture,
+                         extra_pconds=cond.get("extra_pconds"), **kw)
 
     def denoise_fn(self, adapter_on: bool = True):
         """``(x, t, cond) -> eps`` for the samplers."""

@@ -24,11 +24,19 @@ blocks with skip concatenation, GroupNorm -> SiLU -> zero-conv head.
 * Attention editing (``unet.py:91,185-196``): ``attn_editor`` reaches every
   attention layer with its block's place (prompt-to-prompt).
 * Activation checkpointing (``remat``, the config's ``use_checkpoint``,
-  ``unet.py:144-190``): ``torch.utils.checkpoint`` over each ResBlock and
-  each SpatialTransformer that neither captures nor edits.  The recompute
-  runs the kernels' forwards again, so their launch counts include it.
+  ``unet.py:144-190``): ``torch.utils.checkpoint`` over each ResBlock, each
+  pixel-attention block and each SpatialTransformer that neither captures
+  nor edits.  The recompute runs the kernels' forwards again, so their
+  launch counts include it.
+* The config's variants (``unet.py:108-110,157-168,234-238,276-281``):
+  ``use_spatial_transformer=False`` puts the legacy ``PixelAttentionBlock``
+  (``use_new_attention_order`` picks its qkv layout) at the attention
+  resolutions, self-attention only; ``resblock_updown`` resamples with
+  ``ResBlock(down=True)``/``ResBlock(up=True)`` in place of
+  ``Downsample``/``Upsample``; ``num_classes`` adds ``label_emb``, a class
+  embedding added to the timestep embedding, read from ``forward(y=)``.
 
-Pixel attention and ``seq_axis`` are not ported and raise
+``seq_axis`` (context parallelism) is not ported and raises
 ``NotImplementedError``.
 """
 
@@ -42,9 +50,9 @@ from torch.utils.checkpoint import checkpoint
 
 from fgdm_tpu_torch import resolve_device
 from fgdm_tpu_torch.models.adapter import Adapter, TimeAdapter
-from fgdm_tpu_torch.nn.attention import SpatialTransformer
+from fgdm_tpu_torch.nn.attention import PixelAttentionBlock, SpatialTransformer
 from fgdm_tpu_torch.nn.blocks import Downsample, ResBlock, Upsample, silu
-from fgdm_tpu_torch.nn.layers import (Conv2d, Dense, GroupNorm32,
+from fgdm_tpu_torch.nn.layers import (Conv2d, Dense, Embed, GroupNorm32,
                                       timestep_embedding)
 
 __all__ = ["UNetModel", "build_encoder", "run_block", "time_embed"]
@@ -94,6 +102,13 @@ def run_block(block: nn.ModuleList, h, emb, context, capture=False,
     for j, layer in enumerate(block):
         if isinstance(layer, ResBlock):
             h = _recompute(layer, h, emb) if remat else layer(h, emb)
+        elif isinstance(layer, PixelAttentionBlock):
+            if capture or editor is not None:
+                raise ValueError("attention capture and editing need "
+                                 "use_spatial_transformer=True (the "
+                                 "reference's AttentionBlock exposes no "
+                                 "maps)")
+            h = _recompute(layer, h) if remat else layer(h)
         elif isinstance(layer, SpatialTransformer):
             if not capture:
                 if remat and editor is None:
@@ -111,10 +126,25 @@ def run_block(block: nn.ModuleList, h, emb, context, capture=False,
     return h
 
 
+def _attention(ch, num_heads, num_head_channels, transformer_depth,
+               context_dim, use_spatial_transformer, use_new_attention_order,
+               dtype):
+    n_heads, d_head = _heads_for(ch, num_heads, num_head_channels)
+    if not use_spatial_transformer:
+        return PixelAttentionBlock(
+            ch, n_heads, use_new_attention_order=use_new_attention_order,
+            dtype=dtype)
+    return SpatialTransformer(ch, n_heads, d_head, depth=transformer_depth,
+                              context_dim=context_dim, dtype=dtype)
+
+
 def build_encoder(in_channels, mc, num_res_blocks, attention_resolutions,
                   channel_mult, num_heads, num_head_channels,
                   transformer_depth, context_dim, use_scale_shift_norm,
-                  conv_resample, fused_norm, dtype):
+                  conv_resample, fused_norm, dtype,
+                  use_spatial_transformer: bool = True,
+                  use_new_attention_order: bool = False,
+                  resblock_updown: bool = False):
     """The SD encoder shared by the UNet and ControlNet.
 
     Returns ``(input_blocks, middle_block, input_block_chans, level_ends,
@@ -123,15 +153,16 @@ def build_encoder(in_channels, mc, num_res_blocks, attention_resolutions,
     downsampling factor."""
     emb_ch = 4 * mc
 
-    def res(cin, cout):
+    def res(cin, cout, down=False):
         return ResBlock(cin, emb_ch, cout,
                         use_scale_shift_norm=use_scale_shift_norm,
-                        fused_norm=fused_norm, dtype=dtype)
+                        down=down, fused_norm=fused_norm, dtype=dtype)
 
     def attn(ch):
-        n_heads, d_head = _heads_for(ch, num_heads, num_head_channels)
-        return SpatialTransformer(ch, n_heads, d_head, depth=transformer_depth,
-                                  context_dim=context_dim, dtype=dtype)
+        return _attention(ch, num_heads, num_head_channels,
+                          transformer_depth, context_dim,
+                          use_spatial_transformer, use_new_attention_order,
+                          dtype)
 
     blocks = [nn.ModuleList([Conv2d(in_channels, mc, 3, dtype=dtype)])]
     chans, level_ends = [mc], []
@@ -147,7 +178,8 @@ def build_encoder(in_channels, mc, num_res_blocks, attention_resolutions,
         level_ends.append(len(blocks) - 1)
         if level != len(channel_mult) - 1:
             blocks.append(nn.ModuleList([
-                Downsample(ch, conv_resample, dtype=dtype)]))
+                res(ch, ch, down=True) if resblock_updown
+                else Downsample(ch, conv_resample, dtype=dtype)]))
             chans.append(ch)
             ds *= 2
     middle = nn.ModuleList([res(ch, ch), attn(ch), res(ch, ch)])
@@ -167,13 +199,14 @@ class UNetModel(nn.Module):
                  adapter_channels: Optional[int] = None,
                  use_time_adapter: bool = False, num_prompts: int = 1,
                  use_spatial_transformer: bool = True,
+                 use_new_attention_order: bool = False,
+                 resblock_updown: bool = False,
+                 num_classes: Optional[int] = None,
                  dtype: torch.dtype = torch.bfloat16,
                  fused_norm_silu: bool = False,
                  seq_axis: Optional[str] = None, remat: bool = False,
                  device=None):
         super().__init__()
-        if not use_spatial_transformer:
-            raise NotImplementedError("pixel attention is not ported yet")
         if seq_axis is not None:
             raise NotImplementedError("context parallelism is not ported yet")
         mc = model_channels
@@ -182,6 +215,8 @@ class UNetModel(nn.Module):
         self.in_channels = in_channels
         with torch.device(resolve_device(device)):
             self.time_embed = time_embed(mc, dtype)
+            self.label_emb = (Embed(num_classes, 4 * mc)
+                              if num_classes is not None else None)
             self.adapter = None
             ad = dict(channels=tuple(m * mc for m in channel_mult),
                       nums_rb=2, cin=adapter_channels or in_channels,
@@ -197,25 +232,31 @@ class UNetModel(nn.Module):
                 in_channels, mc, num_res_blocks, attention_resolutions,
                 channel_mult, num_heads, num_head_channels, transformer_depth,
                 context_dim, use_scale_shift_norm, conv_resample,
-                fused_norm_silu, dtype)
+                fused_norm_silu, dtype, use_spatial_transformer,
+                use_new_attention_order, resblock_updown)
             self._adapter_at = tuple(level_ends)
             ch = chans[-1]
             out_blocks = []
+            def res(cin, cout, up=False):
+                return ResBlock(cin, 4 * mc, cout,
+                                use_scale_shift_norm=use_scale_shift_norm,
+                                up=up, fused_norm=fused_norm_silu,
+                                dtype=dtype)
+
             for level, mult in reversed(list(enumerate(channel_mult))):
                 for i in range(num_res_blocks + 1):
-                    layers = [ResBlock(ch + chans.pop(), 4 * mc, mult * mc,
-                                       use_scale_shift_norm=use_scale_shift_norm,
-                                       fused_norm=fused_norm_silu,
-                                       dtype=dtype)]
+                    layers = [res(ch + chans.pop(), mult * mc)]
                     ch = mult * mc
                     if ds in attention_resolutions:
-                        n_heads, d_head = _heads_for(ch, num_heads,
-                                                     num_head_channels)
-                        layers.append(SpatialTransformer(
-                            ch, n_heads, d_head, depth=transformer_depth,
-                            context_dim=context_dim, dtype=dtype))
+                        layers.append(_attention(
+                            ch, num_heads, num_head_channels,
+                            transformer_depth, context_dim,
+                            use_spatial_transformer, use_new_attention_order,
+                            dtype))
                     if level and i == num_res_blocks:
-                        layers.append(Upsample(ch, conv_resample, dtype=dtype))
+                        layers.append(
+                            res(ch, ch, up=True) if resblock_updown
+                            else Upsample(ch, conv_resample, dtype=dtype))
                         ds //= 2
                     out_blocks.append(nn.ModuleList(layers))
             self.output_blocks = nn.ModuleList(out_blocks)
@@ -227,16 +268,21 @@ class UNetModel(nn.Module):
     def forward(self, x, timesteps, context=None, pcond=None,
                 adapter_on: bool = True, control=None,
                 only_mid_control: bool = False, capture=False,
-                extra_pconds=None, attn_editor=None):
+                extra_pconds=None, attn_editor=None, y=None):
         """x ``[B, C, H, W]``, timesteps ``[B]``, context ``[B, 77, D]``;
         ``control`` holds ControlNet's 13 residuals; ``extra_pconds`` the
-        extra adapters' prompts (the first ``num_prompts - 1`` are read).
+        extra adapters' prompts (the first ``num_prompts - 1`` are read);
+        ``y`` ``[B]`` the class labels of a ``num_classes`` UNet.
         Returns float32 eps; with ``capture`` (``nn.attention.
         CrossAttention``'s modes) ``(eps, selfattn, crossattn)``.
         ``attn_editor`` ``(probs, is_cross, place) -> probs`` edits every
         attention layer's probabilities (prompt-to-prompt,
         ``utils/ptp.py``)."""
         emb = embed_timesteps(self.time_embed, timesteps, self.model_channels)
+        if self.label_emb is not None:
+            if y is None:
+                raise ValueError("a num_classes UNet needs the labels y")
+            emb = emb + self.label_emb(y).to(emb.dtype)
         h = x.to(self.dtype)
         feats = None
         if self.adapter is not None and adapter_on:

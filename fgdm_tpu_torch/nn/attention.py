@@ -19,6 +19,13 @@ over the same keys and values.  ``attn_editor`` ``(probs, is_cross) ->
 probs`` (prompt-to-prompt, ``utils/ptp.py``) rewrites the probabilities of
 the explicit f32 softmax in every layer it is given, as JAX's
 ``attention.py:111-127`` does; K1 then runs nowhere.
+
+``PixelAttentionBlock`` (``attention.py:271-318``) is the legacy pixel-space
+self-attention of ``use_spatial_transformer=False`` UNets: GroupNorm, a
+fused ``qkv`` projection held as the reference's conv1d weight, the split
+``ch ** -0.25`` scaling of q and k, an f32 softmax, a zero-init
+``proj_out`` and the residual.  Its math is torch ops, as JAX's is XLA's:
+no kernel of this port runs it.
 """
 
 from __future__ import annotations
@@ -32,10 +39,12 @@ from torch import nn
 
 from fgdm_tpu_torch.kernels.attention import (attention_with_scores,
                                               multihead_attention)
-from fgdm_tpu_torch.nn.layers import Conv2d, Dense, GroupNorm32, LayerNorm32
+from fgdm_tpu_torch.nn.layers import (Conv1d, Conv2d, Dense, GroupNorm32,
+                                      LayerNorm32)
 
 __all__ = ["CaptureSpec", "CrossAttention", "GEGLU", "FeedForward",
-           "BasicTransformerBlock", "SpatialTransformer"]
+           "BasicTransformerBlock", "SpatialTransformer",
+           "PixelAttentionBlock"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,3 +219,45 @@ class SpatialTransformer(nn.Module):
         h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2).contiguous()
         out = self.proj_out(h) + x
         return (out, maps) if capture else out
+
+
+class PixelAttentionBlock(nn.Module):
+    """Self-attention over a feature map's pixels (reference
+    ``AttentionBlock`` with ``QKVAttentionLegacy``/``QKVAttention``,
+    ``openaimodel.py:304-434``).  ``use_new_attention_order`` reads the qkv
+    channels as ``[3, heads, ch]``; the legacy order as ``[heads, 3, ch]``.
+    Self-attention only: no context, capture or editor."""
+
+    def __init__(self, channels: int, num_heads: int = 1,
+                 use_new_attention_order: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if channels % num_heads:
+            raise ValueError(f"{channels} channels over {num_heads} heads")
+        self.num_heads = num_heads
+        self.new_order = use_new_attention_order
+        self.norm = GroupNorm32(channels)
+        self.qkv = Conv1d(channels, 3 * channels, dtype=dtype)
+        self.proj_out = Conv1d(channels, channels, zero_init=True,
+                               dtype=dtype)
+
+    def forward(self, x):
+        """x ``[B, C, H, W]`` -> the same shape."""
+        b, c, hh, ww = x.shape
+        nh, n = self.num_heads, hh * ww
+        ch = c // nh
+        tokens = x.reshape(b, c, n).transpose(1, 2)
+        qkv = self.qkv(self.norm(x).reshape(b, c, n).transpose(1, 2))
+        if self.new_order:
+            q, k, v = qkv.reshape(b, n, 3, nh, ch).unbind(2)
+        else:
+            q, k, v = qkv.reshape(b, n, nh, 3, ch).unbind(3)
+        # the reference's f16-stable form: ch ** -0.25 on q and on k
+        scale = float(ch) ** -0.25
+        q, k, v = (q.transpose(1, 2) * scale, k.transpose(1, 2) * scale,
+                   v.transpose(1, 2))
+        w = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)),
+                          dim=-1).to(v.dtype)
+        a = torch.matmul(w, v).transpose(1, 2).reshape(b, n, c)
+        out = tokens + self.proj_out(a)
+        return out.transpose(1, 2).reshape(b, c, hh, ww).contiguous()

@@ -29,7 +29,7 @@ from fgdm_tpu_torch.kernels.groupnorm import (group_norm_silu,
                                               group_norm_silu_ref)
 
 __all__ = ["timestep_embedding", "GroupNorm32", "FusedGroupNormSiLU",
-           "LayerNorm32", "Conv2d", "Dense", "Embed", "nearest_upsample_2x",
+           "LayerNorm32", "Conv2d", "Dense", "Conv1d", "Embed", "nearest_upsample_2x",
            "avg_pool_2x2", "init_params_"]
 
 # The direct 3x3 conv kernel for 16^2-64^2 planes (kernels/conv.py), and for
@@ -159,6 +159,24 @@ class Dense(nn.Module):
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+class Conv1d(Dense):
+    """A kernel-size-1 conv1d over tokens: ``Dense`` on ``[..., in]`` with the
+    reference's ``[out, in, 1]`` weight (pixel attention's ``qkv`` and
+    ``proj_out``, ``openaimodel.py:331,339``), so its keys load as they
+    stand."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 zero_init: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias, zero_init, dtype)
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, 1))
+        self.reset_parameters()
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight[..., 0].to(self.dtype),
+                        b)
 
 
 class Embed(nn.Module):

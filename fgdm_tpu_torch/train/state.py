@@ -4,6 +4,8 @@ Counterpart of ``fgdm_tpu/train/state.py``:
 
 * ``adapter_filter`` (``:42-49``): adapter-only fine-tuning trains the
   parameters whose name mentions ``adapter`` (reference ``ddpm.py:1601-1618``).
+  ``joint_image_adapter_filter`` (``:76-85``): joint two-factor training
+  trains ``SeqTwoUNet``'s ``unet1.adapter.*`` and ``channel_mapper.*``.
   ``TrainState.create`` sets ``requires_grad_(False)`` on every other
   parameter, so autograd allocates no gradient for them, as ``jax.grad``
   differentiates only the trainable subtree.
@@ -33,7 +35,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch import nn
 
-__all__ = ["adapter_filter", "randomize_zero_heads", "global_norm",
+__all__ = ["adapter_filter", "joint_image_adapter_filter",
+           "randomize_zero_heads", "global_norm",
            "EmaState", "AdamW", "Optimizer", "make_adamw", "TrainState",
            "state_to_pytree", "state_from_pytree"]
 
@@ -46,6 +49,18 @@ def adapter_filter(optim_key: str = "adapter") -> Callable[[str], bool]:
 
     def f(name: str) -> bool:
         return "adapter" in name or optim_key in name
+
+    return f
+
+
+def joint_image_adapter_filter() -> Callable[[str], bool]:
+    """AdaptDiffusion's freeze rule (``ddpm.py:1866-1870``): only the image
+    UNet's adapter and the condition -> adapter channel mapper train; both
+    UNet backbones stay frozen."""
+
+    def f(name: str) -> bool:
+        return (name.startswith("unet1.adapter.")
+                or name.startswith("channel_mapper."))
 
     return f
 

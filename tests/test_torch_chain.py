@@ -386,9 +386,12 @@ def test_guess_mode_is_not_ported(tiny):
     assert z.shape == (1, 4, 8, 8) and bool(torch.isfinite(z).all())
 
 
-@pytest.mark.parametrize("kw", [dict(use_spatial_transformer=False),
+@pytest.mark.parametrize("kw", [dict(seq_axis="seq",
+                                     use_spatial_transformer=False),
                                 dict(seq_axis="seq")])
 def test_unported_unet_options_raise(kw):
+    # pixel attention is ported (tests/test_torch_variants.py); context
+    # parallelism (seq_axis) is not, with either attention
     with pytest.raises(NotImplementedError):
         UNetModel(**TINY, device="cpu", **kw)
 

@@ -597,8 +597,15 @@ def test_targets_resolve_like_jax():
     assert obj.kwargs["max_length"] == 16
     with pytest.raises(KeyError, match="target"):
         config.instantiate_from_config({"params": {}})
-    with pytest.raises(NotImplementedError, match="num_classes"):
-        builders.build_unet_from_config(num_classes=10)
+    # the config-reachable variants build as JAX's build_unet reads them
+    variant = builders.build_unet_from_config(
+        num_classes=10, resblock_updown=True, use_new_attention_order=True,
+        use_spatial_transformer=False)
+    assert {k: variant.kwargs[k] for k in (
+        "num_classes", "resblock_updown", "use_new_attention_order",
+        "use_spatial_transformer")} == {
+        "num_classes": 10, "resblock_updown": True,
+        "use_new_attention_order": True, "use_spatial_transformer": False}
 
 
 def test_config_module_imports_yaml_only_when_called():
