@@ -63,7 +63,13 @@ it builds the port's kernels from the sources in this checkout (one
    and 5 images (512^2) as valid PNGs and that K1-K4, K7 and its pre-pass
    launched; then seg2image's compute: guess mode at strength 0.8 on those
    five maps at 512^2, 20 steps (counts reset just before), and guess
-   mode's two forwards kernels on vs plain; then the guided path:
+   mode's two forwards kernels on vs plain; then ``cli.seg2image.main``
+   with ``--detect`` on two seeded photos at ``--detect_resolution 512``,
+   conv flags on, counts reset before each run: with ``--seg_ckpt`` a
+   seeded ``upernet_global_small.pth`` in mmseg's schema, then without
+   (all-zero weights, as JAX); 2 images of 512^2 a run, the detected maps
+   in the ADE palette, the detector's time and its own conv-kernel
+   launches printed; then the guided path:
    ``cli.txt2img_fgdm.main`` with ``--inference_loss`` and the same
    factor-1 flags (no ``--use_controlnet``) on the factor-1 file, conv
    flags on, counts reset just before: 5 condition maps, K4 and K2
@@ -128,6 +134,15 @@ it builds the port's kernels from the sources in this checkout (one
    that K1 with lse, K4, K5 and K6 launched; compares one distill loss, its
    adapter gradients and the student's and teacher's maps kernels-on vs
    plain on injected draws; profiles one distill step (the same print);
+   then the condition path on the same trainer: the depth, normal, sketch
+   (PiDiNet) and sketch_hed (HED) annotators at full width in float32
+   (``build_condition_synth`` from a seeded generator), each target
+   checked (range, depth's equal channels, normals of unit length) and its
+   forward timed, then, counts reset just before, one cold and one warm
+   ``make_train_step(condition=...)`` step a kind and
+   ``sketch_to_normal``'s ``_encode_target`` ([8, 8, 32, 32]); the
+   annotators and the frozen UNet bit-identical, one loss and its adapter
+   gradients a kind kernels on vs plain;
    then the training-CLI path: a seeded COCO-layout tree (24 + 8 JPEGs of
    320x288, L-mode label PNGs, captions) under ``build/``,
    ``cli.train.main`` on ``models/config.yaml`` at full width (batch 8 at
@@ -139,7 +154,13 @@ it builds the port's kernels from the sources in this checkout (one
    keys, the resume, the checkpoints (frozen parameters bit-equal between
    the first and the last, the adapter moved) and that K1 with lse, K2,
    K4, K5 and K6 launched; prints the load, step, image-log, save and
-   resume times and the peak memory; deletes the checkpoints; then, on a
+   resume times and the peak memory; deletes the checkpoints; then the
+   CLI on the reference's normal-factor config (``models/config.yaml``
+   with ``use_depth``/``use_normal``) on the same tree for 3 steps, a
+   seeded ``dpt_hybrid-midas-501f0c75.pt`` in the released schema (577
+   position tokens) under ``FGDM_ANNOTATOR_DIR``, counts reset just
+   before: read with 0 missing and 0 unexpected keys, finite losses,
+   distillation at step 0, K1 with lse, K4, K5, K6; then, on a
    fresh seeded tree, the recipes of ``cli/recipes.py``, counts reset
    before each: ControlNet fine-tuning (``build_control``/``train_control``:
    the UNet frozen under ``remat``, AdamW on the ControlNet, ``sd_locked``,
@@ -160,10 +181,11 @@ it builds the port's kernels from the sources in this checkout (one
    ``num_classes``) kernels on vs plain, no K1;
 8. holds every kernel against its plain version, and times it, at every
    other shape that a path above launched (the chain, the training step,
-   the served batch, the CLI, seg2image's sampling, the guided CLI, the
-   distillation step, the N-factor CLI, ptp, img2img, the ancestral
-   sampler, the tiled VAE, the training CLI, the two recipes, co-denoising,
-   the variant UNet): K1-K3 and the combine pass
+   the served batch, the CLI, seg2image's sampling and ``--detect``, the
+   guided CLI, the distillation step, the condition steps, the N-factor
+   CLI, ptp, img2img, the ancestral sampler, the tiled VAE, the training
+   CLI and its normal-factor config, the two recipes, co-denoising, the
+   variant UNet): K1-K3 and the combine pass
    at each (batch, heads, N, d), K5 and K6 at each (batch, heads, N, d), K7 and its pre-pass at
    each conv launch key, K4 at each (shape, eps), each held once, under
    the first path that launched it; every row then reads its path's launch
@@ -2009,6 +2031,403 @@ def phase_distill(tr):
     return ok and cmp_ok, counts
 
 
+COND_KINDS = ("depth", "normal", "sketch", "sketch_hed")
+COND_TOL = 1e-4   # max| |n| - 1 | of a normal target's rows
+
+
+def target_checks(kind, tgt):
+    """``(ok, text)`` of a target's shape and range: in [-1, 1]; depth's
+    three channels equal; normal rows of unit length; PiDiNet's edges in
+    {-1, 1}."""
+    import torch
+
+    b = tgt.shape[0]
+    ok = (tuple(tgt.shape) == (b, 3, 256, 256)
+          and bool(torch.isfinite(tgt).all())
+          and tgt.min().item() >= -1 - 1e-6 and tgt.max().item() <= 1 + 1e-6)
+    text = (f"{tuple(tgt.shape)} in [{tgt.min().item():.4f}, "
+            f"{tgt.max().item():.4f}]")
+    if kind == "depth":
+        same = (torch.equal(tgt[:, 0], tgt[:, 1])
+                and torch.equal(tgt[:, 1], tgt[:, 2]))
+        ok = ok and same
+        text += f", channels equal {same}"
+    elif kind == "normal":
+        dev = (tgt.norm(dim=1) - 1).abs().max().item()
+        ok = ok and dev <= COND_TOL
+        text += f", max| |n| - 1 | = {dev:.2e} (tol {COND_TOL})"
+    elif kind == "sketch":
+        vals = set(torch.unique(tgt).tolist())
+        ok = ok and vals <= {-1.0, 1.0}
+        text += f", values {sorted(vals)}"
+    return ok, text
+
+
+def phase_condition(tr):
+    """Condition-target training at full width on the training phase's
+    trainer (batch 8 at 256^2): the frozen annotators of the depth, normal,
+    sketch (PiDiNet) and sketch_hed (HED) configs, built by
+    ``build_condition_synth`` from a seeded generator in float32 (the
+    DPT-Hybrid's 577-token position table resized to the 16^2 grid).  Each
+    target is checked and its annotator forward timed; then, counts reset
+    just before (the path's counted run), one cold and one warm
+    ``make_train_step(condition=...)`` step a kind and ``sketch_to_normal``'s
+    ``_encode_target`` (MiDaS and PiDiNet, an 8-channel latent); then the
+    annotators and the frozen UNet bit-identical, and one loss and its
+    adapter gradients a kind kernels on vs plain on injected draws."""
+    import torch
+    from fgdm_tpu_torch.diffusion.losses import diffusion_loss
+    from fgdm_tpu_torch.train.condition import (ConditionSynth,
+                                                build_condition_synth)
+    from fgdm_tpu_torch.train.train_step import (_encode_target,
+                                                 make_train_step)
+
+    ld, state, batch = tr.ld, tr.state, tr.batch
+    img = batch["image"]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    t0 = time.perf_counter()
+    synths = {k: build_condition_synth(k, generator=gen, device="cuda")
+              for k in COND_KINDS}
+    torch.cuda.synchronize()
+    log(f"condition: annotators built and seeded in "
+        f"{time.perf_counter() - t0:.1f}s (float32): " + ", ".join(
+            f"{k} {type(s.model).__name__} "
+            f"{sum(p.numel() for p in s.model.parameters())} parameters"
+            for k, s in synths.items()))
+    ann0 = {k: checksum(s.model.state_dict().values())
+            for k, s in synths.items()}
+    ok, fwd_ms = True, {}
+    for kind, synth in synths.items():
+        tgt = synth.target(img)
+        good, text = target_checks(kind, tgt)
+        fwd_ms[kind] = cuda_ms(lambda: synth.target(img), 3)
+        ok = ok and good
+        log(f"condition {kind}: target {text}; annotator forward "
+            f"{fwd_ms[kind]:.2f} ms at batch {img.shape[0]}, 256^2; "
+            f"{'OK' if good else 'FAIL'}")
+    s2n = ConditionSynth("sketch_to_normal", synths["normal"].model,
+                         synths["sketch"].model)
+    frozen0 = frozen_checksum(state)
+    metrics, step_ms, peaks = {}, {}, {}
+    reset_counts()
+    for kind, synth in synths.items():
+        step = make_train_step(ld, condition=synth)
+        times = []
+        for i in range(2):
+            if i:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            metrics.setdefault(kind, []).append(m)
+        peaks[kind] = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms[kind] = times
+    t0 = time.perf_counter()
+    z = _encode_target(ld, batch, s2n, generator=gen)
+    torch.cuda.synchronize()
+    s2n_ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counts()
+    s2n_ok = (tuple(z.shape) == (img.shape[0], 8, 32, 32)
+              and bool(torch.isfinite(z).all()) and z.std().item() > 0)
+    frozen_same = torch.equal(frozen_checksum(state), frozen0)
+    ann_same = {k: torch.equal(checksum(s.model.state_dict().values()),
+                               ann0[k]) for k, s in synths.items()}
+    losses = {k: [m["loss"].item() for m in ms] for k, ms in metrics.items()}
+    norms = {k: [m["grad_norm"].item() for m in ms]
+             for k, ms in metrics.items()}
+    ok = (ok and s2n_ok and frozen_same and all(ann_same.values())
+          and all(math.isfinite(x) for v in losses.values() for x in v)
+          and all(math.isfinite(x) and x > 0
+                  for v in norms.values() for x in v))
+    for kind in synths:
+        warm = step_ms[kind][1]
+        log(f"condition {kind}: losses {[round(x, 5) for x in losses[kind]]}"
+            f", grad norms {[round(x, 5) for x in norms[kind]]}; cold step "
+            f"{step_ms[kind][0]:.1f} ms, warm step {warm:.1f} ms (host "
+            f"clock), {img.shape[0] * 1e3 / warm:.2f} images/s; peak memory "
+            f"{peaks[kind]:.2f} GiB; annotator bit-identical "
+            f"{ann_same[kind]}")
+    log(f"condition sketch_to_normal: _encode_target {tuple(z.shape)} "
+        f"finite std {z.std().item():.4f} in {s2n_ms:.1f} ms (cold); frozen "
+        f"UNet bit-identical {frozen_same}; {'OK' if ok else 'FAIL'}; "
+        f"{card_line()}")
+    log_counts("condition", counts)
+    b = img.shape[0]
+    t, noise, eps = (
+        torch.randint(0, 1000, (b,), device="cuda", generator=gen),
+        torch.randn(b, 4, 32, 32, device="cuda", generator=gen),
+        torch.randn(b, 4, 32, 32, device="cuda", generator=gen))
+    for kind, synth in synths.items():
+        def loss_fn():
+            with torch.no_grad():
+                x0 = _encode_target(ld, batch, synth, eps)
+                ctx = ld.get_learned_conditioning(batch["input_ids"])
+            return diffusion_loss(ld, x0, {"c_crossattn": ctx}, t=t,
+                                  noise=noise)
+
+        ok = grads_on_off(f"condition {kind}", state, loss_fn, "loss") and ok
+    del synths, s2n
+    return ok, counts
+
+
+def reference_midas_file(path, seed=0):
+    """A seeded full-width DPT-Hybrid written as the released
+    ``dpt_hybrid-midas-501f0c75.pt`` holds it: a flat state dict with the
+    577-token position table, the final ViT norm and the deepest fusion
+    block's ``resConfUnit1``, which the model never reads."""
+    import torch
+    from fgdm_tpu_torch.annotators import seed_
+    from fgdm_tpu_torch.annotators.midas import DPTHybrid
+
+    net = seed_(DPTHybrid(device="cuda"),
+                torch.Generator(device="cuda").manual_seed(seed))
+    sd = {k: v.cpu() for k, v in net.state_dict().items()}
+    d = sd["pretrained.model.cls_token"].shape[-1]
+    sd["pretrained.model.norm.weight"] = torch.ones(d)
+    sd["pretrained.model.norm.bias"] = torch.zeros(d)
+    for k, v in list(sd.items()):
+        if k.startswith("scratch.refinenet3.resConfUnit1."):
+            sd[k.replace("refinenet3", "refinenet4")] = v.clone()
+    torch.save(sd, path)
+    return net.pretrained.model.pos_embed.shape[1], len(sd)
+
+
+def phase_condition_cli(root):
+    """The training CLI on the reference's normal-factor config
+    (``nautilus_coco_adapter_normal_map_gt_captions_distill_loss.yaml``:
+    ``models/config.yaml`` with ``use_depth: true, use_normal: true``,
+    written to ``root``) on the training-CLI phase's seeded COCO tree, for 3
+    steps with ``--no-test`` (distillation at step 0, the config's
+    ImageLogger at step 0), ``FGDM_ANNOTATOR_DIR`` at a seeded
+    ``dpt_hybrid-midas-501f0c75.pt`` in the released schema; counts reset
+    just before, read just after.  Checks the annotator file read with 0
+    missing and 0 unexpected keys, the normal synthesis, finite losses at
+    steps 0-2 and ``loss_distill`` at 0."""
+    import torch
+    import yaml
+    from fgdm_tpu_torch.cli import train as train_cli
+    from fgdm_tpu_torch.train import train_step
+
+    tree = os.path.join(root, "coco")
+    with open("models/config.yaml") as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"]["params"].update(use_depth=True, use_normal=True)
+    cfg_path = os.path.join(root, "normal_map_distill.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    ann_dir = os.path.join(root, "annotators")
+    os.makedirs(ann_dir)
+    t0 = time.perf_counter()
+    tokens, n_keys = reference_midas_file(
+        os.path.join(ann_dir, "dpt_hybrid-midas-501f0c75.pt"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"condition_cli: wrote a seeded dpt_hybrid-midas-501f0c75.pt "
+        f"({n_keys} keys, {tokens}-token position table, "
+        f"{os.path.getsize(os.path.join(ann_dir, os.listdir(ann_dir)[0]))} "
+        f"bytes) in {time.perf_counter() - t0:.1f}s")
+    logdir = os.path.join(root, "cond_logs")
+    over = [f"data.params.{s}.params.data_dir={tree}"
+            for s in ("train", "validation")]
+    times = []
+    real, make = _timed_steps(times)
+    env = {"FGDM_RANDOMIZE_ZERO_HEADS": "1", "FGDM_ANNOTATOR_DIR": ann_dir}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    tee = _Tee(sys.stdout)
+    train_step.make_train_step = make
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            train_cli.main(["-b", cfg_path, "-t", "--max_steps", "3",
+                            "--no-test", "-l", logdir, "-n", "normal",
+                            *over])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        train_step.make_train_step = real
+        for k, v in saved_env.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = tee.text()
+    run = os.path.join(logdir, os.listdir(logdir)[0])
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train_rows = {r["step"]: r for r in rows if "train/loss" in r}
+    read_ok = re.search(r"annotator \S+dpt_hybrid-midas-501f0c75\.pt: "
+                        r"missing=0 unexpected=0", out) is not None
+    synth = re.search(r"condition synthesis: normal \(([\d.]+)s\)", out)
+    distill_steps = sorted(s for s, r in train_rows.items()
+                           if "train/loss_distill" in r)
+    losses_ok = sorted(train_rows) == [0, 1, 2] and all(
+        math.isfinite(r["train/loss"]) for r in train_rows.values())
+    n = {k: sum(c.values()) for k, c in counts.items()}
+    lse = sum(v for k, v in counts["attn"].items() if k[5])
+    launched = (lse > 0 and n["gn"] > 0 and n["flash_attn_bwd_dq"] > 0
+                and n["flash_attn_bwd_dkv"] > 0)
+    ok = (read_ok and synth is not None and losses_ok
+          and distill_steps == [0] and launched)
+    shutil.rmtree(os.path.join(run, "checkpoints"), ignore_errors=True)
+    log(f"condition_cli: main() {wall:.1f}s; annotator read with 0 missing "
+        f"and 0 unexpected keys {read_ok}; annotators built and loaded in "
+        f"{synth.group(1) if synth else '?'}s; train/loss finite at steps "
+        f"0-2 {losses_ok}; loss_distill at {distill_steps}; step ms "
+        f"{[round(ms, 1) for _, ms in times]} (the first cold, distill "
+        f"first); peak memory {peak_gib:.2f} GiB; K1 with lse {lse}, K4 "
+        f"{n['gn']}, K5 {n['flash_attn_bwd_dq']}, K6 "
+        f"{n['flash_attn_bwd_dkv']} launches; {'OK' if ok else 'FAIL'}; "
+        f"{card_line()}")
+    log_counts("condition_cli", counts)
+    return ok, counts
+
+
+DETECT_PHOTOS = (2, (288, 320))   # photos under sample1/; H x W
+
+
+def reference_uniformer_file(path, seed=0):
+    """A seeded UniFormer-S + UPerHead written as mmseg's
+    ``upernet_global_small.pth`` holds it: ``{"meta", "state_dict"}`` with
+    each BatchNorm's ``num_batches_tracked`` and an ``auxiliary_head``,
+    which inference never reads; the BatchNorms' statistics drawn too."""
+    import torch
+    from fgdm_tpu_torch.annotators import seed_
+    from fgdm_tpu_torch.annotators.uniformer import (FrozenBatchNorm,
+                                                     UniFormerSeg)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    net = seed_(UniFormerSeg(device="cuda"), gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, FrozenBatchNorm):
+                m.weight.normal_(1.0, 0.1, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    sd = {k: v.cpu() for k, v in net.state_dict().items()}
+    for k in [k for k in sd if k.endswith("running_var")]:
+        sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(1)
+    sd["auxiliary_head.conv_seg.weight"] = torch.zeros(150, 256, 1, 1)
+    sd["auxiliary_head.conv_seg.bias"] = torch.zeros(150)
+    torch.save({"meta": {"seed": seed}, "state_dict": sd}, path)
+
+
+def phase_detect(paths, root):
+    """``python -m fgdm_tpu_torch.cli.seg2image --detect`` on the checkpoint
+    phase's ControlNet file, conv flags on, ``--detect_resolution 512``, two
+    seeded photos (320x288 JPEGs under ``sample1/``): once with
+    ``--seg_ckpt`` a seeded ``upernet_global_small.pth`` in mmseg's schema,
+    once without (all-zero weights, as JAX); counts reset just before each
+    run and read after.  Times the detector (to its synchronize) and each
+    render's sampling; checks 2 PNGs of 512^2 a run, the detected maps in
+    the ADE palette (one colour, label 0's, without weights) and counts the
+    conv-kernel launches the detector itself makes."""
+    import numpy as np
+    import torch
+    from fgdm_tpu_torch.annotators import uniformer
+    from fgdm_tpu_torch.cli import seg2image
+    from fgdm_tpu_torch.data.colorize import ade_cmap
+    from PIL import Image
+
+    data = os.path.join(root, "detect")
+    os.makedirs(os.path.join(data, "sample1"))
+    rng = np.random.default_rng(11)
+    n, (h, w) = DETECT_PHOTOS
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            os.path.join(data, "sample1", f"photo{i}.jpg"))
+    seg = os.path.join(root, "upernet_global_small.pth")
+    t0 = time.perf_counter()
+    reference_uniformer_file(seg)
+    log(f"detect: wrote a seeded upernet_global_small.pth "
+        f"({os.path.getsize(seg)} bytes) in {time.perf_counter() - t0:.1f}s")
+    det_ms, det_conv, maps, render_s = [], [], [], []
+    call, sample = uniformer.UniformerDetector.__call__, \
+        seg2image.sample_image_factor
+
+    def timed_call(self, img):
+        torch.cuda.synchronize()
+        before = sum(read_counts()["conv"].values())
+        t0 = time.perf_counter()
+        out = call(self, img)
+        det_ms.append(1e3 * (time.perf_counter() - t0))
+        det_conv.append(sum(read_counts()["conv"].values()) - before)
+        maps.append(out)
+        return out
+
+    def timed_sample(*a, **kw):
+        t0 = time.perf_counter()
+        z = sample(*a, **kw)
+        torch.cuda.synchronize()
+        render_s.append(time.perf_counter() - t0)
+        return z
+
+    uniformer.UniformerDetector.__call__ = timed_call
+    seg2image.sample_image_factor = timed_sample
+    runs = {}
+    try:
+        with conv_flags(), hash_tokenizer_allowed():
+            for label, extra in (("detect", ["--seg_ckpt", seg]),
+                                 ("detect0", [])):
+                argv = ["--data_dir", data, "--cn_ckpt", paths["cn"],
+                        "--detect", "--detect_resolution", "512",
+                        "--num_images", str(n), "--prompt", PROMPT_CLI,
+                        "--outdir", os.path.join(root, label), *extra]
+                log(f"{label}: python -m fgdm_tpu_torch.cli.seg2image "
+                    + " ".join(argv))
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t0 = time.perf_counter()
+                written = seg2image.main(argv)
+                torch.cuda.synchronize()
+                runs[label] = dict(
+                    wall=time.perf_counter() - t0, written=written,
+                    counts=read_counts(),
+                    peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+    finally:
+        uniformer.UniformerDetector.__call__ = call
+        seg2image.sample_image_factor = sample
+    palette = {tuple(c) for c in ade_cmap()[1:].tolist()}
+    ok = True
+    for i, (label, r) in enumerate(runs.items()):
+        shapes = []
+        for p in r["written"]:
+            with open(p, "rb") as f:
+                shapes.append(png_rgb(f.read())[:2])
+        colours = [{tuple(c) for c in m.reshape(-1, 3).tolist()}
+                   for m in maps[n * i:n * (i + 1)]]
+        in_palette = all(c <= palette for c in colours)
+        want = (lambda c: len(c) > 1) if label == "detect" else (
+            lambda c: c == {tuple(ade_cmap()[1].tolist())})
+        good = (shapes == [(512, 512)] * n and in_palette
+                and all(want(c) for c in colours)
+                and all(m.shape == (512, 512, 3) for m in
+                        maps[n * i:n * (i + 1)]))
+        ok = ok and good
+        log(f"{label}: {len(r['written'])} images {shapes}; detected maps "
+            f"{[len(c) for c in colours]} colours, in the ADE palette "
+            f"{in_palette}; detector "
+            f"{[round(x, 1) for x in det_ms[n * i:n * (i + 1)]]} ms an image "
+            f"(512^2, bf16; the first cold), its conv-kernel launches "
+            f"{det_conv[n * i:n * (i + 1)]}; sampling "
+            f"{[round(x, 2) for x in render_s[n * i:n * (i + 1)]]} s an "
+            f"image (20 DDIM steps, CFG 9.0); main() {r['wall']:.2f}s; peak "
+            f"memory {r['peak']:.2f} GiB; {'OK' if good else 'FAIL'}; "
+            f"{card_line()}")
+        log_counts(label, r["counts"])
+    return ok, runs["detect"]["counts"], runs["detect0"]["counts"]
+
+
 TRAIN_CLI_TREE = (24, 8, (288, 320))   # train, val images; H x W
 TRAIN_CLI_KEYS = ("inputs", "reconstruction", "conditioning", "samples",
                   "samples_inpainting", "samples_outpainting", "mask",
@@ -3241,7 +3660,10 @@ def main():
         t2 = time.perf_counter()
         cli_ok, cli, maps, f1 = phase_cli(paths, os.path.join(root, "out"))
         seg_ok, seg = phase_seg2image(ld2, cldm2, maps)
+        t_detect = time.perf_counter()
+        detect_ok, detect, detect0 = phase_detect(paths, root)
         t_guided = time.perf_counter()
+        t_detect = t_guided - t_detect
         guided_ok, guided = phase_guided(paths, os.path.join(root, "guided"),
                                          ld2, f1)
         t_guided = time.perf_counter() - t_guided
@@ -3275,14 +3697,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     log(f"conv forwards {t1 - t0:.1f}s, checkpoints {t2 - t1:.1f}s, CLI, "
-        f"seg2image, the guided CLI, the four editing and sampler phases and"
-        f" the N-factor CLI {t3 - t2:.1f}s (the guided CLI {t_guided:.1f}s, "
+        f"seg2image, seg2image --detect, the guided CLI, the four editing and"
+        f" sampler phases and the N-factor CLI {t3 - t2:.1f}s (--detect "
+        f"{t_detect:.1f}s, the guided CLI {t_guided:.1f}s, "
         f"the four phases {t_tiled - t_edit:.1f}s, the N-factor CLI "
         f"{t_chain_n:.1f}s), serving phase {time.perf_counter() - t3:.1f}s")
     t0 = time.perf_counter()
     train_ok, train, tr = phase_train()
     t1 = time.perf_counter()
     distill_ok, distill = phase_distill(tr)
+    t_cond = time.perf_counter()
+    condition_ok, condition = phase_condition(tr)
     del tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -3290,13 +3715,19 @@ def main():
     root = tempfile.mkdtemp(prefix="chip_smoke_train_", dir="build")
     try:
         train_cli_ok, train_cli = phase_train_cli(root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_cond_cli = time.perf_counter()
+        condition_cli_ok, condition_cli = phase_condition_cli(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
     log(f"training phase {t1 - t0:.1f}s, distillation phase "
-        f"{t2 - t1:.1f}s, training CLI phase {t3 - t2:.1f}s")
+        f"{t_cond - t1:.1f}s, condition phase {t2 - t_cond:.1f}s, training "
+        f"CLI phase {t_cond_cli - t2:.1f}s, condition CLI phase "
+        f"{t3 - t_cond_cli:.1f}s")
     root = tempfile.mkdtemp(prefix="chip_smoke_recipes_", dir="build")
     try:
         tree = os.path.join(root, "coco")
@@ -3325,7 +3756,9 @@ def main():
                "chain_n": chain_n, "ptp": ptp, "img2img": img2img,
                "ancestral": ancestral, "tiled": tiled,
                "train_cli": train_cli, "control": control, "joint": joint,
-               "codenoise": codenoise, "variant": variant}
+               "codenoise": codenoise, "variant": variant,
+               "condition": condition, "condition_cli": condition_cli,
+               "detect": detect, "detect0": detect0}
     for name, fn, seed in (("K1-K3 and the combine pass", attn_path_rows, 4),
                            ("K5 and K6", bwd_path_rows, 7),
                            ("K7 and its pre-pass", conv_path_rows, 5),
@@ -3377,12 +3810,19 @@ def main():
         failures.append("K2 not launched by the training CLI")
     for path, counts, names in (("control", control, ("K1", "K3")),
                                 ("joint", joint, ("K1", "K2")),
-                                ("codenoise", codenoise, ("K1",))):
+                                ("codenoise", codenoise, ("K1",)),
+                                ("condition", condition, ("K1", "K2")),
+                                ("condition_cli", condition_cli,
+                                 ("K1", "K2")),
+                                ("detect", detect, ("K1", "K3")),
+                                ("detect0", detect0, ("K1", "K3"))):
         for name in names:
             tpu = {"K1": K1, "K2": K2, "K3": K3}[name]
             if not any(attn_kernel(k[4], k[3]) == tpu for k in counts["attn"]):
                 failures.append(f"{name} not launched by the {path} path")
-    for path, counts in (("control", control), ("joint", joint)):
+    for path, counts in (("control", control), ("joint", joint),
+                         ("condition", condition),
+                         ("condition_cli", condition_cli)):
         if not any(k[5] for k in counts["attn"]):
             failures.append(f"K1 with lse not launched by the {path} path")
         for kind in ("gn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
@@ -3403,8 +3843,14 @@ def main():
             tpu = {"K1": K1, "K2": K2, "K3": K3}[name]
             if not any(attn_kernel(k[4], k[3]) == tpu for k in counts["attn"]):
                 failures.append(f"{name} not launched by the {path} path")
+    for path, counts in (("condition", condition),
+                         ("condition_cli", condition_cli)):
+        for kind in ("gn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+            if sum(counts[kind].values()) == 0:
+                failures.append(f"{kind} not launched by the {path} path")
     for path, counts in (("ptp", ptp), ("img2img", img2img),
-                         ("ancestral", ancestral), ("tiled", tiled)):
+                         ("ancestral", ancestral), ("tiled", tiled),
+                         ("detect", detect), ("detect0", detect0)):
         for kind in ("gn", "conv", "prepass"):
             if sum(counts[kind].values()) == 0:
                 failures.append(f"{kind} not launched by the {path} path")
@@ -3441,7 +3887,11 @@ def main():
         failures.append("distillation step")
     if not train_cli_ok:
         failures.append("training CLI (cli/train.py, -r resume)")
-    for good, label in ((control_ok, "ControlNet fine-tuning recipe"),
+    for good, label in ((condition_ok, "condition-target training step"),
+                        (condition_cli_ok,
+                         "training CLI on the normal-factor config"),
+                        (detect_ok, "seg2image --detect"),
+                        (control_ok, "ControlNet fine-tuning recipe"),
                         (joint_ok, "joint two-factor recipe"),
                         (codenoise_ok, "co-denoising sampler"),
                         (variant_ok, "variant UNet kernels-on vs plain")):

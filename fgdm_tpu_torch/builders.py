@@ -307,18 +307,13 @@ class ModelSpec:
 
     def condition_kind(self) -> Optional[str]:
         """The condition-synthesis kind of the config's flags
-        (``ddpm.py:137-150``; JAX ``train/condition.py:74-89``).  A seg
-        config sets none of them: its colourised label map is the target
-        (None)."""
-        if self.sketch_to_normal:
-            return "sketch_to_normal"
-        if self.use_sketch:
-            return "sketch_hed" if self.use_hed else "sketch"
-        if self.use_depth and self.use_normal:
-            return "normal"
-        if self.use_depth:
-            return "depth"
-        return None
+        (``train/condition.py condition_kind``); None for a seg config."""
+        from fgdm_tpu_torch.train.condition import condition_kind
+
+        return condition_kind(
+            use_depth=self.use_depth, use_normal=self.use_normal,
+            use_sketch=self.use_sketch, use_hed=self.use_hed,
+            sketch_to_normal=self.sketch_to_normal)
 
     def load(self, ckpt_path: Optional[str] = None, device=None
              ) -> LatentDiffusion:

@@ -15,7 +15,10 @@ and take the ResBlock names.  A pixel-attention block's ``qkv`` and
 ``proj_out`` (flax ``Dense``) become the reference's conv1d weights
 ``[out, in, 1]``, and ``label_emb`` the class-embedding table.
 ``seq_two_state_dict`` carries a ``SeqTwoUNet``: both UNets by the UNet
-rules, ``channel_mapper`` as a 1x1 OIHW conv.
+rules, ``channel_mapper`` as a 1x1 OIHW conv.  ``hed_state_dict``,
+``pidinet_state_dict``, ``midas_state_dict`` and ``uniformer_state_dict``
+invert the annotator key maps of ``fgdm_tpu/checkpoint/annotator_ingest.py``
+(bare kernels, the HED input shift, frozen BatchNorms' statistics).
 
 Every leaf must map to a key; an unknown path raises ``KeyError``.
 """
@@ -29,7 +32,9 @@ import numpy as np
 import torch
 
 __all__ = ["flatten", "unet_state_dict", "controlnet_state_dict",
-           "vae_state_dict", "clip_state_dict", "seq_two_state_dict"]
+           "vae_state_dict", "clip_state_dict", "seq_two_state_dict",
+           "hed_state_dict", "pidinet_state_dict", "midas_state_dict",
+           "uniformer_state_dict"]
 
 _RES = {
     "in_norm": "in_layers.0",
@@ -246,3 +251,171 @@ def clip_state_dict(params) -> Dict[str, torch.Tensor]:
     # embedding leaf name the token table has
     tree["position_embedding"] = {"embedding": tree["position_embedding"]}
     return _convert(tree, _clip_path)
+
+
+# --- annotators -------------------------------------------------------------
+
+_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+       "var": "running_var"}
+
+
+def _annotator(params, path_fn) -> Dict[str, torch.Tensor]:
+    """``path_fn(path, value) -> (torch key, array)`` for each leaf."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, v in flatten(params).items():
+        got = path_fn(path, v)
+        if got is None:
+            raise KeyError(f"no port key for flax path {'/'.join(path)}")
+        key, tv = got
+        out[key] = torch.from_numpy(np.ascontiguousarray(tv,
+                                                         dtype=np.float32))
+    return out
+
+
+def _at(base: str, leaf: str, v: np.ndarray):
+    name, tv = _leaf(leaf, v)
+    return f"{base}.{name}", tv
+
+
+def _bare(base: str, leaf: str, v: np.ndarray):
+    """A bare ``{name}_kernel`` / ``{name}_bias`` param."""
+    return _at(base, "kernel" if leaf.endswith("_kernel") else "bias", v)
+
+
+def _hed_path(path, v):
+    if path == ("norm",):
+        return "norm", v.reshape(1, 3, 1, 1)
+    if len(path) == 3 and re.match(r"block\d$", path[0]):
+        m = re.match(r"convs_(\d+)$", path[1])
+        sub = f"convs.{m.group(1)}" if m else path[1]
+        return _at(f"{path[0]}.{sub}", path[2], v)
+    return None
+
+
+def hed_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``ControlNetHED`` state dict from flax ControlNetHED params."""
+    return _annotator(params, _hed_path)
+
+
+def _pidinet_path(path, v):
+    head = path[0]
+    if head == "classifier_kernel":
+        return _at("classifier", "kernel", v)
+    if head == "classifier_bias":
+        return "classifier.bias", v
+    if head == "init_block" or re.match(r"block\d_\d$", head):
+        return _at(".".join(path[:-1]), path[-1], v)
+    m = re.match(r"(dilations|attentions|conv_reduces)_(\d+)$", head)
+    if not m:
+        return None
+    base = f"{m.group(1)}.{m.group(2)}"
+    if m.group(1) == "conv_reduces":
+        return _at(f"{base}.conv", path[-1], v)
+    if path[1].startswith("conv2_") and path[1].endswith("_kernel"):
+        return _at(f"{base}.{path[1][:-7]}", "kernel", v)
+    return _at(f"{base}.{path[1]}", path[2], v)
+
+
+def pidinet_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``PiDiNet`` state dict from flax PiDiNet params."""
+    return _annotator(params, _pidinet_path)
+
+
+_MIDAS_ROOT = {
+    "cls_token": "pretrained.model.cls_token",
+    "pos_embed": "pretrained.model.pos_embed",
+    "patch_embed": "pretrained.model.patch_embed.proj",
+    "readout3": "pretrained.act_postprocess3.0.project.0",
+    "readout4": "pretrained.act_postprocess4.0.project.0",
+    "act_postprocess3_proj": "pretrained.act_postprocess3.3",
+    "act_postprocess4_proj": "pretrained.act_postprocess4.3",
+    "act_postprocess4": "pretrained.act_postprocess4.4",
+    "head_conv1": "scratch.output_conv.0",
+    "head_conv2": "scratch.output_conv.2",
+    "head_conv3": "scratch.output_conv.4",
+}
+_BIT = "pretrained.model.patch_embed.backbone"
+
+
+def _midas_path(path, v):
+    head, leaf = path[0], path[-1]
+    if head in ("cls_token", "pos_embed"):
+        return _MIDAS_ROOT[head], v
+    if head in _MIDAS_ROOT:
+        return _at(_MIDAS_ROOT[head], leaf, v)
+    if head == "resnet":
+        sub = path[1]
+        if sub == "conv_stem":
+            return _at(f"{_BIT}.stem.conv", leaf, v)
+        if sub == "gn_stem":
+            return _at(f"{_BIT}.stem.norm", leaf, v)
+        m = re.match(r"stage(\d)_(\d+)$", sub)
+        if not m:
+            return None
+        base = f"{_BIT}.stages.{int(m.group(1)) - 1}.blocks.{m.group(2)}"
+        name = {"downsample": "downsample.conv",
+                "downsample_norm": "downsample.norm"}.get(path[2], path[2])
+        name = re.sub(r"^gn(\d)$", r"norm\1", name)
+        return _at(f"{base}.{name}", leaf, v)
+    m = re.match(r"blocks_(\d+)$", head)
+    if m:
+        sub = path[1]
+        group = {"qkv": "attn.", "proj": "attn.", "fc1": "mlp.",
+                 "fc2": "mlp."}.get(sub, "")
+        return _at(f"pretrained.model.blocks.{m.group(1)}.{group}{sub}",
+                   leaf, v)
+    if re.match(r"layer\d_rn$", head):
+        return _at(f"scratch.{head}", leaf, v)
+    if head.startswith("refinenet"):
+        return _at("scratch." + ".".join(path[:-1]), leaf, v)
+    return None
+
+
+def midas_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``DPTHybrid`` state dict from flax DPTHybrid params (the position
+    table at the flax grid)."""
+    return _annotator(params, _midas_path)
+
+
+def _uniformer_path(path, v):
+    head, leaf = path[0], path[-1]
+    if head == "backbone":
+        sub = path[1]
+        if re.match(r"(patch_embed|norm)\d$", sub):
+            return _at("backbone." + ".".join(path[1:-1]), leaf, v)
+        m = re.match(r"blocks(\d)_(\d+)$", sub)
+        if not m:
+            return None
+        base = f"backbone.blocks{m.group(1)}.{m.group(2)}"
+        name = path[2]
+        if len(path) == 3:                       # bare dw conv params
+            return _bare(f"{base}.{name.rsplit('_', 1)[0]}", name, v)
+        if name in ("norm1", "norm2") and int(m.group(1)) <= 2:
+            return f"{base}.{name}.{_BN[leaf]}", v   # CBlock BatchNorm
+        if name in ("qkv", "proj"):
+            return _at(f"{base}.attn.{name}", leaf, v)
+        if name.startswith("mlp_"):
+            return _at(f"{base}.mlp.{name[4:]}", leaf, v)
+        return _at(f"{base}.{name}", leaf, v)
+    if head != "decode_head":
+        return None
+    sub = path[1]
+    if sub == "conv_seg":
+        return _at("decode_head.conv_seg", leaf, v)
+    m = re.match(r"(ppm|lateral|fpn)_(\d+)$", sub)
+    if m:
+        base = {"ppm": f"psp_modules.{m.group(2)}.1",
+                "lateral": f"lateral_convs.{m.group(2)}",
+                "fpn": f"fpn_convs.{m.group(2)}"}[m.group(1)]
+    elif sub in ("bottleneck", "fpn_bottleneck"):
+        base = sub
+    else:
+        return None
+    if path[2] == "bn":
+        return f"decode_head.{base}.bn.{_BN[leaf]}", v
+    return _at(f"decode_head.{base}.{path[2]}", leaf, v)
+
+
+def uniformer_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``UniFormerSeg`` state dict from flax UniFormerSeg params."""
+    return _annotator(params, _uniformer_path)

@@ -9,8 +9,12 @@ steps at CFG ``--scale`` (``--eta``, ``--strength``, ``--guess_mode``) and
 writes ``<name>_render.png`` under ``--outdir``.  ``--device`` (default
 ``cuda``) names where the models run.  Reading the maps needs Pillow.
 
-``--detect`` (the UniFormer annotator) is not ported and raises
-``NotImplementedError`` (ROADMAP Queue A item 14).
+With ``--detect`` the maps come from the photos under
+``<data_dir>/sample1/``: each (NEAREST to ``--image_resolution``, then
+BILINEAR to ``--detect_resolution``) goes through the UniFormer annotator
+(``--seg_ckpt``, ``upernet_global_small.pth``; without it every weight is
+0, as in JAX, and a NOTE says so), and its colourised ADE20K map, NEAREST
+back to ``--image_resolution``, is the hint.
 
     python -m fgdm_tpu_torch.cli.seg2image --data_dir data/samples \\
         --cn_ckpt models/fgdm_control_sd15_seg.pth --prompt "a photo"
@@ -19,6 +23,7 @@ writes ``<name>_render.png`` under ``--outdir``.  ``--device`` (default
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 
 import numpy as np
@@ -61,9 +66,11 @@ def get_parser():
     p.add_argument("--num_images", type=int, default=-1)
     p.add_argument("--detect", action="store_true",
                    help="run the UniFormer annotator on sample1 images "
-                        "(not ported)")
+                        "instead of using sample2 maps")
     p.add_argument("--seg_ckpt", type=str, default=None,
-                   help="UniFormer weights for --detect (not ported)")
+                   help="UniFormer weights for --detect (upernet_global_"
+                        "small torch ckpt); without it the detector is "
+                        "all-zero (debug only)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--precision", type=str, default="autocast")
     p.add_argument("--device", type=str, default="cuda",
@@ -71,12 +78,27 @@ def get_parser():
     return p
 
 
+def _detector(opt, dtype, dev):
+    """The UniFormer detector of ``--detect``: ``--seg_ckpt``'s weights, or
+    every weight 0 without it (JAX ``cli/seg2image.py:109-131``)."""
+    from fgdm_tpu_torch.annotators.uniformer import (UniFormerSeg,
+                                                     UniformerDetector)
+    from fgdm_tpu_torch.checkpoint.annotator_ingest import load_uniformer
+
+    if opt.seg_ckpt:
+        return load_uniformer(opt.seg_ckpt, input_size=opt.detect_resolution,
+                              dtype=dtype, device=dev)
+    model = UniFormerSeg(dtype=dtype, device=dev).requires_grad_(False)
+    with torch.no_grad():
+        for t in itertools.chain(model.parameters(), model.buffers()):
+            t.zero_()
+    print("[seg2image] NOTE: UniFormer weights are random-init — pass "
+          "--seg_ckpt or precomputed maps for real use")
+    return UniformerDetector(model.eval(), input_size=opt.detect_resolution)
+
+
 def main(argv=None):
     opt = get_parser().parse_args(argv)
-    if opt.detect:
-        raise NotImplementedError(
-            "--detect: the UniFormer annotator is not ported yet (ROADMAP "
-            "Queue A item 14); pass precomputed maps under sample2/")
     from PIL import Image
 
     dev = resolve_device(opt.device)
@@ -104,10 +126,14 @@ def main(argv=None):
     ctx, uc = embed([full_prompt]), embed([opt.n_prompt])
 
     seg_dir = os.path.join(opt.data_dir, "sample2")
-    files = list_image_files(seg_dir if os.path.isdir(seg_dir)
-                             else opt.data_dir)
+    if opt.detect:
+        files = list_image_files(os.path.join(opt.data_dir, "sample1"))
+    else:
+        files = list_image_files(seg_dir if os.path.isdir(seg_dir)
+                                 else opt.data_dir)
     if opt.num_images > 0:
         files = files[: opt.num_images]
+    detector = _detector(opt, dtype, dev) if opt.detect else None
 
     gen = torch.Generator(device=dev).manual_seed(opt.seed)
     res = opt.image_resolution
@@ -115,7 +141,19 @@ def main(argv=None):
     for i, path in enumerate(files):
         img = Image.open(path).convert("RGB").resize((res, res),
                                                      Image.NEAREST)
-        hint = (torch.from_numpy(np.asarray(img).copy()).permute(2, 0, 1)
+        arr = np.asarray(img)
+        if detector is not None:
+            # the detector runs at --detect_resolution (reference
+            # process(), seg2image_inference.py:43-60)
+            det = opt.detect_resolution
+            if det != res:
+                arr = np.asarray(Image.fromarray(arr).resize(
+                    (det, det), Image.BILINEAR))
+            arr = detector(arr)
+            if det != res:
+                arr = np.asarray(Image.fromarray(arr).resize(
+                    (res, res), Image.NEAREST))
+        hint = (torch.from_numpy(arr.copy()).permute(2, 0, 1)
                 [None].float().to(dev) / 255.0)
         z = sample_image_factor(cldm, hint, ctx, uc,
                                 num_steps=opt.ddim_steps,

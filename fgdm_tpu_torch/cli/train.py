@@ -34,9 +34,17 @@
   that save is printed and does not hide the error.  After the loop the
   validation set is evaluated once unless ``--no-test``.
 
+* A depth, normal or sketch config (``use_depth``, ``use_normal``,
+  ``use_sketch``, ``use_hed``, ``sketch_to_normal``) synthesizes its target
+  from each batch image with a frozen annotator (``train/condition.py``),
+  read from ``$FGDM_ANNOTATOR_DIR`` (default ``models``):
+  ``dpt_hybrid-midas-501f0c75.pt``, ``table5_pidinet.pth`` or
+  ``ControlNetHED.pth``.  Without the file it exits, unless
+  ``FGDM_ALLOW_RANDOM_ANNOTATORS=1`` asks for a seeded annotator (a smoke
+  run: its targets mean nothing).
+
 ``--device`` (default ``cuda``) names where it runs.  ``--gpus`` is
-accepted and ignored (one device).  ``--fsdp`` and configs that synthesise
-their condition targets with annotators are not ported and raise.
+accepted and ignored (one device).  ``--fsdp`` is not ported and raises.
 """
 
 from __future__ import annotations
@@ -81,6 +89,30 @@ def get_parser() -> argparse.ArgumentParser:
     return p
 
 
+# the reference's file names (``ddpm.py:146-150``, ``controlnet/annotator``)
+_ANNOTATOR_FILES = {
+    "depth": ("dpt_hybrid-midas-501f0c75.pt", "dpt_hybrid.pt"),
+    "normal": ("dpt_hybrid-midas-501f0c75.pt", "dpt_hybrid.pt"),
+    "sketch": ("table5_pidinet.pth", "pidinet.pth"),
+    "sketch_hed": ("ControlNetHED.pth", "hed.pth"),
+    "sketch_to_normal": ("dpt_hybrid-midas-501f0c75.pt",),
+}
+
+
+def _load_annotator_params(kind: str, ann_dir: str):
+    """``(path, state dict)`` of the first annotator checkpoint for ``kind``
+    under ``ann_dir`` (JAX ``cli/train.py:63-96``), or None.  For
+    ``sketch_to_normal`` it is the depth net's; its sketch net is seeded,
+    as in JAX."""
+    from fgdm_tpu_torch.checkpoint.torch_ingest import load_torch_state_dict
+
+    for name in _ANNOTATOR_FILES[kind]:
+        path = os.path.join(ann_dir, name)
+        if os.path.exists(path):
+            return path, load_torch_state_dict(path)
+    return None
+
+
 def _run_dir(opt):
     """``(logdir, nowname)``; ``-r`` prepends the run's saved configs to
     ``opt.base``."""
@@ -119,6 +151,7 @@ def main(argv=None):
     from fgdm_tpu_torch.data.prefetch import (ParallelBatchLoader,
                                               device_prefetch, to_device)
     from fgdm_tpu_torch.models.clip import CLIPTokenizer
+    from fgdm_tpu_torch.train.condition import build_condition_synth
     from fgdm_tpu_torch.train.lr_schedules import scaled_lr
     from fgdm_tpu_torch.train.metrics import (ImageLogger, MetricsWriter,
                                               log_images)
@@ -144,11 +177,6 @@ def main(argv=None):
 
     # -- model ----------------------------------------------------------------
     spec = instantiate_from_config(config["model"])
-    cond_kind = spec.condition_kind()
-    if cond_kind is not None:
-        raise NotImplementedError(
-            f"condition-target synthesis ({cond_kind}) is not ported yet "
-            "(ROADMAP Queue A item 14)")
     ckpt_path = (spec.ckpt_path if spec.ckpt_path
                  and os.path.exists(spec.ckpt_path) else None)
     if spec.ckpt_path and not ckpt_path:
@@ -164,6 +192,35 @@ def main(argv=None):
         randomize_zero_heads(ld.unet)
         print("[train] zero-init heads randomized (smoke mode)")
     print(f"[train] model on {dev} in {time.perf_counter() - t0:.2f}s")
+
+    # -- the condition's frozen annotator (ddpm.py:137-150) -------------------
+    cond_kind = spec.condition_kind()
+    condition = None
+    if cond_kind is not None:
+        ann_dir = os.environ.get("FGDM_ANNOTATOR_DIR", "models")
+        found = _load_annotator_params(cond_kind, ann_dir)
+        if found is None:
+            if os.environ.get("FGDM_ALLOW_RANDOM_ANNOTATORS") != "1":
+                raise SystemExit(
+                    f"[train] config needs the frozen {cond_kind!r} annotator "
+                    f"but no checkpoint was found under {ann_dir!r}. Set "
+                    "FGDM_ANNOTATOR_DIR to the checkpoint directory, or "
+                    "FGDM_ALLOW_RANDOM_ANNOTATORS=1 for a smoke run.")
+            print(f"[train] WARNING: {cond_kind} annotator random-init "
+                  "(smoke mode — targets are meaningless)")
+        t0 = time.perf_counter()
+        condition = build_condition_synth(
+            cond_kind, generator=torch.Generator(device=dev).manual_seed(0),
+            state_dict=None if found is None else found[1], device=dev)
+        if found is not None:
+            missing, unexpected = condition.load_report["model"]
+            print(f"[train] annotator {found[0]}: missing={len(missing)} "
+                  f"unexpected={len(unexpected)}")
+        if cond_kind == "sketch_to_normal":
+            print("[train] WARNING: the sketch net of sketch_to_normal is "
+                  "random-init (the file table names the depth net only)")
+        print(f"[train] condition synthesis: {cond_kind} "
+              f"({time.perf_counter() - t0:.2f}s)")
 
     # -- data -----------------------------------------------------------------
     data_cfg = config["data"]["params"]
@@ -209,16 +266,21 @@ def main(argv=None):
     if spec.scale_by_std and start_step == 0:
         probe = next(batch_iterator(train_ds, batch_size,
                                     tokenizer=tokenizer, seed=opt.seed))
+        img = to_device(probe, dev)["image"]
+        if condition is not None:
+            img = condition.target(img)[:, :3]   # sketch_to_normal: normal
         ld = ld.calibrate_scale_by_std(
-            to_device(probe, dev)["image"],
-            generator=torch.Generator(device=dev).manual_seed(0))
+            img, generator=torch.Generator(device=dev).manual_seed(0))
         print(f"[train] scale_by_std: scale_factor={ld.scale_factor:.5f}")
 
-    step_fn = make_train_step(ld, parameterization=spec.parameterization)
+    step_fn = make_train_step(ld, parameterization=spec.parameterization,
+                              condition=condition)
     distill_fn = (make_train_step(ld, distill=True,
-                                  parameterization=spec.parameterization)
+                                  parameterization=spec.parameterization,
+                                  condition=condition)
                   if spec.apply_distill_loss else None)
-    eval_fn = (make_eval_step(ld, parameterization=spec.parameterization)
+    eval_fn = (make_eval_step(ld, parameterization=spec.parameterization,
+                              condition=condition)
                if val_ds is not None else None)
 
     # -- loggers (main.py:313-417,566-590) ------------------------------------

@@ -10,10 +10,14 @@ step and the EMA.  It returns ``(state, metrics)`` with the loss dict and
 builds the distillation step (``loss_distill`` in the metrics; the
 trainer takes it every ``distill_every_n_step`` steps).
 
+With a ``condition`` (``train/condition.py``) the frozen annotator turns
+the batch image into the factor's target before the encode
+(``_encode_target``, JAX ``train_step.py:28-45``).
+
 torch cannot reproduce ``jax.random``'s bits: the timesteps ``t``, the
-``noise`` and the posterior's ``posterior_eps`` may be injected; whatever is
-not injected is drawn from ``generator``.  The annotator synthesis of the
-``condition`` targets (ROADMAP Queue A item 14) is not ported.
+``noise`` and the posterior's ``posterior_eps`` may be injected (for
+``sketch_to_normal`` a pair, one eps for each half); whatever is not
+injected is drawn from ``generator``.
 """
 
 from __future__ import annotations
@@ -31,19 +35,34 @@ __all__ = ["make_train_step", "make_eval_step"]
 Batch = Dict[str, torch.Tensor]
 
 
-def _not_ported(condition) -> None:
-    if condition is not None:
-        raise NotImplementedError(
-            "condition-target synthesis is not ported yet (ROADMAP Queue A "
-            "item 14)")
+def _encode_target(ld: LatentDiffusion, batch: Batch, condition,
+                   posterior_eps=None, generator=None) -> torch.Tensor:
+    """Batch image -> x_start latent, through the condition's annotator when
+    there is one (reference ``get_input``, ``ddpm.py:397-419``).
+    ``sketch_to_normal``'s 6 channels are split into (normal, sketch), each
+    encoded with its own posterior eps (``posterior_eps`` is then a pair),
+    and the latents concatenated (``ddpm.py:765-782``)."""
+    img = batch["image"]
+    if condition is None:
+        return ld.encode_first_stage(img, eps=posterior_eps,
+                                     generator=generator)
+    tgt = condition.target(img)
+    if condition.kind != "sketch_to_normal":
+        return ld.encode_first_stage(tgt, eps=posterior_eps,
+                                     generator=generator)
+    eps = (None, None) if posterior_eps is None else posterior_eps
+    return torch.cat([ld.encode_first_stage(half, eps=e, generator=generator)
+                      for half, e in zip((tgt[:, :3], tgt[:, 3:]), eps)],
+                     dim=1)
 
 
 def _loss(ld: LatentDiffusion, batch: Batch, generator, t, noise,
-          posterior_eps, encode_first_stage: bool, **loss_kw):
+          posterior_eps, encode_first_stage: bool, condition=None,
+          **loss_kw):
     with torch.no_grad():
         if encode_first_stage and "latent" not in batch:
-            x_start = ld.encode_first_stage(batch["image"], eps=posterior_eps,
-                                            generator=generator)
+            x_start = _encode_target(ld, batch, condition, posterior_eps,
+                                     generator)
         else:
             x_start = batch["latent"]
         ctx = ld.get_learned_conditioning(batch["input_ids"])
@@ -62,8 +81,8 @@ def make_train_step(ld: LatentDiffusion, distill: bool = False,
 
     ``batch``: ``{"image": [B, 3, H, W] in [-1, 1]`` (or ``"latent"``),
     ``"input_ids": [B, 77]}`` on the model's device.  ``state.model`` must be
-    ``ld.unet``."""
-    _not_ported(condition)
+    ``ld.unet``.  ``condition`` synthesizes the factor's target from
+    ``batch["image"]`` (the depth, normal and sketch configs)."""
 
     def train_step(state: TrainState, batch: Batch,
                    generator: torch.Generator, *,
@@ -72,7 +91,7 @@ def make_train_step(ld: LatentDiffusion, distill: bool = False,
                    posterior_eps: Optional[torch.Tensor] = None):
         loss, loss_dict = _loss(
             ld, batch, generator, t, noise, posterior_eps,
-            encode_first_stage, parameterization=parameterization,
+            encode_first_stage, condition, parameterization=parameterization,
             l_simple_weight=l_simple_weight,
             original_elbo_weight=original_elbo_weight, distill=distill,
             distill_weight=distill_weight)
@@ -91,7 +110,6 @@ def make_eval_step(ld: LatentDiffusion, parameterization: str = "eps",
     ``validation_step``, ``ddpm.py:442-450``): ``eval_step(state, batch,
     generator) -> {"val/<key>", "val/<key>_ema"}``.  Both passes draw the
     same t, noise and posterior sample, as the JAX step reuses its key."""
-    _not_ported(condition)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch,
@@ -112,7 +130,7 @@ def make_eval_step(ld: LatentDiffusion, parameterization: str = "eps",
             generator.set_state(rng_state)
             try:
                 _, loss_dict = _loss(ld, batch, generator, t, noise,
-                                     posterior_eps, True,
+                                     posterior_eps, True, condition,
                                      parameterization=parameterization)
             finally:
                 if saved is not None:

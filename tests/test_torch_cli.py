@@ -29,7 +29,9 @@ under ``FGDM_ALLOW_HASH_TOKENIZER=1``.
   both (their ``_sample_factor_latents`` patched) and the ControlNet stage
   at 64^2 and 2 steps in both, the maps and images agree within one uint8
   step on at most 1 % of their pixels.
-* ``--detect`` raises ``NotImplementedError`` citing its ROADMAP item.
+* ``--detect`` refuses a UniFormer checkpoint with missing keys, as JAX's
+  ``load_uniformer`` does (its maps against JAX's CLI:
+  ``tests/test_torch_annotators.py``).
 """
 
 import os
@@ -633,10 +635,19 @@ def test_factor_chain_cli_writes_the_files_jax_writes(files, tmp_path,
 
 # --- refusals ------------------------------------------------------------------
 
-def test_seg2image_refuses_detect(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A item 14\\b"):
-        seg2image.main(["--data_dir", str(tmp_path), "--detect",
-                        "--device", "cpu"])
+def test_seg2image_refuses_detect(files, tmp_path):
+    """``--detect`` with a ``--seg_ckpt`` that lacks keys: a part-random
+    segmentor would make plausible maps."""
+    data = _seg_map(tmp_path)
+    (tmp_path / "maps" / "sample2").rename(tmp_path / "maps" / "sample1")
+    torch.save({"state_dict": {"decode_head.conv_seg.bias": torch.zeros(
+        150)}}, tmp_path / "upernet.pth")
+    with pytest.raises(ValueError, match="UniFormer ingest .* missing"):
+        seg2image.main(["--data_dir", data, "--detect", "--seg_ckpt",
+                        str(tmp_path / "upernet.pth"), "--config",
+                        files["cldm.yaml"], "--cn_ckpt", files["cn.pth"],
+                        "--precision", "full", "--device", "cpu",
+                        "--outdir", str(tmp_path / "out")])
 
 
 def test_clis_refuse_real_weights_with_the_hash_tokenizer(files, tmp_path,

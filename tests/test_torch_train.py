@@ -185,12 +185,18 @@ def test_diffusion_loss_matches_jax(tiny, param):
 
 
 def test_distill_and_condition_raise(tiny):
-    """The distillation step is ported (``tests/test_torch_distill.py``);
-    condition-target synthesis still raises."""
+    """The distillation step (``tests/test_torch_distill.py``) and the
+    condition-target step (``tests/test_torch_condition.py``) are ported;
+    an unknown condition kind raises, as in JAX."""
+    from fgdm_tpu_torch.train.condition import (ConditionSynth,
+                                                build_condition_synth)
+
     ld = tiny["port"]()
     assert callable(make_train_step(ld, distill=True))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_train_step(ld, condition=object())
+    synth = ConditionSynth("depth", torch.nn.Identity())
+    assert callable(make_train_step(ld, condition=synth))
+    with pytest.raises(ValueError, match="unknown condition kind 'canny'"):
+        build_condition_synth("canny", device="cpu")
 
 
 # --- the train step --------------------------------------------------------
