@@ -101,7 +101,15 @@ it builds the port's kernels from the sources in this checkout (one
    tiled VAE (``tiled_decode`` of a 128^2 latent as 9 tiles in one batch
    of 512^2 decodes, then ``tiled_encode``; K3 at [9,1,4096,512], K4 at
    [9,128|256,512,512], K7 at batch 9; the corner one tile alone covers
-   against that tile's own decode);
+   against that tile's own decode); then the eval path (``phase_eval``):
+   ``cli.eval.main`` on the factor-1 file with every scoring flag, on
+   seeded reference-schema files (a ViT-L/14 CLIP in OpenAI's schema, a
+   torchvision Inception, UniFormer, MiDaS, PiDiNet, OpenPose), counts
+   reset just before: 8 images of 256^2, every metric finite and in range,
+   K1, K2, K4, K7 and its pre-pass launched; the directory scored twice
+   with identical JSON; the metric networks on the card against the CPU
+   with the global TF32 switch on; the generation's UNet and VAE forwards
+   kernels on vs plain;
 6. the serving path, with both conv-kernel flags on, on the engine that
    ``server.py --ckpt/--cn_ckpt`` assembles (``server.build_engine``) from
    those two files: a ``ChainEngine`` (batch 4, the fast preset:
@@ -2428,6 +2436,500 @@ def phase_detect(paths, root):
     return ok, runs["detect"]["counts"], runs["detect0"]["counts"]
 
 
+EVAL_PROMPTS = 8          # prompts, images a directory
+EVAL_BATCH = 4            # --n_samples: CFG doubles the UNet's batch to 8
+EVAL_HW = 256
+EVAL_TOL = 1e-4           # max|d| / max|ref|, card vs CPU, float32
+EVAL_LABEL_AGREE = 0.995  # UniFormer labels equal on the card and the CPU
+EVAL_HELD = 2             # images the card-vs-CPU checks run
+
+
+def reference_clip_file(path, seed=0):
+    """A seeded ViT-L/14 CLIP in OpenAI's schema (fused ``in_proj``,
+    ``visual.*``, ``positional_embedding``, ``text_projection`` ``[768,
+    768]``), except that the vision projection is stored as HF stores it
+    (``visual_projection.weight``): JAX's fuzzy matcher has no slot for
+    OpenAI's bare ``visual.proj`` and refuses such a file, and the port
+    does as JAX does.  Returns the state dict with ``visual.proj`` instead
+    (held in host memory, for the refusal check)."""
+    import torch
+    from fgdm_tpu_torch.models.clip import CLIPTextEncoder
+    from fgdm_tpu_torch.nn.layers import init_params_
+    from fgdm_tpu_torch.utils.clip_score import CLIPVisionEncoder
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    vision = init_params_(CLIPVisionEncoder(device="cuda"), gen, 0.02)
+    vision.reset_parameters(gen)
+    text = init_params_(CLIPTextEncoder(device="cuda"), gen, 0.02)
+    vsd = {k: v.cpu() for k, v in vision.state_dict().items()}
+    tsd = {k.replace("text_model.", ""): v.cpu()
+           for k, v in text.state_dict().items()}
+    d = tsd["final_layer_norm.weight"].shape[0]
+    sd = {"positional_embedding": tsd["embeddings.position_embedding.weight"],
+          "text_projection": torch.randn(d, vision.proj_dim, generator=gen,
+                                         device="cuda").cpu() * d ** -0.5,
+          "logit_scale": torch.tensor(4.6052),
+          "visual.class_embedding": vsd["class_embedding"],
+          "visual.positional_embedding": vsd["position_embedding"],
+          "visual_projection.weight": vsd["visual_projection.weight"],
+          "visual.conv1.weight": vsd["patch_embed.weight"],
+          "visual.ln_pre.weight": vsd["pre_layernorm.weight"],
+          "visual.ln_pre.bias": vsd["pre_layernorm.bias"]}
+    names = (("ln_1", "layer_norm1"), ("ln_2", "layer_norm2"),
+             ("mlp.c_fc", "mlp.fc1"), ("mlp.c_proj", "mlp.fc2"),
+             ("attn.out_proj", "self_attn.out_proj"))
+    for src, dst in ((vsd, "visual.transformer."), (tsd, "transformer.")):
+        n = sum(k.endswith("layer_norm1.weight") for k in src)
+        pre = "" if src is vsd else "encoder."
+        for i in range(n):
+            s, t = f"{pre}layers.{i}.", f"{dst}resblocks.{i}."
+            for leaf in ("weight", "bias"):
+                sd[t + f"attn.in_proj_{leaf}"] = torch.cat(
+                    [src[s + f"self_attn.{x}_proj.{leaf}"] for x in "qkv"])
+                for o, h in names:
+                    sd[t + f"{o}.{leaf}"] = src[s + f"{h}.{leaf}"]
+    sd["visual.ln_post.weight"] = vsd["post_layernorm.weight"]
+    sd["visual.ln_post.bias"] = vsd["post_layernorm.bias"]
+    sd["token_embedding.weight"] = tsd["embeddings.token_embedding.weight"]
+    sd["ln_final.weight"] = tsd["final_layer_norm.weight"]
+    sd["ln_final.bias"] = tsd["final_layer_norm.bias"]
+    torch.save(sd, path)
+    openai = {("visual.proj" if k == "visual_projection.weight" else k):
+              (v.T.contiguous() if k == "visual_projection.weight" else v)
+              for k, v in sd.items()}
+    del vision, text
+    torch.cuda.empty_cache()
+    return openai
+
+
+def reference_inception_file(path, seed=0):
+    """JAX's seeded ``init_inception_params(seed)`` as torchvision's
+    ``inception_v3`` state dict: ``fc.*``, ``AuxLogits.*`` and each
+    BatchNorm's ``num_batches_tracked`` beside the FID keys."""
+    import torch
+    from fgdm_tpu_torch.utils.inception import init_inception_params
+
+    sd = {k: torch.from_numpy(v)
+          for k, v in init_inception_params(seed).items()}
+    for k in [k for k in sd if k.endswith("running_var")]:
+        sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    sd["fc.weight"] = torch.zeros(1008, 2048)
+    sd["fc.bias"] = torch.zeros(1008)
+    sd["AuxLogits.conv0.conv.weight"] = torch.zeros(128, 768, 1, 1)
+    sd["AuxLogits.fc.weight"] = torch.zeros(1008, 768)
+    torch.save(sd, path)
+
+
+def reference_openpose_file(path, seed=0):
+    """A seeded ``BodyPoseNet`` as the released ``body_pose_model.pth``
+    holds it: bare conv names (``conv1_1.weight``,
+    ``Mconv7_stage6_L2.bias``)."""
+    import torch
+    from fgdm_tpu_torch.annotators import seed_
+    from fgdm_tpu_torch.annotators.openpose import BodyPoseNet
+
+    net = seed_(BodyPoseNet(device="cuda"),
+                torch.Generator(device="cuda").manual_seed(seed))
+    torch.save({k.split(".", 1)[1]: v.cpu()
+                for k, v in net.state_dict().items()}, path)
+
+
+def reference_pidinet_file(path, seed=0):
+    """A seeded PiDiNet as ``table5_pidinet.pth`` holds it: ``module.``
+    keys under ``"state_dict"``."""
+    import torch
+    from fgdm_tpu_torch.annotators import seed_
+    from fgdm_tpu_torch.annotators.pidinet import PiDiNet
+
+    net = seed_(PiDiNet(device="cuda"),
+                torch.Generator(device="cuda").manual_seed(seed))
+    torch.save({"state_dict": {"module." + k: v.cpu()
+                               for k, v in net.state_dict().items()}}, path)
+
+
+def write_eval_dirs(root, seed=0):
+    """``EVAL_PROMPTS`` images of 256^2 a directory: real images (seeded
+    noise), colorized ADE maps, depth (grayscale ramps), normals, sketches
+    (sparse strokes) and pose renders (``render_skeleton`` of two random
+    Halpe-136 people), and the prompt file."""
+    import numpy as np
+    from fgdm_tpu_torch.cli.txt2img_fgdm import _write_png
+    from fgdm_tpu_torch.data.colorize import ade_cmap, colorize
+    from fgdm_tpu_torch.data.pose import NUM_JOINTS, render_skeleton
+
+    rng = np.random.default_rng(seed)
+    n, hw = EVAL_PROMPTS, EVAL_HW
+    yy, xx = np.mgrid[:hw, :hw] / hw
+    maps = {
+        "ref": [rng.integers(0, 256, (hw, hw, 3), dtype=np.uint8)
+                for _ in range(n)],
+        "cond": [colorize(rng.integers(0, 150, (8, 8)).repeat(32, 0)
+                          .repeat(32, 1), ade_cmap()[1:]) for _ in range(n)],
+        "depth": [np.repeat((255 * (a * xx + (1 - a) * yy))[..., None], 3,
+                            -1).astype(np.uint8) for a in rng.random(n)],
+        "normal": [rng.integers(0, 256, (hw, hw, 3), dtype=np.uint8)
+                   for _ in range(n)],
+        "sketch": [np.repeat((255 * (rng.random((hw, hw)) > 0.97))[..., None],
+                             3, -1).astype(np.uint8) for _ in range(n)],
+        "pose": [render_skeleton([np.concatenate([
+            rng.uniform(16, hw - 16, (NUM_JOINTS, 2)),
+            np.ones((NUM_JOINTS, 1))], 1) for _ in range(2)], hw, hw)
+            for _ in range(n)],
+    }
+    dirs = {}
+    for name, arrs in maps.items():
+        d = dirs[name] = os.path.join(root, name)
+        os.makedirs(d)
+        for i, a in enumerate(arrs):
+            _write_png(os.path.join(d, f"{i:03}.png"), a)
+    dirs["prompts"] = os.path.join(root, "prompts.txt")
+    with open(dirs["prompts"], "w") as f:
+        f.write("\n".join(f"{PROMPT_CLI}, view {i}" for i in range(n)))
+    return dirs
+
+
+def _images(args):
+    for a in args[1:]:
+        if hasattr(a, "shape"):
+            return 1 if len(a.shape) == 3 else int(a.shape[0])
+    return 1
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Patch each ``(label, owner, name)`` to record ``(seconds, images)``
+    of every call, the card synchronized around it."""
+    import torch
+
+    times = {label: [] for label, _, _ in targets}
+    saved = []
+    for label, owner, name in targets:
+        fn = getattr(owner, name)
+        saved.append((owner, name, fn))
+
+        def wrapper(*a, _fn=fn, _label=label, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[_label].append((time.perf_counter() - t0, _images(a)))
+            return out
+
+        setattr(owner, name, wrapper)
+    try:
+        yield times
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def _per_image_ms(calls):
+    n = sum(k for _, k in calls)
+    return round(1e3 * sum(s for s, _ in calls) / max(n, 1), 2)
+
+
+def _metrics_ok(m, n):
+    """Every metric finite and in its range."""
+    unit = ("clip_score",)
+    frac = ("miou", "sketch_f1", "sketch_precision", "sketch_recall",
+            "pose_f1", "pose_precision", "pose_recall")
+    ok = m.get("n_images") == n
+    for k, v in m.items():
+        if isinstance(v, str):
+            continue
+        ok = ok and math.isfinite(v)
+        if k in unit:
+            ok = ok and -1.0 <= v <= 1.0
+        elif k in frac:
+            ok = ok and 0.0 <= v <= 1.0
+        elif k.startswith("normal_"):
+            ok = ok and 0.0 <= v <= 180.0
+        else:
+            ok = ok and v >= 0.0
+    return ok
+
+
+def _max_rel(got, ref):
+    import numpy as np
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def eval_held_on_cpu(opt, imgs):
+    """The metric networks on the card against the same seeded modules on
+    the card's CPU, on ``EVAL_HELD`` generated images, with the global
+    TF32 switches on (the networks turn it off themselves): CLIP image
+    features, Inception pool3, MiDaS depth, PiDiNet's unthresholded edges
+    and OpenPose's PAF and heat maps within ``EVAL_TOL``; UniFormer labels
+    equal on ``EVAL_LABEL_AGREE`` of the pixels."""
+    import copy
+
+    import numpy as np
+    import torch
+    from fgdm_tpu_torch import full_f32
+    from fgdm_tpu_torch.checkpoint import annotator_ingest as ai
+    from fgdm_tpu_torch.checkpoint.torch_ingest import load_torch_state_dict
+    from fgdm_tpu_torch.cli import eval as ev
+    from fgdm_tpu_torch.utils import clip_score, inception
+
+    x = imgs[:EVAL_HELD]
+    u8 = (np.clip(x, 0.0, 1.0) * 255).astype(np.uint8)
+    res = {}
+    scorer, _ = ev.default_scorer_factory(opt)
+    cpu = clip_score.CLIPScorer(copy.deepcopy(scorer.vision).cpu(),
+                                copy.deepcopy(scorer.text).cpu(),
+                                scorer.text_proj.cpu())
+    res["CLIP features"] = _max_rel(scorer.encode_image(x).cpu(),
+                                cpu.encode_image(x))
+    del scorer, cpu
+    sd = load_torch_state_dict(opt.inception_ckpt)
+    fns = [inception.inception_feature_fn(
+        inception.ingest_inception(sd, device=d))[0] for d in ("cuda", "cpu")]
+    res["Inception pool3"] = _max_rel(fns[0](x), fns[1](x))
+    dets = [ai.load_midas(opt.midas_ckpt, device=d) for d in ("cuda", "cpu")]
+    res["MiDaS depth"] = _max_rel(ev._midas(dets[0], x)[0],
+                              ev._midas(dets[1], x)[0])
+    nets = [ai.load_pidinet(opt.pidinet_ckpt, device=d)
+            for d in ("cuda", "cpu")]
+    outs = []
+    for net in nets:
+        net.binarize = False
+        dev = next(net.parameters()).device
+        with torch.no_grad(), full_f32():
+            xx = torch.from_numpy(x).to(dev).permute(0, 3, 1, 2) * 2 - 1
+            outs.append(net(xx).cpu().numpy())
+    res["PiDiNet edges"] = _max_rel(*outs)
+    dets = [ai.load_openpose(opt.openpose_ckpt, device=d)
+            for d in ("cuda", "cpu")]
+    maps = [[det.maps(im) for im in u8] for det in dets]
+    res["OpenPose PAF"] = max(_max_rel(a[0], b[0]) for a, b in zip(*maps))
+    res["OpenPose heat"] = max(_max_rel(a[1], b[1]) for a, b in zip(*maps))
+    dets = [ai.load_uniformer(opt.seg_ckpt, device=d)
+            for d in ("cuda", "cpu")]
+    with full_f32():
+        labels = [det.labels(u8) for det in dets]
+    agree = float((labels[0] == labels[1]).mean())
+    ok = (all(v <= EVAL_TOL for v in res.values())
+          and agree >= EVAL_LABEL_AGREE)
+    log("eval: card vs CPU on " + str(EVAL_HELD) + " images (global TF32 "
+        "on, the metric networks' own switch off): " + ", ".join(
+            f"{k} max|d|/max|ref| {v:.3e}" for k, v in res.items())
+        + f" (tol {EVAL_TOL}); UniFormer labels agree on {agree:.5f} of "
+        f"the pixels (>= {EVAL_LABEL_AGREE}); {'OK' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_eval(paths, root):
+    """``python -m fgdm_tpu_torch.cli.eval`` at full width on seeded
+    weights written in the reference schemas (a ViT-L/14 CLIP in OpenAI's
+    schema, a torchvision InceptionV3, ``body_pose_model.pth``, UniFormer,
+    MiDaS and PiDiNet), under ``FGDM_ALLOW_HASH_TOKENIZER=1``, conv flags
+    on, the global TF32 switches on (the metric networks turn it off for
+    themselves).  Run 1, the eval path's counted run: generate 8 images of
+    256^2 from the checkpoint phase's factor-1 file (``--n_samples 4``, 50
+    DDIM steps) and score them with every flag (CLIP score, Inception-FID,
+    mIoU, depth, normal, edge-F1, skeleton-F1).  Runs 2 and 3: score run
+    1's PNGs (``--images_dir``) with CLIP-FID and the same adherence flags;
+    their JSON must be identical.  Times each metric network per image,
+    OpenPose's network and host grouping apart, and each FID; then holds
+    the metric networks on the card against the CPU and the factor-1 UNet
+    and VAE forwards of the generation kernels on vs plain."""
+    import numpy as np
+    import torch
+    from fgdm_tpu_torch.annotators import midas, openpose, pidinet, uniformer
+    from fgdm_tpu_torch.builders import ModelSpec
+    from fgdm_tpu_torch.checkpoint import fuzzy_ingest
+    from fgdm_tpu_torch.checkpoint.torch_ingest import load_torch_state_dict
+    from fgdm_tpu_torch.cli import eval as ev
+    from fgdm_tpu_torch.models.clip import CLIPTextEncoder
+    from fgdm_tpu_torch.utils import clip_score, fid, inception
+    from fgdm_tpu_torch.utils.clip_score import CLIPVisionEncoder
+
+    files = {name: os.path.join(root, name) for name in (
+        "clip-vit-large-patch14.pt", "pt_inception-2015-12-21.pth",
+        "body_pose_model.pth", "upernet_global_small.pth",
+        "dpt_hybrid-midas-501f0c75.pt", "table5_pidinet.pth")}
+    t0 = time.perf_counter()
+    openai = reference_clip_file(files["clip-vit-large-patch14.pt"])
+    reference_inception_file(files["pt_inception-2015-12-21.pth"])
+    reference_openpose_file(files["body_pose_model.pth"])
+    reference_uniformer_file(files["upernet_global_small.pth"])
+    reference_midas_file(files["dpt_hybrid-midas-501f0c75.pt"])
+    reference_pidinet_file(files["table5_pidinet.pth"])
+    dirs = write_eval_dirs(os.path.join(root, "dirs"))
+    log(f"eval: wrote the reference-schema files in "
+        f"{time.perf_counter() - t0:.1f}s: " + ", ".join(
+            f"{k} {os.path.getsize(p)}" for k, p in files.items()))
+
+    # the CLIP file through the fuzzy matcher (the towers on the meta device)
+    vision, text = CLIPVisionEncoder(device="meta"), \
+        CLIPTextEncoder(device="meta")
+    try:
+        ev.ingest_clip_towers(openai, vision, text)
+        refusal = "loaded"
+    except SystemExit as e:
+        refusal = str(e)
+    refused = refusal == ("[eval] CLIP vision ingest failed: 1 unconsumed "
+                          "ckpt params, e.g. ['visual.proj']")
+    matches, match = [], fuzzy_ingest.match_state_dict
+
+    def recorded(*a):
+        matches.append(match(*a))
+        return matches[-1]
+
+    fuzzy_ingest.match_state_dict = recorded
+    try:
+        ev.ingest_clip_towers(load_torch_state_dict(
+            files["clip-vit-large-patch14.pt"]), vision, text)
+    finally:
+        fuzzy_ingest.match_state_dict = match
+    layer = re.compile(r"resblocks\.(\d+)\.")
+    moved = [sum(1 for k, p in m.items() if layer.search(k) and not
+                 p.startswith(f"layers_{layer.search(k).group(1)}/"))
+             for m, _, _ in matches]
+    ingest_ok = refused and all(not t and not f for _, t, f in matches)
+    del openai, vision, text
+    log("eval: the CLIP file through the fuzzy ingest: " + "; ".join(
+        f"{label} {len(m)} tensors matched, {len(t)} unconsumed, {len(f)} "
+        f"tower parameters at init, {n} in another layer's slot than their "
+        f"name's (JAX's tie rule, ROADMAP Queue C)"
+        for label, (m, t, f), n in zip(("vision", "text"), matches, moved))
+        + f"; the same file with OpenAI's visual.proj refused as JAX "
+        f"refuses it: {refused}; {'OK' if ingest_ok else 'FAIL'}")
+
+    outdir = os.path.join(root, "eval_out")
+    score = ["--clip_ckpt", files["clip-vit-large-patch14.pt"],
+             "--ref_dir", dirs["ref"], "--cond_dir", dirs["cond"],
+             "--seg_ckpt", files["upernet_global_small.pth"],
+             "--depth_dir", dirs["depth"], "--normal_dir", dirs["normal"],
+             "--midas_ckpt", files["dpt_hybrid-midas-501f0c75.pt"],
+             "--sketch_dir", dirs["sketch"],
+             "--pidinet_ckpt", files["table5_pidinet.pth"],
+             "--pose_dir", dirs["pose"],
+             "--openpose_ckpt", files["body_pose_model.pth"],
+             "--from-file", dirs["prompts"]]
+    runs = {
+        "generate": ["--config", "models/config.yaml", "--ckpt", paths["f1"],
+                     "--n_samples", str(EVAL_BATCH), "--ddim_steps", "50",
+                     "--H", str(EVAL_HW), "--W", str(EVAL_HW),
+                     "--inception_ckpt",
+                     files["pt_inception-2015-12-21.pth"], "--outdir",
+                     outdir, "--out", os.path.join(root, "eval1.json")]
+        + score,
+        "score_dir": ["--images_dir", outdir] + score,
+        "score_dir_again": ["--images_dir", outdir] + score}
+    targets = [("CLIP scorer", clip_score.CLIPScorer, "encode_image"),
+               ("Inception", inception.InceptionV3, "forward"),
+               ("UniFormer", uniformer.UniformerDetector, "labels"),
+               ("MiDaS", midas.MidasDetector, "__call__"),
+               ("PiDiNet", pidinet.PiDiNet, "forward"),
+               ("OpenPose network", openpose.OpenposeDetector, "maps"),
+               ("OpenPose host grouping", openpose.OpenposeDetector,
+                "render"),
+               ("FID (sqrtm)", fid, "frechet_distance"),
+               ("generation", ev, "_generate"),
+               ("load", ModelSpec, "load")]
+    pipes = []
+    load = ModelSpec.load
+
+    def keep(self, *a, **kw):
+        pipes.append(load(self, *a, **kw))
+        return pipes[-1]
+
+    saved_tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32)
+    out, ok = {}, ingest_ok
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        ModelSpec.load = keep
+        for label, argv in runs.items():
+            log(f"eval ({label}): python -m fgdm_tpu_torch.cli.eval "
+                + " ".join(argv))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ev._MIDAS_MEMO.clear()
+            with conv_flags(), hash_tokenizer_allowed(), \
+                    timed_calls(targets) as times:
+                if label == "generate":
+                    reset_counts()
+                t0 = time.perf_counter()
+                m = ev.main(argv)
+                wall = time.perf_counter() - t0
+                if label == "generate":
+                    counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            out[label] = m
+            good = _metrics_ok(m, EVAL_PROMPTS) and (
+                m.get("fid_backend") == ("inception_pool3"
+                                         if label == "generate" else "clip"))
+            line = f"eval ({label}): {json.dumps(m)}; main() {wall:.2f}s"
+            if label == "generate":
+                gen_s = sum(s for s, _ in times["generation"])
+                line += (f", load {sum(s for s, _ in times['load']):.2f}s, "
+                         f"generation (load included) {gen_s:.2f}s "
+                         f"({EVAL_PROMPTS / gen_s:.3f} images/s)")
+                shapes = []
+                for name in sorted(os.listdir(outdir)):
+                    with open(os.path.join(outdir, name), "rb") as f:
+                        shapes.append(png_rgb(f.read())[:2])
+                good = good and shapes == [(EVAL_HW, EVAL_HW)] * EVAL_PROMPTS
+                line += f", {len(shapes)} PNGs {sorted(set(shapes))}"
+            ok = ok and good
+            log(line + "; per image ms: " + ", ".join(
+                f"{k} {_per_image_ms(v)}" for k, v in times.items()
+                if k not in ("FID (sqrtm)", "generation", "load") and v)
+                + "; FID s " + str([round(s, 2) for s, _ in
+                                    times["FID (sqrtm)"]])
+                + f"; peak memory {peak:.2f} GiB; "
+                f"{'OK' if good else 'FAIL'}; {card_line()}")
+        ModelSpec.load = load
+        same = (json.dumps(out["score_dir"])
+                == json.dumps(out["score_dir_again"]))
+        log(f"eval: the directory scored twice gives identical JSON: {same}")
+        ok = ok and same
+        log_counts("eval", counts)
+        imgs = ev._load_dir_images(outdir)
+        opt = ev.get_parser().parse_args(runs["generate"])
+        with hash_tokenizer_allowed():
+            ok = eval_held_on_cpu(opt, imgs) and ok
+    finally:
+        ModelSpec.load = load
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved_tf32
+
+    # the generation's forwards, kernels on vs plain
+    ld = pipes[0]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b = 2 * EVAL_BATCH
+    lat = EVAL_HW // 8
+    with torch.inference_mode(), conv_flags():
+        x = torch.randn(b, 4, lat, lat, device="cuda", generator=gen)
+        t = torch.full((b,), 981, device="cuda")
+        ctx = torch.randn(b, 77, 768, device="cuda", generator=gen)
+        z = torch.randn(EVAL_BATCH, 4, lat, lat, device="cuda", generator=gen)
+        for label, fn in ((f"UNet forward [{b},4,{lat},{lat}]",
+                           lambda: ld.apply_model(x, t, {"c_crossattn": ctx})),
+                          (f"VAE decode [{EVAL_BATCH},4,{lat},{lat}]",
+                           lambda: ld.decode_first_stage(z))):
+            on = fn()
+            with plain_path():
+                off = fn()
+            torch.cuda.synchronize()
+            rel = _max_rel(on.float().cpu(), off.float().cpu())
+            good = math.isfinite(rel) and rel <= UNET_TOL
+            ok = ok and good
+            log(f"eval: {label}, conv flags on: kernels on vs plain "
+                f"max|d|/max|ref| = {rel:.3e} (tol {UNET_TOL}); "
+                f"{'OK' if good else 'FAIL'}")
+    del pipes, ld, on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, counts
+
+
 TRAIN_CLI_TREE = (24, 8, (288, 320))   # train, val images; H x W
 TRAIN_CLI_KEYS = ("inputs", "reconstruction", "conditioning", "samples",
                   "samples_inpainting", "samples_outpainting", "mask",
@@ -3689,8 +4191,16 @@ def main():
         t_chain_n = time.perf_counter()
         chain_n_ok, chain_n = phase_chain_n(paths,
                                             os.path.join(root, "chain_n"))
+        t_eval = time.perf_counter()
+        t_chain_n = t_eval - t_chain_n
+        gc.collect()
+        torch.cuda.empty_cache()
+        eval_root = os.path.join(root, "eval")
+        os.makedirs(eval_root)
+        eval_ok, eval_counts = phase_eval(paths, eval_root)
+        shutil.rmtree(eval_root, ignore_errors=True)
         t3 = time.perf_counter()
-        t_chain_n = t3 - t_chain_n
+        t_eval = t3 - t_eval
         serve_ok, serve = phase_serve(paths)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3701,7 +4211,8 @@ def main():
         f" sampler phases and the N-factor CLI {t3 - t2:.1f}s (--detect "
         f"{t_detect:.1f}s, the guided CLI {t_guided:.1f}s, "
         f"the four phases {t_tiled - t_edit:.1f}s, the N-factor CLI "
-        f"{t_chain_n:.1f}s), serving phase {time.perf_counter() - t3:.1f}s")
+        f"{t_chain_n:.1f}s), eval phase {t_eval:.1f}s, serving phase "
+        f"{time.perf_counter() - t3:.1f}s")
     t0 = time.perf_counter()
     train_ok, train, tr = phase_train()
     t1 = time.perf_counter()
@@ -3758,7 +4269,7 @@ def main():
                "train_cli": train_cli, "control": control, "joint": joint,
                "codenoise": codenoise, "variant": variant,
                "condition": condition, "condition_cli": condition_cli,
-               "detect": detect, "detect0": detect0}
+               "detect": detect, "detect0": detect0, "eval": eval_counts}
     for name, fn, seed in (("K1-K3 and the combine pass", attn_path_rows, 4),
                            ("K5 and K6", bwd_path_rows, 7),
                            ("K7 and its pre-pass", conv_path_rows, 5),
@@ -3788,6 +4299,12 @@ def main():
     for kind in ("attn", "gn", "conv", "prepass"):
         if sum(chain_n[kind].values()) == 0:
             failures.append(f"{kind} not launched by the N-factor CLI")
+        if sum(eval_counts[kind].values()) == 0:
+            failures.append(f"{kind} not launched by the eval CLI")
+    for name, tpu in (("K1", K1), ("K2", K2)):
+        if not any(attn_kernel(k[4], k[3]) == tpu
+                   for k in eval_counts["attn"]):
+            failures.append(f"{name} not launched by the eval CLI")
     for name, tpu in (("K1", K1), ("K2", K2), ("K3", K3)):
         if not any(attn_kernel(k[4], k[3]) == tpu for k in cli["attn"]):
             failures.append(f"{name} not launched by the CLI")
@@ -3901,6 +4418,8 @@ def main():
         failures.append("guided CLI (--inference_loss)")
     if not chain_n_ok:
         failures.append("N-factor CLI (--factors)")
+    if not eval_ok:
+        failures.append("eval CLI (cli/eval.py)")
     for good, label in ((ptp_ok, "prompt-to-prompt sampler"),
                         (img2img_ok, "img2img"),
                         (ancestral_ok, "ancestral sampler"),

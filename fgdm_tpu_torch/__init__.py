@@ -6,9 +6,11 @@ Pallas TPU kernel on the ported path is a kernel written by hand for Hopper
 on the CUDA device unless the caller passes ``device="cpu"``.
 """
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "full_f32"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -19,3 +21,19 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("fgdm_tpu_torch runs on a CUDA device and none is "
                            "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32():
+    """TF32 off for matmuls and cuDNN convolutions inside the block, both
+    settings restored after: the metric networks of ``cli/eval.py``
+    compute in float32 whatever the process's global switches say."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -259,6 +259,7 @@ class UniFormerSeg(nn.Module):
     def __init__(self, num_classes: int = 150,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        self.num_classes = num_classes
         with torch.device(resolve_device(device)):
             self.backbone = UniFormer(dtype=dtype)
             self.decode_head = UPerHead(num_classes=num_classes, dtype=dtype)

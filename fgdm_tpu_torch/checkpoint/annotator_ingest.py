@@ -7,10 +7,18 @@ four annotators the training and ``seg2image`` paths use:
 * ``table5_pidinet.pth``           -> ``annotators.pidinet.PiDiNet``
 * ``dpt_hybrid-midas-501f0c75.pt`` -> ``annotators.midas.DPTHybrid``
 * ``upernet_global_small.pth``     -> ``annotators.uniformer.UniFormerSeg``
+* ``body_pose_model.pth``          -> ``annotators.openpose.BodyPoseNet``
+* ``hand_pose_model.pth``          -> ``annotators.openpose.HandPoseNet``
 
 The modules carry the reference's key names, so a file loads by name after
 the normalization JAX's key mappers apply: PiDiNet's ``module.`` prefix is
-stripped; BatchNorm's ``num_batches_tracked``, UniFormer's
+stripped; OpenPose's bare conv names (``conv1_1.weight``,
+``Mconv3_stage4_L2.weight``: the released files, which the reference
+re-prefixes at load) take the torch module's prefix their name implies
+(``model0.``, ``model4_2.``; the hand net's ``model1_0.``, ``model1_1.``,
+``model{s}.``), a key already prefixed ``model*`` is placed by its conv name
+the same way, as JAX's ``ingest_openpose``/``ingest_handpose`` do;
+BatchNorm's ``num_batches_tracked``, UniFormer's
 ``auxiliary_head.*`` (training only), MiDaS's final ViT norm
 (``pretrained.model.norm.*``, never read) and its deepest fusion block's
 ``resConfUnit1`` (that block takes one input; JAX's ingest drops the keys,
@@ -21,12 +29,16 @@ Each ``ingest_*`` returns ``(missing, unexpected)`` (the module keeps its
 values for the missing keys); a shape mismatch raises ``ValueError``
 before anything is copied.  Each ``load_*`` builds the module, ingests a
 file and raises ``ValueError`` on any missing or unexpected key, as JAX's
-``load_pidinet``/``load_midas``/``load_uniformer`` do: a part-random
-annotator would make plausible-looking targets.
+``load_pidinet``/``load_midas``/``load_uniformer``/``load_openpose`` do:
+a part-random annotator would make plausible-looking targets.  A key of
+the right form that names no conv of the module counts as unexpected here
+(torch's ``load_state_dict``), for every annotator; JAX's mappers drop
+such a key.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Callable, List, Tuple
 
 import torch
@@ -36,7 +48,8 @@ from fgdm_tpu_torch.checkpoint.torch_ingest import (TensorDict,
                                                     load_torch_state_dict)
 
 __all__ = ["normalize_keys", "ingest_hed", "ingest_pidinet", "ingest_midas",
-           "ingest_uniformer", "load_pidinet", "load_midas", "load_uniformer"]
+           "ingest_uniformer", "ingest_openpose", "ingest_handpose",
+           "load_pidinet", "load_midas", "load_uniformer", "load_openpose"]
 
 _POS_EMBED = "pretrained.model.pos_embed"
 _SKIP = {
@@ -44,7 +57,30 @@ _SKIP = {
     "pidinet": (),
     "midas": ("pretrained.model.norm.", "scratch.refinenet4.resConfUnit1."),
     "uniformer": ("auxiliary_head.",),
+    "openpose": (),
+    "handpose": (),
 }
+
+
+def _openpose_key(k: str, hand: bool) -> str:
+    """A body or hand file's key as the port's module names it; a key of
+    another form stays as it is (and is unexpected)."""
+    parts = k.split(".")
+    if re.fullmatch(r"model\d(?:_\d)?", parts[0]):
+        parts = parts[1:]
+    if len(parts) != 2 or parts[1] not in ("weight", "bias"):
+        return k
+    conv = parts[0]
+    if hand:
+        m = re.fullmatch(r"Mconv\d+_stage(\d)", conv)
+        prefix = (f"model{m.group(1)}" if m else
+                  "model1_1" if conv.startswith("conv6_") else "model1_0")
+    else:
+        m = re.fullmatch(r"Mconv\d+_stage(\d)_L(\d)", conv)
+        m1 = re.fullmatch(r"conv5_\d_CPM_L(\d)", conv)
+        prefix = (f"model{m.group(1)}_{m.group(2)}" if m else
+                  f"model1_{m1.group(1)}" if m1 else "model0")
+    return f"{prefix}.{conv}.{parts[1]}"
 
 
 def normalize_keys(sd: TensorDict, kind: str) -> TensorDict:
@@ -53,6 +89,8 @@ def normalize_keys(sd: TensorDict, kind: str) -> TensorDict:
     for k, v in sd.items():
         if kind == "pidinet":
             k = k.replace("module.", "")
+        elif kind in ("openpose", "handpose"):
+            k = _openpose_key(k, hand=kind == "handpose")
         if k.endswith("num_batches_tracked") or k.startswith(_SKIP[kind]):
             continue
         out[k] = v
@@ -91,6 +129,14 @@ def ingest_midas(sd: TensorDict, module: nn.Module):
 
 def ingest_uniformer(sd: TensorDict, module: nn.Module):
     return _ingest(sd, module, "uniformer")
+
+
+def ingest_openpose(sd: TensorDict, module: nn.Module):
+    return _ingest(sd, module, "openpose")
+
+
+def ingest_handpose(sd: TensorDict, module: nn.Module):
+    return _ingest(sd, module, "handpose")
 
 
 def _load(name: str, path: str, module: nn.Module,
@@ -133,3 +179,19 @@ def load_uniformer(path: str, input_size: int = 512, dtype=torch.float32,
     return UniformerDetector(
         _load("UniFormer", path, UniFormerSeg(dtype=dtype, device=device),
               ingest_uniformer), input_size=input_size)
+
+
+def load_openpose(path: str, hand_ckpt_path: str = None,
+                  dtype=torch.float32, device=None):
+    """``body_pose_model.pth`` (and ``hand_pose_model.pth``) -> an
+    ``OpenposeDetector`` (JAX ``openpose.py:450-485``)."""
+    from fgdm_tpu_torch.annotators.openpose import (BodyPoseNet, HandPoseNet,
+                                                    OpenposeDetector)
+
+    body = _load("OpenPose", path, BodyPoseNet(dtype=dtype, device=device),
+                 ingest_openpose)
+    hand = None
+    if hand_ckpt_path is not None:
+        hand = _load("OpenPose hand", hand_ckpt_path,
+                     HandPoseNet(dtype=dtype, device=device), ingest_handpose)
+    return OpenposeDetector(body, hand)

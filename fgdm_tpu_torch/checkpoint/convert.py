@@ -16,8 +16,9 @@ and take the ResBlock names.  A pixel-attention block's ``qkv`` and
 ``[out, in, 1]``, and ``label_emb`` the class-embedding table.
 ``seq_two_state_dict`` carries a ``SeqTwoUNet``: both UNets by the UNet
 rules, ``channel_mapper`` as a 1x1 OIHW conv.  ``hed_state_dict``,
-``pidinet_state_dict``, ``midas_state_dict`` and ``uniformer_state_dict``
-invert the annotator key maps of ``fgdm_tpu/checkpoint/annotator_ingest.py``
+``pidinet_state_dict``, ``midas_state_dict``, ``uniformer_state_dict``,
+``openpose_state_dict`` and ``handpose_state_dict`` invert the annotator key
+maps of ``fgdm_tpu/checkpoint/annotator_ingest.py``
 (bare kernels, the HED input shift, frozen BatchNorms' statistics).
 
 Every leaf must map to a key; an unknown path raises ``KeyError``.
@@ -34,7 +35,8 @@ import torch
 __all__ = ["flatten", "unet_state_dict", "controlnet_state_dict",
            "vae_state_dict", "clip_state_dict", "seq_two_state_dict",
            "hed_state_dict", "pidinet_state_dict", "midas_state_dict",
-           "uniformer_state_dict"]
+           "uniformer_state_dict", "openpose_state_dict",
+           "handpose_state_dict"]
 
 _RES = {
     "in_norm": "in_layers.0",
@@ -419,3 +421,36 @@ def _uniformer_path(path, v):
 def uniformer_state_dict(params) -> Dict[str, torch.Tensor]:
     """``UniFormerSeg`` state dict from flax UniFormerSeg params."""
     return _annotator(params, _uniformer_path)
+
+
+def _openpose_path(path, v):
+    """BodyPoseNet: the stem at the top (``model0``), ``stage{s}_L{L}``'s
+    convs under ``model{s}_{L}``."""
+    if len(path) == 2:
+        return _at(f"model0.{path[0]}", path[1], v)
+    m = re.match(r"stage(\d)_L(\d)$", path[0])
+    if len(path) == 3 and m:
+        return _at(f"model{m.group(1)}_{m.group(2)}.{path[1]}", path[2], v)
+    return None
+
+
+def openpose_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``BodyPoseNet`` state dict from flax BodyPoseNet params."""
+    return _annotator(params, _openpose_path)
+
+
+def _handpose_path(path, v):
+    """HandPoseNet: the stem (``model1_0``) and the conv6 head
+    (``model1_1``) at the top, ``stage{s}``'s convs under ``model{s}``."""
+    if len(path) == 2:
+        head = "model1_1" if path[0].startswith("conv6_") else "model1_0"
+        return _at(f"{head}.{path[0]}", path[1], v)
+    m = re.match(r"stage(\d)$", path[0])
+    if len(path) == 3 and m:
+        return _at(f"model{m.group(1)}.{path[1]}", path[2], v)
+    return None
+
+
+def handpose_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``HandPoseNet`` state dict from flax HandPoseNet params."""
+    return _annotator(params, _handpose_path)
