@@ -186,14 +186,21 @@ it builds the port's kernels from the sources in this checkout (one
    2, 32^2 of 8 channels; both halves finite with nonzero std; one forward
    kernels on vs plain) and one forward of a UNet with the config's
    variants (pixel attention in the new qkv order, ``resblock_updown``,
-   ``num_classes``) kernels on vs plain, no K1;
+   ``num_classes``) kernels on vs plain, no K1; then the library modules
+   no product path runs (``phase_library``): VQModel at JAX's defaults,
+   LPIPS and a ``generator_loss`` with a PatchDiscriminator and its
+   gradients, AdapterLight, counts reset just before that run (K2 and K7
+   launched), each kernels on vs plain; VQ in float32 card vs CPU (indices
+   equal but for near-ties); AttentionPool2d, BERTEmbedder (1280 x 32) and
+   FrozenClipImageEmbedder (ViT-L/14) card vs CPU; MLSDdetector, Canny and
+   ``sobel_edges`` at 512^2, timed stage by stage;
 8. holds every kernel against its plain version, and times it, at every
    other shape that a path above launched (the chain, the training step,
    the served batch, the CLI, seg2image's sampling and ``--detect``, the
    guided CLI, the distillation step, the condition steps, the N-factor
    CLI, ptp, img2img, the ancestral sampler, the tiled VAE, the training
    CLI and its normal-factor config, the two recipes, co-denoising, the
-   variant UNet): K1-K3 and the combine pass
+   variant UNet, the library modules): K1-K3 and the combine pass
    at each (batch, heads, N, d), K5 and K6 at each (batch, heads, N, d), K7 and its pre-pass at
    each conv launch key, K4 at each (shape, eps), each held once, under
    the first path that launched it; every row then reads its path's launch
@@ -3924,6 +3931,274 @@ def phase_tiled(ld):
     return ok, counts
 
 
+def _card_vs_cpu(module, *args):
+    """``module`` on the card and a copy of it on the CPU, float32 (TF32
+    off), on the same inputs: (card output, max|d|/max|ref|)."""
+    import copy
+
+    import torch
+
+    cpu = copy.deepcopy(module).to("cpu")
+    with torch.no_grad():
+        on = module(*args)
+        off = cpu(*(a.cpu() for a in args))
+    return on, _rel(on.cpu(), off)
+
+
+def _timed(fn, reps=3):
+    """(result, ms a call): the host's clock around ``reps`` synchronised
+    calls after one warm-up call."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_library():
+    """The library modules no product path runs, at the reference's widths
+    on seeded weights: VQModel at JAX's defaults (ch 128, ch_mult (1,2,4,4),
+    16,384 codes of 4) at batch 4, 256^2, bf16, conv flag on (encode,
+    quantize, decode: K2 at the mid-blocks, K7 at the 64^2 and 32^2 convs);
+    LPIPS at 256^2, batch 4, bf16, conv flag on (K7 at the VGG's conv3-5)
+    and one ``generator_loss`` with a ``PatchDiscriminator`` (ndf 64) and
+    its gradients; AdapterLight (320, 640, 1280, 1280) on a 512^2 image;
+    AttentionPool2d; BERTEmbedder at 1280 x 32 layers on 77 tokens;
+    FrozenClipImageEmbedder at ViT-L/14; MLSDdetector at 512^2 (the net's
+    and the host stages' times); CannyDetector and sobel_edges at 512^2.
+    Counts are reset just before the counted run of the kernel users (VQ,
+    LPIPS and the generator loss, the light adapter) and read just after;
+    then the kernel users kernels on vs plain (VQ's f32 encode and indices,
+    card vs CPU, differing indices only at near-ties: the two codes'
+    distances to the CPU's latent within 1e-5 * max(1, max distance)), and
+    the modules without a kernel in float32 card vs CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+    from fgdm_tpu_torch.annotators.canny import CannyDetector, sobel_edges
+    from fgdm_tpu_torch.annotators.mlsd import (MLSDdetector,
+                                                MobileV2MLSDLarge,
+                                                decode_lines)
+    from fgdm_tpu_torch.diffusion.perceptual_losses import (
+        LPIPS, PatchDiscriminator, generator_loss)
+    from fgdm_tpu_torch.models.adapter import AdapterLight
+    from fgdm_tpu_torch.models.encoders import (BERTEmbedder,
+                                                FrozenClipImageEmbedder)
+    from fgdm_tpu_torch.models.vq import VQModel
+    from fgdm_tpu_torch.nn.attention import AttentionPool2d
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    torch.manual_seed(17)
+    vq = VQModel(dtype=bf16).requires_grad_(False).eval()
+    with torch.no_grad():       # codes spread like the latents
+        vq.quantize.embedding.weight.normal_(0.0, 0.5, generator=gen)
+    lpips = LPIPS(dtype=bf16).requires_grad_(False).eval()
+    disc = PatchDiscriminator(ndf=64, dtype=bf16)
+    light = AdapterLight(dtype=bf16).to("cuda").requires_grad_(False).eval()
+    x = torch.rand(4, 3, 256, 256, device="cuda", generator=gen) * 2 - 1
+    y = (x + 0.2 * torch.randn(x.shape, device="cuda", generator=gen)
+         ).clamp(-1, 1)
+    img512 = torch.rand(1, 3, 512, 512, device="cuda", generator=gen)
+    msgs, ok = [], True
+
+    def counted():
+        with torch.no_grad():
+            z_q, emb_loss, idx = vq.encode(x)
+            rec = vq.decode(z_q)
+            d = lpips(x, y)
+            feats = light(img512)
+        r = rec.detach().float().requires_grad_(True)
+        loss, _ = generator_loss(x, r, lpips, disc_fn=disc,
+                                 codebook_loss=emb_loss)
+        loss.backward()
+        return z_q, emb_loss, idx, rec, d, feats, loss, r.grad
+
+    with conv_flags():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        z_q, emb_loss, idx, rec, d, feats, loss, grad = counted()
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+        counts = read_counts()
+        disc_grads = [p.grad.clone() for p in disc.parameters()]
+        disc.zero_grad()
+        with torch.no_grad():
+            _, vq_ms = _timed(lambda: vq.decode(vq.encode(x)[0]))
+            _, lpips_ms = _timed(lambda: lpips(x, y))
+            _, light_ms = _timed(lambda: light(img512))
+            h_on = vq.encode_pre_quant(x)
+            rec_on = vq.decode(z_q)
+        with plain_path(), torch.no_grad():
+            h_off = vq.encode_pre_quant(x)
+            rec_off = vq.decode(z_q)
+            d_off = lpips(x, y)
+            feats_off = light(img512)
+        with plain_path():
+            r = rec.detach().float().requires_grad_(True)
+            loss_off, _ = generator_loss(x, r, lpips, disc_fn=disc,
+                                         codebook_loss=emb_loss)
+            loss_off.backward()
+            grad_off = r.grad
+        disc_grads_off = [p.grad.clone() for p in disc.parameters()]
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (z_q, rec, d, loss, grad, *feats, *disc_grads))
+    rels = {"VQ encode": _rel(h_on, h_off), "VQ decode": _rel(rec_on, rec_off),
+            "LPIPS": _rel(d, d_off),
+            "generator loss": _rel(loss.detach(), loss_off.detach()),
+            "d loss / d recon": _rel(grad, grad_off),
+            "discriminator grads": max(_rel(a, b) for a, b in
+                                       zip(disc_grads, disc_grads_off)),
+            "AdapterLight": max(_rel(a, b) for a, b in zip(feats,
+                                                            feats_off))}
+    n = {k: sum(c.values()) for k, c in counts.items()}
+    k2 = any(attn_kernel(k[4], k[3]) == K2 for k in counts["attn"])
+    good = (finite and k2 and n["conv"] > 0 and n["prepass"] > 0
+            and all(math.isfinite(v) and v <= UNET_TOL
+                    for v in rels.values())
+            and tuple(rec.shape) == (4, 3, 256, 256)
+            and tuple(idx.shape) == (4, 32, 32)
+            and [tuple(f.shape[1:]) for f in feats] == [
+                (320, 64, 64), (640, 32, 32), (1280, 16, 16), (1280, 8, 8)])
+    ok &= good
+    msgs.append(
+        f"counted run (VQ encode/quantize/decode, LPIPS, generator_loss + "
+        f"backward, AdapterLight; first calls) {counted_s:.2f}s; VQ "
+        f"[4,3,256,256] bf16 {vq_ms:.2f} ms, LPIPS {lpips_ms:.2f} ms, "
+        f"AdapterLight [1,3,512,512] {light_ms:.2f} ms a batch (host clock);"
+        f" kernels on vs plain max|d|/max|ref|: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rels.items())
+        + f" (tol {UNET_TOL}); launches K2 {k2}, K7 {n['conv']}, pre-pass "
+        f"{n['prepass']}, K4 {n['gn']}; {'OK' if good else 'FAIL'}")
+
+    # VQ in float32: the card (TF32 off) against the CPU, batch 1 at 128^2
+    # (16^2 latents: N = 256 keeps the mid-blocks off K2, which takes bf16
+    # alone; JAX's takes f32 too, ROADMAP Queue B)
+    x = x[:1, :, ::2, ::2].contiguous()
+    torch.manual_seed(18)
+    vq32 = VQModel().requires_grad_(False).eval()
+    with torch.no_grad():
+        vq32.quantize.embedding.weight.normal_(0.0, 0.5, generator=gen)
+        vq_cpu = copy.deepcopy(vq32).to("cpu")
+        h_card = vq32.encode_pre_quant(x)
+        h_cpu = vq_cpu.encode_pre_quant(x.cpu())
+        rel_h = _rel(h_card.cpu(), h_cpu)
+        idx_card = vq32.quantize(h_card)[2].cpu()
+        zq_cpu, _, idx_cpu = vq_cpu.quantize(h_cpu)
+        rec_cpu = vq_cpu.decode(zq_cpu)
+        rec_card = vq32.decode(zq_cpu.cuda())
+    flat = h_cpu.permute(0, 2, 3, 1).reshape(-1, 4).double()
+    cb = vq_cpu.quantize.embedding.weight.double()
+    dist = torch.cdist(flat, cb) ** 2
+    a, b = idx_card.reshape(-1), idx_cpu.reshape(-1)
+    diff = (a != b).nonzero().reshape(-1)
+    gap = (dist[diff, a[diff]] - dist[diff, b[diff]]).abs()
+    ties_ok = bool((gap <= 1e-5 * max(1.0, dist.max().item())).all())
+    rel_rec = _rel(rec_card.cpu(), rec_cpu)
+    good = (rel_h <= EVAL_TOL and ties_ok and rel_rec <= EVAL_TOL)
+    ok &= good
+    msgs.append(f"VQ f32 card vs CPU [1,3,128,128]: latents max|d|/max|ref| "
+                f"{rel_h:.3e}, decode {rel_rec:.3e} (tol {EVAL_TOL}); indices "
+                f"{len(diff)} of {a.numel()} differ, all near-ties {ties_ok}; "
+                f"{'OK' if good else 'FAIL'}")
+    del vq, vq32, vq_cpu, lpips, disc, light
+    torch.cuda.empty_cache()
+
+    # the modules without a kernel: float32 on the card against the CPU
+    torch.manual_seed(19)
+    pool = AttentionPool2d(8, 2048, 64, output_dim=1024).to("cuda")
+    pool.requires_grad_(False).eval()
+    fmap = torch.randn(4, 2048, 8, 8, device="cuda", generator=gen)
+    out, rel = _card_vs_cpu(pool, fmap)
+    with torch.no_grad():
+        _, pool_ms = _timed(lambda: pool(fmap))
+    good = rel <= EVAL_TOL and tuple(out.shape) == (4, 1024)
+    ok &= good
+    msgs.append(f"AttentionPool2d [4,2048,8,8] -> {tuple(out.shape)}: card "
+                f"vs CPU {rel:.3e}, {pool_ms:.2f} ms; "
+                f"{'OK' if good else 'FAIL'}")
+    bert = BERTEmbedder().requires_grad_(False).eval()
+    ids = torch.randint(0, 30522, (4, 77), device="cuda", generator=gen)
+    out, rel = _card_vs_cpu(bert, ids[:1])
+    with torch.no_grad():
+        _, bert_ms = _timed(lambda: bert(ids))
+    good = rel <= EVAL_TOL and tuple(out.shape) == (1, 77, 1280)
+    ok &= good
+    msgs.append(f"BERTEmbedder 1280 x 32 layers [1,77]: card vs CPU "
+                f"{rel:.3e}; batch 4 {bert_ms:.2f} ms; "
+                f"{'OK' if good else 'FAIL'}")
+    del bert
+    torch.cuda.empty_cache()
+    clip = FrozenClipImageEmbedder().requires_grad_(False).eval()
+    out, rel = _card_vs_cpu(clip, y[:1])
+    with torch.no_grad():
+        _, clip_ms = _timed(lambda: clip(y))
+    good = rel <= EVAL_TOL and tuple(out.shape) == (1, 768)
+    ok &= good
+    msgs.append(f"FrozenClipImageEmbedder ViT-L/14 [1,3,256,256]: card vs "
+                f"CPU {rel:.3e}; batch 4 {clip_ms:.2f} ms; "
+                f"{'OK' if good else 'FAIL'}")
+    del clip
+    torch.cuda.empty_cache()
+
+    # MLSD and Canny at 512^2 on one seeded image
+    rng = np.random.default_rng(20)
+    photo = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    photo[96:400, 128:136] = 255
+    photo[300:308, 40:480] = 0
+    det = MLSDdetector(MobileV2MLSDLarge())
+    inp, resize_ms = _timed(lambda: det.net_input(photo))
+    tp, net_ms = _timed(lambda: det.tp_map(inp))
+    lines, decode_ms = _timed(lambda: decode_lines(tp))
+    drawn, draw_ms = _timed(lambda: det.draw(lines, 512, 512))
+    _, rel = _card_vs_cpu(det.model, torch.from_numpy(inp).permute(
+        2, 0, 1)[None].cuda())
+    full = det(photo)
+    # seeded weights make no line: the host stages again on a seeded map
+    # whose 40 centres do
+    tp_seeded = rng.normal(-4.0, 1.0, (256, 256, 9)).astype(np.float32)
+    for cy, cx in rng.integers(0, 256, (40, 2)):
+        tp_seeded[cy, cx, 0] = 3.0
+        tp_seeded[cy, cx, 1:5] = rng.uniform(-40.0, 40.0, 4)
+    segs, segs_ms = _timed(lambda: decode_lines(tp_seeded))
+    seg_map, seg_draw_ms = _timed(lambda: det.draw(segs, 512, 512))
+    good = (rel <= EVAL_TOL and tp.shape == (256, 256, 9)
+            and full.shape == (512, 512) and np.array_equal(full, drawn)
+            and len(segs) > 0 and seg_map.max() == 255)
+    ok &= good
+    msgs.append(f"MLSDdetector 512^2: resize {resize_ms:.2f} ms, net "
+                f"{net_ms:.2f} ms, decode {decode_ms:.2f} ms ({len(lines)} "
+                f"lines), draw {draw_ms:.2f} ms an image (host clock); on "
+                f"the seeded map decode {segs_ms:.2f} ms ({len(segs)} "
+                f"lines), draw {seg_draw_ms:.2f} ms ({int((seg_map > 0).sum())}"
+                f" pixels); net card vs CPU {rel:.3e}; "
+                f"{'OK' if good else 'FAIL'}")
+    edges, canny_ms = _timed(lambda: CannyDetector()(photo, 100, 200))
+    img = torch.from_numpy(photo).permute(2, 0, 1)[None].float() / 127.5 - 1
+    sob, sobel_ms = _timed(lambda: sobel_edges(img.cuda()))
+    sob_cpu = sobel_edges(img)
+    flips = int((sob.cpu() != sob_cpu).sum())
+    good = (edges.shape == (512, 512) and edges.max() == 255
+            and flips <= sob_cpu.numel() // 1000)
+    ok &= good
+    msgs.append(f"CannyDetector 512^2 {canny_ms:.2f} ms (host), sobel_edges "
+                f"{sobel_ms:.3f} ms (card), card vs CPU {flips} of "
+                f"{sob_cpu.numel()} pixels differ (at most 0.1 %); "
+                f"{'OK' if good else 'FAIL'}")
+    for m in msgs:
+        log("library: " + m)
+    log_counts("library", counts)
+    del det
+    torch.cuda.empty_cache()
+    return ok, counts
+
+
 def sweep_k1(gen):
     """K1 at the planned tile (*) and at every tile the kernel takes (keys
     per tile, ring stages, consumer warpgroups) at the ``K1_SWEEP`` shapes,
@@ -4259,9 +4534,13 @@ def main():
     variant_ok, variant = phase_variant()
     gc.collect()
     torch.cuda.empty_cache()
+    t7 = time.perf_counter()
+    library_ok, library = phase_library()
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"control phase {t4 - t3:.1f}s, joint phase {t5 - t4:.1f}s, "
         f"codenoise phase {t6 - t5:.1f}s, variant forward "
-        f"{time.perf_counter() - t6:.1f}s")
+        f"{t7 - t6:.1f}s, library phase {time.perf_counter() - t7:.1f}s")
     by_path = {"chain": chain, "train": train, "serve": serve, "cli": cli,
                "seg2image": seg, "guided": guided, "distill": distill,
                "chain_n": chain_n, "ptp": ptp, "img2img": img2img,
@@ -4269,7 +4548,8 @@ def main():
                "train_cli": train_cli, "control": control, "joint": joint,
                "codenoise": codenoise, "variant": variant,
                "condition": condition, "condition_cli": condition_cli,
-               "detect": detect, "detect0": detect0, "eval": eval_counts}
+               "detect": detect, "detect0": detect0, "eval": eval_counts,
+               "library": library}
     for name, fn, seed in (("K1-K3 and the combine pass", attn_path_rows, 4),
                            ("K5 and K6", bwd_path_rows, 7),
                            ("K7 and its pre-pass", conv_path_rows, 5),
@@ -4382,6 +4662,12 @@ def main():
                             "tiled VAE")
     if not any(k[0] == 9 for k in tiled["conv"]):
         failures.append("K7 not launched at batch 9 by the tiled VAE")
+    if not any(attn_kernel(k[4], k[3]) == K2 for k in library["attn"]):
+        failures.append("K2 not launched by the library phase")
+    if sum(library["conv"].values()) == 0:
+        failures.append("K7 not launched by the library phase")
+    if not library_ok:
+        failures.append("library modules (VQ, LPIPS, encoders, MLSD, Canny)")
     if not ckpt_ok:
         failures.append("checkpoints written and loaded")
     if not cli_ok:

@@ -1,7 +1,11 @@
 """The frozen detector nets that make condition maps (counterpart of
 ``fgdm_tpu/annotators/``): ``hed`` (ControlNetHED) and ``pidinet`` (PiDiNet)
 for sketches, ``midas`` (DPT-Hybrid) for depth and normals, ``uniformer``
-(UniFormer-S + UPerHead) for ADE20K segmentation.
+(UniFormer-S + UPerHead) for ADE20K segmentation, ``openpose`` for poses,
+``mlsd`` (MobileNetV2 MLSD) for line segments and ``canny`` (OpenCV's Canny
+rebuilt in numpy, and the in-graph ``sobel_edges``) for edges.  MLSD and
+Canny run without OpenCV: ``data/imgproc.py`` rebuilds its INTER_AREA
+resize and 1-pixel line.
 
 The modules are NCHW and carry the reference's torch key names, so a
 released checkpoint loads with ``load_state_dict`` after the key

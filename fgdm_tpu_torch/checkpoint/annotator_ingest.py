@@ -1,7 +1,7 @@
 """Annotator checkpoints -> the port's annotator modules.
 
 Counterpart of ``fgdm_tpu/checkpoint/annotator_ingest.py:47-559`` for the
-four annotators the training and ``seg2image`` paths use:
+annotators the training, ``seg2image`` and evaluation paths use, and MLSD:
 
 * ``ControlNetHED.pth``            -> ``annotators.hed.ControlNetHED``
 * ``table5_pidinet.pth``           -> ``annotators.pidinet.PiDiNet``
@@ -9,6 +9,7 @@ four annotators the training and ``seg2image`` paths use:
 * ``upernet_global_small.pth``     -> ``annotators.uniformer.UniFormerSeg``
 * ``body_pose_model.pth``          -> ``annotators.openpose.BodyPoseNet``
 * ``hand_pose_model.pth``          -> ``annotators.openpose.HandPoseNet``
+* ``mlsd_large_512_fp32.pth``      -> ``annotators.mlsd.MobileV2MLSDLarge``
 
 The modules carry the reference's key names, so a file loads by name after
 the normalization JAX's key mappers apply: PiDiNet's ``module.`` prefix is
@@ -49,7 +50,8 @@ from fgdm_tpu_torch.checkpoint.torch_ingest import (TensorDict,
 
 __all__ = ["normalize_keys", "ingest_hed", "ingest_pidinet", "ingest_midas",
            "ingest_uniformer", "ingest_openpose", "ingest_handpose",
-           "load_pidinet", "load_midas", "load_uniformer", "load_openpose"]
+           "ingest_mlsd", "load_pidinet", "load_midas", "load_uniformer",
+           "load_openpose", "load_mlsd"]
 
 _POS_EMBED = "pretrained.model.pos_embed"
 _SKIP = {
@@ -59,6 +61,7 @@ _SKIP = {
     "uniformer": ("auxiliary_head.",),
     "openpose": (),
     "handpose": (),
+    "mlsd": (),
 }
 
 
@@ -139,6 +142,10 @@ def ingest_handpose(sd: TensorDict, module: nn.Module):
     return _ingest(sd, module, "handpose")
 
 
+def ingest_mlsd(sd: TensorDict, module: nn.Module):
+    return _ingest(sd, module, "mlsd")
+
+
 def _load(name: str, path: str, module: nn.Module,
           ingest: Callable) -> nn.Module:
     missing, unexpected = ingest(load_torch_state_dict(path), module)
@@ -195,3 +202,14 @@ def load_openpose(path: str, hand_ckpt_path: str = None,
         hand = _load("OpenPose hand", hand_ckpt_path,
                      HandPoseNet(dtype=dtype, device=device), ingest_handpose)
     return OpenposeDetector(body, hand)
+
+
+def load_mlsd(path: str, input_size: int = 512, dtype=torch.float32,
+              device=None):
+    """``mlsd_large_512_fp32.pth`` -> an ``MLSDdetector`` (JAX
+    ``mlsd.py:222``; its mapper is ``annotator_ingest.py:89``)."""
+    from fgdm_tpu_torch.annotators.mlsd import MLSDdetector, MobileV2MLSDLarge
+
+    return MLSDdetector(_load("MLSD", path,
+                              MobileV2MLSDLarge(dtype=dtype, device=device),
+                              ingest_mlsd), input_size=input_size)

@@ -17,9 +17,16 @@ and take the ResBlock names.  A pixel-attention block's ``qkv`` and
 ``seq_two_state_dict`` carries a ``SeqTwoUNet``: both UNets by the UNet
 rules, ``channel_mapper`` as a 1x1 OIHW conv.  ``hed_state_dict``,
 ``pidinet_state_dict``, ``midas_state_dict``, ``uniformer_state_dict``,
-``openpose_state_dict`` and ``handpose_state_dict`` invert the annotator key
-maps of ``fgdm_tpu/checkpoint/annotator_ingest.py``
+``openpose_state_dict``, ``handpose_state_dict`` and ``mlsd_state_dict``
+invert the annotator key maps of ``fgdm_tpu/checkpoint/annotator_ingest.py``
 (bare kernels, the HED input shift, frozen BatchNorms' statistics).
+``vq_state_dict`` (taming's names), ``lpips_state_dict``,
+``patch_discriminator_state_dict``, ``adapter_light_state_dict``,
+``attention_pool_state_dict``, ``class_embedder_state_dict``,
+``bert_state_dict``, ``spatial_rescaler_state_dict`` and
+``clip_image_embedder_state_dict`` carry the library modules that no path
+runs (``models/vq.py``, ``diffusion/perceptual_losses.py``,
+``models/adapter.py``, ``nn/attention.py``, ``models/encoders.py``).
 
 Every leaf must map to a key; an unknown path raises ``KeyError``.
 """
@@ -36,7 +43,11 @@ __all__ = ["flatten", "unet_state_dict", "controlnet_state_dict",
            "vae_state_dict", "clip_state_dict", "seq_two_state_dict",
            "hed_state_dict", "pidinet_state_dict", "midas_state_dict",
            "uniformer_state_dict", "openpose_state_dict",
-           "handpose_state_dict"]
+           "handpose_state_dict", "mlsd_state_dict", "vq_state_dict",
+           "lpips_state_dict", "patch_discriminator_state_dict",
+           "adapter_light_state_dict", "attention_pool_state_dict",
+           "class_embedder_state_dict", "bert_state_dict",
+           "spatial_rescaler_state_dict", "clip_image_embedder_state_dict"]
 
 _RES = {
     "in_norm": "in_layers.0",
@@ -85,6 +96,7 @@ def _transformer(parts) -> str:
         return inner  # norm / proj_in / proj_out
     d, rest = m.groups()
     rest = rest.replace("ff.net_0.proj", "ff.net.0.proj")
+    rest = re.sub(r"ff\.net_0$", "ff.net.0.0", rest)    # glu=False
     rest = rest.replace("ff.net_2", "ff.net.2")
     rest = rest.replace("to_out", "to_out.0")
     return f"transformer_blocks.{d}.{rest}"
@@ -454,3 +466,137 @@ def _handpose_path(path, v):
 def handpose_state_dict(params) -> Dict[str, torch.Tensor]:
     """``HandPoseNet`` state dict from flax HandPoseNet params."""
     return _annotator(params, _handpose_path)
+
+
+def _mlsd_path(path, v):
+    """The inverse of JAX's ``ingest_mlsd`` (``annotator_ingest.py:89``):
+    the reference's ``backbone.features.N.conv.i`` and ``blockN.convC.S``
+    names."""
+    head, leaf = path[0], path[-1]
+    if head == "backbone":
+        n = int(re.fullmatch(r"features_(\d+)", path[1]).group(1))
+        base = f"backbone.features.{n}"
+        if n == 0:
+            return (_at(f"{base}.0", leaf, v) if len(path) == 3
+                    else (f"{base}.1.{_BN[leaf]}", v))
+        stages = (("expand", "depthwise", "project", "project_bn") if n != 1
+                  else ("depthwise", "project", "project_bn"))
+        i = stages.index(path[2])
+        if path[2] in ("expand", "depthwise"):
+            return (_at(f"{base}.conv.{i}.0", leaf, v) if path[3] == "kernel"
+                    else (f"{base}.conv.{i}.1.{_BN[leaf]}", v))
+        if path[2] == "project":
+            return _at(f"{base}.conv.{i}", leaf, v)
+        return f"{base}.conv.{i}.{_BN[leaf]}", v
+    m = re.fullmatch(r"block(\d+)", head)
+    if not m:
+        return None
+    if len(path) == 2:                       # block23's bare dilated conv
+        return _bare(f"{head}.conv1.0", leaf, v)
+    sub = path[1]
+    if sub == "conv3":
+        return _at(f"{head}.conv3", leaf, v)
+    m = re.fullmatch(r"(?:conv(\d)_(conv|bn)|(conv|bn)(\d))", sub)
+    c = m.group(1) or m.group(4)
+    is_bn = (m.group(2) or m.group(3)) == "bn"
+    if is_bn:
+        return f"{head}.conv{c}.1.{_BN[leaf]}", v
+    return _at(f"{head}.conv{c}.0", leaf, v)
+
+
+def mlsd_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``MobileV2MLSDLarge`` state dict from flax MobileV2MLSDLarge
+    params."""
+    return _annotator(params, _mlsd_path)
+
+
+# --- library modules no path runs --------------------------------------------
+
+def _vq_path(path, v):
+    head = path[0]
+    if head == "quantize":
+        return "quantize.embedding.weight", v
+    if head in ("encoder", "decoder"):
+        return _at(_vae_path(path[:-1]), path[-1], v)
+    return _at(head, path[-1], v)
+
+
+def vq_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``VQModel`` state dict (taming's names) from flax VQModel params."""
+    return _annotator(params, _vq_path)
+
+
+def _dotted(path, v):
+    """The flax path joined by dots, its ``body_N``/``layers_N`` list
+    entries as torch's ``body.N``/``layers.N``."""
+    base = ".".join(re.sub(r"^(body|layers)_(\d+)$", r"\1.\2", p)
+                    for p in path[:-1])
+    return _at(base, path[-1], v)
+
+
+def lpips_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``LPIPS`` state dict (``vgg.conv1_1`` ..., ``lin0`` ...) from flax
+    LPIPS params; each ``lin{i}`` is a bare HWIO kernel."""
+    return _annotator(params, lambda p, v: (
+        _at(p[0], "kernel", v) if len(p) == 1 else _dotted(p, v)))
+
+
+def patch_discriminator_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``PatchDiscriminator`` state dict from flax PatchDiscriminator
+    params (the GroupNorms' ``scale`` as ``weight``)."""
+    return _annotator(params, _dotted)
+
+
+def adapter_light_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``AdapterLight`` state dict (``body.i.in_conv``,
+    ``body.i.body.j.block1`` ...) from flax AdapterLight params."""
+    return _annotator(params, _dotted)
+
+
+def attention_pool_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``AttentionPool2d`` state dict: the ``[C, N + 1]`` table as it
+    stands, ``qkv_proj``/``c_proj`` as conv1d weights ``[out, in, 1]``."""
+    def path_fn(path, v):
+        if path == ("positional_embedding",):
+            return path[0], v
+        key, tv = _at(path[0], path[-1], v)
+        return key, (tv[..., None] if path[-1] == "kernel" else tv)
+    return _annotator(params, path_fn)
+
+
+def class_embedder_state_dict(params) -> Dict[str, torch.Tensor]:
+    return _annotator(params, _dotted)
+
+
+def _bert_path(path, v):
+    if path == ("pos_emb",):
+        return "pos_emb", v
+    inner = list(path)
+    if len(inner) > 2 and inner[1] in ("fc1", "fc2"):
+        inner.insert(1, "mlp")
+    return _dotted(tuple(inner), v)
+
+
+def bert_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``BERTEmbedder`` state dict (``token_emb``, ``pos_emb``,
+    ``layers.N`` as ``CLIPEncoderLayer``, ``norm``) from flax params."""
+    return _annotator(params, _bert_path)
+
+
+def spatial_rescaler_state_dict(params) -> Dict[str, torch.Tensor]:
+    return _annotator(params, _dotted)
+
+
+def _clip_image_path(path, v):
+    if path[0] != "visual":
+        return None
+    if len(path) == 2:       # class_embedding, position_embedding
+        return f"visual.{path[1]}", v
+    key, tv = _bert_path(path[1:], v)
+    return f"visual.{key}", tv
+
+
+def clip_image_embedder_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``FrozenClipImageEmbedder`` state dict (``visual.*``, the names of
+    ``utils.clip_score.CLIPVisionEncoder``) from flax params."""
+    return _annotator(params, _clip_image_path)

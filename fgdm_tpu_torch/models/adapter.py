@@ -6,7 +6,13 @@ conv(ksize), identity or learned skip) and ``Adapter`` (``conv_in`` then
 ``len(channels) * nums_rb`` blocks, one feature per scale) and
 ``TimeAdapter`` (``:165-197``: the same pyramid with the UNet's
 timestep-conditioned ``ResBlock``s as its blocks, unfused GroupNorm as in
-JAX).  ``AdapterLight`` and ``Extractor`` are not ported.
+JAX), and the light adapter (``:96-162``): ``ResnetBlockLight``
+(conv3x3 -> ReLU -> conv3x3, identity skip), ``Extractor`` (optional 2x2
+average pool, 1x1 in, light blocks, 1x1 out), ``pixel_unshuffle`` and
+``AdapterLight`` (an 8x space-to-depth input, then one extractor a level at
+a quarter of its width).  ``pixel_unshuffle`` orders the channels
+``(fy, fx, c)``, as JAX's NHWC reshape does (``adapter.py:134-139``), not
+``(c, fy, fx)`` as ``F.pixel_unshuffle`` does.
 """
 
 from __future__ import annotations
@@ -20,7 +26,9 @@ from torch import nn
 from fgdm_tpu_torch.nn.blocks import ResBlock
 from fgdm_tpu_torch.nn.layers import Conv2d, avg_pool_2x2
 
-__all__ = ["AdapterResnetBlock", "Adapter", "TimeAdapter"]
+__all__ = ["AdapterResnetBlock", "Adapter", "TimeAdapter",
+           "ResnetBlockLight", "Extractor", "pixel_unshuffle",
+           "AdapterLight"]
 
 
 class AdapterResnetBlock(nn.Module):
@@ -107,4 +115,71 @@ class TimeAdapter(nn.Module):
             x = blk(x, emb)
             if (i + 1) % self.nums_rb == 0:
                 feats.append(x)
+        return tuple(feats)
+
+
+class ResnetBlockLight(nn.Module):
+    """conv3x3 -> ReLU -> conv3x3 with an identity skip."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.block1 = Conv2d(channels, channels, 3, dtype=dtype)
+        self.block2 = Conv2d(channels, channels, 3, dtype=dtype)
+
+    def forward(self, x):
+        return self.block2(F.relu(self.block1(x))) + x
+
+
+class Extractor(nn.Module):
+    """Optional 2x2 average pool, 1x1 in, ``nums_rb`` light blocks, 1x1
+    out."""
+
+    def __init__(self, in_c: int, inter_c: int, out_c: int, nums_rb: int = 3,
+                 down: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.down = down
+        self.in_conv = Conv2d(in_c, inter_c, 1, padding=0, dtype=dtype)
+        self.body = nn.ModuleList([ResnetBlockLight(inter_c, dtype=dtype)
+                                   for _ in range(nums_rb)])
+        self.out_conv = Conv2d(inter_c, out_c, 1, padding=0, dtype=dtype)
+
+    def forward(self, x):
+        if self.down:
+            x = avg_pool_2x2(x)
+        x = self.in_conv(x)
+        for blk in self.body:
+            x = blk(x)
+        return self.out_conv(x)
+
+
+def pixel_unshuffle(x: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """``[B, C, H, W]`` -> ``[B, C * f * f, H / f, W / f]``, channel
+    ``(fy * f + fx) * C + c``: JAX's NHWC space-to-depth order."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // factor, factor, w // factor, factor)
+    return x.permute(0, 3, 5, 1, 2, 4).reshape(
+        b, factor * factor * c, h // factor, w // factor)
+
+
+class AdapterLight(nn.Module):
+    """The pixel-unshuffle light adapter: one feature per level."""
+
+    def __init__(self, channels: Sequence[int] = (320, 640, 1280, 1280),
+                 nums_rb: int = 3, cin: int = 192,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        ins = (cin,) + tuple(channels[:-1])
+        self.body = nn.ModuleList([
+            Extractor(ins[i], ch // 4, ch, nums_rb=nums_rb, down=i > 0,
+                      dtype=dtype) for i, ch in enumerate(channels)])
+
+    def forward(self, x, emb: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, ...]:
+        """x ``[B, 3, H, W]``; ``emb`` is ignored (``TimeAdapter``'s
+        signature)."""
+        x = pixel_unshuffle(x, 8)
+        feats = []
+        for ext in self.body:
+            x = ext(x)
+            feats.append(x)
         return tuple(feats)

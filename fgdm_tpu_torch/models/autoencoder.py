@@ -1,8 +1,9 @@
 """First-stage VAE (AutoencoderKL), SD-1.x compatible.
 
 Counterpart of ``fgdm_tpu/models/autoencoder.py``: ``VaeResnetBlock``,
-``VaeAttnBlock`` (``:74-115``), ``VaeDownsample`` (``:118``), ``VaeUpsample``,
-``Encoder`` (``:144``), ``Decoder`` (``:193-240``), ``DiagonalGaussian``
+``VaeAttnBlock`` (``:74-115``), ``VaeDownsample`` (``:118``), ``VaeUpsample``
+(both with JAX's ``with_conv``), ``Encoder`` (``:144``), ``Decoder``
+(``:193-240``, with ``tanh_out``), ``DiagonalGaussian``
 (``:244``) and ``AutoencoderKL`` (``:277``) with ``quant_conv`` /
 ``post_quant_conv``, and ``NpleAutoencoderKL`` (``:328-343``), which
 encodes and decodes N latents stacked along the channels.  All GroupNorms
@@ -87,24 +88,33 @@ class VaeAttnBlock(nn.Module):
 
 class VaeDownsample(nn.Module):
     """The reference's asymmetric (0, 1, 0, 1) pad, then a stride-2 VALID
-    3x3 conv, so checkpoints match."""
+    3x3 conv, so checkpoints match; with ``with_conv=False`` a 2x2 average
+    pool of stride 2."""
 
-    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, channels: int, with_conv: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, stride=2, padding=0,
-                           dtype=dtype)
+        self.conv = (Conv2d(channels, channels, 3, stride=2, padding=0,
+                            dtype=dtype) if with_conv else None)
 
     def forward(self, x):
+        if self.conv is None:
+            return F.avg_pool2d(x, 2)
         return self.conv(F.pad(x, (0, 1, 0, 1)))
 
 
 class VaeUpsample(nn.Module):
-    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+    """Nearest 2x, then a 3x3 conv unless ``with_conv=False``."""
+
+    def __init__(self, channels: int, with_conv: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, dtype=dtype)
+        self.conv = (Conv2d(channels, channels, 3, dtype=dtype) if with_conv
+                     else None)
 
     def forward(self, x):
-        return self.conv(nearest_upsample_2x(x))
+        x = nearest_upsample_2x(x)
+        return x if self.conv is None else self.conv(x)
 
 
 class Encoder(nn.Module):
@@ -169,9 +179,10 @@ class Decoder(nn.Module):
                  num_res_blocks: int = 2,
                  attn_resolutions: Sequence[int] = (), out_ch: int = 3,
                  resolution: int = 256, z_channels: int = 4,
-                 fused_norm: bool = False,
+                 fused_norm: bool = False, tanh_out: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.tanh_out = tanh_out
         n_levels = len(ch_mult)
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (n_levels - 1)
@@ -215,7 +226,8 @@ class Decoder(nn.Module):
                     h = up.attn[j](h)
             if hasattr(up, "upsample"):
                 h = up.upsample(h)
-        return self.conv_out(silu(self.norm_out(h)))
+        h = self.conv_out(silu(self.norm_out(h)))
+        return torch.tanh(h) if self.tanh_out else h
 
 
 @dataclasses.dataclass
@@ -270,7 +282,7 @@ class AutoencoderKL(nn.Module):
                                    z_channels, double_z, fused_norm, dtype)
             self.decoder = Decoder(ch, ch_mult, num_res_blocks,
                                    attn_resolutions, out_ch, resolution,
-                                   z_channels, fused_norm, dtype)
+                                   z_channels, fused_norm, dtype=dtype)
             self.quant_conv = Conv2d(2 * z_channels if double_z
                                      else z_channels, 2 * embed_dim, 1,
                                      padding=0, dtype=dtype)

@@ -20,12 +20,19 @@ probs`` (prompt-to-prompt, ``utils/ptp.py``) rewrites the probabilities of
 the explicit f32 softmax in every layer it is given, as JAX's
 ``attention.py:111-127`` does; K1 then runs nowhere.
 
+``FeedForward(glu=False)`` (``BasicTransformerBlock(gated_ff=False)``) is
+Dense -> tanh GELU in float32 -> Dense (``attention.py:173-183``).
+
 ``PixelAttentionBlock`` (``attention.py:271-318``) is the legacy pixel-space
 self-attention of ``use_spatial_transformer=False`` UNets: GroupNorm, a
 fused ``qkv`` projection held as the reference's conv1d weight, the split
 ``ch ** -0.25`` scaling of q and k, an f32 softmax, a zero-init
 ``proj_out`` and the residual.  Its math is torch ops, as JAX's is XLA's:
-no kernel of this port runs it.
+no kernel of this port runs it.  ``AttentionPool2d`` (``:321-370``) pools
+a feature map to one vector the same way: a mean token prepended, the
+reference's ``[C, N + 1]`` positional table, a fused ``qkv_proj`` read q/k/v
+outermost, ``ch ** -0.25`` on q and k, an f32 softmax and ``c_proj`` of
+token 0.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from fgdm_tpu_torch.nn.layers import (Conv1d, Conv2d, Dense, GroupNorm32,
 
 __all__ = ["CaptureSpec", "CrossAttention", "GEGLU", "FeedForward",
            "BasicTransformerBlock", "SpatialTransformer",
-           "PixelAttentionBlock"]
+           "PixelAttentionBlock", "AttentionPool2d"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,15 +145,32 @@ class GEGLU(nn.Module):
         return x * F.gelu(gate.float(), approximate="tanh").to(x.dtype)
 
 
-class FeedForward(nn.Module):
-    """GEGLU -> Dense (the gated form every SD transformer uses)."""
+class _DenseGELU(nn.Module):
+    """The reference's ``project_in = Sequential(Linear, GELU)`` of an
+    ungated feed-forward (key ``net.0.0``), with ``jax.nn.gelu``'s tanh
+    form in float32, cast back (``attention.py:180-181``)."""
 
-    def __init__(self, dim: int, mult: int = 4,
+    def __init__(self, dim_in: int, dim_out: int, dtype: torch.dtype):
+        super().__init__()
+        self.add_module("0", Dense(dim_in, dim_out, dtype=dtype))
+
+    def forward(self, x):
+        h = self._modules["0"](x)
+        return F.gelu(h.float(), approximate="tanh").to(h.dtype)
+
+
+class FeedForward(nn.Module):
+    """GEGLU -> Dense (the gated form every SD transformer uses), or with
+    ``glu=False`` Dense -> tanh GELU -> Dense."""
+
+    def __init__(self, dim: int, mult: int = 4, glu: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         inner = dim * mult
+        first = (GEGLU(dim, inner, dtype=dtype) if glu
+                 else _DenseGELU(dim, inner, dtype))
         # index 1 of the reference's net is a Dropout
-        self.net = nn.ModuleList([GEGLU(dim, inner, dtype=dtype), nn.Identity(),
+        self.net = nn.ModuleList([first, nn.Identity(),
                                   Dense(inner, dim, dtype=dtype)])
 
     def forward(self, x):
@@ -155,7 +179,7 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, n_heads: int, d_head: int,
-                 context_dim: Optional[int] = None,
+                 context_dim: Optional[int] = None, gated_ff: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.attn1 = CrossAttention(dim, heads=n_heads, dim_head=d_head,
@@ -163,7 +187,7 @@ class BasicTransformerBlock(nn.Module):
         self.attn2 = CrossAttention(dim, context_dim=context_dim,
                                     heads=n_heads, dim_head=d_head,
                                     dtype=dtype)
-        self.ff = FeedForward(dim, dtype=dtype)
+        self.ff = FeedForward(dim, glu=gated_ff, dtype=dtype)
         self.norm1 = LayerNorm32(dim)
         self.norm2 = LayerNorm32(dim)
         self.norm3 = LayerNorm32(dim)
@@ -261,3 +285,48 @@ class PixelAttentionBlock(nn.Module):
         a = torch.matmul(w, v).transpose(1, 2).reshape(b, n, c)
         out = tokens + self.proj_out(a)
         return out.transpose(1, 2).reshape(b, c, hh, ww).contiguous()
+
+
+class AttentionPool2d(nn.Module):
+    """CLIP-style attention pooling (reference ``AttentionPool2d``,
+    ``openaimodel.py:37-64``): ``[B, C, H, W]`` with ``H * W ==
+    spacial_dim ** 2`` -> ``[B, output_dim or C]``."""
+
+    def __init__(self, spacial_dim: int, embed_dim: int,
+                 num_heads_channels: int, output_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if embed_dim % num_heads_channels:
+            raise ValueError(f"{embed_dim} channels in heads of "
+                             f"{num_heads_channels}")
+        self.spacial_dim, self.ch = spacial_dim, num_heads_channels
+        self.positional_embedding = nn.Parameter(
+            torch.empty(embed_dim, spacial_dim ** 2 + 1))
+        self.qkv_proj = Conv1d(embed_dim, 3 * embed_dim, dtype=dtype)
+        self.c_proj = Conv1d(embed_dim, output_dim or embed_dim, dtype=dtype)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        c = self.positional_embedding.shape[0]
+        nn.init.normal_(self.positional_embedding, std=c ** -0.5,
+                        generator=generator)
+
+    def forward(self, x):
+        b, c, hh, ww = x.shape
+        if hh * ww != self.spacial_dim ** 2:
+            raise ValueError(f"{hh}x{ww} map for spacial_dim "
+                             f"{self.spacial_dim}")
+        ch = self.ch
+        nh = c // ch
+        tok = x.reshape(b, c, hh * ww).transpose(1, 2)
+        tok = torch.cat([tok.mean(dim=1, keepdim=True), tok], dim=1)
+        t = tok.shape[1]
+        tok = tok + self.positional_embedding.t()[None].to(tok.dtype)
+        q, k, v = (u.reshape(b, t, nh, ch).transpose(1, 2)
+                   for u in self.qkv_proj(tok).chunk(3, dim=-1))
+        scale = float(ch) ** -0.25
+        w = torch.softmax(torch.matmul((q * scale).float(),
+                                       (k * scale).float().transpose(-1, -2)),
+                          dim=-1).to(v.dtype)
+        a = torch.matmul(w, v).transpose(1, 2).reshape(b, t, c)
+        return self.c_proj(a[:, 0])

@@ -84,8 +84,10 @@ def initial_noise(shape: Tuple[int, ...], x_T: Optional[torch.Tensor],
 
 
 def ddim_step(x, e_t, index: int, sched: DDIMSchedule,
-              noise: Optional[torch.Tensor] = None):
-    """One DDIM update from the model's eps; returns (x_prev, pred_x0)."""
+              noise: Optional[torch.Tensor] = None,
+              temperature: float = 1.0):
+    """One DDIM update from the model's eps; returns (x_prev, pred_x0).
+    ``temperature`` scales the eta noise term alone (``ddim.py:86``)."""
     a_t = sched.alphas[index]
     a_prev = sched.alphas_prev[index]
     sigma_t = sched.sigmas[index]
@@ -93,7 +95,7 @@ def ddim_step(x, e_t, index: int, sched: DDIMSchedule,
     dir_xt = torch.sqrt(1.0 - a_prev - sigma_t ** 2) * e_t
     x_prev = torch.sqrt(a_prev) * pred_x0 + dir_xt
     if noise is not None:
-        x_prev = x_prev + sigma_t * noise
+        x_prev = x_prev + sigma_t * noise * temperature
     return x_prev, pred_x0
 
 
@@ -154,7 +156,11 @@ def ddim_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
                 schedule=None,
                 mask_noise: Union[None, torch.Tensor,
                                   Callable[[int], torch.Tensor]] = None,
-                ucg_schedule: Optional[Sequence[float]] = None):
+                ucg_schedule: Optional[Sequence[float]] = None,
+                temperature: float = 1.0,
+                callback: Optional[Callable] = None,
+                step_noise: Union[None, torch.Tensor,
+                                  Callable[[int], torch.Tensor]] = None):
     """Full DDIM loop; returns x_0 (float32, ``shape``), or ``(x_0,
     intermediates)`` when ``log_every_t`` is set: ``"x_inter"`` and
     ``"pred_x0"`` stack x and x0-hat after every ``log_every_t``-th step
@@ -174,7 +180,12 @@ def ddim_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
     ``mask_noise`` gives n for step i (a ``[S, *shape]`` tensor or a
     callable of i), else it is drawn per slot or from ``generator`` before
     that step's eta noise.  ``ucg_schedule[i]`` replaces ``cfg_scale`` at
-    step i (cldm's ``ddim_hacked``)."""
+    step i (cldm's ``ddim_hacked``).  ``temperature`` scales each step's
+    eta noise (``ddim_step``); ``step_noise`` gives that noise for step i
+    (a ``[S, *shape]`` tensor or a callable of i), as ``mask_noise``
+    does.  ``callback`` is accepted and never called,
+    as in JAX (``ddim.py:123``)."""
+    del callback
     if mask is not None and (x0 is None or schedule is None):
         raise ValueError("inpainting needs x0 and the DDPM schedule")
     mode = torch.inference_mode()
@@ -212,13 +223,16 @@ def ddim_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
             else:
                 e_t = cfg_eps(denoise_fn, x, t, cond, uncond, scale)
             noise = None
-            if sched.eta != 0.0:
+            if sched.eta != 0.0 and step_noise is not None:
+                noise = (step_noise(i) if callable(step_noise)
+                         else step_noise[i]).to(device)
+            elif sched.eta != 0.0:
                 noise = (slot_noise(slot_seeds, shape, SLOT_STEP_TAG, device,
                                     i)
                          if per_slot else
                          torch.randn(shape, generator=generator,
                                      device=device))
-            x, pred_x0 = ddim_step(x, e_t, index, sched, noise)
+            x, pred_x0 = ddim_step(x, e_t, index, sched, noise, temperature)
             if log_every_t and i % log_every_t == 0:
                 inter["x_inter"].append(x)
                 inter["pred_x0"].append(pred_x0)

@@ -4,7 +4,7 @@ Counterpart of ``fgdm_tpu/sampling/dpm_solver.py`` (``NoiseScheduleVP``
 ``:30``, ``dpm_solver_sample`` ``:67``) in the configuration the reference
 uses (``dpm_solver/sampler.py:67-81``): the discrete VP schedule over the
 model's ``alphas_cumprod``, data prediction, multistep order 2,
-time-uniform grid, first order on the last step (``lower_order_final``).
+time-uniform grid (``t_start``/``t_end``, by default 1 to 1/N), first order on the last step (``lower_order_final``).
 
 * log alpha is tabulated in float64 on the host over ``t_i = (i + 1) / N``
   (the concrete branch, ``dpm_solver.py:40-45``) and stored in float32; it
@@ -78,15 +78,18 @@ def dpm_solver_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
                       x_T: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
                       slot_seeds: Optional[Sequence[int]] = None,
-                      device=None) -> torch.Tensor:
+                      device=None, t_start: float = 1.0,
+                      t_end: Optional[float] = None) -> torch.Tensor:
     """DPM-Solver++(2M) with ``steps`` model evaluations over the
-    time-uniform grid from 1 to 1/N; returns x_0 (float32, ``shape``).
+    time-uniform grid from ``t_start`` to ``t_end`` (default 1/N, as
+    JAX's ``dpm_solver.py:94``); returns x_0 (float32, ``shape``).
     Noise: ``ddim.initial_noise``."""
     ns = NoiseScheduleVP(schedule.alphas_cumprod)
     x, device = initial_noise(shape, x_T, generator, slot_seeds, device)
     b = shape[0]
-    ts = torch.linspace(1.0, 1.0 / ns.total_N, steps + 1,
-                        dtype=torch.float32)
+    if t_end is None:
+        t_end = 1.0 / ns.total_N
+    ts = torch.linspace(t_start, t_end, steps + 1, dtype=torch.float32)
     lambdas = ns.marginal_lambda(ts)
     alphas = ns.marginal_alpha(ts)
     sigmas = ns.marginal_std(ts)

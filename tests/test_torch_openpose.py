@@ -398,3 +398,36 @@ def test_port_and_chip_smoke_import_no_opencv():
             bad += [f"{path.name}: {n}" for n in names
                     if n.split(".")[0] in ("cv2", "jax", "fgdm_tpu")]
     assert len(sources) > 20 and not bad, bad
+
+
+@pytest.mark.parametrize("module", [
+    "annotators/mlsd.py", "annotators/canny.py", "models/vq.py",
+    "models/encoders.py", "diffusion/perceptual_losses.py",
+    "data/imgproc.py"])
+def test_library_module_imports_no_opencv_or_jax(module):
+    """Each module of the library slice imports neither OpenCV, nor JAX,
+    nor the JAX package, directly or through the port's own modules."""
+    import ast
+    import pathlib
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    banned = ("cv2", "jax", "jaxlib", "flax", "optax", "fgdm_tpu")
+    seen, todo, bad = set(), [f"fgdm_tpu_torch/{module}"], []
+    while todo:
+        rel = todo.pop()
+        if rel in seen:
+            continue
+        seen.add(rel)
+        for node in ast.walk(ast.parse((repo / rel).read_text(), rel)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom)
+                     and node.level == 0 else [])
+            for n in names:
+                top = n.split(".")[0]
+                bad += [f"{rel}: {n}"] if top in banned else []
+                if top == "fgdm_tpu_torch":
+                    path = n.replace(".", "/")
+                    todo += [p for p in (f"{path}.py", f"{path}/__init__.py")
+                             if (repo / p).exists()]
+    assert f"fgdm_tpu_torch/{module}" in seen and not bad, bad
