@@ -193,7 +193,26 @@ it builds the port's kernels from the sources in this checkout (one
    launched), each kernels on vs plain; VQ in float32 card vs CPU (indices
    equal but for near-ties); AttentionPool2d, BERTEmbedder (1280 x 32) and
    FrozenClipImageEmbedder (ViT-L/14) card vs CPU; MLSDdetector, Canny and
-   ``sobel_edges`` at 512^2, timed stage by stage;
+   ``sobel_edges`` at 512^2, timed stage by stage; then the parallel path
+   (``phase_parallel``) on a one-rank NCCL group (one card is a world of
+   one; the world-2 behaviour, halos, ring rotation and sharded gradients,
+   is ``tests/test_torch_parallel.py``'s on gloo): the adapter training
+   step of ``build_trainer`` (batch 8, 256^2, injected draws) plain, then
+   data-parallel, tensor-parallel (``n_model`` 1) and FSDP, counts reset
+   just before these three, their averaged gradients and metrics held
+   against the plain step's (DP and TP bit for bit, FSDP within the
+   training tolerance) and each timed; ``ring_attention`` at
+   [2,8,4096,40] against ``attention_ref`` and timed beside SDPA;
+   ``sample_context_parallel`` of the chain's factor 1 (fused norms off,
+   50 steps, 256^2, decoded) against the plain sampler with fused norms
+   off on the same x_T; ``ChainEngine(mesh=)`` at batch 4 against the plain
+   engine on the same seeds, bit for bit; ``count_fsdp``/``count_sharded``
+   at SD width for 2, 4 and 8 ranks; then the Winograd path
+   (``phase_winograd``): ``conv3x3_winograd`` against ``F.conv2d`` in bf16
+   at the served batch's K7 shapes, each timed beside cuDNN, and the
+   batch-1 chain with ``FGDM_WINOGRAD_CONV`` on and off (the module flag),
+   counts reset just before the flag-on run: walls, event times and the
+   images' max difference;
 8. holds every kernel against its plain version, and times it, at every
    other shape that a path above launched (the chain, the training step,
    the served batch, the CLI, seg2image's sampling and ``--detect``, the
@@ -375,6 +394,7 @@ BWD_TOL = (2e-2, 2e-3)    # max|d| <= 2e-2 * max|ref| + 2e-3 (bf16 p and dS)
 GN_TOL = 1e-2             # max |d| / (1 + |ref|) (bf16 output rounding)
 CONV_TOL = (1e-2, 1e-3)   # max|d| <= 1e-2 * max|ref| + 1e-3 (bf16 output)
 UNET_TOL = 5e-2           # max|d| / max|ref| of the UNet eps, bf16 chain
+WINO_TOL = 3e-2           # max|d| / max|ref|, Winograd bf16 vs f32 direct
 LOSS_TOL = 1e-2           # relative difference of the training loss
 TRAIN_BATCH, WARM_STEPS = 8, 5
 SERVE_BATCH, SERVE_TIMED = 4, 3
@@ -4398,6 +4418,300 @@ def sweep():
     return 1 if bad else 0
 
 
+PAR_RING = (2, 8, 4096, 40)        # the factor-2 self-attention
+PAR_ENGINE_STEPS = (20, 10)        # the mesh engine's f1 and f2 steps
+PAR_WIDTHS = (2, 4, 8)             # ranks count_fsdp/count_sharded read
+CP_STEPS = 50
+# the served batch's K7 shapes (n, c, co, h, w): kernels/conv.py's list
+WINO_CASES = [(8, 960, 320, 32, 32), (8, 2560, 1280, 16, 16),
+              (8, 1920, 640, 32, 32), (8, 640, 640, 64, 64),
+              (8, 960, 320, 64, 64), (8, 640, 320, 64, 64)]
+
+
+def merge_counts(*parts):
+    """{kind: {key: launches}} summed over several counted runs."""
+    out = {}
+    for part in parts:
+        for kind, c in part.items():
+            dst = out.setdefault(kind, {})
+            for k, v in c.items():
+                dst[k] = dst.get(k, 0) + v
+    return out
+
+
+def _step_grads(step_fn, state, batch, draws):
+    """One train step's metrics and its averaged gradients (gathered whole),
+    the optimizer step skipped, so every variant starts from the same
+    weights."""
+    from fgdm_tpu_torch.train.state import _full
+
+    grads = {}
+
+    def capture():
+        for k, p in state.params.items():
+            grads[k] = _full(p.grad).float()
+            p.grad = None
+        return state
+
+    state.apply_gradients = capture
+    try:
+        _, m = step_fn(state, batch, None, t=draws[0], noise=draws[1],
+                       posterior_eps=draws[2])
+    finally:
+        del state.apply_gradients
+    return {k: v.item() for k, v in m.items()}, grads
+
+
+def phase_parallel():
+    """The data-, tensor- and context-parallel paths and the mesh engine on
+    a one-rank NCCL group (see the module's docstring, item 7)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from fgdm_tpu_torch.builders import build_chain, build_trainer
+    from fgdm_tpu_torch.checkpoint.loader import sd_unet
+    from fgdm_tpu_torch.core.schedules import DDIMSchedule
+    from fgdm_tpu_torch.kernels.attention import attention_ref
+    from fgdm_tpu_torch.parallel import context as cp
+    from fgdm_tpu_torch.parallel.fsdp import count_fsdp, shard_state_fsdp
+    from fgdm_tpu_torch.parallel.mesh import create_mesh
+    from fgdm_tpu_torch.parallel.ring_attention import ring_attention
+    from fgdm_tpu_torch.parallel.tp import count_sharded, shard_params_tp
+    from fgdm_tpu_torch.sampling.ddim import ddim_sample
+    from fgdm_tpu_torch.serving import ChainEngine
+    from fgdm_tpu_torch.train.train_step import make_train_step
+
+    msgs, ok = [], True
+    mesh = create_mesh(device_type="cuda")
+    msgs.append(f"a {dist.get_backend()} group of {dist.get_world_size()} "
+                "rank (one card is a world of one: halos, ring rotation and "
+                "sharded gradients at world 2 are tests/test_torch_parallel"
+                ".py's, on gloo)")
+    try:
+        # -- the training steps: plain, then DP, TP and FSDP (counted) ------
+        tr = build_trainer(device="cuda", seed=0, batch=TRAIN_BATCH)
+        ld, state, batch = tr.ld, tr.state, tr.batch
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        b = batch["image"].shape[0]
+        draws = (torch.randint(0, 1000, (b,), device="cuda", generator=gen),
+                 torch.randn(b, 4, 32, 32, device="cuda", generator=gen),
+                 torch.randn(b, 4, 32, 32, device="cuda", generator=gen))
+
+        def timed(fn, st, reps=3):
+            out = _step_grads(fn, st, batch, draws)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                _step_grads(fn, st, batch, draws)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) / reps * 1e3
+
+        (m0, g0), plain_ms = timed(make_train_step(ld), state)
+        dp_fn = make_train_step(ld, mesh=mesh)
+        _, dp_ms = timed(dp_fn, state)
+        reset_counts()
+        m_dp, g_dp = _step_grads(dp_fn, state, batch, draws)
+        n_tp = count_sharded(mesh, ld.unet)[0]
+        shard_params_tp(mesh, ld.unet)
+        m_tp, g_tp = _step_grads(dp_fn, state, batch, draws)
+        fstate = shard_state_fsdp(mesh, state)
+        n_dt = sum(hasattr(p, "placements") for p in fstate.params.values())
+        m_fs, g_fs = _step_grads(dp_fn, fstate, batch, draws)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        _, fsdp_ms = timed(dp_fn, fstate)
+        for label, m, g, exact in (("DP", m_dp, g_dp, True),
+                                   ("TP", m_tp, g_tp, True),
+                                   ("FSDP", m_fs, g_fs, False)):
+            err = max((g[k] - g0[k]).abs().max().item() for k in g0)
+            scale = max(v.abs().max().item() for v in g0.values())
+            loss_rel = abs(m["loss"] - m0["loss"]) / abs(m0["loss"])
+            good = (set(g) == set(g0) and scale > 0 and (
+                (err == 0 and m["loss"] == m0["loss"]) if exact else
+                (err <= UNET_TOL * scale and loss_rel <= LOSS_TOL)))
+            ok &= good
+            msgs.append(
+                f"{label} step vs plain: grads max|d| {err:.3e} (max|ref| "
+                f"{scale:.3e}), loss {m['loss']:.6f} vs {m0['loss']:.6f}, "
+                f"grad_norm {m['grad_norm']:.6f} vs {m0['grad_norm']:.6f}; "
+                + ("bit for bit" if exact else
+                   f"tol {UNET_TOL} / loss {LOSS_TOL}")
+                + f"; {'OK' if good else 'FAIL'}")
+        msgs.append(f"steps (forward + backward + gradient averaging, no "
+                    f"optimizer; host clock, 3 each) at batch {TRAIN_BATCH}:"
+                    f" plain {plain_ms:.1f} ms, DP {dp_ms:.1f} ms, FSDP "
+                    f"{fsdp_ms:.1f} ms; TP at n_model 1 shards "
+                    f"{n_tp} weights (the rule's floor is 2 ranks); FSDP "
+                    f"manages {n_dt} of {len(fstate.params)} trainable "
+                    "leaves")
+        del tr, ld, state, fstate, batch, g0, g_dp, g_tp, g_fs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- ring attention ------------------------------------------------
+        rb, rh, rn, rd = PAR_RING
+        q, k, v = (torch.randn(rb, rh, rn, rd, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(3))
+        scale = rd ** -0.5
+        got = ring_attention(q, k, v, None, scale)
+        ref = attention_ref(q, k, v, scale)
+        err = (got.float() - ref.float()).abs().max().item()
+        rmax = ref.float().abs().max().item()
+        good = err <= ATTN_TOL[0] * rmax + ATTN_TOL[1]
+        ok &= good
+        ring_ms = cuda_ms(lambda: ring_attention(q, k, v, None, scale), 5)
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), 5)
+        msgs.append(f"ring_attention {list(PAR_RING)} vs attention_ref: "
+                    f"max|d| {err:.3e} (max|ref| {rmax:.3e}); {ring_ms:.3f} "
+                    f"ms (f32 online softmax, one block) vs SDPA "
+                    f"{sdpa_ms:.3f} ms; {'OK' if good else 'FAIL'}")
+        del q, k, v, got, ref
+
+        # -- context-parallel sampling of factor 1, then the mesh engine ----
+        ld, cldm = build_chain(device="cuda", seed=0)
+        ld_cp = cp.context_parallel_pipeline(ld, None)
+        ld_plain = dataclasses.replace(
+            ld, unet=cp.shared_clone(ld.unet, None),
+            vae=cp.shared_clone(ld.vae, None))
+        ctx, uc = (torch.randn(1, 77, 768, device="cuda", generator=gen)
+                   for _ in range(2))
+        x_T = torch.randn(1, 4, 32, 32, device="cuda", generator=gen)
+        reset_counts()
+        t0 = time.perf_counter()
+        img = cp.sample_context_parallel(ld_cp, None, ctx, uc, (256, 256),
+                                         num_steps=CP_STEPS, x_T=x_T)
+        torch.cuda.synchronize()
+        cp_s = time.perf_counter() - t0
+        counts = merge_counts(counts, read_counts())
+        t0 = time.perf_counter()
+        with plain_path():
+            z = ddim_sample(ld_plain.denoise_fn(), x_T.shape,
+                            DDIMSchedule.create(ld.schedule, CP_STEPS),
+                            {"c_crossattn": ctx}, {"c_crossattn": uc},
+                            x_T=x_T)
+            with torch.inference_mode():
+                ref = ld_plain.decode_first_stage(z)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        rel = _rel(img.float(), ref.float())
+        good = (tuple(img.shape) == (1, 3, 256, 256) and math.isfinite(rel)
+                and rel <= UNET_TOL)
+        ok &= good
+        msgs.append(f"sample_context_parallel factor 1 ({CP_STEPS} steps, "
+                    f"256^2, fused norms off) vs the plain sampler (fused "
+                    f"norms off, plain attention): max|d|/max|ref| "
+                    f"{rel:.3e} (tol {UNET_TOL}); {cp_s:.2f} s vs "
+                    f"{plain_s:.2f} s (host clock); "
+                    f"{'OK' if good else 'FAIL'}")
+        del ld_cp, ld_plain, img, ref, z
+        kw = dict(max_batch=4, f1_steps=PAR_ENGINE_STEPS[0],
+                  f2_steps=PAR_ENGINE_STEPS[1], warmup=False)
+        prompts = ["a cat", "a dog on a beach", "two birds", "a red car"]
+        plain_out = ChainEngine(ld, cldm, **kw).generate(
+            prompts, seeds=list(SERVE_SEEDS))
+        engine = ChainEngine(ld, cldm, mesh=mesh, **kw)
+        reset_counts()
+        t0 = time.perf_counter()
+        mesh_out = engine.generate(prompts, seeds=list(SERVE_SEEDS))
+        eng_s = time.perf_counter() - t0
+        counts = merge_counts(counts, read_counts())
+        good = all(np.array_equal(mesh_out[k], plain_out[k])
+                   for k in ("images", "conditions"))
+        ok &= good
+        msgs.append(f"ChainEngine(mesh=) batch 4 ({PAR_ENGINE_STEPS[0]}+"
+                    f"{PAR_ENGINE_STEPS[1]} steps) vs the plain engine on "
+                    f"the same seeds: images equal {good}, {eng_s:.2f} s; "
+                    f"{'OK' if good else 'FAIL'}")
+    finally:
+        dist.destroy_process_group()
+    meta = sd_unet(dtype=torch.float32, device="meta")
+    for n in PAR_WIDTHS:
+        ns, tot, frac = count_fsdp(n, meta)
+        nt, tot_t = count_sharded(n, meta)
+        msgs.append(f"SD-1.4 UNet at {n} ranks: count_fsdp {ns}/{tot} "
+                    f"leaves ({frac:.1%} of the elements), count_sharded "
+                    f"{nt}/{tot_t}")
+    for m in msgs:
+        log("parallel: " + m)
+    log_counts("parallel", counts)
+    return ok, counts, ld, cldm
+
+
+def phase_winograd(ld, cldm):
+    """Winograd F(2x2, 3x3) (``kernels/winograd.py``, behind
+    ``FGDM_WINOGRAD_CONV``): each served K7 shape against ``F.conv2d`` and
+    timed beside cuDNN; the batch-1 chain with the flag on and off."""
+    import torch
+    import torch.nn.functional as F
+    from fgdm_tpu_torch.kernels.winograd import conv3x3_winograd, winograd_ok
+    from fgdm_tpu_torch.nn import layers
+    from fgdm_tpu_torch.sampling.chain import fgdm_chain
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    msgs, ok = [], True
+    bf16 = torch.bfloat16
+    for n, c, co, h, w in WINO_CASES:
+        x = torch.randn(n, c, h, w, device="cuda", generator=gen, dtype=bf16)
+        wt = (torch.randn(co, c, 3, 3, device="cuda", generator=gen)
+              * 0.05).to(bf16)
+        bias = torch.randn(co, device="cuda", generator=gen)
+        got = conv3x3_winograd(x, wt, bias)
+        ref = F.conv2d(x.float(), wt.float(), bias, padding=1)
+        rel = _rel(got.float(), ref)
+        good = (winograd_ok(x.shape, wt.shape) and got.dtype == bf16
+                and rel <= WINO_TOL)
+        ok &= good
+        wino_ms = cuda_ms(lambda: conv3x3_winograd(x, wt, bias), 5)
+        b16 = bias.to(bf16)
+        cudnn_ms = cuda_ms(lambda: F.conv2d(x, wt, b16, padding=1), 5)
+        msgs.append(f"[{n},{c},{h},{w}] -> {co}: max|d|/max|ref| {rel:.3e} "
+                    f"(tol {WINO_TOL}); Winograd {wino_ms:.3f} ms vs cuDNN "
+                    f"{cudnn_ms:.3f} ms; {'OK' if good else 'FAIL'}")
+        del x, wt, got, ref
+    ctxs = [torch.randn(1, 77, 768, device="cuda", generator=gen)
+            for _ in range(4)]
+    saved = layers._WINOGRAD_CONV
+    runs = {}
+    try:
+        for flag in (True, False):
+            layers._WINOGRAD_CONV = flag
+            if flag:
+                reset_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            with torch.inference_mode():
+                out = fgdm_chain(ld, cldm, *ctxs, f1_steps=50, f2_steps=20,
+                                 slot_seeds=[1234])
+            end.record()
+            torch.cuda.synchronize()
+            runs[flag] = (out["image"].float(), time.perf_counter() - t0,
+                          start.elapsed_time(end))
+            if flag:
+                counts = read_counts()
+    finally:
+        layers._WINOGRAD_CONV = saved
+    diff = (runs[True][0] - runs[False][0]).abs().max().item()
+    good = (bool(torch.isfinite(runs[True][0]).all()) and math.isfinite(diff)
+            and sum(counts["gn"].values()) > 0)
+    ok &= good
+    msgs.append(f"chain batch 1 (50+20 steps): FGDM_WINOGRAD_CONV on "
+                f"{runs[True][1]:.3f} s wall / {runs[True][2]:.1f} ms between"
+                f" events, off {runs[False][1]:.3f} s / {runs[False][2]:.1f}"
+                f" ms (one run each, the chain warm from the phases before); "
+                f"image max|d| on vs off {diff:.3e} (values in [-1, 1]); "
+                f"{'OK' if good else 'FAIL'}")
+    for m in msgs:
+        log("winograd: " + m)
+    log_counts("winograd", counts)
+    return ok, counts
+
+
 def main():
     import torch
 
@@ -4538,9 +4852,17 @@ def main():
     library_ok, library = phase_library()
     gc.collect()
     torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    parallel_ok, parallel, ld, cldm = phase_parallel()
+    t9 = time.perf_counter()
+    winograd_ok, winograd = phase_winograd(ld, cldm)
+    del ld, cldm
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"control phase {t4 - t3:.1f}s, joint phase {t5 - t4:.1f}s, "
         f"codenoise phase {t6 - t5:.1f}s, variant forward "
-        f"{t7 - t6:.1f}s, library phase {time.perf_counter() - t7:.1f}s")
+        f"{t7 - t6:.1f}s, library phase {t8 - t7:.1f}s, parallel phase "
+        f"{t9 - t8:.1f}s, winograd phase {time.perf_counter() - t9:.1f}s")
     by_path = {"chain": chain, "train": train, "serve": serve, "cli": cli,
                "seg2image": seg, "guided": guided, "distill": distill,
                "chain_n": chain_n, "ptp": ptp, "img2img": img2img,
@@ -4549,7 +4871,8 @@ def main():
                "codenoise": codenoise, "variant": variant,
                "condition": condition, "condition_cli": condition_cli,
                "detect": detect, "detect0": detect0, "eval": eval_counts,
-               "library": library}
+               "library": library, "parallel": parallel,
+               "winograd": winograd}
     for name, fn, seed in (("K1-K3 and the combine pass", attn_path_rows, 4),
                            ("K5 and K6", bwd_path_rows, 7),
                            ("K7 and its pre-pass", conv_path_rows, 5),
@@ -4668,6 +4991,20 @@ def main():
         failures.append("K7 not launched by the library phase")
     if not library_ok:
         failures.append("library modules (VQ, LPIPS, encoders, MLSD, Canny)")
+    for kind in ("attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "gn",
+                 "combine"):
+        if sum(parallel[kind].values()) == 0:
+            failures.append(f"{kind} not launched by the parallel path")
+    if not any(k[5] for k in parallel["attn"]):
+        failures.append("K1 with lse not launched by the parallel path")
+    for kind in ("attn", "gn"):
+        if sum(winograd[kind].values()) == 0:
+            failures.append(f"{kind} not launched by the winograd path")
+    if not parallel_ok:
+        failures.append("parallel paths (DP, TP, FSDP, ring, context "
+                        "parallelism, mesh engine)")
+    if not winograd_ok:
+        failures.append("Winograd conv and the chain with it")
     if not ckpt_ok:
         failures.append("checkpoints written and loaded")
     if not cli_ok:

@@ -1,5 +1,5 @@
 """Training CLI, flag for flag the JAX package's ``fgdm_tpu/cli/train.py``
-(the reference's ``main.py:34-133``), on one device.
+(the reference's ``main.py:34-133``), on one device or data-parallel.
 
     python -m fgdm_tpu_torch.cli.train -b models/config.yaml -t \\
         data.params.train.params.data_dir=/data/coco \\
@@ -43,8 +43,27 @@
   ``FGDM_ALLOW_RANDOM_ANNOTATORS=1`` asks for a seeded annotator (a smoke
   run: its targets mean nothing).
 
+* Several devices (``cli/train.py:117-142,220-288,296-361``): under
+  torchrun (or ``FGDM_DISTRIBUTED=1`` with torch's rendezvous variables)
+  each process joins the job (``parallel.mesh.maybe_initialize_distributed``:
+  NCCL on CUDA, the rank's ``LOCAL_RANK`` device; gloo with ``--device
+  cpu``), the steps run data-parallel over a ``data`` mesh of every rank
+  (``train_step.make_train_step(mesh=)``), the loader hands each rank its
+  rows of the global ``batch_size``, the LR scales with the rank count
+  under ``--scale_lr``, and rank r draws its noise from ``--seed`` + r.
+  Rank 0 picks the run directory and is the one writer of the config,
+  logs, images and checkpoints.
+* ``--fsdp`` stores the training state sharded over ``data``
+  (``parallel.fsdp.shard_state_fsdp``; leaves under ``FGDM_FSDP_MIN_SIZE``
+  elements stay whole) and prints the sharded share; a checkpoint is
+  gathered whole (every rank takes part) and written by rank 0 in the
+  one-file format, so ``-r`` resumes with or without ``--fsdp``.
+
+    torchrun --nproc_per_node 4 -m fgdm_tpu_torch.cli.train -b \
+        models/config.yaml -t --fsdp data.params.train.params.data_dir=...
+
 ``--device`` (default ``cuda``) names where it runs.  ``--gpus`` is
-accepted and ignored (one device).  ``--fsdp`` is not ported and raises.
+accepted and ignored (the job's size is torchrun's).
 """
 
 from __future__ import annotations
@@ -82,7 +101,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=8,
                    help="batch-assembly threads")
     p.add_argument("--fsdp", action="store_true", default=False,
-                   help="sharded training state (not ported)")
+                   help="store the training state sharded over the data "
+                        "dim (FSDP; FGDM_FSDP_MIN_SIZE: smallest sharded "
+                        "leaf)")
     p.add_argument("--debug", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="where the model trains (cpu for tests)")
@@ -113,9 +134,10 @@ def _load_annotator_params(kind: str, ann_dir: str):
     return None
 
 
-def _run_dir(opt):
+def _run_dir(opt, distributed: bool = False):
     """``(logdir, nowname)``; ``-r`` prepends the run's saved configs to
-    ``opt.base``."""
+    ``opt.base``.  In a job every rank takes rank 0's timestamp (one run
+    directory, JAX's ``broadcast_one_to_all``)."""
     if opt.resume:
         if os.path.isfile(opt.resume):
             logdir = os.path.dirname(os.path.dirname(opt.resume))
@@ -124,7 +146,12 @@ def _run_dir(opt):
         opt.base = sorted(glob.glob(os.path.join(logdir,
                                                  "configs/*.yaml"))) + opt.base
         return logdir, os.path.basename(logdir)
-    now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
+    now = [datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")]
+    if distributed:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list(now, src=0)
+    now = now[0]
     cfg_name = (os.path.splitext(os.path.basename(opt.base[0]))[0]
                 if opt.base else "")
     name = opt.name or cfg_name
@@ -134,12 +161,9 @@ def _run_dir(opt):
 
 def main(argv=None):
     opt, unknown = get_parser().parse_known_args(argv)
-    if opt.fsdp:
-        raise NotImplementedError(
-            "--fsdp (training state sharded over several devices) is not "
-            "ported yet (ROADMAP Queue A item 15)")
 
     import torch
+    import torch.distributed as dist
     import yaml
 
     from fgdm_tpu_torch import resolve_device
@@ -151,6 +175,10 @@ def main(argv=None):
     from fgdm_tpu_torch.data.prefetch import (ParallelBatchLoader,
                                               device_prefetch, to_device)
     from fgdm_tpu_torch.models.clip import CLIPTokenizer
+    from fgdm_tpu_torch.parallel.mesh import (create_mesh, data_rank,
+                                              data_size, local_batch_slice,
+                                              maybe_initialize_distributed,
+                                              replicate)
     from fgdm_tpu_torch.train.condition import build_condition_synth
     from fgdm_tpu_torch.train.lr_schedules import scaled_lr
     from fgdm_tpu_torch.train.metrics import (ImageLogger, MetricsWriter,
@@ -162,18 +190,28 @@ def main(argv=None):
     from fgdm_tpu_torch.train.train_step import (make_eval_step,
                                                  make_train_step)
 
+    # the job's bring-up precedes the first collective
+    if maybe_initialize_distributed(torch.device(opt.device).type):
+        print(f"[train] torch.distributed up: rank {dist.get_rank()}/"
+              f"{dist.get_world_size()}")
+    distributed = dist.is_initialized() and dist.get_world_size() > 1
     dev = resolve_device(opt.device)
+    mesh = (create_mesh(device_type=dev.type)
+            if distributed or opt.fsdp else None)
+    rank = dist.get_rank() if mesh is not None else 0
+    n_dev = data_size(mesh) if mesh is not None else 1
 
     # -- config and run directory (main.py:492-557) -------------------------
-    logdir, nowname = _run_dir(opt)
+    logdir, nowname = _run_dir(opt, distributed)
     config = merge_configs(*[load_config(c) for c in opt.base])
     config = apply_dot_overrides(config, [u for u in unknown if "=" in u])
     ckptdir = os.path.join(logdir, "checkpoints")
     cfgdir = os.path.join(logdir, "configs")
     for d in (ckptdir, cfgdir, os.path.join(logdir, "images")):
         os.makedirs(d, exist_ok=True)
-    with open(os.path.join(cfgdir, f"{nowname}-project.yaml"), "w") as f:
-        yaml.safe_dump(config, f)
+    if rank == 0:   # one writer on a shared filesystem
+        with open(os.path.join(cfgdir, f"{nowname}-project.yaml"), "w") as f:
+            yaml.safe_dump(config, f)
 
     # -- model ----------------------------------------------------------------
     spec = instantiate_from_config(config["model"])
@@ -191,6 +229,10 @@ def main(argv=None):
         # freeze_backbone (train/state.py randomize_zero_heads)
         randomize_zero_heads(ld.unet)
         print("[train] zero-init heads randomized (smoke mode)")
+    if mesh is not None:   # every rank starts from rank 0's values
+        for part in (ld.unet, ld.vae, ld.clip):
+            if part is not None:
+                replicate(mesh, part)
     print(f"[train] model on {dev} in {time.perf_counter() - t0:.2f}s")
 
     # -- the condition's frozen annotator (ddpm.py:137-150) -------------------
@@ -234,10 +276,10 @@ def main(argv=None):
 
     # -- optimizer and state --------------------------------------------------
     base_lr = config["model"].get("base_learning_rate", 1e-5)
-    lr = scaled_lr(base_lr, batch_size, 1, opt.accumulate_grad_batches,
+    lr = scaled_lr(base_lr, batch_size, n_dev, opt.accumulate_grad_batches,
                    scale_lr=opt.scale_lr)
     print(f"[train] lr = {lr:.2e} ({'scaled' if opt.scale_lr else 'base'}),"
-          f" device={dev}")
+          f" device={dev}, devices={n_dev}")
     sched_fn = (instantiate_from_config(spec.scheduler_config)
                 if spec.scheduler_config else None)
     tx = make_adamw(lr, schedule_fn=sched_fn,
@@ -246,6 +288,15 @@ def main(argv=None):
         ld.unet, tx,
         trainable_filter=adapter_filter() if spec.freeze_backbone else None,
         use_ema=spec.use_ema)
+    if opt.fsdp:
+        from fgdm_tpu_torch.parallel.fsdp import (MIN_FSDP_SIZE, count_fsdp,
+                                                  shard_state_fsdp)
+
+        fsdp_min = int(os.environ.get("FGDM_FSDP_MIN_SIZE", MIN_FSDP_SIZE))
+        ns, total, frac = count_fsdp(mesh, state.model, min_size=fsdp_min)
+        state = shard_state_fsdp(mesh, state, min_size=fsdp_min)
+        print(f"[train] fsdp: {ns}/{total} parameters sharded "
+              f"({frac:.0%} of the elements over {n_dev} devices)")
     mgr = CheckpointManager(ckptdir, keep=3,
                             save_interval_steps=opt.ckpt_every)
 
@@ -274,17 +325,17 @@ def main(argv=None):
         print(f"[train] scale_by_std: scale_factor={ld.scale_factor:.5f}")
 
     step_fn = make_train_step(ld, parameterization=spec.parameterization,
-                              condition=condition)
+                              condition=condition, mesh=mesh)
     distill_fn = (make_train_step(ld, distill=True,
                                   parameterization=spec.parameterization,
-                                  condition=condition)
+                                  condition=condition, mesh=mesh)
                   if spec.apply_distill_loss else None)
     eval_fn = (make_eval_step(ld, parameterization=spec.parameterization,
-                              condition=condition)
+                              condition=condition, mesh=mesh)
                if val_ds is not None else None)
 
     # -- loggers (main.py:313-417,566-590) ------------------------------------
-    metrics_writer = MetricsWriter(logdir)
+    metrics_writer = MetricsWriter(logdir) if rank == 0 else None
     img_logger = None
     for cb in ((config.get("lightning") or {}).get("callbacks")
                or {}).values():
@@ -294,7 +345,9 @@ def main(argv=None):
         img_logger = ImageLogger(logdir, batch_frequency=opt.img_log_freq)
 
     def maybe_log_images(step, batch):
-        if img_logger is None or not img_logger.should_log(step):
+        # a sharded UNet's forward is a collective: every rank samples
+        if img_logger is None or not img_logger.should_log(step) or (
+                rank and not opt.fsdp):
             return
         t0 = time.perf_counter()
         imgs = log_images(
@@ -302,12 +355,14 @@ def main(argv=None):
             ddim_steps=20, inpaint=True, plot_denoise_rows=True,
             plot_progressive_rows=True, plot_diffusion_rows=True,
             params=state.ema.shadow if state.ema is not None else None)
-        img_logger.log(step, imgs)
+        if rank == 0:
+            img_logger.log(step, imgs)
         print(f"[train] images logged at step {step} "
               f"({time.perf_counter() - t0:.2f}s)")
 
     def val_batch(vb):
-        return to_device({"image": vb["image"], "input_ids": vb["input_ids"]},
+        vb = {"image": vb["image"], "input_ids": vb["input_ids"]}
+        return to_device(vb if mesh is None else local_batch_slice(vb, mesh),
                          dev)
 
     # -- melk: a checkpoint on SIGUSR1 and on an exception (main.py:736-761) --
@@ -315,8 +370,17 @@ def main(argv=None):
     melk_requested = threading.Event()
 
     def save(step, force=False):
+        # rank 0 writes; a sharded state is gathered by every rank first,
+        # so rank 0's decision goes to all of them
+        want = [rank == 0 and step not in mgr.all_steps()
+                and (force or mgr.should_save(step))]
+        if opt.fsdp and distributed:
+            dist.broadcast_object_list(want, src=0)
+        if not want[0] or (rank and not opt.fsdp):
+            return
         t0 = time.perf_counter()
-        if mgr.save(step, state_to_pytree(state), force=force):
+        tree = state_to_pytree(state)
+        if rank == 0 and mgr.save(step, tree, force=force):
             print(f"[train] saved step {step} "
                   f"({os.path.getsize(mgr.path(step))} bytes, "
                   f"{time.perf_counter() - t0:.2f}s)")
@@ -327,7 +391,8 @@ def main(argv=None):
 
     if not opt.train:
         print("[train] -t not given; config validated, exiting")
-        metrics_writer.close()
+        if metrics_writer is not None:
+            metrics_writer.close()
         return
     previous_handler = None
     if hasattr(signal, "SIGUSR1") and \
@@ -338,12 +403,16 @@ def main(argv=None):
     # -- the loop -------------------------------------------------------------
     loader = ParallelBatchLoader(
         train_ds, batch_size, tokenizer=tokenizer, seed=opt.seed,
-        num_workers=opt.num_workers, prefetch_batches=2 * opt.num_workers)
+        num_workers=opt.num_workers, prefetch_batches=2 * opt.num_workers,
+        process_index=data_rank(mesh) if mesh is not None else 0,
+        process_count=n_dev)
     it = device_prefetch(
         ({"image": b["image"], "input_ids": b["input_ids"],
-          "captions": b["captions"]} for b in loader), device=dev, size=2)
-    # a resume draws from --seed anew, as JAX's key restarts from it
-    gen = torch.Generator(device=dev).manual_seed(opt.seed)
+          "captions": b["captions"]} for b in loader), device=dev, size=2,
+        mesh=mesh)
+    # a resume draws from --seed anew, as JAX's key restarts from it; each
+    # rank draws its own rows' noise
+    gen = torch.Generator(device=dev).manual_seed(opt.seed + rank)
     step = start_step
     t0 = time.time()
     pending = []   # (step, metrics on the device), read on the print cadence
@@ -352,7 +421,8 @@ def main(argv=None):
         last = None
         for s, dev_m in pending:
             last = {k: float(v) for k, v in dev_m.items()}
-            metrics_writer.log(s, last, prefix="train")
+            if metrics_writer is not None:
+                metrics_writer.log(s, last, prefix="train")
         pending.clear()
         return last
 
@@ -382,7 +452,8 @@ def main(argv=None):
                              torch.Generator(device=dev).manual_seed(0))
                 vm = {k: float(v) for k, v in vm.items()}
                 print("  val:", {k: round(v, 4) for k, v in vm.items()})
-                metrics_writer.log(step, vm, prefix="val")
+                if metrics_writer is not None:
+                    metrics_writer.log(step, vm, prefix="val")
             if melk_requested.is_set():
                 melk_requested.clear()
                 melk()
@@ -401,7 +472,8 @@ def main(argv=None):
         # batches alive; close them before the test pass
         it.close()
         drain_metrics()
-        metrics_writer.close()
+        if metrics_writer is not None:
+            metrics_writer.close()
         if previous_handler is not None:
             signal.signal(signal.SIGUSR1, previous_handler)
     melk()

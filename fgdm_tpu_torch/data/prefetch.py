@@ -20,7 +20,11 @@ Counterpart of ``fgdm_tpu/data/prefetch.py`` (the reference's
   waits on an event recorded after that batch's copies (never a
   ``synchronize()``), and every tensor is marked ``record_stream`` for the
   consumer's stream, so the allocator does not hand its memory to the side
-  stream while a step still reads it.
+  stream while a step still reads it.  With ``mesh`` the device is the
+  rank's own (``parallel.mesh.mesh_device``) and the batches are its rows
+  of the global batch: a ``ParallelBatchLoader`` built with
+  ``process_index``/``process_count`` = the rank's place on the ``data``
+  dim and its size (``parallel.mesh.data_rank``/``data_size``) cuts them.
 """
 
 from __future__ import annotations
@@ -132,13 +136,19 @@ def to_device(batch: Dict[str, Any], device, keys=KEYS) -> Dict[str, Any]:
     return out
 
 
-def device_prefetch(iterator, device=None, size: int = 2, keys=KEYS):
+def device_prefetch(iterator, device=None, size: int = 2, keys=KEYS,
+                    mesh=None):
     """Yield the batches of ``iterator`` with the arrays under ``keys`` as
-    tensors on ``device`` (CUDA unless named), ``size`` batches ahead; 4-D
+    tensors on ``device`` (CUDA unless named; the rank's device of
+    ``mesh`` when given), ``size`` batches ahead; 4-D
     ``image``/``rgb``/``latent`` arrays become NCHW.  Other entries (the
     captions) pass through."""
     from fgdm_tpu_torch import resolve_device
 
+    if mesh is not None:
+        from fgdm_tpu_torch.parallel.mesh import mesh_device
+
+        device = mesh_device(mesh)
     dev = resolve_device(device)
     if dev.type != "cuda":
         for batch in iterator:

@@ -25,6 +25,7 @@ from torch import nn
 
 from fgdm_tpu_torch.nn.blocks import ResBlock
 from fgdm_tpu_torch.nn.layers import Conv2d, avg_pool_2x2
+from fgdm_tpu_torch.parallel import context as cp
 
 __all__ = ["AdapterResnetBlock", "Adapter", "TimeAdapter",
            "ResnetBlockLight", "Extractor", "pixel_unshuffle",
@@ -76,10 +77,13 @@ class Adapter(nn.Module):
     def forward(self, x, emb: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, ...]:
         """One feature per level; ``emb`` is ignored (``TimeAdapter``'s
-        signature)."""
+        signature).  Inside a context-parallel UNet a level whose rows do
+        not divide runs whole (``parallel.context.enter_down``)."""
         x = self.conv_in(x)
         feats = []
         for i, blk in enumerate(self.body):
+            if blk.down:
+                x = cp.enter_down(x, i // self.nums_rb)
             x = blk(x)
             if (i + 1) % self.nums_rb == 0:
                 feats.append(x)
@@ -112,6 +116,8 @@ class TimeAdapter(nn.Module):
         x = self.conv_in(x)
         feats = []
         for i, blk in enumerate(self.body):
+            if blk.down:
+                x = cp.enter_down(x, i // self.nums_rb)
             x = blk(x, emb)
             if (i + 1) % self.nums_rb == 0:
                 feats.append(x)

@@ -8,6 +8,14 @@ Counterpart of ``fgdm_tpu/models/autoencoder.py``: ``VaeResnetBlock``,
 ``post_quant_conv``, and ``NpleAutoencoderKL`` (``:328-343``), which
 encodes and decodes N latents stacked along the channels.  All GroupNorms
 use eps 1e-6.
+
+``seq_axis`` (context parallelism, ``autoencoder.py:33,92``) on
+``VaeAttnBlock``, ``Encoder``, ``Decoder`` and ``AutoencoderKL``: the
+encoder and decoder run on this rank's rows inside
+``parallel.context.sharded`` (every VAE level divides: the rows only grow
+or halve from a latent that does), the mid-block attention goes around the
+ring, and ``VaeDownsample``'s bottom pad row is the rank below's first row
+(zeros on the last rank).
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ from fgdm_tpu_torch.kernels.attention import multihead_attention
 from fgdm_tpu_torch.nn.blocks import silu
 from fgdm_tpu_torch.nn.layers import (Conv2d, FusedGroupNormSiLU, GroupNorm32,
                                       nearest_upsample_2x)
+from fgdm_tpu_torch.parallel import context as cp
+from fgdm_tpu_torch.parallel.ring_attention import ring_attention
 
 __all__ = ["VaeResnetBlock", "VaeAttnBlock", "VaeDownsample", "VaeUpsample",
            "Encoder", "Decoder", "DiagonalGaussian", "AutoencoderKL",
@@ -64,9 +74,11 @@ class VaeAttnBlock(nn.Module):
     """Single-head spatial self-attention with 1x1-conv projections; the
     d=512 head runs the flash kernel where the gate allows."""
 
-    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32,
+                 seq_axis: Optional[str] = None):
         super().__init__()
         c = in_channels
+        self.seq_axis = seq_axis
         self.norm = GroupNorm32(c, eps=1e-6)
         self.q = Conv2d(c, c, 1, padding=0, dtype=dtype)
         self.k = Conv2d(c, c, 1, padding=0, dtype=dtype)
@@ -80,8 +92,12 @@ class VaeAttnBlock(nn.Module):
         def tokens(t):  # [B, C, H, W] -> [B, 1, HW, C]
             return t.reshape(b, c, hh * ww).transpose(1, 2)[:, None]
 
-        a = multihead_attention(tokens(self.q(h)), tokens(self.k(h)),
-                                tokens(self.v(h)), scale=c ** -0.5)
+        q, k, v = tokens(self.q(h)), tokens(self.k(h)), tokens(self.v(h))
+        group = cp.sharded_group() if self.seq_axis is not None else None
+        if group is not None:
+            a = ring_attention(q, k, v, group, c ** -0.5)
+        else:
+            a = multihead_attention(q, k, v, scale=c ** -0.5)
         a = a[:, 0].transpose(1, 2).reshape(b, c, hh, ww)
         return x + self.proj_out(a)
 
@@ -100,6 +116,9 @@ class VaeDownsample(nn.Module):
     def forward(self, x):
         if self.conv is None:
             return F.avg_pool2d(x, 2)
+        if cp.sharded_group() is not None:
+            # the conv's halo brings the bottom row (the pad on the last rank)
+            return self.conv(F.pad(x, (0, 1, 0, 0)))
         return self.conv(F.pad(x, (0, 1, 0, 1)))
 
 
@@ -123,8 +142,10 @@ class Encoder(nn.Module):
                  attn_resolutions: Sequence[int] = (), in_channels: int = 3,
                  resolution: int = 256, z_channels: int = 4,
                  double_z: bool = True, fused_norm: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 seq_axis: Optional[str] = None):
         super().__init__()
+        self.seq_axis = seq_axis
         n_levels = len(ch_mult)
         in_ch_mult = (1,) + tuple(ch_mult)
         curr_res = resolution
@@ -144,7 +165,8 @@ class Encoder(nn.Module):
                 blocks.append(resnet(block_in, block_out))
                 block_in = block_out
                 if curr_res in attn_resolutions:
-                    attns.append(VaeAttnBlock(block_in, dtype=dtype))
+                    attns.append(VaeAttnBlock(block_in, dtype=dtype,
+                                              seq_axis=seq_axis))
             down.block = nn.ModuleList(blocks)
             down.attn = nn.ModuleList(attns)
             if i_level != n_levels - 1:
@@ -154,7 +176,8 @@ class Encoder(nn.Module):
         self.down = nn.ModuleList(downs)
         self.mid = nn.Module()
         self.mid.block_1 = resnet(block_in)
-        self.mid.attn_1 = VaeAttnBlock(block_in, dtype=dtype)
+        self.mid.attn_1 = VaeAttnBlock(block_in, dtype=dtype,
+                                       seq_axis=seq_axis)
         self.mid.block_2 = resnet(block_in)
         self.norm_out = GroupNorm32(block_in, eps=1e-6)
         self.conv_out = Conv2d(block_in,
@@ -162,6 +185,10 @@ class Encoder(nn.Module):
                                dtype=dtype)
 
     def forward(self, x):
+        with cp.sharded(self.seq_axis):
+            return self._forward(x)
+
+    def _forward(self, x):
         h = self.conv_in(x)
         for down in self.down:
             for j, blk in enumerate(down.block):
@@ -180,9 +207,11 @@ class Decoder(nn.Module):
                  attn_resolutions: Sequence[int] = (), out_ch: int = 3,
                  resolution: int = 256, z_channels: int = 4,
                  fused_norm: bool = False, tanh_out: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 seq_axis: Optional[str] = None):
         super().__init__()
         self.tanh_out = tanh_out
+        self.seq_axis = seq_axis
         n_levels = len(ch_mult)
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (n_levels - 1)
@@ -194,7 +223,8 @@ class Decoder(nn.Module):
         self.conv_in = Conv2d(z_channels, block_in, 3, dtype=dtype)
         self.mid = nn.Module()
         self.mid.block_1 = resnet(block_in)
-        self.mid.attn_1 = VaeAttnBlock(block_in, dtype=dtype)
+        self.mid.attn_1 = VaeAttnBlock(block_in, dtype=dtype,
+                                       seq_axis=seq_axis)
         self.mid.block_2 = resnet(block_in)
         ups = [None] * n_levels
         for i_level in reversed(range(n_levels)):
@@ -205,7 +235,8 @@ class Decoder(nn.Module):
                 blocks.append(resnet(block_in, block_out))
                 block_in = block_out
                 if curr_res in attn_resolutions:
-                    attns.append(VaeAttnBlock(block_in, dtype=dtype))
+                    attns.append(VaeAttnBlock(block_in, dtype=dtype,
+                                              seq_axis=seq_axis))
             up.block = nn.ModuleList(blocks)
             up.attn = nn.ModuleList(attns)
             if i_level != 0:
@@ -217,6 +248,10 @@ class Decoder(nn.Module):
         self.conv_out = Conv2d(block_in, out_ch, 3, dtype=dtype)
 
     def forward(self, z):
+        with cp.sharded(self.seq_axis):
+            return self._forward(z)
+
+    def _forward(self, z):
         h = self.conv_in(z)
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
         for up in reversed(self.up):
@@ -274,15 +309,19 @@ class AutoencoderKL(nn.Module):
                  attn_resolutions: Sequence[int] = (), in_channels: int = 3,
                  out_ch: int = 3, resolution: int = 256, z_channels: int = 4,
                  double_z: bool = True, fused_norm: bool = False,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16,
+                 seq_axis: Optional[str] = None, device=None):
         super().__init__()
+        self.seq_axis = seq_axis
         with torch.device(resolve_device(device)):
             self.encoder = Encoder(ch, ch_mult, num_res_blocks,
                                    attn_resolutions, in_channels, resolution,
-                                   z_channels, double_z, fused_norm, dtype)
+                                   z_channels, double_z, fused_norm, dtype,
+                                   seq_axis=seq_axis)
             self.decoder = Decoder(ch, ch_mult, num_res_blocks,
                                    attn_resolutions, out_ch, resolution,
-                                   z_channels, fused_norm, dtype=dtype)
+                                   z_channels, fused_norm, dtype=dtype,
+                                   seq_axis=seq_axis)
             self.quant_conv = Conv2d(2 * z_channels if double_z
                                      else z_channels, 2 * embed_dim, 1,
                                      padding=0, dtype=dtype)

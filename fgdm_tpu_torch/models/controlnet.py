@@ -6,6 +6,11 @@ maps the RGB hint to latent resolution and is added once after the first
 conv; every input block and the middle block emit a residual through a 1x1
 zero conv (13 taps for SD-1.4).  ``hint_only`` returns the pyramid output,
 which samplers compute once and pass back per step as ``hint_emb``.
+
+``seq_axis`` (context parallelism, ``controlnet.py:111``): x, the hint (or
+``hint_emb``) and the residuals hold this rank's rows; the hint pyramid's
+stride-2 convs take the row above from the rank above, and the levels run
+as the UNet's (``models/unet.py``).
 """
 
 from __future__ import annotations
@@ -16,10 +21,12 @@ import torch
 from torch import nn
 
 from fgdm_tpu_torch import resolve_device
-from fgdm_tpu_torch.models.unet import (build_encoder, embed_timesteps,
-                                        run_block, time_embed)
+from fgdm_tpu_torch.models.unet import (build_encoder, down_levels,
+                                        embed_timesteps, run_block,
+                                        time_embed)
 from fgdm_tpu_torch.nn.blocks import silu
 from fgdm_tpu_torch.nn.layers import Conv2d
+from fgdm_tpu_torch.parallel import context as cp
 
 __all__ = ["ControlNet", "guess_mode_scales"]
 
@@ -37,10 +44,13 @@ class ControlNet(nn.Module):
                  context_dim: Optional[int] = 768,
                  use_scale_shift_norm: bool = False,
                  conv_resample: bool = True, fused_norm_silu: bool = False,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16,
+                 seq_axis: Optional[str] = None, device=None):
         super().__init__()
         mc = model_channels
         self.model_channels, self.dtype = mc, dtype
+        self.channel_mult = tuple(channel_mult)
+        self.seq_axis = seq_axis
         with torch.device(resolve_device(device)):
             self.time_embed = time_embed(mc, dtype)
             hint, cin = [], hint_channels
@@ -56,7 +66,8 @@ class ControlNet(nn.Module):
                 in_channels, mc, num_res_blocks, attention_resolutions,
                 channel_mult, num_heads, num_head_channels, transformer_depth,
                 context_dim, use_scale_shift_norm, conv_resample,
-                fused_norm_silu, dtype)
+                fused_norm_silu, dtype, seq_axis=seq_axis)
+            self._down_at = down_levels(self.input_blocks)
             self.zero_convs = nn.ModuleList([
                 nn.ModuleList([Conv2d(c, c, 1, padding=0, zero_init=True,
                                       dtype=dtype)]) for c in chans])
@@ -65,6 +76,10 @@ class ControlNet(nn.Module):
                        dtype=dtype)])
 
     def encode_hint(self, hint):
+        with cp.sharded(self.seq_axis):
+            return self._encode_hint(hint)
+
+    def _encode_hint(self, hint):
         g = hint.to(self.dtype)
         for conv in self.input_hint_block[:-1:2]:
             g = silu(conv(g))
@@ -74,8 +89,14 @@ class ControlNet(nn.Module):
                 hint_only: bool = False):
         """The 13 zero-conv residuals; with ``hint_only`` just the hint
         pyramid embedding ``[B, mc, h, w]``."""
+        rows = None if x is None else x.shape[2]
+        with cp.sharded(self.seq_axis, rows, len(self.channel_mult)):
+            return self._forward(x, hint, timesteps, context, hint_emb,
+                                 hint_only)
+
+    def _forward(self, x, hint, timesteps, context, hint_emb, hint_only):
         if hint_emb is None or hint_only:
-            guided = self.encode_hint(hint)
+            guided = self._encode_hint(hint)
             if hint_only:
                 return guided
         else:
@@ -85,6 +106,8 @@ class ControlNet(nn.Module):
         outs = []
         for i, (block, zc) in enumerate(zip(self.input_blocks,
                                             self.zero_convs)):
+            if i in self._down_at:
+                h = cp.enter_down(h, self._down_at[i])
             h = run_block(block, h, emb, context)
             if i == 0:
                 h = h + guided

@@ -36,8 +36,13 @@ blocks with skip concatenation, GroupNorm -> SiLU -> zero-conv head.
   ``Downsample``/``Upsample``; ``num_classes`` adds ``label_emb``, a class
   embedding added to the timestep embedding, read from ``forward(y=)``.
 
-``seq_axis`` (context parallelism) is not ported and raises
-``NotImplementedError``.
+* Context parallelism (``seq_axis``, ``unet.py:100``): the forward runs
+  on this rank's rows of the latent inside ``parallel.context.sharded``;
+  the SpatialTransformers' self-attention goes around the ring.  A level
+  whose rows do not divide over the group runs whole: its input is
+  gathered before the downsampling into it (here and in the adapter) and
+  the rows are cut again after the upsampling out of it
+  (``parallel/context.py``).
 """
 
 from __future__ import annotations
@@ -54,8 +59,10 @@ from fgdm_tpu_torch.nn.attention import PixelAttentionBlock, SpatialTransformer
 from fgdm_tpu_torch.nn.blocks import Downsample, ResBlock, Upsample, silu
 from fgdm_tpu_torch.nn.layers import (Conv2d, Dense, Embed, GroupNorm32,
                                       timestep_embedding)
+from fgdm_tpu_torch.parallel import context as cp
 
-__all__ = ["UNetModel", "build_encoder", "run_block", "time_embed"]
+__all__ = ["UNetModel", "build_encoder", "run_block", "time_embed",
+           "down_levels", "up_levels"]
 
 
 def _heads_for(ch: int, num_heads: int, num_head_channels: int):
@@ -128,14 +135,37 @@ def run_block(block: nn.ModuleList, h, emb, context, capture=False,
 
 def _attention(ch, num_heads, num_head_channels, transformer_depth,
                context_dim, use_spatial_transformer, use_new_attention_order,
-               dtype):
+               dtype, seq_axis=None):
     n_heads, d_head = _heads_for(ch, num_heads, num_head_channels)
     if not use_spatial_transformer:
         return PixelAttentionBlock(
             ch, n_heads, use_new_attention_order=use_new_attention_order,
             dtype=dtype)
     return SpatialTransformer(ch, n_heads, d_head, depth=transformer_depth,
-                              context_dim=context_dim, dtype=dtype)
+                              context_dim=context_dim, dtype=dtype,
+                              seq_axis=seq_axis)
+
+
+def down_levels(blocks) -> dict:
+    """``{input block index: the level it downsamples into}``."""
+    out, level = {}, 0
+    for i, blk in enumerate(blocks):
+        if isinstance(blk[0], Downsample) or (isinstance(blk[0], ResBlock)
+                                              and blk[0].down):
+            level += 1
+            out[i] = level
+    return out
+
+
+def up_levels(blocks, n_levels: int) -> dict:
+    """``{output block index: the level it upsamples into}``."""
+    out, level = {}, n_levels - 1
+    for i, blk in enumerate(blocks):
+        if isinstance(blk[-1], Upsample) or (isinstance(blk[-1], ResBlock)
+                                             and blk[-1].up):
+            level -= 1
+            out[i] = level
+    return out
 
 
 def build_encoder(in_channels, mc, num_res_blocks, attention_resolutions,
@@ -144,7 +174,7 @@ def build_encoder(in_channels, mc, num_res_blocks, attention_resolutions,
                   conv_resample, fused_norm, dtype,
                   use_spatial_transformer: bool = True,
                   use_new_attention_order: bool = False,
-                  resblock_updown: bool = False):
+                  resblock_updown: bool = False, seq_axis=None):
     """The SD encoder shared by the UNet and ControlNet.
 
     Returns ``(input_blocks, middle_block, input_block_chans, level_ends,
@@ -162,7 +192,7 @@ def build_encoder(in_channels, mc, num_res_blocks, attention_resolutions,
         return _attention(ch, num_heads, num_head_channels,
                           transformer_depth, context_dim,
                           use_spatial_transformer, use_new_attention_order,
-                          dtype)
+                          dtype, seq_axis)
 
     blocks = [nn.ModuleList([Conv2d(in_channels, mc, 3, dtype=dtype)])]
     chans, level_ends = [mc], []
@@ -207,12 +237,13 @@ class UNetModel(nn.Module):
                  seq_axis: Optional[str] = None, remat: bool = False,
                  device=None):
         super().__init__()
-        if seq_axis is not None:
-            raise NotImplementedError("context parallelism is not ported yet")
         mc = model_channels
         self.model_channels, self.dtype = mc, dtype
         self.remat = remat
         self.in_channels = in_channels
+        self.channel_mult = tuple(channel_mult)
+        self.attention_resolutions = tuple(attention_resolutions)
+        self.seq_axis = seq_axis
         with torch.device(resolve_device(device)):
             self.time_embed = time_embed(mc, dtype)
             self.label_emb = (Embed(num_classes, 4 * mc)
@@ -233,7 +264,7 @@ class UNetModel(nn.Module):
                 channel_mult, num_heads, num_head_channels, transformer_depth,
                 context_dim, use_scale_shift_norm, conv_resample,
                 fused_norm_silu, dtype, use_spatial_transformer,
-                use_new_attention_order, resblock_updown)
+                use_new_attention_order, resblock_updown, seq_axis)
             self._adapter_at = tuple(level_ends)
             ch = chans[-1]
             out_blocks = []
@@ -252,7 +283,7 @@ class UNetModel(nn.Module):
                             ch, num_heads, num_head_channels,
                             transformer_depth, context_dim,
                             use_spatial_transformer, use_new_attention_order,
-                            dtype))
+                            dtype, seq_axis))
                     if level and i == num_res_blocks:
                         layers.append(
                             res(ch, ch, up=True) if resblock_updown
@@ -260,6 +291,8 @@ class UNetModel(nn.Module):
                         ds //= 2
                     out_blocks.append(nn.ModuleList(layers))
             self.output_blocks = nn.ModuleList(out_blocks)
+            self._down_at = down_levels(self.input_blocks)
+            self._up_at = up_levels(self.output_blocks, len(channel_mult))
             # reference indices: [GroupNorm, SiLU, conv]
             self.out = nn.ModuleList([
                 GroupNorm32(ch), nn.Identity(),
@@ -277,7 +310,15 @@ class UNetModel(nn.Module):
         CrossAttention``'s modes) ``(eps, selfattn, crossattn)``.
         ``attn_editor`` ``(probs, is_cross, place) -> probs`` edits every
         attention layer's probabilities (prompt-to-prompt,
-        ``utils/ptp.py``)."""
+        ``utils/ptp.py``).  With ``seq_axis`` every map (x, ``pcond``,
+        ``control``) holds this rank's rows."""
+        with cp.sharded(self.seq_axis, x.shape[2], len(self.channel_mult)):
+            return self._forward(x, timesteps, context, pcond, adapter_on,
+                                 control, only_mid_control, capture,
+                                 extra_pconds, attn_editor, y)
+
+    def _forward(self, x, timesteps, context, pcond, adapter_on, control,
+                 only_mid_control, capture, extra_pconds, attn_editor, y):
         emb = embed_timesteps(self.time_embed, timesteps, self.model_channels)
         if self.label_emb is not None:
             if y is None:
@@ -286,12 +327,15 @@ class UNetModel(nn.Module):
         h = x.to(self.dtype)
         feats = None
         if self.adapter is not None and adapter_on:
-            feats = self.adapter(h if pcond is None
-                                 else pcond.to(self.dtype), emb)
+            # each pyramid walks the levels on its own (cp.sharded restores)
+            with cp.sharded(self.seq_axis):
+                feats = self.adapter(h if pcond is None
+                                     else pcond.to(self.dtype), emb)
             if extra_pconds is not None:
                 for ad, ep in zip(self.adapters, extra_pconds):
-                    feats = [a + b for a, b in
-                             zip(feats, ad(ep.to(self.dtype)))]
+                    with cp.sharded(self.seq_axis):
+                        extra = ad(ep.to(self.dtype))
+                    feats = [a + b for a, b in zip(feats, extra)]
             feats = list(feats)
         maps = ({}, {})
 
@@ -301,6 +345,8 @@ class UNetModel(nn.Module):
 
         hs = []
         for i, blk in enumerate(self.input_blocks):
+            if i in self._down_at:
+                h = cp.enter_down(h, self._down_at[i])
             h = block(blk, h, f"input_blocks.{i}")
             if feats is not None and i in self._adapter_at:
                 h = h + feats.pop(0).to(h.dtype)
@@ -314,6 +360,8 @@ class UNetModel(nn.Module):
             if ctrl is not None and not only_mid_control:
                 skip = skip + ctrl.pop().to(h.dtype)
             h = block(blk, torch.cat([h, skip], dim=1), f"output_blocks.{i}")
+            if i in self._up_at:
+                h = cp.leave_up(h, self._up_at[i])
         h = silu(self.out[0](h))
         eps = self.out[2](h).float()
         return (eps, *maps) if capture else eps

@@ -20,6 +20,13 @@ probs`` (prompt-to-prompt, ``utils/ptp.py``) rewrites the probabilities of
 the explicit f32 softmax in every layer it is given, as JAX's
 ``attention.py:111-127`` does; K1 then runs nowhere.
 
+``seq_axis`` (context parallelism, ``parallel/context.py``; JAX's
+``attention.py:144,247``) on ``CrossAttention``, ``BasicTransformerBlock``
+and ``SpatialTransformer``: inside a sharded forward the self-attention
+runs around the ring over the registered group
+(``parallel/ring_attention.py``); cross-attention stays local.  Capture
+and editing read whole maps and are refused there.
+
 ``FeedForward(glu=False)`` (``BasicTransformerBlock(gated_ff=False)``) is
 Dense -> tanh GELU in float32 -> Dense (``attention.py:173-183``).
 
@@ -48,6 +55,8 @@ from fgdm_tpu_torch.kernels.attention import (attention_with_scores,
                                               multihead_attention)
 from fgdm_tpu_torch.nn.layers import (Conv1d, Conv2d, Dense, GroupNorm32,
                                       LayerNorm32)
+from fgdm_tpu_torch.parallel import context as cp
+from fgdm_tpu_torch.parallel.ring_attention import ring_attention
 
 __all__ = ["CaptureSpec", "CrossAttention", "GEGLU", "FeedForward",
            "BasicTransformerBlock", "SpatialTransformer",
@@ -73,11 +82,13 @@ class CaptureSpec:
 class CrossAttention(nn.Module):
     def __init__(self, query_dim: int, context_dim: Optional[int] = None,
                  heads: int = 8, dim_head: int = 64,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 seq_axis: Optional[str] = None):
         super().__init__()
         inner = heads * dim_head
         ctx_dim = context_dim or query_dim
         self.heads, self.dim_head = heads, dim_head
+        self.seq_axis = seq_axis
         self.to_q = Dense(query_dim, inner, bias=False, dtype=dtype)
         self.to_k = Dense(ctx_dim, inner, bias=False, dtype=dtype)
         self.to_v = Dense(ctx_dim, inner, bias=False, dtype=dtype)
@@ -106,7 +117,14 @@ class CrossAttention(nn.Module):
         spec = capture if isinstance(capture, CaptureSpec) else None
         mode = spec.mode if spec is not None else capture
         probs = None
-        if mode == "probs" or attn_editor is not None:
+        ring = (self.seq_axis is not None and not is_cross
+                and cp.sharded_group() is not None)
+        if ring and (capture or attn_editor is not None):
+            raise ValueError("attention capture and editing read whole maps:"
+                             " not under context parallelism")
+        if ring:
+            out = ring_attention(q, k, v, cp.sharded_group(), scale)
+        elif mode == "probs" or attn_editor is not None:
             # the explicit f32 path: every layer, K1's shapes included
             sim = torch.matmul(q.float(),
                                k.float().transpose(-1, -2)).mul_(scale)
@@ -180,13 +198,15 @@ class FeedForward(nn.Module):
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, n_heads: int, d_head: int,
                  context_dim: Optional[int] = None, gated_ff: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 seq_axis: Optional[str] = None):
         super().__init__()
+        self.seq_axis = seq_axis
         self.attn1 = CrossAttention(dim, heads=n_heads, dim_head=d_head,
-                                    dtype=dtype)
+                                    dtype=dtype, seq_axis=seq_axis)
         self.attn2 = CrossAttention(dim, context_dim=context_dim,
                                     heads=n_heads, dim_head=d_head,
-                                    dtype=dtype)
+                                    dtype=dtype, seq_axis=seq_axis)
         self.ff = FeedForward(dim, glu=gated_ff, dtype=dtype)
         self.norm1 = LayerNorm32(dim)
         self.norm2 = LayerNorm32(dim)
@@ -212,14 +232,17 @@ class BasicTransformerBlock(nn.Module):
 class SpatialTransformer(nn.Module):
     def __init__(self, in_channels: int, n_heads: int, d_head: int,
                  depth: int = 1, context_dim: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 seq_axis: Optional[str] = None):
         super().__init__()
         inner = n_heads * d_head
+        self.seq_axis = seq_axis
         self.norm = GroupNorm32(in_channels, eps=1e-6)
         self.proj_in = Conv2d(in_channels, inner, 1, padding=0, dtype=dtype)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, n_heads, d_head,
-                                  context_dim=context_dim, dtype=dtype)
+                                  context_dim=context_dim, dtype=dtype,
+                                  seq_axis=seq_axis)
             for _ in range(depth)])
         self.proj_out = Conv2d(inner, in_channels, 1, padding=0,
                                zero_init=True, dtype=dtype)
@@ -267,6 +290,9 @@ class PixelAttentionBlock(nn.Module):
 
     def forward(self, x):
         """x ``[B, C, H, W]`` -> the same shape."""
+        if cp.sharded_group() is not None:
+            raise ValueError("PixelAttentionBlock has no context-parallel "
+                             "path (JAX's takes no seq_axis)")
         b, c, hh, ww = x.shape
         nh, n = self.num_heads, hh * ww
         ch = c // nh

@@ -11,8 +11,18 @@ float32 and cast back to the input dtype.
 3x3 stride-1 pad-1 convs with a bias that ``kernels/conv.py``'s gates accept
 to the direct conv kernel K7.  The gates admit bf16 compute only, so a
 float32 ``Conv2d`` keeps ``F.conv2d`` with a flag on; with
-``FGDM_DISABLE_PALLAS_CONV=1`` they admit nothing, as JAX's do.  The Winograd branch
-is not ported.
+``FGDM_DISABLE_PALLAS_CONV=1`` they admit nothing, as JAX's do.
+``_WINOGRAD_CONV`` (``FGDM_WINOGRAD_CONV=1``, default off, as
+``layers.py:33-35``) then sends such a conv that ``kernels/winograd.py``'s
+``winograd_ok`` admits to the Winograd F(2x2, 3x3) reformulation, after
+the K7 gates, as JAX orders them (``layers.py:158-181``).
+
+Under context parallelism (``parallel/context.py``) ``Conv2d`` and
+``GroupNorm32`` see H-sharded maps: the conv exchanges the halo rows its
+taps read with the neighbouring ranks (``parallel.context.halo_rows``) and
+the norm all-reduces its statistics.  Under tensor parallelism
+(``parallel/tp.py``) a conv whose weight is output-channel sharded runs on
+its shard and gathers the channels.
 """
 
 from __future__ import annotations
@@ -24,9 +34,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import DTensor
+
 from fgdm_tpu_torch.kernels import conv as kconv
 from fgdm_tpu_torch.kernels.groupnorm import (group_norm_silu,
                                               group_norm_silu_ref)
+from fgdm_tpu_torch.parallel import context as cp
 
 __all__ = ["timestep_embedding", "GroupNorm32", "FusedGroupNormSiLU",
            "LayerNorm32", "Conv2d", "Dense", "Conv1d", "Embed", "nearest_upsample_2x",
@@ -37,6 +50,8 @@ __all__ = ["timestep_embedding", "GroupNorm32", "FusedGroupNormSiLU",
 # set them by attribute.
 _PALLAS_CONV = os.environ.get("FGDM_PALLAS_CONV", "0") == "1"
 _PALLAS_CONV_VAE = os.environ.get("FGDM_PALLAS_CONV_VAE", "0") == "1"
+# The Winograd F(2,3) reformulation (kernels/winograd.py), off by default.
+_WINOGRAD_CONV = os.environ.get("FGDM_WINOGRAD_CONV", "0") == "1"
 
 # JAX's truncated-normal variance scaling divides by the std of a standard
 # normal truncated to [-2, 2].
@@ -68,6 +83,9 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
+        if cp.sharded_group() is not None:
+            return cp.group_norm_sharded(x, self.weight, self.bias,
+                                         self.num_groups, self.eps, False)
         return group_norm_silu_ref(x, self.weight, self.bias, self.num_groups,
                                    self.eps, apply_silu=False)
 
@@ -78,6 +96,9 @@ class FusedGroupNormSiLU(GroupNorm32):
     before the single cast back, as in the TPU kernel."""
 
     def forward(self, x):
+        if cp.sharded_group() is not None:
+            return cp.group_norm_sharded(x, self.weight, self.bias,
+                                         self.num_groups, self.eps, True)
         return group_norm_silu(x, self.weight, self.bias, self.num_groups,
                                self.eps, apply_silu=True)
 
@@ -124,6 +145,19 @@ class Conv2d(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
+        if isinstance(self.weight, DTensor):
+            from fgdm_tpu_torch.parallel.tp import conv2d_tp
+
+            return conv2d_tp(x, self.weight, self.bias, self.stride,
+                             self.padding, self.dtype)
+        k = self.weight.shape[2]
+        if k > 1 and cp.sharded_group() is not None:
+            # the rows the taps read come from the neighbouring ranks
+            x = cp.halo_rows(x, self.padding,
+                             k - self.stride - self.padding)
+            b = None if self.bias is None else self.bias.to(self.dtype)
+            return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
+                            self.stride, (0, self.padding))
         if ((_PALLAS_CONV or _PALLAS_CONV_VAE) and self.stride == 1
                 and self.padding == 1 and self.bias is not None
                 and self.weight.shape[2:] == (3, 3)):
@@ -135,6 +169,15 @@ class Conv2d(nn.Module):
                 # HWC, e.g. a hint read from an image, is strided); the
                 # weight is cast to xk's dtype inside; the bias stays f32
                 return kconv.conv3x3(xk.contiguous(), self.weight, self.bias)
+        if (_WINOGRAD_CONV and self.stride == 1 and self.padding == 1
+                and self.bias is not None and k == 3):
+            from fgdm_tpu_torch.kernels.winograd import (conv3x3_winograd,
+                                                         winograd_ok)
+
+            xk = x.to(self.dtype)
+            if winograd_ok(xk.shape, self.weight.shape):
+                return conv3x3_winograd(xk, self.weight.to(self.dtype),
+                                        self.bias)
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
                         self.stride, self.padding)

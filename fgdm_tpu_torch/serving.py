@@ -12,6 +12,15 @@ host), so the first request does not pay for kernel builds, and
 the chain into four separately compiled stage functions.  Eager PyTorch has
 no compile to split, so both settings run the same ``fgdm_chain`` calls.
 
+``mesh`` (``parallel/mesh.create_mesh``) serves data-parallel, as
+``serving.py:139-176`` does: ``max_batch`` divides over the ``data`` dim,
+each rank runs the chain on its rows of the padded batch (their slot
+seeds), and the images are all-gathered, so every rank returns the whole
+batch.  By the slot contract below the outputs are the single-device
+engine's for the same seeds.  JAX refuses multi-host serving; the port
+refuses a group whose ranks sit on more than one host, in the same words.
+Every rank calls ``generate`` with the same arguments.
+
 RNG contract: each slot's noise comes from its own seed, so a (prompt,
 seed) pair gives the same image solo or coalesced into any slot of any
 batch.  ``slot_seeds_from_seeds`` accepts every seed ``jax.random.PRNGKey``
@@ -54,9 +63,17 @@ class ChainEngine:
                  f1_scale: float = 7.5, f2_scale: float = 9.0,
                  f1_sampler: str = "ddim", f2_sampler: str = "ddim",
                  warmup: bool = True, mesh=None, staged: bool = False):
+        self.mesh = mesh
+        self._rows = slice(0, max_batch)
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported yet (ROADMAP Queue A item 15)")
+            from fgdm_tpu_torch.parallel.mesh import replicate
+
+            self._rows = self._mesh_rows(mesh, max_batch)
+            # every rank serves the same weights (JAX's replicate)
+            parts = (ld.unet, ld.vae, ld.clip, cldm.unet, cldm.vae,
+                     cldm.clip, cldm.control)
+            for m in {id(m): m for m in parts if m is not None}.values():
+                replicate(mesh, m)
         self.ld, self.cldm = ld, cldm
         self.tok = tokenizer or CLIPTokenizer()
         self.max_batch = max_batch
@@ -72,10 +89,38 @@ class ChainEngine:
             self.generate(["warmup"])
             self.compile_seconds = time.perf_counter() - t0
 
+    @staticmethod
+    def _mesh_rows(mesh, max_batch: int) -> slice:
+        """This rank's rows of the padded batch; the checks of
+        ``serving.py:142-152``."""
+        import socket
+
+        import torch.distributed as dist
+
+        from fgdm_tpu_torch.parallel.mesh import data_rank, data_size
+
+        n_data = data_size(mesh)
+        if max_batch % n_data:
+            raise ValueError(
+                f"max_batch={max_batch} must divide over the "
+                f"data axis ({n_data} devices)")
+        hosts = [None] * dist.get_world_size()
+        dist.all_gather_object(hosts, socket.gethostname())
+        if len(set(hosts)) > 1:
+            raise NotImplementedError(
+                "multi-host serving is deliberately unsupported: run "
+                "one engine per host behind a balancer (serving is "
+                "embarrassingly parallel; a cross-host mesh would add "
+                "DCN hops to every request for nothing)")
+        k = max_batch // n_data
+        return slice(data_rank(mesh) * k, (data_rank(mesh) + 1) * k)
+
     def _contexts(self, prompts: Sequence[str]):
-        """The four CLIP contexts of ``serving.py:202-210``, padded."""
+        """The four CLIP contexts of ``serving.py:202-210``, padded (this
+        rank's rows of them on a mesh)."""
         b = self.max_batch
-        padded = list(prompts) + [""] * (b - len(prompts))
+        padded = (list(prompts) + [""] * (b - len(prompts)))[self._rows]
+        b = len(padded)
 
         def embed(pipe, texts):
             return pipe.get_learned_conditioning(
@@ -109,9 +154,16 @@ class ChainEngine:
         slots = slot_seeds_from_seeds(list(seeds)
                                       + [0] * (self.max_batch - n))
         with torch.inference_mode():
-            out = self._run(slots, *self._contexts(prompts))
+            out = self._run(slots[self._rows], *self._contexts(prompts))
             img = ((out["image"] + 1.0) / 2.0).clamp(0.0, 1.0) * 255
             cond = out["condition"].clamp(0.0, 1.0) * 255
-            imgs, conds = (a[:n].to(torch.uint8).permute(0, 2, 3, 1).cpu()
+            img, cond = (a.to(torch.uint8) for a in (img, cond))
+            if self.mesh is not None:
+                from fgdm_tpu_torch.parallel.mesh import (all_gather_rows,
+                                                          data_group)
+
+                img, cond = (all_gather_rows(a, data_group(self.mesh))
+                             for a in (img, cond))
+            imgs, conds = (a[:n].permute(0, 2, 3, 1).cpu()
                            for a in (img, cond))
         return {"images": imgs.numpy(), "conditions": conds.numpy()}

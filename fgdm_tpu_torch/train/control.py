@@ -11,7 +11,8 @@ are ``control.*`` and ``unet.*``; ``TrainState.create`` turns off
 ``requires_grad`` on the rest.  The frozen UNet still passes activation
 gradients back to the 13 control residuals.  As in ``train/train_step.py``
 the VAE encode and CLIP run under ``torch.no_grad()``, and ``t``, ``noise``
-and the posterior's ``posterior_eps`` may be injected.
+and the posterior's ``posterior_eps`` may be injected.  ``mesh`` makes the
+step data-parallel (``train_step.finish_step``).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from torch import nn
 
 from fgdm_tpu_torch.diffusion.control import ControlLDM
 from fgdm_tpu_torch.diffusion.losses import diffusion_loss
-from fgdm_tpu_torch.train.state import TrainState, global_norm
+from fgdm_tpu_torch.train.state import TrainState
+from fgdm_tpu_torch.train.train_step import finish_step
 
 __all__ = ["control_filter", "control_param_tree", "make_control_train_step"]
 
@@ -55,7 +57,7 @@ def control_param_tree(cldm: ControlLDM) -> nn.ModuleDict:
 
 def make_control_train_step(cldm: ControlLDM, parameterization: str = "eps",
                             l_simple_weight: float = 1.0,
-                            original_elbo_weight: float = 0.0):
+                            original_elbo_weight: float = 0.0, mesh=None):
     """Builds ``train_step(state, batch, generator, *, t=None, noise=None,
     posterior_eps=None) -> (state, metrics)``.
 
@@ -85,9 +87,6 @@ def make_control_train_step(cldm: ControlLDM, parameterization: str = "eps",
             original_elbo_weight=original_elbo_weight, generator=generator,
             t=t, noise=noise)
         loss.backward()
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
-        metrics["grad_norm"] = global_norm(
-            p.grad for p in state.params.values() if p.grad is not None)
-        return state.apply_gradients(), metrics
+        return finish_step(state, loss_dict, mesh)
 
     return train_step

@@ -9,7 +9,8 @@ clean condition half enters through ``SeqTwoUNet``'s ``cond_map`` bypass
 (``unet2`` does not run).  With ``state`` built on
 ``joint_image_adapter_filter`` only ``unet1``'s adapter and the channel
 mapper train.  ``t`` and ``noise`` may be injected; otherwise they are
-drawn from ``generator``.
+drawn from ``generator``.  ``mesh`` makes the step data-parallel
+(``train_step.finish_step``).
 """
 
 from __future__ import annotations
@@ -20,14 +21,15 @@ import torch
 
 from fgdm_tpu_torch.core.schedules import DiffusionSchedule
 from fgdm_tpu_torch.models.seq_two_unet import SeqTwoUNet
-from fgdm_tpu_torch.train.state import TrainState, global_norm
+from fgdm_tpu_torch.train.state import TrainState
+from fgdm_tpu_torch.train.train_step import finish_step
 
 __all__ = ["make_joint_train_step"]
 
 
 def make_joint_train_step(model: SeqTwoUNet, schedule: DiffusionSchedule,
                           l_simple_weight: float = 1.0,
-                          original_elbo_weight: float = 0.0):
+                          original_elbo_weight: float = 0.0, mesh=None):
     """Builds ``step(state, batch, generator, *, t=None, noise=None) ->
     (state, metrics)``.
 
@@ -62,9 +64,6 @@ def make_joint_train_step(model: SeqTwoUNet, schedule: DiffusionSchedule,
             loss = loss + original_elbo_weight * metrics["train/loss_vlb"]
         metrics["train/loss"] = loss
         loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(
-            p.grad for p in state.params.values() if p.grad is not None)
-        return state.apply_gradients(), metrics
+        return finish_step(state, metrics, mesh)
 
     return step

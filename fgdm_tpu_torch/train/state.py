@@ -24,6 +24,14 @@ Counterpart of ``fgdm_tpu/train/state.py``:
 * ``state_to_pytree``/``state_from_pytree`` (``:169-199``): the whole
   state as a tree of tensors, and back in place, for
   ``checkpoint/state_io.py`` (JAX's orbax resume).
+
+Sharded states (``parallel/fsdp.py``, ``parallel/tp.py``) hold DTensor
+parameters, gradients, moments and EMA shadows: ``global_norm`` sums each
+leaf's squares over its shards, the clip scales a DTensor gradient shard by
+shard, and ``state_to_pytree`` gathers every DTensor into a whole tensor
+(a collective: every rank calls it) while ``state_from_pytree`` hands each
+rank its shard of a whole tensor.  So a checkpoint file is the same whether
+the run was sharded or not, and resumes either way.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 __all__ = ["adapter_filter", "joint_image_adapter_filter",
            "randomize_zero_heads", "global_norm",
@@ -79,10 +88,40 @@ def randomize_zero_heads(module: nn.Module, scale: float = 0.02) -> nn.Module:
     return module
 
 
+def _sq(t: torch.Tensor) -> torch.Tensor:
+    s = torch.sum(torch.square(t.float()))
+    return s.full_tensor() if isinstance(s, DTensor) else s
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """``optax.global_norm``: sqrt of the f32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tensors))
+    """``optax.global_norm``: sqrt of the f32 sum of squares (a DTensor's
+    summed over its shards)."""
+    return torch.sqrt(sum(_sq(t) for t in tensors))
+
+
+def _full(t):
+    """A DTensor gathered whole (every rank calls it); else ``t``."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _shard_like(live: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """``value`` (whole) as ``live``'s shard when ``live`` is a DTensor: the
+    rank's part, cut locally; else ``value`` on ``live``'s device."""
+    value = value.to(live.device)
+    if isinstance(live, DTensor):
+        return distribute_tensor(value, live.device_mesh, live.placements,
+                                 src_data_rank=None)
+    return value
+
+
+def _clip(g: torch.Tensor, norm: torch.Tensor, c: float) -> torch.Tensor:
+    """optax's ``where(norm < c, g, g / norm * c)``, on a DTensor's local
+    shard."""
+    if isinstance(g, DTensor):
+        return DTensor.from_local(_clip(g.to_local(), norm, c),
+                                  g.device_mesh, g.placements,
+                                  shape=g.shape, stride=g.stride())
+    return torch.where(norm < c, g, g / norm * c)
 
 
 class EmaState:
@@ -133,9 +172,14 @@ class Optimizer:
     def __init__(self, tx: AdamW, params: Params):
         self.tx = tx
         self.params: List[torch.Tensor] = list(params.values())
+        # the multi-tensor path groups tensors by device and dtype, and a
+        # group may not mix DTensors with plain tensors (an FSDP state's
+        # whole leaves beside its shards): per-tensor updates then
+        sharded = any(isinstance(p, DTensor) for p in self.params)
         self.inner = torch.optim.AdamW(self.params, lr=tx.lr,
                                        betas=(tx.b1, tx.b2), eps=1e-8,
-                                       weight_decay=tx.weight_decay)
+                                       weight_decay=tx.weight_decay,
+                                       foreach=False if sharded else None)
         self.count = 0        # updates applied (optax's inner count)
         self.mini_step = 0    # gradients accumulated toward the next update
         self.acc = ([torch.zeros_like(p) for p in self.params]
@@ -160,7 +204,7 @@ class Optimizer:
                 a.zero_()
         if self.tx.grad_clip:
             norm, c = global_norm(grads), self.tx.grad_clip
-            grads = [torch.where(norm < c, g, g / norm * c) for g in grads]
+            grads = [_clip(g, norm, c) for g in grads]
         for p, g in zip(self.params, grads):
             p.grad = g
         lr = self.tx.lr
@@ -174,19 +218,32 @@ class Optimizer:
         self.count += 1
 
     def state_dict(self) -> Dict:
-        """torch AdamW's state, the update count and the accumulation."""
-        return {"inner": self.inner.state_dict(), "count": self.count,
-                "mini_step": self.mini_step, "acc": self.acc}
+        """torch AdamW's state, the update count and the accumulation, each
+        DTensor gathered whole."""
+        inner = self.inner.state_dict()
+        inner["state"] = {i: {k: _full(v) for k, v in st.items()}
+                          for i, st in inner["state"].items()}
+        return {"inner": inner, "count": self.count,
+                "mini_step": self.mini_step,
+                "acc": None if self.acc is None else [_full(a)
+                                                      for a in self.acc]}
 
     @torch.no_grad()
     def load_state_dict(self, tree: Dict) -> None:
         """Restore ``state_dict()``; the accumulation buffers are copied
-        into in place, AdamW's moments moved to the parameters' device."""
-        self.inner.load_state_dict(tree["inner"])
+        into in place, AdamW's moments moved to the parameters' device (a
+        DTensor parameter's moments cut to its shard)."""
+        inner = dict(tree["inner"])
+        inner["state"] = {
+            i: {k: (_shard_like(self.params[int(i)], v)
+                    if torch.is_tensor(v) and v.dim() else v)
+                for k, v in st.items()}
+            for i, st in inner["state"].items()}
+        self.inner.load_state_dict(inner)
         self.count, self.mini_step = tree["count"], tree["mini_step"]
         if self.acc is not None:
             for a, v in zip(self.acc, tree["acc"]):
-                a.copy_(v)
+                a.copy_(_shard_like(a, v))
 
 
 def make_adamw(lr: float, schedule_fn: Optional[Callable] = None,
@@ -256,14 +313,17 @@ def state_to_pytree(state: TrainState, include_frozen: bool = True) -> Dict:
     ``step``, the trainable ``params``, ``opt_state`` (the optimizer's
     ``state_dict``), with ``include_frozen`` the ``frozen`` parameters, and
     with EMA ``ema`` (``shadow`` and ``num_updates``).  Tensors are the live
-    ones, detached: save it before the next step changes them."""
+    ones, detached: save it before the next step changes them.  DTensors
+    are gathered whole: every rank of a sharded state calls it."""
     tree = {"step": state.step,
-            "params": {k: p.detach() for k, p in state.params.items()},
+            "params": {k: _full(p.detach()) for k, p in state.params.items()},
             "opt_state": state.optimizer.state_dict()}
     if include_frozen:
-        tree["frozen"] = {k: p.detach() for k, p in state.frozen.items()}
+        tree["frozen"] = {k: _full(p.detach())
+                          for k, p in state.frozen.items()}
     if state.ema is not None:
-        tree["ema"] = {"shadow": state.ema.shadow,
+        tree["ema"] = {"shadow": {k: _full(v)
+                                  for k, v in state.ema.shadow.items()},
                        "num_updates": state.ema.num_updates}
     return tree
 
@@ -277,11 +337,12 @@ def state_from_pytree(state: TrainState, tree: Dict) -> TrainState:
     live = dict(state.model.named_parameters())
     for part in ("params", "frozen"):
         for k, v in tree.get(part, {}).items():
-            live[k].copy_(v)
+            live[k].copy_(_shard_like(live[k], v))
     state.optimizer.load_state_dict(tree["opt_state"])
     if state.ema is not None and "ema" in tree:
         for k, v in tree["ema"]["shadow"].items():
-            state.ema.shadow[k].copy_(v)
+            s = state.ema.shadow[k]
+            s.copy_(_shard_like(s, v))
         state.ema.num_updates = int(tree["ema"]["num_updates"])
     state.step = int(tree["step"])
     return state

@@ -1,6 +1,6 @@
-"""The training and validation steps on one device.
+"""The training and validation steps, on one device or data-parallel.
 
-Counterpart of ``fgdm_tpu/train/train_step.py:49-188`` without a mesh:
+Counterpart of ``fgdm_tpu/train/train_step.py:49-188``:
 ``train_step(state, batch, generator)`` encodes the batch image with the
 frozen VAE (a posterior sample) and runs the frozen CLIP, both under
 ``torch.no_grad()`` (never ``inference_mode``: its tensors cannot be saved
@@ -18,6 +18,14 @@ torch cannot reproduce ``jax.random``'s bits: the timesteps ``t``, the
 ``noise`` and the posterior's ``posterior_eps`` may be injected (for
 ``sketch_to_normal`` a pair, one eps for each half); whatever is not
 injected is drawn from ``generator``.
+
+With ``mesh`` (``parallel/mesh.create_mesh``) each rank runs the step on
+its rows of the global batch; after the backward the trainable gradients
+are averaged over the ``data`` dim (``parallel.mesh.average_gradients``,
+one bucketed ``all_reduce``; FSDP's arrive reduce-scattered), so
+``grad_norm`` and the update are the global batch's, and the loss metrics
+are averaged the same way.  A sharded state (``parallel.fsdp``,
+``parallel.tp``) takes the same step.
 """
 
 from __future__ import annotations
@@ -28,9 +36,10 @@ import torch
 
 from fgdm_tpu_torch.diffusion.latent_diffusion import LatentDiffusion
 from fgdm_tpu_torch.diffusion.losses import diffusion_loss
+from fgdm_tpu_torch.parallel.mesh import average_gradients, average_metrics
 from fgdm_tpu_torch.train.state import TrainState, global_norm
 
-__all__ = ["make_train_step", "make_eval_step"]
+__all__ = ["make_train_step", "make_eval_step", "finish_step"]
 
 Batch = Dict[str, torch.Tensor]
 
@@ -75,14 +84,16 @@ def make_train_step(ld: LatentDiffusion, distill: bool = False,
                     l_simple_weight: float = 1.0,
                     original_elbo_weight: float = 0.0,
                     distill_weight: float = 0.1,
-                    encode_first_stage: bool = True, condition=None):
+                    encode_first_stage: bool = True, condition=None,
+                    mesh=None):
     """Builds ``train_step(state, batch, generator, *, t=None, noise=None,
     posterior_eps=None) -> (state, metrics)``.
 
     ``batch``: ``{"image": [B, 3, H, W] in [-1, 1]`` (or ``"latent"``),
     ``"input_ids": [B, 77]}`` on the model's device.  ``state.model`` must be
     ``ld.unet``.  ``condition`` synthesizes the factor's target from
-    ``batch["image"]`` (the depth, normal and sketch configs)."""
+    ``batch["image"]`` (the depth, normal and sketch configs); ``mesh``
+    makes it data-parallel, ``batch`` then being this rank's rows."""
 
     def train_step(state: TrainState, batch: Batch,
                    generator: torch.Generator, *,
@@ -96,20 +107,31 @@ def make_train_step(ld: LatentDiffusion, distill: bool = False,
             original_elbo_weight=original_elbo_weight, distill=distill,
             distill_weight=distill_weight)
         loss.backward()
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
-        metrics["grad_norm"] = global_norm(
-            p.grad for p in state.params.values() if p.grad is not None)
-        return state.apply_gradients(), metrics
+        return finish_step(state, loss_dict, mesh)
 
     return train_step
 
 
+def finish_step(state: TrainState, loss_dict, mesh=None):
+    """The end of every train step: gradients (and the loss metrics)
+    averaged over the mesh's ``data`` dim, ``grad_norm`` of the averaged
+    gradients, the optimizer step and EMA."""
+    metrics = {k: v.detach() for k, v in loss_dict.items()}
+    if mesh is not None:
+        average_gradients(state.params.values(), mesh)
+        metrics = average_metrics(metrics, mesh)
+    metrics["grad_norm"] = global_norm(
+        p.grad for p in state.params.values() if p.grad is not None)
+    return state.apply_gradients(), metrics
+
+
 def make_eval_step(ld: LatentDiffusion, parameterization: str = "eps",
-                   condition=None):
+                   condition=None, mesh=None):
     """Validation loss with the trained and the EMA weights (reference
     ``validation_step``, ``ddpm.py:442-450``): ``eval_step(state, batch,
     generator) -> {"val/<key>", "val/<key>_ema"}``.  Both passes draw the
-    same t, noise and posterior sample, as the JAX step reuses its key."""
+    same t, noise and posterior sample, as the JAX step reuses its key.
+    With ``mesh`` the metrics are averaged over the ``data`` dim."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch,
@@ -138,6 +160,6 @@ def make_eval_step(ld: LatentDiffusion, parameterization: str = "eps",
                         p.copy_(saved[k])
             for k, v in loss_dict.items():
                 metrics[f"val/{k}{tag}"] = v
-        return metrics
+        return metrics if mesh is None else average_metrics(metrics, mesh)
 
     return eval_step

@@ -390,10 +390,15 @@ def test_guess_mode_is_not_ported(tiny):
                                      use_spatial_transformer=False),
                                 dict(seq_axis="seq")])
 def test_unported_unet_options_raise(kw):
-    # pixel attention is ported (tests/test_torch_variants.py); context
-    # parallelism (seq_axis) is not, with either attention
-    with pytest.raises(NotImplementedError):
-        UNetModel(**TINY, device="cpu", **kw)
+    # pixel attention is ported (tests/test_torch_variants.py), and so is
+    # context parallelism (tests/test_torch_parallel.py): a seq_axis UNet
+    # builds, and its forward needs a registered context group (JAX's
+    # error on an unregistered context mesh), with either attention
+    unet = UNetModel(**TINY, device="cpu", **kw)
+    assert unet.seq_axis == "seq"
+    with pytest.raises(RuntimeError, match="no context group"):
+        unet(torch.zeros(1, 4, 8, 8), torch.zeros(1, dtype=torch.long),
+             context=torch.zeros(1, 77, 64))
 
 
 # --- entry points and imports ----------------------------------------------

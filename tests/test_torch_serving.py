@@ -186,8 +186,23 @@ def test_engine_fast_preset_sampler(engine):
 
 
 def test_mesh_serving_is_not_ported(engine):
-    with pytest.raises(NotImplementedError, match="Queue A item 15"):
-        ChainEngine(engine.ld, engine.cldm, mesh=object(), warmup=False)
+    """Mesh serving is ported (tests/test_torch_parallel.py); a mesh whose
+    ``data`` dim does not divide ``max_batch`` is refused with JAX's text
+    (``serving.py:148-152``) before any collective runs."""
+    class Dim:
+        def size(self):
+            return 3
+
+    class Mesh:
+        def __getitem__(self, name):
+            return Dim()
+
+        def get_local_rank(self, name):
+            return 0
+
+    with pytest.raises(ValueError, match="must divide over the data axis"):
+        ChainEngine(engine.ld, engine.cldm, max_batch=4, mesh=Mesh(),
+                    warmup=False)
 
 
 def test_generate_from_a_worker_thread(engine):

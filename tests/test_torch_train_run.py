@@ -3,8 +3,9 @@ seeded COCO tree of ``tests/test_train_cli.py`` (one-layer CLIP, UNet 32
 channels, 32^2 images, batch 4): the run directory of the JAX CLI, the
 metric keys, ``-r`` resume (parameters, frozen parameters, optimizer, EMA
 and step restored bit for bit), validation, the distillation cadence, the
-SIGUSR1 and exception checkpoints, and the refusals (``--fsdp``; a config
-that synthesises its condition targets, with no annotator checkpoint).  The JAX CLI's own run of two steps
+SIGUSR1 and exception checkpoints, ``--fsdp`` in one process, and the
+refusal of a config that synthesises its condition targets with no
+annotator checkpoint.  The JAX CLI's own run of two steps
 builds the model with flax's init and jit, minutes here, so the JAX CLI is
 stopped once it has made its run directory, and that is compared.
 """
@@ -321,9 +322,10 @@ def test_an_exception_saves_the_last_complete_step(workspace, monkeypatch):
     (["model.params.use_depth=true", "model.params.use_normal=true"], 14)])
 def test_unported_options_raise(workspace, args, item, monkeypatch,
                                 tmp_path):
-    """``--fsdp`` (item 15) raises; the condition configs (item 14, ported)
-    exit as JAX's CLI does when no annotator checkpoint is found
-    (``tests/test_torch_condition.py``)."""
+    """``--fsdp`` (item 15, ported) trains in one process on a one-rank
+    group (two ranks: ``tests/test_torch_parallel.py``); the condition
+    configs (item 14, ported) exit as JAX's CLI does when no annotator
+    checkpoint is found (``tests/test_torch_condition.py``)."""
     root, cfg_path = workspace
     argv = ["-b", str(cfg_path), "-l", str(root / f"no{item}"), "-t",
             "--device", "cpu", *args]
@@ -333,8 +335,16 @@ def test_unported_options_raise(workspace, args, item, monkeypatch,
         with pytest.raises(SystemExit, match="no checkpoint was found"):
             train.main(argv)
         return
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}\\b"):
-        train.main(argv)
+    import torch.distributed as dist
+
+    try:
+        train.main([*argv, "--max_steps", "1", "--no-test"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (run,) = list((root / f"no{item}").iterdir())
+    tree = torch.load(run / "checkpoints" / "0.pt", weights_only=True)
+    assert tree["step"] == 1 and tree["params"]
 
 
 def test_gpus_flag_is_accepted():
