@@ -22,7 +22,13 @@ it builds the port's kernels from the sources in this checkout (one
    cluster launch a call) also at two ragged spans, in f16 and in f32, the
    direct 3x3 conv with its transposing pre-pass at the serving shapes and
    at three ragged shapes the gates admit; each rerun must be bit-identical
-   where the kernel has no atomics), prints K4's plan per shape, checks
+   where the kernel has no atomics), and, in float32, K1 at d 40 and 80
+   (with and without lse, two ragged query lengths), K2, K3 (with a forced
+   single slice), the combine pass into float32, K7 and its float32
+   pre-pass at the ``precision_full`` path's shapes and at the three ragged
+   ones, against the float32 plain versions (TF32 off), the library
+   yardsticks SDPA and cuDNN's ``F.conv2d`` in float32; prints K4's plan
+   per shape, checks
    ``Conv3x3``'s
    gradients against autograd through
    the plain conv, and times kernel, plain version and the PyTorch library
@@ -109,7 +115,13 @@ it builds the port's kernels from the sources in this checkout (one
    K1, K2, K4, K7 and its pre-pass launched; the directory scored twice
    with identical JSON; the metric networks on the card against the CPU
    with the global TF32 switch on; the generation's UNet and VAE forwards
-   kernels on vs plain;
+   kernels on vs plain; then the float32 path (``phase_precision_full``):
+   ``cli.txt2img_fgdm.main`` with the CLI's flags plus ``--precision
+   full`` on the two files, conv flags on, counts reset just before: 5
+   maps (256^2) and 5 images (512^2), K1 at d 40 and 80, K2, K3, the
+   combine pass, K7 and its pre-pass launched in float32; one float32
+   factor-2 UNet + ControlNet forward at [2,4,64,64] and the float32 chain
+   at batch 1 (50 + 20 steps, the same x_T), kernels on vs plain;
 6. the serving path, with both conv-kernel flags on, on the engine that
    ``server.py --ckpt/--cn_ckpt`` assembles (``server.build_engine``) from
    those two files: a ``ChainEngine`` (batch 4, the fast preset:
@@ -215,16 +227,18 @@ it builds the port's kernels from the sources in this checkout (one
    images' max difference;
 8. holds every kernel against its plain version, and times it, at every
    other shape that a path above launched (the chain, the training step,
-   the served batch, the CLI, seg2image's sampling and ``--detect``, the
-   guided CLI, the distillation step, the condition steps, the N-factor
-   CLI, ptp, img2img, the ancestral sampler, the tiled VAE, the training
-   CLI and its normal-factor config, the two recipes, co-denoising, the
-   variant UNet, the library modules): K1-K3 and the combine pass
-   at each (batch, heads, N, d), K5 and K6 at each (batch, heads, N, d), K7 and its pre-pass at
-   each conv launch key, K4 at each (shape, eps), each held once, under
-   the first path that launched it; every row then reads its path's launch
-   count and fails at 0;
-9. prints ``{"kernels": [...]}`` and, last, the ``{"ok": true, ...}`` line.
+   the served batch, the CLI, ``--precision full``, seg2image's sampling
+   and ``--detect``, the guided CLI, the distillation step, the condition
+   steps, the N-factor CLI, ptp, img2img, the ancestral sampler, the tiled
+   VAE, the training CLI and its normal-factor config, the two recipes,
+   co-denoising, the variant UNet, the library modules): K1-K3 and the
+   combine pass at each (batch, heads, N, d, dtype), K5 and K6 at each
+   (batch, heads, N, d), K7 and its pre-pass at each conv launch key (the
+   dtype in it), K4 at each (shape, eps), each held once, in its dtype,
+   under the first path that launched it; every row then reads its path's
+   launch count and fails at 0;
+9. prints ``{"kernels": [...]}`` (each row with its ``dtype``) and, last,
+   the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, if there is no CUDA device, if any of
 the reference's kernel switches the port honours (``FGDM_DISABLE_FLASH``,
@@ -266,6 +280,8 @@ ATTN512_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_fwd_d512.cu"
 BWD_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_bwd.cu"
 GN_SRC = "fgdm_tpu_torch/kernels/csrc/groupnorm_silu.cu"
 CONV_SRC = "fgdm_tpu_torch/kernels/csrc/conv3x3.cu"
+ATTN_F32_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_fwd_f32.cu"
+CONV_F32_SRC = "fgdm_tpu_torch/kernels/csrc/conv3x3_f32.cu"
 K1 = "fgdm_tpu/kernels/attention.py:157"   # _flash_kernel_t
 K2 = "fgdm_tpu/kernels/attention.py:121"   # _flash_kernel
 K3 = "fgdm_tpu/kernels/attention.py:516"   # _flash_kernel_kv
@@ -316,12 +332,42 @@ ATTN_CASES = [
     ("flash_attn_fwd d80 Nq600 Nk1024 [1,3] ragged", K1, 1, 3, 600, 1024, 80,
      False, None, None),
 ]
+# The float32 forwards (label, TPU kernel, batch, heads, Nq, Nk, d, lse,
+# path, splits): the shapes of the ``precision_full`` path (the CLI's CFG
+# batch of 10 through the UNets, its VAE batch of 5; the wrapper's own split
+# count: 3 and 2 KV slices at the two VAE shapes), one forced split count,
+# and two ragged query lengths the gate admits (no path).
+ATTN_F32_CASES = [
+    ("flash_attn_fwd f32 d40 N1024 [10,8]", K1, 10, 8, 1024, 1024, 40, False,
+     "precision_full", None),
+    ("flash_attn_fwd f32 d40 N4096 [10,8]", K1, 10, 8, 4096, 4096, 40, False,
+     "precision_full", None),
+    ("flash_attn_fwd f32 d80 N1024 [10,8]", K1, 10, 8, 1024, 1024, 80, False,
+     "precision_full", None),
+    ("flash_attn_fwd f32 d512 N1024 [5,1]", K2, 5, 1, 1024, 1024, 512, False,
+     "precision_full", None),
+    ("flash_attn_fwd f32 d512 N4096 [5,1]", K3, 5, 1, 4096, 4096, 512, False,
+     "precision_full", None),
+    ("flash_attn_fwd+lse f32 d40 N1024 [10,8]", K1, 10, 8, 1024, 1024, 40,
+     True, None, None),
+    ("flash_attn_fwd+lse f32 d80 N1024 [10,8]", K1, 10, 8, 1024, 1024, 80,
+     True, None, None),
+    ("flash_attn_fwd+lse f32 d512 N1024 [1,1] one KV slice", K2, 1, 1, 1024,
+     1024, 512, True, None, 1),
+    ("flash_attn_fwd+lse f32 d40 Nq520 Nk1024 [1,3] ragged", K1, 1, 3, 520,
+     1024, 40, True, None, None),
+    ("flash_attn_fwd f32 d80 Nq600 Nk1024 [1,3] ragged", K1, 1, 3, 600, 1024,
+     80, False, None, None),
+]
 # (batch, heads, N, d): where ``--sweep`` times K1 at every tile choice
 K1_SWEEP = [(2, 8, 4096, 40), (8, 8, 4096, 40), (8, 8, 1024, 40),
             (2, 8, 1024, 40), (8, 8, 1024, 80)]
 # (N, splits, TPU kernel): the combine pass of the d = 512 forward at the
 # chain's two VAE decodes (256^2 and 512^2 images)
 COMBINE_CASES = [(1024, 8, K2), (4096, 2, K3)]
+# (batch, N, splits, TPU kernel): the float32 combine pass at the
+# ``precision_full`` path's two VAE decodes (batch 5, 256^2 and 512^2)
+COMBINE_F32_CASES = [(5, 1024, 3, K2), (5, 4096, 2, K3)]
 # (label suffix, batch, heads, Nq, Nk, d, path): backward shapes, each
 # giving a K5 (dQ) and a K6 (dK/dV) row: the training step's, the
 # ControlNet recipe's 512^2 shapes (N=4096 and d=80), and a ragged query
@@ -388,12 +434,30 @@ CONV_CASES = [(8, 320, 320, 64, 64), (8, 640, 640, 32, 32),
 # C % 64 != 0, H != W
 RAGGED_CONV_CASES = [(3, 136, 200, 24, 24), (2, 128, 136, 17, 23),
                      (1, 264, 128, 64, 20)]
+# K7's float32 launch keys, one per family, of the ``precision_full`` path
+# (the CLI's factor-2 UNet and ControlNet at its CFG batch of 10, the VAE
+# decoder at 5); the path's other shapes are held after it, from its
+# launch counts; and the ragged shapes in float32
+CONV_F32_CASES = [(10, 320, 320, 64, 64, "float32"),
+                  (10, 640, 640, 32, 32, "float32"),
+                  (10, 1280, 1280, 16, 16, "float32"),
+                  (10, 960, 320, 64, 64, "float32"),
+                  (5, 512, 512, 64, 64, "float32"),
+                  (5, 128, 128, 512, 512, "float32")]
+RAGGED_CONV_F32_CASES = [(*k, "float32") for k in RAGGED_CONV_CASES]
 ATTN_TOL = (1e-2, 1e-3)   # max|d| <= 1e-2 * max|ref| + 1e-3 (bf16 out, P)
 LSE_TOL = 1e-3            # max|d| of the f32 lse (same f32 scores)
 BWD_TOL = (2e-2, 2e-3)    # max|d| <= 2e-2 * max|ref| + 2e-3 (bf16 p and dS)
 GN_TOL = 1e-2             # max |d| / (1 + |ref|) (bf16 output rounding)
 CONV_TOL = (1e-2, 1e-3)   # max|d| <= 1e-2 * max|ref| + 1e-3 (bf16 output)
 UNET_TOL = 5e-2           # max|d| / max|ref| of the UNet eps, bf16 chain
+# float32 kernels against their float32 plain versions, TF32 off: sums in
+# another order, no rounding to a narrower type
+ATTN_F32_TOL = (1e-4, 1e-5)   # max|d| <= 1e-4 * max|ref| + 1e-5
+LSE_F32_TOL = 1e-4
+CONV_F32_TOL = (1e-4, 1e-5)
+UNET_F32_TOL = 1e-3       # max|d| / max|ref| of a float32 UNet eps
+CHAIN_F32_TOL = 1e-2      # max|d| / max|ref| of the float32 chain's image
 WINO_TOL = 3e-2           # max|d| / max|ref|, Winograd bf16 vs f32 direct
 LOSS_TOL = 1e-2           # relative difference of the training loss
 TRAIN_BATCH, WARM_STEPS = 8, 5
@@ -536,13 +600,16 @@ def build_kernels():
 
     t0 = time.perf_counter()
     names = ("flash_attn_fwd", "flash_attn_fwd_d512", "flash_attn_bwd",
-             "conv3x3", "groupnorm_silu")
+             "flash_attn_fwd_f32", "conv3x3", "conv3x3_f32",
+             "groupnorm_silu")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(_build.build, names))
     attention._lib()
     attention._d512_lib()
     attention._bwd_lib()
+    attention._f32_lib()
     conv._lib()
+    conv._f32_lib()
     groupnorm._lib()
     log(f"built {', '.join(p.name for p in paths)} in "
         f"{time.perf_counter() - t0:.1f}s")
@@ -579,46 +646,59 @@ def attn_kernel(d, nk):
 
 
 def attn_rows(gen):
-    """K1-K3 forward rows at ``ATTN_CASES``."""
-    return [attn_row(gen, *case) for case in ATTN_CASES]
+    """K1-K3 forward rows at ``ATTN_CASES`` (bf16) and ``ATTN_F32_CASES``."""
+    return ([attn_row(gen, *case) for case in ATTN_CASES]
+            + [attn_row(gen, *case, dtype="float32")
+               for case in ATTN_F32_CASES])
 
 
-def attn_row(gen, label, tpu, b, h, nq, nk, d, with_lse, path, splits):
-    """A K1-K3 forward row: the output against the plain version's, the lse
-    output against the plain version's, the output with lse against the
-    output without, and the rerun, bit for bit.  Kernel and SDPA are timed
-    as device time (CUDA graph replays, ``ms``) and eagerly (``eager_ms``,
-    the timer of PR 1-4's K1 figures; SDPA's is logged), the plain version
-    as a replay up to 2^26 scores, eagerly above."""
+def attn_row(gen, label, tpu, b, h, nq, nk, d, with_lse, path, splits,
+             dtype="bfloat16"):
+    """A K1-K3 forward row in ``dtype``: the output against the plain
+    version's, the lse output against the plain version's, the output with
+    lse against the output without, and the rerun, bit for bit.  Kernel and
+    SDPA (in the same dtype; TF32 off) are timed as device time (CUDA graph
+    replays, ``ms``) and eagerly (``eager_ms``, the timer of PR 1-4's K1
+    figures; SDPA's is logged), the plain version as a replay up to 2^26
+    scores, eagerly above.  A float32 row's bound takes the f32 rate and 4
+    bytes an element."""
     import torch
     import torch.nn.functional as F
     from fgdm_tpu_torch.kernels import attention
 
-    q = torch.randn(b, h, nq, d, device="cuda", generator=gen,
-                    dtype=torch.bfloat16)
-    k, v = (torch.randn(b, h, nk, d, device="cuda", generator=gen,
-                        dtype=torch.bfloat16) for _ in range(2))
+    f32 = dtype == "float32"
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, h, nq, d, device="cuda", generator=gen, dtype=dt)
+    k, v = (torch.randn(b, h, nk, d, device="cuda", generator=gen, dtype=dt)
+            for _ in range(2))
     scale = d ** -0.5
     kw = {"splits": splits} if d == 512 else {}
     out = attention.flash_attention(q, k, v, scale, **kw)
     ref, ref_lse = attention.attention_ref(q, k, v, scale,
                                            return_lse=True)
+    tol, lse_tol = (ATTN_F32_TOL, LSE_F32_TOL) if f32 else (ATTN_TOL,
+                                                            LSE_TOL)
     err = (out.float() - ref.float()).abs().max().item()
-    lim = ATTN_TOL[0] * ref.float().abs().max().item() + ATTN_TOL[1]
-    ok = math.isfinite(err) and err <= lim
+    lim = tol[0] * ref.float().abs().max().item() + tol[1]
+    ok = math.isfinite(err) and err <= lim and out.dtype == dt
     out_l, lse = attention.flash_attention(q, k, v, scale,
                                            return_lse=True, **kw)
     lse_err = (lse - ref_lse).abs().max().item()
     same = torch.equal(out_l, out)
     rerun = torch.equal(attention.flash_attention(q, k, v, scale, **kw),
                         out)
-    ok = (ok and math.isfinite(lse_err) and lse_err <= LSE_TOL and same
+    ok = (ok and math.isfinite(lse_err) and lse_err <= lse_tol and same
           and rerun)
-    note = (f"  lse max|d|={lse_err:.3e} (tol {LSE_TOL}), output "
+    note = (f"  lse max|d|={lse_err:.3e} (tol {lse_tol}), output "
             f"with lse {'==' if same else '!='} without, rerun "
             f"bit-identical {rerun}")
     vt_ms = None
-    if d == 512:
+    if f32:
+        plan = attention.flash_f32_plan(b * h, nq, nk, d, kw.get("splits"))
+        note += (f", tile {plan.bm} rows x {plan.bn} keys, {plan.splits} KV "
+                 f"slice(s), {plan.grid[0] * plan.grid[1] * plan.grid[2]} "
+                 f"blocks")
+    elif d == 512:
         used = splits or attention.kv_splits(b * h, nq, nk)
         note += f", {used} KV slice(s)"
     else:
@@ -649,16 +729,18 @@ def attn_row(gen, label, tpu, b, h, nq, nk, d, with_lse, path, splits):
     lib_eager = cuda_ms(sdpa, reps)
     bound_ms, bound_by, term = bound(
         4.0 * b * h * nq * nk * d,
-        2.0 * b * h * d * (2 * nq + 2 * nk)
-        + (4.0 * b * h * nq if with_lse else 0), PEAK_BF16_FLOPS,
+        q.element_size() * b * h * d * (2 * nq + 2 * nk)
+        + (4.0 * b * h * nq if with_lse else 0),
+        PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS,
         exps=1.0 * b * h * nq * nk)
     row = dict(
         name=label, route="cuda",
-        source=ATTN512_SRC if d == 512 else ATTN_SRC, replaces=tpu,
-        key=("attn", b, h, nq, nk, d, with_lse), path=path, max_abs_err=err,
-        tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, copy_ms=vt_ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        bound_term=term, library_ms=lib_ms)
+        source=(ATTN_F32_SRC if f32 else ATTN512_SRC if d == 512
+                else ATTN_SRC), replaces=tpu, dtype=dtype,
+        key=("attn", b, h, nq, nk, d, with_lse, dtype), path=path,
+        max_abs_err=err, tol=lim, ok=ok, ms=ms, eager_ms=eager_ms,
+        copy_ms=vt_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, bound_term=term, library_ms=lib_ms)
     log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}){note} "
         f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms (eager "
         f"{eager_ms:.4f})  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms "
@@ -668,48 +750,58 @@ def attn_row(gen, label, tpu, b, h, nq, nk, d, with_lse, path, splits):
 
 
 def combine_rows(gen):
-    """The combine pass at ``COMBINE_CASES``."""
-    return [combine_row(gen, 1, 1, n, splits, tpu, "chain")
-            for n, splits, tpu in COMBINE_CASES]
+    """The combine pass at ``COMBINE_CASES`` (bf16) and
+    ``COMBINE_F32_CASES``."""
+    return ([combine_row(gen, 1, 1, n, splits, tpu, "chain")
+             for n, splits, tpu in COMBINE_CASES]
+            + [combine_row(gen, b, 1, n, splits, tpu, "precision_full",
+                           "float32")
+               for b, n, splits, tpu in COMBINE_F32_CASES])
 
 
-def combine_row(gen, b, h, n, splits, tpu, path):
+def combine_row(gen, b, h, n, splits, tpu, path, dtype="bfloat16"):
     """The combine pass of the d = 512 forward at [b, h, n, 512] in
-    ``splits`` slices against ``combine_ref`` on the plain split version's
-    partials (the same f32 inputs to both)."""
+    ``splits`` slices into ``dtype`` against ``combine_ref`` on the plain
+    split version's partials (the same f32 inputs to both)."""
     import torch
     from fgdm_tpu_torch.kernels import attention
 
-    label = f"flash_combine d512 N{n} [{b},{h}] {splits} slices"
+    f32 = dtype == "float32"
+    dt = getattr(torch, dtype)
+    label = (f"flash_combine{' f32' if f32 else ''} d512 N{n} [{b},{h}] "
+             f"{splits} slices")
     q, k, v = (torch.randn(b, h, n, 512, device="cuda", generator=gen,
-                           dtype=torch.bfloat16) for _ in range(3))
+                           dtype=dt) for _ in range(3))
     parts = attention.attention_split_ref(q, k, v, 512 ** -0.5, splits)
     parts = tuple(p.contiguous() for p in parts)
-    out, lse = attention.flash_combine(*parts)
-    ref, ref_lse = attention.combine_ref(*parts, torch.bfloat16)
-    again = attention.flash_combine(*parts)
+    out, lse = attention.flash_combine(*parts, dt)
+    ref, ref_lse = attention.combine_ref(*parts, dt)
+    again = attention.flash_combine(*parts, dt)
+    tol, lse_tol = (ATTN_F32_TOL, LSE_F32_TOL) if f32 else (ATTN_TOL,
+                                                            LSE_TOL)
     err = (out.float() - ref.float()).abs().max().item()
-    lim = ATTN_TOL[0] * ref.float().abs().max().item() + ATTN_TOL[1]
+    lim = tol[0] * ref.float().abs().max().item() + tol[1]
     lse_err = (lse - ref_lse).abs().max().item()
     same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
     ok = (math.isfinite(err) and err <= lim and math.isfinite(lse_err)
-          and lse_err <= LSE_TOL and same)
-    ms = graph_ms(lambda: attention.flash_combine(*parts), 50)
-    eager_ms = cuda_ms(lambda: attention.flash_combine(*parts), 50)
-    plain_ms = graph_ms(lambda: attention.combine_ref(
-        *parts, torch.bfloat16), 50)
+          and lse_err <= lse_tol and same and out.dtype == dt)
+    ms = graph_ms(lambda: attention.flash_combine(*parts, dt), 50)
+    eager_ms = cuda_ms(lambda: attention.flash_combine(*parts, dt), 50)
+    plain_ms = graph_ms(lambda: attention.combine_ref(*parts, dt), 50)
     rows = b * h * n
-    nbytes = 4.0 * splits * rows * (512 + 2) + rows * (2.0 * 512 + 4)
+    nbytes = (4.0 * splits * rows * (512 + 2)
+              + rows * (out.element_size() * 512.0 + 4))
     bound_ms, bound_by, term = bound(3.0 * splits * rows * 512, nbytes,
                                      PEAK_F32_FLOPS)
     log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}), lse max|d|="
-        f"{lse_err:.3e} (tol {LSE_TOL}), rerun bit-identical {same} "
+        f"{lse_err:.3e} (tol {lse_tol}), rerun bit-identical {same} "
         f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
         f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  "
         f"(device times; eager {eager_ms:.4f} ms)")
     return dict(
         name=label, route="cuda", source=ATTN512_SRC, replaces=tpu,
-        key=("combine", b, h, n, splits), path=path, max_abs_err=err,
+        dtype=dtype, key=("combine", b, h, n, splits, dtype), path=path,
+        max_abs_err=err,
         tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
         library_ms=None)
@@ -799,7 +891,8 @@ def bwd_row(gen, suffix, b, h, nq, nk, d, path):
         ok = all(oks[c] for c in names)
         rows.append(dict(
             name=f"{kern} {suffix}", route="cuda", source=BWD_SRC,
-            replaces=tpu, key=(kern, b, h, nq, nk, d), path=path,
+            replaces=tpu, dtype="bfloat16", key=(kern, b, h, nq, nk, d),
+            path=path,
             max_abs_err=err, ok=ok, ms=ms, eager_ms=eager_ms, copy_ms=0.0,
             plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, bound_term=term, library_ms=lib_ms))
@@ -873,7 +966,7 @@ def gn_row(gen, label, shape, eps, path, dtype="bfloat16", silu=True):
         f"{plan.slice} resident={plan.resident} smem={plan.smem} streams="
         f"{plan.streams} aligned={plan.aligned} blocks={plan.blocks}")
     return dict(
-        name=label, route="cuda", source=GN_SRC, replaces=K4,
+        name=label, route="cuda", source=GN_SRC, replaces=K4, dtype=dtype,
         key=("gn", tuple(shape), eps), path=path, max_abs_err=err,
         tol=GN_TOL, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
@@ -914,27 +1007,34 @@ def attn_path_rows(gen, by_path):
     it.  ``splits`` is the wrapper's own choice, as on the paths."""
     import torch
 
-    done = {("attn", b, h, nq, nk, d, lse)
+    done = {("attn", b, h, nq, nk, d, lse, "bfloat16")
             for _, _, b, h, nq, nk, d, lse, path, _ in ATTN_CASES if path}
-    done |= {("combine", 1, 1, n, s) for n, s, _ in COMBINE_CASES}
+    done |= {("attn", b, h, nq, nk, d, lse, "float32")
+             for _, _, b, h, nq, nk, d, lse, path, _ in ATTN_F32_CASES
+             if path}
+    done |= {("combine", 1, 1, n, s, "bfloat16")
+             for n, s, _ in COMBINE_CASES}
+    done |= {("combine", b, 1, n, s, "float32")
+             for b, n, s, _ in COMBINE_F32_CASES}
     rows = []
     for path, counts in by_path.items():
-        for b, h, nq, nk, d, lse in sorted(counts["attn"]):
-            if ("attn", b, h, nq, nk, d, lse) in done:
+        for b, h, nq, nk, d, lse, dt in sorted(counts["attn"]):
+            if ("attn", b, h, nq, nk, d, lse, dt) in done:
                 continue
-            done.add(("attn", b, h, nq, nk, d, lse))
-            label = (f"flash_attn_fwd{'+lse' if lse else ''} d{d} "
+            done.add(("attn", b, h, nq, nk, d, lse, dt))
+            label = (f"flash_attn_fwd{'+lse' if lse else ''}"
+                     f"{' f32' if dt == 'float32' else ''} d{d} "
                      f"N{nq}" + (f" Nk{nk}" if nk != nq else "")
                      + f" [{b},{h}] {path}")
             rows.append(attn_row(gen, label, attn_kernel(d, nk), b, h, nq,
-                                 nk, d, lse, path, None))
+                                 nk, d, lse, path, None, dt))
             torch.cuda.empty_cache()
-        for b, h, n, splits in sorted(counts["combine"]):
-            if ("combine", b, h, n, splits) in done:
+        for b, h, n, splits, dt in sorted(counts["combine"]):
+            if ("combine", b, h, n, splits, dt) in done:
                 continue
-            done.add(("combine", b, h, n, splits))
+            done.add(("combine", b, h, n, splits, dt))
             rows.append(combine_row(gen, b, h, n, splits,
-                                    attn_kernel(512, n), path))
+                                    attn_kernel(512, n), path, dt))
     return rows
 
 
@@ -965,7 +1065,7 @@ def conv_path_rows(gen, by_path):
     it."""
     import torch
 
-    done = set(CONV_CASES)
+    done = {(*k, "bfloat16") for k in CONV_CASES} | set(CONV_F32_CASES)
     rows = []
     for path, counts in by_path.items():
         keys = sorted(set(counts["conv"]) - done)
@@ -1021,59 +1121,68 @@ _PREPASS_SEEN = set()
 
 
 def conv_rows(gen, keys, path="serve"):
-    """K7 (the pre-pass plus the wgmma kernel, as the wrapper runs them; the
+    """K7 (the pre-pass plus the conv kernel, as the wrapper runs them; the
     weight's pack is made once, at the first call, and is in no time here)
     against ``conv3x3_ref`` (f32 cuDNN conv, TF32 off), and the pre-pass
-    alone against its plain version, at launch keys ``(N, C, Co, H, W)``.
-    The library yardsticks are ``F.conv2d`` in bf16 on a bf16 weight and
-    bias made beforehand, and ``x.contiguous(memory_format=
-    torch.channels_last)`` for the pre-pass.  ``ms`` is device time (CUDA
-    graph): the small shapes take less than the host's launch cost, which
-    ``eager_ms`` includes.  The bound counts the bf16 pack the kernel reads,
-    not the f32 weight."""
+    alone against its plain version, at launch keys ``(N, C, Co, H, W)``
+    (bf16) or ``(N, C, Co, H, W, dtype)``.  The library yardsticks are
+    ``F.conv2d`` in x's dtype on a weight and bias cast beforehand (TF32
+    off), and ``x.contiguous(memory_format=torch.channels_last)`` for the
+    pre-pass.  ``ms`` is device time (CUDA graph): the small shapes take
+    less than the host's launch cost, which ``eager_ms`` includes.  The
+    bound counts the pack the kernel reads (bf16 or f32), not the f32
+    weight; a float32 row's the f32 rate."""
     import torch
     import torch.nn.functional as F
     from fgdm_tpu_torch.kernels import conv
 
     rows = []
-    for n, c, co, h, w in keys:
-        label = f"conv3x3 [{n},{c},{h},{w}]->{co}"
-        x = torch.randn(n, c, h, w, device="cuda", generator=gen,
-                        dtype=torch.bfloat16)
+    for key in keys:
+        n, c, co, h, w = key[:5]
+        dtype = key[5] if len(key) > 5 else "bfloat16"
+        f32 = dtype == "float32"
+        dt = getattr(torch, dtype)
+        label = f"conv3x3{' f32' if f32 else ''} [{n},{c},{h},{w}]->{co}"
+        x = torch.randn(n, c, h, w, device="cuda", generator=gen, dtype=dt)
         wt = torch.randn(co, c, 3, 3, device="cuda", generator=gen) \
             * (9 * c) ** -0.5
         b = 0.1 * torch.randn(co, device="cuda", generator=gen)
         out = conv.conv3x3_kernel(x, wt, b)
         ref = conv.conv3x3_ref(x, wt, b)
         same = torch.equal(out, conv.conv3x3_kernel(x, wt, b))
+        tol = CONV_F32_TOL if f32 else CONV_TOL
         err = (out.float() - ref.float()).abs().max().item()
-        lim = CONV_TOL[0] * ref.float().abs().max().item() + CONV_TOL[1]
-        ok = math.isfinite(err) and err <= lim and same
-        reps = 10 if h >= 512 else 30
+        lim = tol[0] * ref.float().abs().max().item() + tol[1]
+        ok = math.isfinite(err) and err <= lim and same and out.dtype == dt
+        reps = 10 if h >= 512 or f32 else 30
         ms = graph_ms(lambda: conv.conv3x3_kernel(x, wt, b), reps)
         eager_ms = cuda_ms(lambda: conv.conv3x3_kernel(x, wt, b), reps)
         plain_ms = graph_ms(lambda: conv.conv3x3_ref(x, wt, b), reps)
-        wb, bb = wt.to(torch.bfloat16), b.to(torch.bfloat16)
+        wb, bb = wt.to(dt), b.to(dt)
         lib_ms = graph_ms(lambda: F.conv2d(x, wb, bb, 1, 1), reps)
-        nbytes = 2.0 * n * h * w * (c + co) + 2.0 * co * 9 * c + 4.0 * co
+        size = x.element_size()
+        nbytes = (size * n * h * w * (c + co) + size * co * 9.0 * c
+                  + 4.0 * co)
         flops = 2.0 * n * h * w * 9 * c * co
-        bound_ms, bound_by, term = bound(flops, nbytes, PEAK_BF16_FLOPS)
-        plan = conv.conv3x3_plan(n, c, co, h, w)
+        bound_ms, bound_by, term = bound(
+            flops, nbytes, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+        plan = conv.conv3x3_plan(n, c, co, h, w, dt)
         rows.append(dict(
-            name=label, route="cuda", source=CONV_SRC, replaces=K7,
-            key=("conv", n, c, co, h, w), path=path, max_abs_err=err,
-            tol=lim, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
-            library_ms=lib_ms))
+            name=label, route="cuda", source=CONV_F32_SRC if f32 else
+            CONV_SRC, replaces=K7, dtype=dtype,
+            key=("conv", n, c, co, h, w, dtype), path=path,
+            max_abs_err=err, tol=lim, ok=ok, ms=ms, eager_ms=eager_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bound_term=term, library_ms=lib_ms))
         log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}), rerun bit-identical "
             f"{same} {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.0f} TF/s; eager {eager_ms:.4f} ms; tile "
             f"{plan.th}x{plan.tw} of {plan.bm}, {plan.grid[0] * plan.grid[1]}"
-            f" blocks)  plain {plain_ms:.4f} ms  F.conv2d bf16 {lib_ms:.4f} "
-            f"ms  bound {bound_ms:.4f} ms ({term})")
-        if (n, c, h, w) in _PREPASS_SEEN:   # one pre-pass row per input shape
+            f" blocks)  plain {plain_ms:.4f} ms  F.conv2d {dtype} "
+            f"{lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({term})")
+        if (n, c, h, w, dtype) in _PREPASS_SEEN:   # one row per input shape
             continue
-        _PREPASS_SEEN.add((n, c, h, w))
+        _PREPASS_SEEN.add((n, c, h, w, dtype))
         xt = conv.nchw_to_nhwc(x)
         pre_ok = torch.equal(xt, conv.nchw_to_nhwc_ref(x))
         pre_ms = graph_ms(lambda: conv.nchw_to_nhwc(x), reps)
@@ -1081,16 +1190,19 @@ def conv_rows(gen, keys, path="serve"):
         pre_plain = graph_ms(lambda: conv.nchw_to_nhwc_ref(x), reps)
         pre_lib = graph_ms(lambda: x.contiguous(
             memory_format=torch.channels_last), reps)
-        pre_bound, pre_by, pre_term = bound(0.0, 4.0 * x.numel(),
+        pre_bound, pre_by, pre_term = bound(0.0, 2.0 * size * x.numel(),
                                             PEAK_BF16_FLOPS)
+        pre_label = (f"nchw_to_nhwc{' f32' if f32 else ''} "
+                     f"[{n},{c},{h},{w}]")
         rows.append(dict(
-            name=f"nchw_to_nhwc [{n},{c},{h},{w}]", route="cuda",
-            source=CONV_SRC, replaces=K7, key=("prepass", n, c, h, w),
+            name=pre_label, route="cuda",
+            source=CONV_F32_SRC if f32 else CONV_SRC, replaces=K7,
+            dtype=dtype, key=("prepass", n, c, h, w, dtype),
             path=path, max_abs_err=0.0 if pre_ok else float("inf"), tol=0.0,
             ok=pre_ok, ms=pre_ms, eager_ms=pre_eager, plain_ms=pre_plain,
             bound_ms=pre_bound, bound_by=pre_by, bound_term=pre_term,
             library_ms=pre_lib))
-        log(f"nchw_to_nhwc [{n},{c},{h},{w}]: {'==' if pre_ok else '!='} "
+        log(f"{pre_label}: {'==' if pre_ok else '!='} "
             f"plain {'OK' if pre_ok else 'FAIL'}  kernel {pre_ms:.4f} ms "
             f"(eager {pre_eager:.4f} ms)  plain {pre_plain:.4f} ms  "
             f"channels_last copy {pre_lib:.4f} ms  bound {pre_bound:.4f} ms "
@@ -1136,7 +1248,9 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = (attn_rows(gen) + combine_rows(gen) + bwd_rows(gen)
             + gn_rows(gen) + conv_rows(gen, CONV_CASES)
-            + conv_rows(gen, RAGGED_CONV_CASES, path=None))
+            + conv_rows(gen, RAGGED_CONV_CASES, path=None)
+            + conv_rows(gen, CONV_F32_CASES, path="precision_full")
+            + conv_rows(gen, RAGGED_CONV_F32_CASES, path=None))
     grad_ok = conv_grad_check(gen)
     torch.cuda.empty_cache()
     return rows, grad_ok
@@ -1505,6 +1619,131 @@ def phase_cli(paths, outdir):
         f"{peak_gib:.2f} GiB; {'OK' if ok else 'FAIL'}")
     log_counts("cli", counts)
     return ok, counts, maps, f1
+
+
+def phase_precision_full(paths, outdir):
+    """``--precision full`` on the card.  ``cli.txt2img_fgdm`` with
+    run_inference.sh's flags plus ``--precision full`` on the two
+    checkpoints, both conv flags on, every launch count set to 0 just before
+    and read just after (the path's counted run): 5 condition maps (256^2)
+    and 5 images (512^2) as valid PNGs, and K1 at d 40 and 80, K2, K3, the
+    combine pass, K7 and its pre-pass launched in float32.  Then, on the
+    chain's models built in float32, one factor-2 UNet + ControlNet forward
+    at [2, 4, 64, 64] (UNET_F32_TOL) and the whole chain at batch 1 (50 + 20
+    steps, the same x_T from the slot seed; CHAIN_F32_TOL on the image
+    before uint8), conv flags on, kernels on vs ``plain_path()``."""
+    import torch
+    from fgdm_tpu_torch.builders import build_chain
+    from fgdm_tpu_torch.cli import txt2img_fgdm
+    from fgdm_tpu_torch.sampling.chain import fgdm_chain
+
+    argv = CLI_FLAGS + ["--precision", "full", "--prompt", PROMPT_CLI,
+                        "--ckpt", paths["f1"], "--cn_ckpt", paths["cn"],
+                        "--outdir", outdir]
+    log("precision_full: python -m fgdm_tpu_torch.cli.txt2img_fgdm "
+        + " ".join(argv))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with conv_flags(), hash_tokenizer_allowed():
+        reset_counts()
+        t0 = time.perf_counter()
+        out = txt2img_fgdm.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    maps = sorted(p for p in out["files"] if "sample1" + os.sep in p)
+    images = sorted(p for p in out["files"] if "seg_images" + os.sep in p)
+    shapes = {}
+    for p in maps + images:
+        with open(p, "rb") as f:
+            shapes[p] = png_rgb(f.read())[:2]
+    files_ok = (len(maps) == len(images) == CLI_BATCH
+                and len(out["files"]) == 2 * CLI_BATCH
+                and all(shapes[p] == (256, 256) for p in maps)
+                and all(shapes[p] == (512, 512) for p in images))
+    f32 = {kind: {k: v for k, v in c.items() if k[-1] == "float32"}
+           for kind, c in counts.items()
+           if kind in ("attn", "combine", "conv", "prepass")}
+    n_bf16 = sum(v for kind in f32 for k, v in counts[kind].items()
+                 if k[-1] != "float32")
+    launched = {
+        "K1 d40": any(k[4] == 40 for k in f32["attn"]),
+        "K1 d80": any(k[4] == 80 for k in f32["attn"]),
+        "K2": any(attn_kernel(k[4], k[3]) == K2 for k in f32["attn"]),
+        "K3": any(attn_kernel(k[4], k[3]) == K3 for k in f32["attn"]),
+        "combine": sum(f32["combine"].values()) > 0,
+        "K7": sum(f32["conv"].values()) > 0,
+        "pre-pass": sum(f32["prepass"].values()) > 0}
+    f1, f2 = out["factor1_s"][0], out["factor2_s"][0]
+    ok = files_ok and all(launched.values())
+    log(f"precision_full: {len(maps)} maps "
+        f"{sorted(set(shapes[p] for p in maps))}, {len(images)} images "
+        f"{sorted(set(shapes[p] for p in images))}; load "
+        f"{out['load_s']:.2f}s, [factor1] {f1:.2f}s, [factor2] {f2:.2f}s "
+        f"({CLI_BATCH / (f1 + f2):.3f} images/s over both factors, first "
+        f"run), main() {wall:.2f}s; peak memory {peak_gib:.2f} GiB; float32 "
+        "launches " + ", ".join(f"{k} {v}" for k, v in launched.items())
+        + f"; bf16 launches of K1-K3, K7 {n_bf16}; "
+        f"{'OK' if ok else 'FAIL'}")
+    log_counts("precision_full", counts)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ld, cldm = build_chain(device="cuda", dtype=torch.float32, seed=0)
+    torch.cuda.synchronize()
+    log(f"precision_full: built the chain's models in float32 in "
+        f"{time.perf_counter() - t0:.1f}s")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    with torch.inference_mode(), conv_flags():
+        x = torch.randn(2, 4, 64, 64, device="cuda", generator=gen)
+        t = torch.full((2,), 981, device="cuda")
+        ctx = torch.randn(2, 77, 768, device="cuda", generator=gen)
+        hint = torch.rand(2, 3, 512, 512, device="cuda", generator=gen)
+        cond = {"c_crossattn": ctx, "c_hint_emb": cldm.encode_hint(hint)}
+        on = cldm.apply_model(x, t, cond)
+        with plain_path():
+            off = cldm.apply_model(x, t, cond)
+        torch.cuda.synchronize()
+    rel = ((on - off).abs().max() / off.abs().max()).item()
+    good = (on.dtype == torch.float32 and math.isfinite(rel)
+            and rel <= UNET_F32_TOL)
+    ok = ok and good
+    log(f"precision_full: f2 UNet + ControlNet forward [2,4,64,64] float32, "
+        f"conv flags on: kernels on vs plain max|d|/max|ref| = {rel:.3e} "
+        f"(tol {UNET_F32_TOL}); {'OK' if good else 'FAIL'}")
+    del cond, on, off
+    ctxs = [torch.randn(1, 77, 768, device="cuda", generator=gen)
+            for _ in range(4)]
+    runs = {}
+    with conv_flags():
+        for label in ("kernels", "plain"):
+            with plain_path() if label == "plain" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                res = fgdm_chain(ld, cldm, *ctxs, f1_steps=50, f2_steps=20,
+                                 slot_seeds=[1234])
+                torch.cuda.synchronize()
+                runs[label] = (res, time.perf_counter() - t0)
+    img, ref = runs["kernels"][0]["image"], runs["plain"][0]["image"]
+    rel = ((img - ref).abs().max() / ref.abs().max()).item()
+    cond_rel = ((runs["kernels"][0]["condition"] - runs["plain"][0][
+        "condition"]).abs().max()).item()
+    good = (img.dtype == torch.float32 and tuple(img.shape) == (1, 3, 512, 512)
+            and bool(torch.isfinite(img).all()) and math.isfinite(rel)
+            and rel <= CHAIN_F32_TOL)
+    ok = ok and good
+    log(f"precision_full: float32 chain at batch 1 (50 + 20 steps), conv "
+        f"flags on: image {tuple(img.shape)} kernels on vs plain "
+        f"max|d|/max|ref| = {rel:.3e} (tol {CHAIN_F32_TOL}), condition "
+        f"max|d| {cond_rel:.3e}; wall {runs['kernels'][1]:.2f}s with the "
+        f"kernels, {runs['plain'][1]:.2f}s plain (first runs, host clock); "
+        f"{'OK' if good else 'FAIL'}")
+    del ld, cldm, runs, img, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, counts
 
 
 def phase_seg2image(ld, cldm, maps):
@@ -3883,7 +4122,7 @@ def phase_ancestral(ld, ctx):
         torch.cuda.synchronize()
         counts = read_counts()
     finite = bool(torch.isfinite(img).all())
-    k1 = counts["attn"].get((1, 8, 1024, 1024, 40, False), 0)
+    k1 = counts["attn"].get((1, 8, 1024, 1024, 40, False, "bfloat16"), 0)
     k2 = sum(v for k, v in counts["attn"].items()
              if attn_kernel(k[4], k[3]) == K2)
     n_gn = sum(counts["gn"].values())
@@ -3929,7 +4168,7 @@ def phase_tiled(ld):
         with torch.inference_mode():
             alone = ld.decode_first_stage(z[:, :, :64, :64])
     finite = bool(torch.isfinite(img).all() and torch.isfinite(lat).all())
-    k3 = counts["attn"].get((9, 1, 4096, 4096, 512, False), 0)
+    k3 = counts["attn"].get((9, 1, 4096, 4096, 512, False, "bfloat16"), 0)
     gn9 = {c: counts["gn"].get(((9, c, 512, 512), 1e-6), 0)
            for c in (128, 256)}
     k7 = sum(v for k, v in counts["conv"].items() if k[0] == 9)
@@ -3992,8 +4231,8 @@ def phase_library():
     and the host stages' times); CannyDetector and sobel_edges at 512^2.
     Counts are reset just before the counted run of the kernel users (VQ,
     LPIPS and the generator loss, the light adapter) and read just after;
-    then the kernel users kernels on vs plain (VQ's f32 encode and indices,
-    card vs CPU, differing indices only at near-ties: the two codes'
+    then the kernel users kernels on vs plain (VQ's f32 encode and indices
+    at 256^2, its mid-blocks on K2's float32 kernel, card vs CPU, differing indices only at near-ties: the two codes'
     distances to the CPU's latent within 1e-5 * max(1, max distance)), and
     the modules without a kernel in float32 card vs CPU."""
     import copy
@@ -4097,10 +4336,12 @@ def phase_library():
         + f" (tol {UNET_TOL}); launches K2 {k2}, K7 {n['conv']}, pre-pass "
         f"{n['prepass']}, K4 {n['gn']}; {'OK' if good else 'FAIL'}")
 
-    # VQ in float32: the card (TF32 off) against the CPU, batch 1 at 128^2
-    # (16^2 latents: N = 256 keeps the mid-blocks off K2, which takes bf16
-    # alone; JAX's takes f32 too, ROADMAP Queue B)
-    x = x[:1, :, ::2, ::2].contiguous()
+    # VQ in float32: the card (TF32 off) against the CPU, batch 1 at the
+    # reference's 256^2 (32^2 latents: the mid-blocks' N = 1024 takes K2's
+    # float32 kernel)
+    x = x[:1].contiguous()
+    k2_before = sum(v for k, v in _counters()["attn"].items()
+                    if k[-1] == "float32" and k[4] == 512)
     torch.manual_seed(18)
     vq32 = VQModel().requires_grad_(False).eval()
     with torch.no_grad():
@@ -4121,12 +4362,15 @@ def phase_library():
     gap = (dist[diff, a[diff]] - dist[diff, b[diff]]).abs()
     ties_ok = bool((gap <= 1e-5 * max(1.0, dist.max().item())).all())
     rel_rec = _rel(rec_card.cpu(), rec_cpu)
-    good = (rel_h <= EVAL_TOL and ties_ok and rel_rec <= EVAL_TOL)
+    k2_f32 = sum(v for k, v in _counters()["attn"].items()
+                 if k[-1] == "float32" and k[4] == 512) - k2_before
+    good = (rel_h <= EVAL_TOL and ties_ok and rel_rec <= EVAL_TOL
+            and k2_f32 > 0)
     ok &= good
-    msgs.append(f"VQ f32 card vs CPU [1,3,128,128]: latents max|d|/max|ref| "
+    msgs.append(f"VQ f32 card vs CPU [1,3,256,256]: latents max|d|/max|ref| "
                 f"{rel_h:.3e}, decode {rel_rec:.3e} (tol {EVAL_TOL}); indices "
                 f"{len(diff)} of {a.numel()} differ, all near-ties {ties_ok}; "
-                f"{'OK' if good else 'FAIL'}")
+                f"K2 float32 launches {k2_f32}; {'OK' if good else 'FAIL'}")
     del vq, vq32, vq_cpu, lpips, disc, light
     torch.cuda.empty_cache()
 
@@ -4788,8 +5032,12 @@ def main():
         os.makedirs(eval_root)
         eval_ok, eval_counts = phase_eval(paths, eval_root)
         shutil.rmtree(eval_root, ignore_errors=True)
+        t_pf = time.perf_counter()
+        t_eval = t_pf - t_eval
+        pf_ok, precision_full = phase_precision_full(
+            paths, os.path.join(root, "precision_full"))
         t3 = time.perf_counter()
-        t_eval = t3 - t_eval
+        t_pf = t3 - t_pf
         serve_ok, serve = phase_serve(paths)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4800,8 +5048,8 @@ def main():
         f" sampler phases and the N-factor CLI {t3 - t2:.1f}s (--detect "
         f"{t_detect:.1f}s, the guided CLI {t_guided:.1f}s, "
         f"the four phases {t_tiled - t_edit:.1f}s, the N-factor CLI "
-        f"{t_chain_n:.1f}s), eval phase {t_eval:.1f}s, serving phase "
-        f"{time.perf_counter() - t3:.1f}s")
+        f"{t_chain_n:.1f}s), eval phase {t_eval:.1f}s, precision_full "
+        f"phase {t_pf:.1f}s, serving phase {time.perf_counter() - t3:.1f}s")
     t0 = time.perf_counter()
     train_ok, train, tr = phase_train()
     t1 = time.perf_counter()
@@ -4864,7 +5112,7 @@ def main():
         f"{t7 - t6:.1f}s, library phase {t8 - t7:.1f}s, parallel phase "
         f"{t9 - t8:.1f}s, winograd phase {time.perf_counter() - t9:.1f}s")
     by_path = {"chain": chain, "train": train, "serve": serve, "cli": cli,
-               "seg2image": seg, "guided": guided, "distill": distill,
+               "precision_full": precision_full, "seg2image": seg, "guided": guided, "distill": distill,
                "chain_n": chain_n, "ptp": ptp, "img2img": img2img,
                "ancestral": ancestral, "tiled": tiled,
                "train_cli": train_cli, "control": control, "joint": joint,
@@ -4974,10 +5222,12 @@ def main():
         for kind in ("gn", "conv", "prepass"):
             if sum(counts[kind].values()) == 0:
                 failures.append(f"{kind} not launched by the {path} path")
-    if ancestral["attn"].get((1, 8, 1024, 1024, 40, False), 0) == 0:
+    if ancestral["attn"].get((1, 8, 1024, 1024, 40, False, "bfloat16"),
+                             0) == 0:
         failures.append("K1 not launched at [1,8,1024,40] by the ancestral "
                         "sampler")
-    if tiled["attn"].get((9, 1, 4096, 4096, 512, False), 0) == 0:
+    if tiled["attn"].get((9, 1, 4096, 4096, 512, False, "bfloat16"),
+                         0) == 0:
         failures.append("K3 not launched at [9,1,4096,512] by the tiled VAE")
     for c in (128, 256):
         if tiled["gn"].get(((9, c, 512, 512), 1e-6), 0) == 0:
@@ -5009,6 +5259,8 @@ def main():
         failures.append("checkpoints written and loaded")
     if not cli_ok:
         failures.append("txt2img_fgdm CLI")
+    if not pf_ok:
+        failures.append("txt2img_fgdm --precision full and the float32 chain")
     if not seg_ok:
         failures.append("seg2image guess mode")
     if not grad_ok:
@@ -5049,7 +5301,8 @@ def main():
                         (tiled_ok, "tiled VAE decode and encode")):
         if not good:
             failures.append(label)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+    keys = ("name", "route", "source", "replaces", "dtype", "launches",
+            "max_abs_err",
             "ms", "eager_ms", "copy_ms", "plain_ms", "bound_ms", "bound_by",
             "bound_term", "library_ms", "path")
     for path, counts in by_path.items():

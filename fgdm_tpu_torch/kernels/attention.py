@@ -7,8 +7,9 @@ takes q ``[B, H, Nq, D]`` and k/v ``[B, H, Nk, D]`` and returns
 package's gate (``attention.py:660-673``: Nq >= 512, Nk >= 512,
 Nk % 512 == 0; ``flash_gate``) on CUDA tensors, and to ``attention_ref``
 otherwise (cross-attention over 77 keys, the N < 512 self-attentions, the
-CPU).  The kernels take bf16 and the head dims in ``KERNEL_HEAD_DIMS``;
-anything else through the gate raises.
+CPU).  The kernels take bf16 or float32 (q, k and v of one dtype) and the
+head dims in ``KERNEL_HEAD_DIMS``; anything else through the gate raises
+(float16, say).  The launch counts are keyed by the dtype's name as well.
 
 The JAX package's switches are read at import, under its names and
 defaults, into module attributes: ``FGDM_DISABLE_FLASH`` (``_DISABLE_FLASH``,
@@ -29,16 +30,22 @@ kernel ``_flash_kernel_t`` at the UNet's head dims 40 and 80, with the tile
 (keys per tile, ring stages, consumer warpgroups) that ``flash_fwd_plan``
 picks and V handed over transposed (``_flash_k1``);
 ``csrc/flash_attn_fwd_d512.cu`` (``wgmma``, TMA) for ``_flash_kernel`` and
-``_flash_kernel_kv`` at the VAE's single 512-wide head.  The TPU's split into
+``_flash_kernel_kv`` at the VAE's single 512-wide head; in float32
+``csrc/flash_attn_fwd_f32.cu`` (FFMA: no tensor core keeps float32's
+products) for all three at d = 40, 80 and 512, at the tile ``f32_tile``
+gives (``flash_f32_plan``).  The TPU's split into
 resident and streamed K/V existed for VMEM residency and has no counterpart
 here; instead the d = 512 kernel splits the keys across blocks when B*H is
 too small to fill the card (``kv_splits``) and a second kernel combines the
-partial results (``flash_combine``).  Both forwards optionally write the
-logsumexp of the scaled scores, the residual of the backward.
+partial results (``flash_combine``, into bf16 or float32).  The forwards
+optionally write the logsumexp of the scaled scores, the residual of the
+backward.
 
 Backward (``csrc/flash_attn_bwd.cu``, ``wgmma``, TMA): the dQ kernel (K5)
 and the dK/dV kernel (K6) replace ``_flash_bwd_dq_kernel_t`` and
-``_flash_bwd_dkv_kernel_t`` at the head dims in ``BWD_HEAD_DIMS``, at the
+``_flash_bwd_dkv_kernel_t`` in bf16 at the head dims in ``BWD_HEAD_DIMS``
+(no entry point trains attention in float32; a float32 backward through
+the kernels raises), at the
 tiles ``flash_bwd_plan`` picks (``_flash_k5``, ``_flash_k6``); they read
 K, Q and dO in place, with no transposed copy.  ``FlashAttention`` (the
 counterpart of the ``custom_vjp`` ``_flash_op``, ``attention.py:634-657``)
@@ -67,11 +74,13 @@ from fgdm_tpu_torch.kernels import _build
 
 __all__ = ["attention_ref", "attention_bwd_ref", "attention_split_ref",
            "combine_ref", "kv_splits", "K1Plan", "k1_tile", "flash_fwd_plan",
+           "F32Plan", "f32_tile", "flash_f32_plan",
            "BwdPlan", "bwd_tile", "flash_bwd_plan",
            "flash_combine", "flash_attention",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_backward", "FlashAttention", "flash_gate",
            "use_flash", "multihead_attention", "attention_with_scores",
+           "dtype_name",
            "KERNEL_HEAD_DIMS",
            "BWD_HEAD_DIMS"]
 
@@ -99,6 +108,9 @@ _SMEM_LIMIT = 232448
 # its consumer warpgroups and deepest ring.
 _BWD_WG_ROWS, _BWD_WGS, _BWD_MAX_STAGES = 64, (1, 2), 4
 _BWD_TILES = {"dq": (64, 128), "dkv": (64,)}
+# The float32 forward (flash_attn_fwd_f32.cu): (query rows, keys) a block at
+# each head dim it instantiates.
+_F32_TILES = {40: (64, 64), 80: (64, 64), 512: (16, 32)}
 
 
 def attention_ref(q, k, v, scale, return_lse: bool = False):
@@ -187,6 +199,43 @@ def flash_fwd_plan(bh: int, nq: int, nk: int, d: int,
     bn = _K1_BNS[-1] if nk % _K1_BNS[-1] == 0 else _K1_BNS[0]
     wgs = 2 if bh * -(-nq // (2 * _K1_WG_ROWS)) >= 0.96 * sms else 1
     return k1_tile(bh, nq, nk, d, bn, 2, wgs)
+
+
+F32Plan = collections.namedtuple("F32Plan", "bm bn splits grid smem")
+F32Plan.__doc__ = """The float32 forward's tile: ``bm`` query rows and
+``bn`` keys a block, the keys cut into ``splits`` slices (d = 512 only);
+``grid`` (row tiles, splits, B*H) and the block's shared memory in bytes."""
+
+
+def f32_tile(bh: int, nq: int, nk: int, d: int, splits: int = 1) -> F32Plan:
+    """The float32 forward's plan with ``splits`` KV slices; raises
+    ValueError on what the kernel does not take (the checks of
+    ``flash_attn_fwd_f32.cu``'s launch): another head dim, Nk not a
+    multiple of the key tile, a split below d = 512 or one that would leave
+    a slice empty."""
+    if d not in _F32_TILES:
+        raise ValueError(f"flash_attention: no float32 tile at d={d} (have "
+                         f"{tuple(_F32_TILES)})")
+    bm, bn = _F32_TILES[d]
+    smem = 4 * ((bm + bn) * (d + 4) + bn * d + bm * (bn + 4) + 3 * bm)
+    tiles = nk // bn
+    if (nk % bn or splits < 1 or (splits > 1 and d != 512)
+            or splits > tiles or -(-tiles // -(-tiles // splits)) != splits
+            or smem > _SMEM_LIMIT):
+        raise ValueError(f"flash_attention: no float32 tile for {splits} "
+                         f"split(s) at d={d}, nk={nk} (keys a tile {bn}, "
+                         f"{smem} B of shared memory)")
+    return F32Plan(bm, bn, splits, (-(-nq // bm), splits, bh), smem)
+
+
+def flash_f32_plan(bh: int, nq: int, nk: int, d: int,
+                   splits: Optional[int] = None) -> F32Plan:
+    """The float32 forward's plan for ``[bh, nq, d]`` queries against
+    ``nk`` keys: at d = 512 the keys are cut into ``kv_splits`` slices, as
+    in bf16 (``splits=`` forces a count), else one."""
+    if splits is None:
+        splits = kv_splits(bh, nq, nk) if d == 512 else 1
+    return f32_tile(bh, nq, nk, d, splits)
 
 
 def _use_flash_bwd(d: int) -> bool:
@@ -318,8 +367,23 @@ def _d512_lib() -> ctypes.CDLL:
         lib.fgdm_flash_attn_fwd_d512.argtypes = (
             [vp] * 8 + [ci] * 4 + [ctypes.c_float, vp])
         lib.fgdm_flash_attn_fwd_d512.restype = ci
-        lib.fgdm_flash_combine.argtypes = [vp] * 5 + [ci] * 2 + [vp]
+        lib.fgdm_flash_combine.argtypes = [vp] * 5 + [ci] * 3 + [vp]
         lib.fgdm_flash_combine.restype = ci
+        lib.fgdm_cuda_error_string.argtypes = [ci]
+        lib.fgdm_cuda_error_string.restype = ctypes.c_char_p
+        lib._fgdm_typed = True
+    return lib
+
+
+def _f32_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attn_fwd_f32")
+    if not getattr(lib, "_fgdm_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fgdm_flash_attn_fwd_f32.argtypes = (
+            [vp] * 8 + [ci] * 6 + [ctypes.c_float, vp])
+        lib.fgdm_flash_attn_fwd_f32.restype = ci
+        lib.fgdm_flash_attn_f32_block_n.argtypes = [ci]
+        lib.fgdm_flash_attn_f32_block_n.restype = ci
         lib.fgdm_cuda_error_string.argtypes = [ci]
         lib.fgdm_cuda_error_string.restype = ctypes.c_char_p
         lib._fgdm_typed = True
@@ -339,19 +403,29 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(fn: str, q, k, named):
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"``: the dtype in a launch key."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _check(fn: str, q, k, named, dtypes=(torch.bfloat16, torch.float32)):
     """Device, dtype, layout and shape checks shared by the wrappers: every
-    ``[B, H, N, D]`` tensor in ``named`` is bf16, contiguous and 16-byte
-    aligned on q's device, with q's (B, H, D) and q's or k's length.  Returns
-    ``(b, h, nq, nk, d)``."""
+    ``[B, H, N, D]`` tensor in ``named`` has q's dtype, one of ``dtypes``,
+    and is contiguous and 16-byte aligned on q's device, with q's (B, H, D)
+    and q's or k's length.  Returns ``(b, h, nq, nk, d)``."""
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
+    if q.dtype not in dtypes:
+        raise ValueError(f"{fn}: q must be "
+                         f"{' or '.join(map(dtype_name, dtypes))}, got "
+                         f"{q.dtype}")
     b, h, nq, d = q.shape
     nk = k.shape[2]
     for name, tsr in named.items():
-        if tsr.device != q.device or tsr.dtype != torch.bfloat16:
-            raise ValueError(f"{fn}: {name} must be bf16 on {q.device}, got "
-                             f"{tsr.dtype} on {tsr.device}")
+        if tsr.device != q.device or tsr.dtype != q.dtype:
+            raise ValueError(f"{fn}: {name} must be {dtype_name(q.dtype)} "
+                             f"(q's) on {q.device}, got {tsr.dtype} on "
+                             f"{tsr.device}")
         if not tsr.is_contiguous() or tsr.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} must be contiguous and 16-byte "
                              "aligned")
@@ -389,10 +463,10 @@ def _raise_on(lib, fn: str, rc: int) -> None:
 
 def flash_combine(part_o, part_m, part_l, dtype=torch.bfloat16):
     """The combine pass of the split-KV forward over the partials of
-    ``attention_split_ref``'s layout.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises.  Returns
-    ``(out, lse)``.  Counts launches in ``flash_combine.launches`` keyed by
-    ``(b, h, nq, splits)``."""
+    ``attention_split_ref``'s layout, into ``dtype`` (bf16 or float32).  A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises.  Returns ``(out, lse)``.  Counts launches in
+    ``flash_combine.launches`` keyed by ``(b, h, nq, splits, dtype name)``."""
     if part_o.device.type == "cpu":
         return combine_ref(part_o, part_m, part_l, dtype)
     fn = "flash_combine"
@@ -406,9 +480,9 @@ def flash_combine(part_o, part_m, part_l, dtype=torch.bfloat16):
                 or tuple(tsr.shape) != shape or not tsr.is_contiguous()):
             raise ValueError(f"{fn}: {name} must be contiguous f32 {shape} "
                              f"on {part_o.device}")
-    if d != 512 or dtype != torch.bfloat16:
-        raise ValueError(f"{fn}: the kernel combines d=512 into bf16, got "
-                         f"d={d}, {dtype}")
+    if d != 512 or dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{fn}: the kernel combines d=512 into bf16 or "
+                         f"float32, got d={d}, {dtype}")
     out = torch.empty((b, h, nq, d), device=part_o.device, dtype=dtype)
     lse = torch.empty((b, h, nq), device=part_o.device, dtype=torch.float32)
     lib = _d512_lib()
@@ -416,9 +490,10 @@ def flash_combine(part_o, part_m, part_l, dtype=torch.bfloat16):
     with torch.cuda.device(part_o.device):
         rc = lib.fgdm_flash_combine(
             part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b * h * nq, splits, stream)
+            out.data_ptr(), lse.data_ptr(), b * h * nq, splits,
+            int(dtype == torch.float32), stream)
     _raise_on(lib, fn, rc)
-    flash_combine.launches[(b, h, nq, splits)] += 1
+    flash_combine.launches[(b, h, nq, splits, dtype_name(dtype))] += 1
     return out, lse
 
 
@@ -463,6 +538,39 @@ def _flash_d512(q, k, v, scale, return_lse, splits, b, h, nq, nk):
     return out, lse
 
 
+def _flash_f32(q, k, v, scale, return_lse, plan: F32Plan):
+    """The float32 route of ``flash_attention`` at the tile ``plan`` on
+    checked inputs: one launch that writes the output when the keys are not
+    split, else the partials and the combine pass."""
+    b, h, nq, d = q.shape
+    lib = _f32_lib()
+    _block_n("flash_attention", lib.fgdm_flash_attn_f32_block_n(d), d,
+             k.shape[2], tuple(_F32_TILES))
+    dev = q.device
+    out = lse = part_o = part_m = part_l = None
+    if plan.splits == 1:
+        out = torch.empty_like(q)
+        if return_lse:
+            lse = torch.empty((b, h, nq), device=dev, dtype=torch.float32)
+    else:
+        part_o = torch.empty((plan.splits, b, h, nq, d), device=dev,
+                             dtype=torch.float32)
+        part_m = torch.empty((plan.splits, b, h, nq), device=dev,
+                             dtype=torch.float32)
+        part_l = torch.empty_like(part_m)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.fgdm_flash_attn_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(out), ptr(lse),
+            ptr(part_o), ptr(part_m), ptr(part_l), b * h, nq, k.shape[2], d,
+            plan.splits, plan.smem, float(scale), stream)
+    _raise_on(lib, "flash_attention", rc)
+    if plan.splits > 1:
+        out, lse = flash_combine(part_o, part_m, part_l, torch.float32)
+    return out, lse
+
+
 def _flash_k1(q, k, v, scale, return_lse, plan: K1Plan):
     """The d = 40/80 route of ``flash_attention`` at the tile ``plan`` on
     checked inputs: V goes to the kernel transposed, ``[B, H, D, Nk]``, so
@@ -486,15 +594,16 @@ def _flash_k1(q, k, v, scale, return_lse, plan: K1Plan):
 
 def flash_attention(q, k, v, scale, return_lse: bool = False,
                     splits: Optional[int] = None):
-    """Flash-attention forward (K1-K3).  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises.  With
-    ``return_lse`` also returns the f32 logsumexp ``[B, H, Nq]`` of the
+    """Flash-attention forward (K1-K3) in bf16 or float32.  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or raises.
+    With ``return_lse`` also returns the f32 logsumexp ``[B, H, Nq]`` of the
     scaled scores.  At d = 512 the keys are cut into ``kv_splits`` slices
     (``splits=`` forces a count) and ``flash_combine`` merges them; at
-    d = 40/80 ``flash_fwd_plan`` picks the tile.
+    d = 40/80 ``flash_fwd_plan`` picks the bf16 tile, ``flash_f32_plan``
+    the float32 one.
 
     Counts launches in ``flash_attention.launches`` keyed by
-    ``(b, h, nq, nk, d, return_lse)``.
+    ``(b, h, nq, nk, d, return_lse, dtype name)``.
     """
     if q.device.type == "cpu":
         if return_lse:
@@ -503,19 +612,22 @@ def flash_attention(q, k, v, scale, return_lse: bool = False,
         return attention_ref(q, k, v, scale).to(q.dtype)
     b, h, nq, nk, d = _check("flash_attention", q, k,
                              {"q": q, "k": k, "v": v})
-    if d == 512:
+    if splits not in (None, 1) and d != 512:
+        raise ValueError(f"flash_attention: no KV split at d={d}")
+    if q.dtype == torch.float32:
+        out, lse = _flash_f32(q, k, v, scale, return_lse,
+                              flash_f32_plan(b * h, nq, nk, d, splits))
+    elif d == 512:
         out, lse = _flash_d512(q, k, v, scale, return_lse, splits, b, h, nq,
                                nk)
-        flash_attention.launches[(b, h, nq, nk, d, bool(return_lse))] += 1
-        return (out, lse) if return_lse else out
-    if splits not in (None, 1):
-        raise ValueError(f"flash_attention: no KV split at d={d}")
-    lib = _lib()
-    _block_n("flash_attention", lib.fgdm_flash_attn_block_n(d), d, nk,
-             KERNEL_HEAD_DIMS)
-    out, lse = _flash_k1(q, k, v, scale, return_lse,
-                         flash_fwd_plan(b * h, nq, nk, d))
-    flash_attention.launches[(b, h, nq, nk, d, bool(return_lse))] += 1
+    else:
+        lib = _lib()
+        _block_n("flash_attention", lib.fgdm_flash_attn_block_n(d), d, nk,
+                 KERNEL_HEAD_DIMS)
+        out, lse = _flash_k1(q, k, v, scale, return_lse,
+                             flash_fwd_plan(b * h, nq, nk, d))
+    flash_attention.launches[(b, h, nq, nk, d, bool(return_lse),
+                              dtype_name(q.dtype))] += 1
     return (out, lse) if return_lse else out
 
 
@@ -523,7 +635,9 @@ flash_attention.launches = collections.Counter()
 
 
 def _bwd_args(fn, q, k, v, do, lse, delta):
-    b, h, nq, nk, d = _check(fn, q, k, {"q": q, "k": k, "v": v, "do": do})
+    # K5 and K6 are bf16 only (the float32 instances are not ported)
+    b, h, nq, nk, d = _check(fn, q, k, {"q": q, "k": k, "v": v, "do": do},
+                             dtypes=(torch.bfloat16,))
     if do.shape != q.shape:
         raise ValueError(f"{fn}: do {tuple(do.shape)} vs q {tuple(q.shape)}")
     _check_rows(fn, q, {"lse": lse, "delta": delta})
@@ -623,7 +737,8 @@ class FlashAttention(torch.autograd.Function):
     backward runs ``flash_attention_backward``, as ``_flash_op_fwd`` does;
     else (the VAE's 512, or a switch off) the backward recomputes
     ``attention_ref`` under autograd.  On the CPU both directions are the
-    plain versions."""
+    plain versions.  The backward kernels take bf16 only: a float32 input
+    with lse kept raises in the backward (the forward runs)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -661,9 +776,10 @@ def flash_gate(nq: int, nk: int) -> bool:
 
 def use_flash(q, k) -> bool:
     """The gate of ``attention.py:660-673`` on this card: ``flash_gate`` for
-    CUDA tensors, the device taking the place of JAX's backend test.  A
-    dtype or head dim the kernel does not take then raises in
-    ``flash_attention`` rather than quietly taking the plain version."""
+    CUDA tensors, the device taking the place of JAX's backend test.  Like
+    JAX's gate it tests no dtype: bf16 and float32 take the kernels, and a
+    dtype or head dim the kernels do not take raises in ``flash_attention``
+    rather than quietly taking the plain version."""
     return q.device.type == "cuda" and flash_gate(q.shape[2], k.shape[2])
 
 

@@ -11,23 +11,27 @@ adds a bias already cast to bf16.
 ``csrc/conv3x3.cu`` stands in for the TPU kernel ``_kernel``
 (``conv.py:100``) behind both of its callers, ``_conv3x3_fwd`` (whole
 planes) and ``_conv3x3_slab_fwd`` (height/width slabs with a one-row halo),
-with two CUDA kernels: a transposing pre-pass (``nchw_to_nhwc``) and an
-implicit GEMM on ``wgmma`` that loads a halo tile of the activations once per
-channel chunk for all nine taps (``conv3x3_kernel``).  The host side lives
-here: ``conv3x3_plan`` picks the tile per shape, ``packed_weight`` keeps the
-kernel's K-major bf16 weight and f32 bias per weight tensor until the weight
-changes, ``conv3x3_taps_ref`` is the kernel's algorithm in plain torch.  See
-the source for the kernels' design.
+in bf16 with two CUDA kernels: a transposing pre-pass (``nchw_to_nhwc``)
+and an implicit GEMM on ``wgmma`` that loads a halo tile of the activations
+once per channel chunk for all nine taps (``conv3x3_kernel``).  In float32
+``csrc/conv3x3_f32.cu`` does the same on the CUDA cores (FFMA: no tensor
+core keeps float32's products), with an f32 pre-pass.  The host side lives
+here: ``conv3x3_plan`` picks the tile per shape and dtype,
+``packed_weight`` keeps the kernel's K-major weight (bf16 or f32, the
+activations' dtype) and f32 bias per weight tensor until the weight
+changes, ``conv3x3_taps_ref`` is the kernels' algorithm in plain torch.  See
+the sources for the kernels' design.  The launch counts are keyed by the
+dtype's name as well.
 
 Gates (``conv3x3_ok``, ``conv3x3_vae_ok``) keep the JAX package's shape
 rules and its kill switch ``FGDM_DISABLE_PALLAS_CONV`` (``_DISABLE``, read
 at import as ``conv.py:32`` reads it: both gates refuse every shape), and
 drop its backend test and its VMEM fit model
 (``_scoped_vmem``/``_pick_blocks``/``_pick_slabs``), a TPU residency limit.
-They take the compute dtype, as JAX's do, and admit bfloat16 only: K7 reads
-bf16 activations, so a float32 model keeps ``F.conv2d`` by the gate's
-decision (JAX's Pallas kernel also runs float32).  At bf16 the port sends a
-superset of JAX's convs to its kernel.  Of the served
+They take the compute dtype, as JAX's do, and, like JAX's, test none: bf16
+and float32 convs take K7 (a dtype K7 lacks, float16, raises in
+``conv3x3_kernel``).  Without the fit the port sends a superset of JAX's
+convs to its kernel.  Of the served
 chain's convs (UNets at batch 8 with CFG), six shapes take K7 here and the
 XLA conv on the TPU, all in the UNets' up blocks:
 ``[8, 960, 32, 32] -> 320`` (factor 1), and in factor 2
@@ -51,11 +55,12 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from fgdm_tpu_torch.kernels import _build
+from fgdm_tpu_torch.kernels.attention import dtype_name
 
 __all__ = ["conv3x3_ref", "conv3x3_taps_ref", "conv3x3_kernel", "Conv3x3",
            "conv3x3", "conv3x3_ok", "conv3x3_vae_ok", "conv3x3_plan",
            "ConvPlan", "pack_weight", "packed_weight", "nchw_to_nhwc",
-           "nchw_to_nhwc_ref"]
+           "nchw_to_nhwc_ref", "KERNEL_DTYPES"]
 
 SMS = 132                  # streaming multiprocessors of an H100
 SMEM_MAX = 232448          # dynamic shared memory one block may have
@@ -63,6 +68,10 @@ SMEM_MAX = 232448          # dynamic shared memory one block may have
 _DISABLE = os.environ.get("FGDM_DISABLE_PALLAS_CONV", "0") == "1"
 _BN, _BK = 128, 64         # the kernel's output-channel tile and channel chunk
 _W_TILE = _BN * _BK * 2    # one (chunk, tap) of weights in shared memory
+# The float32 kernel (conv3x3_f32.cu): pixel slots a block, floats a halo
+# pixel and an output channel's chunk of weights take in shared memory.
+_F32_BM, _F32_HPS, _F32_WS = 128, 12, 9 * 8 + 4
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def conv3x3_ref(x, w, b):
@@ -78,13 +87,15 @@ def nchw_to_nhwc_ref(x):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-def pack_weight(w, b):
+def pack_weight(w, b, dtype=torch.bfloat16):
     """The kernel's operands from a conv's parameters: w ``[Co, C, 3, 3]``
-    as the K-major bf16 matrix ``[Co, 9, C]`` (k = (ky*3 + kx)*C + c) and b
-    as a contiguous f32 copy, in one op each."""
+    as the K-major matrix ``[Co, 9, C]`` (k = (ky*3 + kx)*C + c) in
+    ``dtype`` (the activations') and b as a contiguous f32 copy, in one op
+    each."""
     co, c = w.shape[:2]
+    # copy=True: in the weight's own dtype ``.to`` returns the permuted view
     wk = w.detach().permute(0, 2, 3, 1).to(
-        torch.bfloat16, memory_format=torch.contiguous_format)
+        dtype, memory_format=torch.contiguous_format, copy=True)
     bias = b.detach().to(torch.float32, copy=True).contiguous()
     return wk.view(co, 9, c), bias
 
@@ -99,11 +110,12 @@ def _state(t):
 _PACKS = WeakTensorKeyDictionary()
 
 
-def packed_weight(w, b):
-    """``pack_weight(w, b)``, kept per weight tensor.  A pack is reused while
-    the tensors it was made from are alive and unchanged: same storage,
-    layout and ``_version`` (an optimizer step, ``load_state_dict`` or any
-    other in-place write bumps it; a write through ``.data`` has a version
+def packed_weight(w, b, dtype=torch.bfloat16):
+    """``pack_weight(w, b, dtype)``, kept per weight tensor.  A pack is
+    reused while the tensors it was made from are alive and unchanged and
+    the dtype is the same: same storage, layout and ``_version`` (an
+    optimizer step, ``load_state_dict`` or any other in-place write bumps
+    it; a write through ``.data`` has a version
     counter of its own and is not seen, so the port never writes parameters
     that way).  The entry is keyed weakly by the weight itself, so a deleted
     module's pack is freed with it, and a changed weight's entry is
@@ -113,11 +125,11 @@ def packed_weight(w, b):
     the packs it makes in ``packed_weight.packs``."""
     keep = not (w.is_inference() or b.is_inference())
     if keep:
-        state = (_state(w), _state(b))
+        state = (_state(w), _state(b), dtype)
         e = _PACKS.get(w)
         if e is not None and e[0] == state and e[1]() is b:
             return e[2], e[3]
-    wk, bias = pack_weight(w, b)
+    wk, bias = pack_weight(w, b, dtype)
     packed_weight.packs += 1
     if keep:
         _PACKS[w] = (state, weakref.ref(b), wk, bias)
@@ -147,10 +159,10 @@ def conv3x3_taps_ref(xt, wk, bias):
 class ConvPlan(NamedTuple):
     """How one conv shape is cut into blocks: ``bm`` pixel slots a block
     (64 or 128: one or two consumer warpgroups of one 64-row ``wgmma`` tile
-    each), of which the ``th x tw`` rectangle of output pixels uses
-    ``th * tw``; ``grid`` = (images x tile rows x tile columns, 128-wide
-    output-channel tiles); ``wst`` weight stages; ``smem`` bytes of dynamic
-    shared memory."""
+    each; float32: 128), of which the ``th x tw`` rectangle of output pixels
+    uses ``th * tw``; ``grid`` = (images x tile rows x tile columns,
+    128-wide output-channel tiles); ``wst`` weight stages (float32: 2
+    stages of halo and weights); ``smem`` bytes of dynamic shared memory."""
     bm: int
     th: int
     tw: int
@@ -189,12 +201,41 @@ def _tile(n: int, c: int, co: int, h: int, w: int, bm: int) -> ConvPlan:
                     _smem_bytes(bm, th, tw, wst))
 
 
+def _f32_smem_bytes(th: int, tw: int) -> int:
+    """``smem_bytes`` of ``csrc/conv3x3_f32.cu``: two stages of the halo
+    tile and the chunk's weights."""
+    return 2 * 4 * ((th + 2) * (tw + 2) * _F32_HPS + _BN * _F32_WS)
+
+
+def _f32_tile(n: int, c: int, co: int, h: int, w: int) -> ConvPlan:
+    """The float32 kernel's tile: 128 pixel slots a block, whole rows where
+    w <= 64, else 64-pixel row segments, as many rows as fit; ``wst`` is
+    its two stages."""
+    tw = min(w, 64)
+    th = max(1, min(_F32_BM // tw, h))
+    tiles_y, tiles_x = -(-h // th), -(-w // tw)
+    return ConvPlan(_F32_BM, th, tw, tiles_y, tiles_x,
+                    (n * tiles_y * tiles_x, -(-co // _BN)), 2,
+                    _f32_smem_bytes(th, tw))
+
+
 @functools.lru_cache(maxsize=None)
-def conv3x3_plan(n: int, c: int, co: int, h: int, w: int) -> ConvPlan:
-    """The tile for x ``[n, c, h, w]`` -> ``co`` channels.  Among 128 and 64
-    pixel slots a block it takes the least estimated time, the blocks an SM
-    gets times the slots a block computes, among the sizes that give every
-    SM a block if any does."""
+def conv3x3_plan(n: int, c: int, co: int, h: int, w: int,
+                 dtype: torch.dtype = torch.bfloat16) -> ConvPlan:
+    """The tile for x ``[n, c, h, w]`` -> ``co`` channels in ``dtype``.  In
+    bf16, among 128 and 64 pixel slots a block it takes the least estimated
+    time, the blocks an SM gets times the slots a block computes, among the
+    sizes that give every SM a block if any does; float32 has one size
+    (``_f32_tile``).  Raises ValueError on a dtype or shape no kernel
+    takes."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"conv3x3_plan: no kernel for {dtype}")
+    if dtype == torch.float32:
+        plan = _f32_tile(n, c, co, h, w)
+        if plan.smem > SMEM_MAX:
+            raise ValueError(f"conv3x3_plan: no float32 tile for "
+                             f"{(n, c, co, h, w)}: {plan}")
+        return plan
     best = None
     for bm in (128, 64):
         plan = _tile(n, c, co, h, w, bm)
@@ -225,10 +266,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _f32_lib() -> ctypes.CDLL:
+    lib = _build.load("conv3x3_f32")
+    if not getattr(lib, "_fgdm_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fgdm_conv3x3_f32.argtypes = [vp] * 4 + [ci] * 8 + [vp]
+        lib.fgdm_conv3x3_f32.restype = ci
+        lib.fgdm_nchw_to_nhwc_f32.argtypes = [vp] * 2 + [ci] * 3 + [vp]
+        lib.fgdm_nchw_to_nhwc_f32.restype = ci
+        lib.fgdm_cuda_error_string.argtypes = [ci]
+        lib.fgdm_cuda_error_string.restype = ctypes.c_char_p
+        lib._fgdm_typed = True
+    return lib
+
+
 def _check_x(fn: str, x) -> None:
-    if x.dtype != torch.bfloat16 or x.dim() != 4 or not x.is_contiguous():
-        raise ValueError(f"{fn}: x must be a contiguous 4-d bf16 tensor, got "
-                         f"{x.dtype} {tuple(x.shape)}")
+    if (x.dtype not in KERNEL_DTYPES or x.dim() != 4
+            or not x.is_contiguous()):
+        raise ValueError(f"{fn}: x must be a contiguous 4-d bf16 or float32 "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
     if x.shape[1] % 8:
         raise ValueError(f"{fn}: C={x.shape[1]} must be a multiple of 8")
 
@@ -240,22 +296,24 @@ def _raise_on(lib, fn: str, rc: int) -> None:
 
 
 def nchw_to_nhwc(x):
-    """The conv's pre-pass: x ``[N, C, H, W]`` bf16 to a contiguous
-    ``[N, H, W, C]`` by a hand-written tiled transpose.  A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises.  Counts
-    launches in ``nchw_to_nhwc.launches`` keyed by ``(N, C, H, W)``."""
+    """The conv's pre-pass: x ``[N, C, H, W]`` bf16 or float32 to a
+    contiguous ``[N, H, W, C]`` by a hand-written tiled transpose.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises.  Counts launches in ``nchw_to_nhwc.launches`` keyed by
+    ``(N, C, H, W, dtype name)``."""
     if x.device.type == "cpu":
         return nchw_to_nhwc_ref(x)
     _check_x("nchw_to_nhwc", x)
     n, c, h, wd = x.shape
     xt = torch.empty((n, h, wd, c), device=x.device, dtype=x.dtype)
-    lib = _lib()
+    f32 = x.dtype == torch.float32
+    lib = _f32_lib() if f32 else _lib()
+    fn = lib.fgdm_nchw_to_nhwc_f32 if f32 else lib.fgdm_nchw_to_nhwc
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = lib.fgdm_nchw_to_nhwc(x.data_ptr(), xt.data_ptr(), n, c, h * wd,
-                                   stream)
+        rc = fn(x.data_ptr(), xt.data_ptr(), n, c, h * wd, stream)
     _raise_on(lib, "nchw_to_nhwc", rc)
-    nchw_to_nhwc.launches[(n, c, h, wd)] += 1
+    nchw_to_nhwc.launches[(n, c, h, wd, dtype_name(x.dtype))] += 1
     return xt
 
 
@@ -263,29 +321,35 @@ nchw_to_nhwc.launches = collections.Counter()
 
 
 def _launch(xt, wk, bias, co: int, plan: ConvPlan):
-    """The ``wgmma`` kernel on xt ``[N, H, W, C]`` and a weight pack with
-    the tile ``plan``; returns ``[N, co, H, W]`` or raises."""
+    """The conv kernel of xt's dtype (``wgmma`` in bf16, FFMA in float32)
+    on xt ``[N, H, W, C]`` and a weight pack with the tile ``plan``;
+    returns ``[N, co, H, W]`` or raises."""
     n, h, wd, c = xt.shape
     out = torch.empty((n, co, h, wd), device=xt.device, dtype=xt.dtype)
-    lib = _lib()
     stream = torch.cuda.current_stream(xt.device).cuda_stream
+    ptrs = (xt.data_ptr(), wk.data_ptr(), bias.data_ptr(), out.data_ptr())
     with torch.cuda.device(xt.device):
-        rc = lib.fgdm_conv3x3(xt.data_ptr(), wk.data_ptr(), bias.data_ptr(),
-                              out.data_ptr(), n, c, co, h, wd, plan.bm,
-                              plan.th, plan.tw, plan.wst, plan.smem, stream)
+        if xt.dtype == torch.float32:
+            lib = _f32_lib()
+            rc = lib.fgdm_conv3x3_f32(*ptrs, n, c, co, h, wd, plan.th,
+                                      plan.tw, plan.smem, stream)
+        else:
+            lib = _lib()
+            rc = lib.fgdm_conv3x3(*ptrs, n, c, co, h, wd, plan.bm, plan.th,
+                                  plan.tw, plan.wst, plan.smem, stream)
     _raise_on(lib, "conv3x3_kernel", rc)
     return out
 
 
 def conv3x3_kernel(x, w, b):
-    """The 3x3 conv through K7: the pre-pass into ``[N, H, W, C]`` scratch,
-    then the ``wgmma`` kernel on the weight's pack (``packed_weight``: made
-    once per weight, not per call) with the tile of ``conv3x3_plan``.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernels or
-    raises.
+    """The 3x3 conv through K7 in x's dtype (bf16 or float32): the pre-pass
+    into ``[N, H, W, C]`` scratch, then the conv kernel on the weight's pack
+    (``packed_weight``: made once per weight and dtype, not per call) with
+    the tile of ``conv3x3_plan``.  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernels or raises.
 
     Counts launches in ``conv3x3_kernel.launches`` keyed by
-    ``(N, C, Co, H, W)``."""
+    ``(N, C, Co, H, W, dtype name)``."""
     if x.device.type == "cpu":
         return conv3x3_ref(x, w, b)
     fn = "conv3x3_kernel"
@@ -297,10 +361,10 @@ def conv3x3_kernel(x, w, b):
                          f"do not fit x {tuple(x.shape)}")
     if w.device != x.device or b.device != x.device:
         raise ValueError(f"{fn}: w and b must be on {x.device}")
-    wk, bias = packed_weight(w, b)
-    out = _launch(nchw_to_nhwc(x), wk, bias, co,
-                  conv3x3_plan(n, c, co, h, wd))
-    conv3x3_kernel.launches[(n, c, co, h, wd)] += 1
+    plan = conv3x3_plan(n, c, co, h, wd, x.dtype)
+    wk, bias = packed_weight(w, b, x.dtype)
+    out = _launch(nchw_to_nhwc(x), wk, bias, co, plan)
+    conv3x3_kernel.launches[(n, c, co, h, wd, dtype_name(x.dtype))] += 1
     return out
 
 
@@ -356,9 +420,10 @@ def _is3x3(x_shape, w_shape) -> bool:
 
 def conv3x3_ok(x_shape, w_shape, dtype) -> bool:
     """Whole-plane gate (``conv.py:131-154`` without the backend test and
-    the VMEM fit): x ``[N, C, H, W]`` in bf16, w ``[Co, C, 3, 3]``; C,
-    Co >= 128, both multiples of 8, 16 <= H <= 64; none with ``_DISABLE``."""
-    if _DISABLE or dtype != torch.bfloat16 or not _is3x3(x_shape, w_shape):
+    the VMEM fit, the only use of ``dtype`` there): x ``[N, C, H, W]``, w
+    ``[Co, C, 3, 3]``; C, Co >= 128, both multiples of 8, 16 <= H <= 64;
+    none with ``_DISABLE``."""
+    if _DISABLE or not _is3x3(x_shape, w_shape):
         return False
     co, c, h = w_shape[0], x_shape[1], x_shape[2]
     return c >= 128 and co >= 128 and c % 8 == 0 and co % 8 == 0 \
@@ -367,8 +432,8 @@ def conv3x3_ok(x_shape, w_shape, dtype) -> bool:
 
 def conv3x3_vae_ok(x_shape, w_shape, dtype) -> bool:
     """VAE-family gate (``conv.py:244-276`` without the backend test and
-    the slab fit): x in bf16, C = Co = 128 and H >= 512 (the decoder's
-    level-0 ResBlocks); none with ``_DISABLE``."""
-    if _DISABLE or dtype != torch.bfloat16 or not _is3x3(x_shape, w_shape):
+    the slab fit, the only use of ``dtype`` there): C = Co = 128 and
+    H >= 512 (the decoder's level-0 ResBlocks); none with ``_DISABLE``."""
+    if _DISABLE or not _is3x3(x_shape, w_shape):
         return False
     return x_shape[1] == 128 and w_shape[0] == 128 and x_shape[2] >= 512

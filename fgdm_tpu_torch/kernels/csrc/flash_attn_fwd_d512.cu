@@ -21,7 +21,8 @@
 //     output (and lse); otherwise it writes its unnormalised f32 output with
 //     the row maximum and row sum, and flash_combine_kernel merges the
 //     partials in a fixed order (rescale by exp2(m_i - m), sum, one division,
-//     one rounding).  No atomics: reruns are bit-identical.
+//     one rounding).  No atomics: reruns are bit-identical.  The same pass
+//     combines flash_attn_fwd_f32.cu's partials into f32.
 //   * Q (64 x 512, 64 KB) stays in shared memory for the whole block; K and
 //     V tiles of 32 keys (32 KB each) come by TMA into a two-stage ring
 //     behind full/empty mbarriers, filled by one producer warp.  All tiles
@@ -282,11 +283,26 @@ flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // One block per output row, four columns a thread.  part_* as above with
-// rows = bh * nq; o [rows, 512] bf16; lse [rows] f32 or null.
+// rows = bh * nq; o [rows, 512] in T (bf16 for this file's kernel, f32 for
+// flash_attn_fwd_f32.cu's); lse [rows] f32 or null.
+__device__ __forceinline__ void store4(bf16* p, float4 a) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a.x, a.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(a.z, a.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = packed;
+}
+
+__device__ __forceinline__ void store4(float* p, float4 a) {
+  *reinterpret_cast<float4*>(p) = a;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(D / 4)
 flash_combine_kernel(const float* __restrict__ part_o,
                      const float* __restrict__ part_m,
-                     const float* __restrict__ part_l, bf16* __restrict__ o,
+                     const float* __restrict__ part_l, T* __restrict__ o,
                      float* __restrict__ lse, int rows, int splits) {
   const int row = blockIdx.x, col = threadIdx.x * 4;
   float m = -INFINITY;
@@ -305,12 +321,8 @@ flash_combine_kernel(const float* __restrict__ part_o,
     acc.w += w * p.w;
   }
   const float inv = 1.f / l;
-  __nv_bfloat162 lo = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
-  uint2 packed;
-  packed.x = *reinterpret_cast<uint32_t*>(&lo);
-  packed.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(o + (size_t)row * D + col) = packed;
+  store4(o + (size_t)row * D + col,
+         make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
   if (lse != nullptr && threadIdx.x == 0) lse[row] = (m + log2f(l)) * LN2;
 }
 
@@ -364,16 +376,27 @@ int fgdm_flash_attn_fwd_d512(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// The combine pass over the main kernel's partials: rows = bh * nq output
-// rows of 512 columns.  Returns 0 or a cudaError_t code.
+// The combine pass over the partials of this file's kernel or of
+// flash_attn_fwd_f32.cu's: rows = bh * nq output rows of 512 columns, o in
+// bf16 (out_f32 == 0) or f32 (out_f32 == 1).  Returns 0 or a cudaError_t
+// code.
 int fgdm_flash_combine(const void* part_o, const void* part_m,
                        const void* part_l, void* o, void* lse, int rows,
-                       int splits, void* stream) {
-  if (rows <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
-  flash_combine_kernel<<<rows, D / 4, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_m),
-      static_cast<const float*>(part_l), static_cast<bf16*>(o),
-      static_cast<float*>(lse), rows, splits);
+                       int splits, int out_f32, void* stream) {
+  if (rows <= 0 || splits < 1 || (out_f32 != 0 && out_f32 != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* po = static_cast<const float*>(part_o);
+  const float* pm = static_cast<const float*>(part_m);
+  const float* pl = static_cast<const float*>(part_l);
+  if (out_f32)
+    flash_combine_kernel<float><<<rows, D / 4, 0, s>>>(
+        po, pm, pl, static_cast<float*>(o), static_cast<float*>(lse), rows,
+        splits);
+  else
+    flash_combine_kernel<bf16><<<rows, D / 4, 0, s>>>(
+        po, pm, pl, static_cast<bf16*>(o), static_cast<float*>(lse), rows,
+        splits);
   return (int)cudaGetLastError();
 }
 

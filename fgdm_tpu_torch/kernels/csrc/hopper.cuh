@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // named barriers, TMA tensor maps (host) and loads (device), 1-D bulk
-// copies, thread-block clusters and their shared memory, ldmatrix,
+// copies, cp.async (the float32 kernels' loads), thread-block clusters and their shared memory, ldmatrix,
 // warpgroup matrix multiply (wgmma) with its shared-memory descriptors, and
 // the special-function unit's exp2.
 //
@@ -24,6 +24,27 @@ typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- cp.async: 16-byte copies global -> shared, no registers ---------------
+
+// Copies `bytes` (16 or 0) of src to dst and zero-fills the rest of the 16;
+// with 0 nothing is read (src need only be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // --- mbarrier (addresses are 32-bit shared-memory addresses) ---------------

@@ -9,9 +9,9 @@ float32 and cast back to the input dtype.
 ``_PALLAS_CONV`` / ``_PALLAS_CONV_VAE`` (``FGDM_PALLAS_CONV=1`` /
 ``FGDM_PALLAS_CONV_VAE=1``, default off, as ``layers.py:23-32``) send the
 3x3 stride-1 pad-1 convs with a bias that ``kernels/conv.py``'s gates accept
-to the direct conv kernel K7.  The gates admit bf16 compute only, so a
-float32 ``Conv2d`` keeps ``F.conv2d`` with a flag on; with
-``FGDM_DISABLE_PALLAS_CONV=1`` they admit nothing, as JAX's do.
+to the direct conv kernel K7, in bf16 or float32 compute (the gates test
+no dtype, as JAX's do not); with ``FGDM_DISABLE_PALLAS_CONV=1`` they admit
+nothing, as JAX's do.
 ``_WINOGRAD_CONV`` (``FGDM_WINOGRAD_CONV=1``, default off, as
 ``layers.py:33-35``) then sends such a conv that ``kernels/winograd.py``'s
 ``winograd_ok`` admits to the Winograd F(2x2, 3x3) reformulation, after

@@ -173,14 +173,22 @@ def _port_shapes(xs, ws):
 def test_gates_match_jax(monkeypatch, xs, ws):
     monkeypatch.setattr(kc, "_on_tpu", lambda: True)
     px, pw = _port_shapes(xs, ws)
-    bf16 = torch.bfloat16
-    assert tc.conv3x3_ok(px, pw, bf16) == kc.conv3x3_ok(xs, ws, jnp.bfloat16)
-    assert tc.conv3x3_vae_ok(px, pw, bf16) == kc.conv3x3_vae_ok(
-        xs, ws, jnp.bfloat16)
-    # K7 reads bf16 only: a float32 conv keeps F.conv2d, where JAX's gate
-    # may send it to its Pallas kernel
-    assert not tc.conv3x3_ok(px, pw, torch.float32)
-    assert not tc.conv3x3_vae_ok(px, pw, torch.float32)
+    # K7 has a bf16 and a float32 kernel: in both dtypes the port's gates
+    # take what JAX's take once its VMEM fit, the one use of the dtype
+    # there, is lifted (the port drops that TPU residency limit), and a
+    # superset of what JAX's take with it (in float32 the fit refuses four
+    # of these shapes at 4 bytes an element)
+    for td, jd in ((torch.bfloat16, jnp.bfloat16),
+                   (torch.float32, jnp.float32)):
+        port = (tc.conv3x3_ok(px, pw, td), tc.conv3x3_vae_ok(px, pw, td))
+        fit = (kc.conv3x3_ok(xs, ws, jd), kc.conv3x3_vae_ok(xs, ws, jd))
+        assert all(p or not j for p, j in zip(port, fit))
+        if td == torch.bfloat16:
+            assert port == fit
+        with monkeypatch.context() as m:
+            m.setattr(kc, "_VMEM_BUDGET", 1 << 40)
+            assert port == (kc.conv3x3_ok(xs, ws, jd),
+                            kc.conv3x3_vae_ok(xs, ws, jd))
 
 
 def _served_chain_conv_shapes():
@@ -260,7 +268,7 @@ def test_conv2d_flags_route_gated_convs_only(monkeypatch):
     bf16 = torch.bfloat16
     convs = {
         "gated": tlayers.Conv2d(128, 128, 3, dtype=bf16),
-        "f32": tlayers.Conv2d(128, 128, 3),   # the gates admit bf16 only
+        "f32": tlayers.Conv2d(128, 128, 3),   # K7's float32 kernel
         "stride2": tlayers.Conv2d(128, 128, 3, stride=2, padding=1,
                                   dtype=bf16),
         "1x1": tlayers.Conv2d(128, 128, 1, padding=0, dtype=bf16),
@@ -275,19 +283,23 @@ def test_conv2d_flags_route_gated_convs_only(monkeypatch):
     assert calls == []
     monkeypatch.setattr(tlayers, "_PALLAS_CONV", True)
     on = {k: m(x[k]) for k, m in convs.items()}
-    assert calls == [(1, 128, 16, 16)]
+    assert calls == [(1, 128, 16, 16)] * 2
     for k in convs:
-        if k != "gated":
+        if k not in ("gated", "f32"):
             assert torch.equal(on[k], off[k]), k
-    g = convs["gated"]
+    g, f = convs["gated"], convs["f32"]
     torch.testing.assert_close(
         on["gated"], tc.conv3x3_ref(x["gated"].to(bf16), g.weight, g.bias),
         rtol=0, atol=0)
+    torch.testing.assert_close(on["f32"], tc.conv3x3_ref(x["f32"], f.weight,
+                                                         f.bias),
+                               rtol=0, atol=0)
     # the VAE flag alone takes only the >= 512^2, 128-channel family
     monkeypatch.setattr(tlayers, "_PALLAS_CONV", False)
     monkeypatch.setattr(tlayers, "_PALLAS_CONV_VAE", True)
     convs["gated"](x["gated"])
-    assert len(calls) == 1
+    convs["f32"](x["f32"])
+    assert len(calls) == 2
 
 
 def test_conv2d_flags_hand_the_kernel_a_contiguous_input(monkeypatch):
@@ -343,9 +355,8 @@ GATED = dict(model_channels=128, num_heads=4, context_dim=64,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_conv_gated_unet_matches_jax(monkeypatch, dtype):
     """Flags on in both packages (JAX's Pallas conv in interpret mode).  In
-    bf16 every 3x3 conv at 16^2 with >= 128 channels takes the conv3x3
-    path; in float32 the port's gates keep ``F.conv2d`` (K7 reads bf16
-    only), which gives the same f32 sum plus f32 bias."""
+    bf16 and in float32 every 3x3 conv at 16^2 with >= 128 channels takes
+    the conv3x3 path, as in JAX (K7 has a kernel for each dtype)."""
     monkeypatch.setattr(kc, "_INTERPRET", True)
     monkeypatch.setattr(jlayers, "_PALLAS_CONV", True)
     monkeypatch.setattr(tlayers, "_PALLAS_CONV", True)
@@ -369,10 +380,7 @@ def test_conv_gated_unet_matches_jax(monkeypatch, dtype):
     with torch.no_grad():
         out = tm.eval()(nchw(x), torch.from_numpy(t).long(),
                         context=torch.from_numpy(ctx))
-    if dtype == "float32":
-        assert calls == []
-    else:
-        assert len(calls) >= 5 and all(s[2] == 16 for s in calls)
+    assert len(calls) >= 5 and all(s[2] == 16 for s in calls)
     ref = np.asarray(ref, np.float32)
     assert np.abs(ref).max() > 1e-2
     err = np.abs(nhwc(out) - ref).max()
@@ -401,18 +409,13 @@ def test_conv_by_taps_matches_ref_and_xla(n, h, w, c, co, dtype):
     xla = np.asarray(kc._xla_conv3x3(jnp.asarray(x, jd), jnp.asarray(wt, jd),
                                      jnp.asarray(b)), np.float32)
     xt, w_t, b_t = nchw(x).to(td), oihw(wt), torch.from_numpy(b)
-    wk, bias = tc.pack_weight(w_t, b_t)
-    assert wk.shape == (co, 9, c) and wk.dtype == torch.bfloat16
+    # the pack is in the activations' dtype: bf16 for K7's bf16 kernel,
+    # float32 for its float32 one
+    wk, bias = tc.pack_weight(w_t, b_t, td)
+    assert wk.shape == (co, 9, c) and wk.dtype == td
     assert wk.is_contiguous() and bias.dtype == torch.float32
-    if dtype == "float32":   # the pack is bf16: compare on a bf16-exact w
-        w_t = w_t.to(torch.bfloat16).float()
-        xla = np.asarray(kc._xla_conv3x3(
-            jnp.asarray(x), jnp.asarray(np.transpose(w_t.numpy(),
-                                                     (2, 3, 1, 0))),
-            jnp.asarray(b)))
     # k = (ky*3 + kx)*C + c
-    assert torch.equal(wk[:, 5, 7].float(),
-                       w_t[:, 7, 1, 2].to(torch.bfloat16).float())
+    assert torch.equal(wk[:, 5, 7], w_t[:, 7, 1, 2].to(td))
     x_nhwc = tc.nchw_to_nhwc(xt)
     assert x_nhwc.shape == (n, h, w, c) and x_nhwc.is_contiguous()
     out = tc.conv3x3_taps_ref(x_nhwc, wk, bias)

@@ -361,9 +361,9 @@ def test_jax_conv_gate_admits_f32_openpose_convs_the_port_leaves_to_cudnn(
         monkeypatch):
     """With ``FGDM_PALLAS_CONV=1`` on a TPU, JAX's K7 gate (no dtype test)
     takes 14 of the body net's float32 3x3 convs at the eval CLI's 256^2
-    (interpret mode stands in for the TPU here); the port's gate reads bf16
-    only, so they stay on cuDNN in float32: the same function (ROADMAP
-    Queue B)."""
+    (interpret mode stands in for the TPU here); the port's gate takes the
+    same 14 to K7's float32 kernel, where they stayed on cuDNN while K7 was
+    bf16 only."""
     from fgdm_tpu.kernels import conv as jconv
     from fgdm_tpu_torch.kernels import conv as kconv
 
@@ -378,7 +378,7 @@ def test_jax_conv_gate_admits_f32_openpose_convs_the_port_leaves_to_cudnn(
                          "conv4_1", "conv4_2", "conv4_3_CPM", "conv4_4_CPM",
                          "conv5_1_CPM_L1", "conv5_2_CPM_L1", "conv5_3_CPM_L1",
                          "conv5_1_CPM_L2", "conv5_2_CPM_L2", "conv5_3_CPM_L2"]
-    assert port_takes == []
+    assert port_takes == jax_takes
 
 
 def test_port_and_chip_smoke_import_no_opencv():

@@ -140,9 +140,10 @@ def test_conv2d_dispatch_matches_jax(monkeypatch):
 
 
 def test_conv_kernel_gate_comes_first(monkeypatch):
-    """With both flags on, a bf16 conv that K7's gate admits takes K7 (the
-    order of ``fgdm_tpu/nn/layers.py:158-181``); a float32 one, which K7's
-    gate refuses, takes Winograd."""
+    """With both flags on, a bf16 or float32 conv that K7's gate admits
+    takes K7 (the order of ``fgdm_tpu/nn/layers.py:158-181``); one that
+    K7's gate refuses (fewer than 128 channels) and Winograd's admits takes
+    Winograd."""
     k7 = _count(monkeypatch, kconv, "conv3x3")
     wino = _count(monkeypatch, tw, "conv3x3_winograd")
     monkeypatch.setattr(tl, "_PALLAS_CONV", True)
@@ -152,7 +153,9 @@ def test_conv_kernel_gate_comes_first(monkeypatch):
         tl.Conv2d(320, 320, 3, dtype=torch.bfloat16)(x)
         assert (len(k7), len(wino)) == (1, 0)
         tl.Conv2d(320, 320, 3, dtype=torch.float32)(x)
-        assert (len(k7), len(wino)) == (1, 1)
+        assert (len(k7), len(wino)) == (2, 0)
+        tl.Conv2d(64, 64, 3, dtype=torch.float32)(x[:, :64])
+        assert (len(k7), len(wino)) == (2, 1)
 
 
 def test_tiny_chain_with_winograd_close_to_direct(monkeypatch):
