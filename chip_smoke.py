@@ -26,8 +26,9 @@ it builds the port's kernels from the sources in this checkout (one
    (with and without lse, two ragged query lengths), K2, K3 (with a forced
    single slice), the combine pass into float32, K7 and its float32
    pre-pass at the ``precision_full`` path's shapes and at the three ragged
-   ones, against the float32 plain versions (TF32 off), the library
-   yardsticks SDPA and cuDNN's ``F.conv2d`` in float32; prints K4's plan
+   ones, and K5/K6 in float32 at the backward's four shapes, against the
+   float32 plain versions (TF32 off), the library yardsticks SDPA (its
+   backward too) and cuDNN's ``F.conv2d`` in float32; prints K4's plan
    per shape, checks
    ``Conv3x3``'s
    gradients against autograd through
@@ -163,6 +164,14 @@ it builds the port's kernels from the sources in this checkout (one
    ``sketch_to_normal``'s ``_encode_target`` ([8, 8, 32, 32]); the
    annotators and the frozen UNet bit-identical, one loss and its adapter
    gradients a kind kernels on vs plain;
+   then the float32 training path (``phase_train_f32``):
+   ``build_trainer(dtype=torch.float32)``, every model in float32, one
+   cold step with every launch count set to 0 just before, 5 warm steps,
+   one counted float32 distillation step: losses, grad norms, the adapter
+   moved, the frozen weights bit-identical, the EMA count, launches by
+   kernel and dtype (K1-f32 with lse, K4, K5-f32 and K6-f32, no bf16
+   launch); one loss and its adapter gradients kernels on vs plain; one
+   warm step profiled;
    then the training-CLI path: a seeded COCO-layout tree (24 + 8 JPEGs of
    320x288, L-mode label PNGs, captions) under ``build/``,
    ``cli.train.main`` on ``models/config.yaml`` at full width (batch 8 at
@@ -229,11 +238,11 @@ it builds the port's kernels from the sources in this checkout (one
    other shape that a path above launched (the chain, the training step,
    the served batch, the CLI, ``--precision full``, seg2image's sampling
    and ``--detect``, the guided CLI, the distillation step, the condition
-   steps, the N-factor CLI, ptp, img2img, the ancestral sampler, the tiled
+   steps, the float32 training step, the N-factor CLI, ptp, img2img, the ancestral sampler, the tiled
    VAE, the training CLI and its normal-factor config, the two recipes,
    co-denoising, the variant UNet, the library modules): K1-K3 and the
    combine pass at each (batch, heads, N, d, dtype), K5 and K6 at each
-   (batch, heads, N, d), K7 and its pre-pass at each conv launch key (the
+   (batch, heads, N, d, dtype), K7 and its pre-pass at each conv launch key (the
    dtype in it), K4 at each (shape, eps), each held once, in its dtype,
    under the first path that launched it; every row then reads its path's
    launch count and fails at 0;
@@ -281,6 +290,7 @@ BWD_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_bwd.cu"
 GN_SRC = "fgdm_tpu_torch/kernels/csrc/groupnorm_silu.cu"
 CONV_SRC = "fgdm_tpu_torch/kernels/csrc/conv3x3.cu"
 ATTN_F32_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_fwd_f32.cu"
+BWD_F32_SRC = "fgdm_tpu_torch/kernels/csrc/flash_attn_bwd_f32.cu"
 CONV_F32_SRC = "fgdm_tpu_torch/kernels/csrc/conv3x3_f32.cu"
 K1 = "fgdm_tpu/kernels/attention.py:157"   # _flash_kernel_t
 K2 = "fgdm_tpu/kernels/attention.py:121"   # _flash_kernel
@@ -378,6 +388,11 @@ BWD_CASES = [
     ("d80 N1024 [2,8] control", 2, 8, 1024, 1024, 80, "control"),
     ("d40 Nq520 Nk1024 [1,3] ragged", 1, 3, 520, 1024, 40, None),
 ]
+# The float32 backward (K5-f32, K6-f32) at the same shapes: the float32
+# training step's (``train_f32``; no path trains the ControlNet in float32)
+BWD_F32_CASES = [(suffix, b, h, nq, nk, d, "train_f32" if path == "train"
+                  else None)
+                 for suffix, b, h, nq, nk, d, path in BWD_CASES]
 # The reference's kernel switches the port reads, with their defaults.
 SWITCHES = {"FGDM_DISABLE_FLASH": ("attention", "_DISABLE_FLASH", False),
             "FGDM_FLASH_MIN_N": ("attention", "_MIN_N", 512),
@@ -600,14 +615,15 @@ def build_kernels():
 
     t0 = time.perf_counter()
     names = ("flash_attn_fwd", "flash_attn_fwd_d512", "flash_attn_bwd",
-             "flash_attn_fwd_f32", "conv3x3", "conv3x3_f32",
-             "groupnorm_silu")
+             "flash_attn_fwd_f32", "flash_attn_bwd_f32", "conv3x3",
+             "conv3x3_f32", "groupnorm_silu")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(_build.build, names))
     attention._lib()
     attention._d512_lib()
     attention._bwd_lib()
     attention._f32_lib()
+    attention._bwd_f32_lib()
     conv._lib()
     conv._f32_lib()
     groupnorm._lib()
@@ -807,65 +823,78 @@ def combine_row(gen, b, h, n, splits, tpu, path, dtype="bfloat16"):
         library_ms=None)
 
 
-def bwd_inputs(gen, b, h, nq, nk, d):
-    """q, k, v, dO and the forward kernel's output and lse, and delta."""
+def bwd_inputs(gen, b, h, nq, nk, d, dtype="bfloat16"):
+    """q, k, v, dO in ``dtype`` and the forward kernel's output and lse,
+    and delta."""
     import torch
     from fgdm_tpu_torch.kernels import attention
 
+    dt = getattr(torch, dtype)
     q, do = (torch.randn(b, h, nq, d, device="cuda", generator=gen,
-                         dtype=torch.bfloat16) for _ in range(2))
+                         dtype=dt) for _ in range(2))
     k, v = (torch.randn(b, h, nk, d, device="cuda", generator=gen,
-                        dtype=torch.bfloat16) for _ in range(2))
+                        dtype=dt) for _ in range(2))
     scale = d ** -0.5
     o, lse = attention.flash_attention(q, k, v, scale, return_lse=True)
     delta = (do.float() * o.float()).sum(dim=-1)
     return q, k, v, do, o, lse, delta, scale
 
 
-def bwd_errors(got, refs):
+def bwd_errors(got, refs, tol=BWD_TOL):
     """{name: (max|d|, limit)} of (dq, dk, dv) or a part of it, keyed
-    by the gradient's name."""
+    by the gradient's name; the limit ``tol[0] * max|ref| + tol[1]``."""
     out = {}
     for name, g, ref in zip("qkv", got, refs):
         if g is None:
             continue
         err = (g.float() - ref.float()).abs().max().item()
-        out[name] = (err, BWD_TOL[0] * ref.float().abs().max().item()
-                     + BWD_TOL[1])
+        out[name] = (err, tol[0] * ref.float().abs().max().item() + tol[1])
     return out
 
 
 def bwd_rows(gen):
-    """K5 and K6 at ``BWD_CASES``."""
+    """K5 and K6 at ``BWD_CASES`` (bf16) and ``BWD_F32_CASES``."""
     rows = []
     for case in BWD_CASES:
         rows += bwd_row(gen, *case)
+    for case in BWD_F32_CASES:
+        rows += bwd_row(gen, *case, dtype="float32")
     return rows
 
 
-def bwd_row(gen, suffix, b, h, nq, nk, d, path):
+def bwd_row(gen, suffix, b, h, nq, nk, d, path, dtype="bfloat16"):
     """K5 (dQ) and K6 (dK/dV) against ``attention_bwd_ref`` on the same
-    bf16 inputs and the forward kernel's output and lse, each rerun bit for
-    bit.  The plain version of each is the whole plain backward (the
-    wrappers' CPU route); the library yardstick is SDPA's backward alone,
-    by its kernels' summed device time (``profiled_ms``)."""
+    inputs in ``dtype`` and the forward kernel's output and lse, each rerun
+    bit for bit.  The plain version of each is the whole plain backward (the
+    wrappers' CPU route); the library yardstick is SDPA's backward alone in
+    the same dtype (TF32 off), by its kernels' summed device time
+    (``profiled_ms``).  A float32 row is held within ``ATTN_F32_TOL`` and
+    bounded by the f32 rate at 4 bytes an element."""
     import torch
     import torch.nn.functional as F
     from fgdm_tpu_torch.kernels import attention
 
+    f32 = dtype == "float32"
     rows = []
-    q, k, v, do, o, lse, delta, scale = bwd_inputs(gen, b, h, nq, nk, d)
+    q, k, v, do, o, lse, delta, scale = bwd_inputs(gen, b, h, nq, nk, d,
+                                                   dtype)
     dq = attention.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
     dk, dv = attention.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                scale)
     again = attention.flash_attention_backward(q, k, v, o, lse, do, scale)
     refs = attention.attention_bwd_ref(q, k, v, o, lse, do, scale)
-    errs = bwd_errors((dq, dk, dv), refs)
+    errs = bwd_errors((dq, dk, dv), refs, ATTN_F32_TOL if f32 else BWD_TOL)
     oks = {c: math.isfinite(errs[c][0]) and errs[c][0] <= errs[c][1]
-           and torch.equal(got, rep)
+           and torch.equal(got, rep) and got.dtype == q.dtype
            for c, got, rep in zip("qkv", (dq, dk, dv), again)}
     reps = 10 if nq >= 4096 else 30
-    plans = attention.flash_bwd_plan(b * h, nq, nk, d)
+    if f32:
+        plans = attention.flash_bwd_f32_plan(b * h, nq, nk, d)
+        tiles = [f"{p.rows} rows x {p.bt} streamed" for p in plans]
+    else:
+        plans = attention.flash_bwd_plan(b * h, nq, nk, d)
+        tiles = [f"{p.bt} x {p.stages} stages x {p.wgs} warpgroup(s)"
+                 for p in plans]
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
     lib_ms = profiled_ms(lambda: torch.autograd.grad(
@@ -873,35 +902,37 @@ def bwd_row(gen, suffix, b, h, nq, nk, d, path):
     plain_ms = cuda_ms(lambda: attention.attention_bwd_ref(
         q, k, v, o, lse, do, scale), reps)
     bh, ops = b * h, 1.0 * b * h * nq * nk * d
-    for kern, tpu, plan, names, flops, nbytes, run in (
-            ("flash_attn_bwd_dq", K5, plans[0], "q", 6.0 * ops,
-             2.0 * d * bh * (3 * nq + 2 * nk) + 8.0 * bh * nq,
+    esize = q.element_size()
+    for kern, tpu, plan, tile, names, flops, nbytes, run in (
+            ("flash_attn_bwd_dq", K5, plans[0], tiles[0], "q", 6.0 * ops,
+             esize * d * bh * (3.0 * nq + 2 * nk) + 8.0 * bh * nq,
              lambda: attention.flash_attention_bwd_dq(
                  q, k, v, do, lse, delta, scale)),
-            ("flash_attn_bwd_dkv", K6, plans[1], "kv", 8.0 * ops,
-             2.0 * d * bh * (2 * nq + 4 * nk) + 8.0 * bh * nq,
+            ("flash_attn_bwd_dkv", K6, plans[1], tiles[1], "kv", 8.0 * ops,
+             esize * d * bh * (2.0 * nq + 4 * nk) + 8.0 * bh * nq,
              lambda: attention.flash_attention_bwd_dkv(
                  q, k, v, do, lse, delta, scale))):
         # each recomputes P: one exp per score
-        bound_ms, bound_by, term = bound(flops, nbytes, PEAK_BF16_FLOPS,
-                                         exps=1.0 * b * h * nq * nk)
+        bound_ms, bound_by, term = bound(
+            flops, nbytes, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS,
+            exps=1.0 * b * h * nq * nk)
         ms = graph_ms(run, reps)
         eager_ms = cuda_ms(run, reps)
         err = max(errs[c][0] for c in names)
         ok = all(oks[c] for c in names)
+        label = f"{kern}{' f32' if f32 else ''} {suffix}"
         rows.append(dict(
-            name=f"{kern} {suffix}", route="cuda", source=BWD_SRC,
-            replaces=tpu, dtype="bfloat16", key=(kern, b, h, nq, nk, d),
+            name=label, route="cuda", source=BWD_F32_SRC if f32 else BWD_SRC,
+            replaces=tpu, dtype=dtype, key=(kern, b, h, nq, nk, d, dtype),
             path=path,
             max_abs_err=err, ok=ok, ms=ms, eager_ms=eager_ms, copy_ms=0.0,
             plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, bound_term=term, library_ms=lib_ms))
-        log(f"{kern} {suffix}: "
+        log(f"{label}: "
             + " ".join(f"d{c} max|d|={errs[c][0]:.3e} (tol "
                        f"{errs[c][1]:.3e})" for c in names)
             + f", rerun bit-identical {all(oks[c] for c in names)}, tile "
-            f"{plan.bt} x {plan.stages} stages x {plan.wgs} warpgroup(s)"
-            f", {plan.grid[0] * plan.grid[1]} blocks "
+            f"{tile}, {plan.grid[0] * plan.grid[1]} blocks "
             f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms (eager "
             f"{eager_ms:.4f})"
             f"  plain backward {plain_ms:.4f} ms  sdpa backward "
@@ -1039,22 +1070,25 @@ def attn_path_rows(gen, by_path):
 
 
 def bwd_path_rows(gen, by_path):
-    """K5 and K6 at every (B, H, Nq, Nk, d) a path launched that
-    ``BWD_CASES`` does not hold (the distillation step's split batch), each
-    under the first path that launched it."""
+    """K5 and K6 at every (B, H, Nq, Nk, d, dtype) a path launched that
+    ``BWD_CASES`` and ``BWD_F32_CASES`` do not hold (the distillation
+    steps' split batches), each under the first path that launched it."""
     import torch
 
-    done = {(b, h, nq, nk, d) for _, b, h, nq, nk, d, path in BWD_CASES
-            if path}
+    done = {(b, h, nq, nk, d, "bfloat16")
+            for _, b, h, nq, nk, d, path in BWD_CASES if path}
+    done |= {(b, h, nq, nk, d, "float32")
+             for _, b, h, nq, nk, d, path in BWD_F32_CASES if path}
     rows = []
     for path, counts in by_path.items():
         keys = set(counts["flash_attn_bwd_dq"]) | set(
             counts["flash_attn_bwd_dkv"])
-        for b, h, nq, nk, d in sorted(keys - done):
-            done.add((b, h, nq, nk, d))
+        for b, h, nq, nk, d, dt in sorted(keys - done):
+            done.add((b, h, nq, nk, d, dt))
             rows += bwd_row(gen, f"d{d} N{nq}" + (f" Nk{nk}" if nk != nq
                                                   else "")
-                            + f" [{b},{h}] {path}", b, h, nq, nk, d, path)
+                            + f" [{b},{h}] {path}", b, h, nq, nk, d, path,
+                            dt)
             torch.cuda.empty_cache()
     return rows
 
@@ -2305,6 +2339,188 @@ def phase_distill(tr):
     return ok and cmp_ok, counts
 
 
+def _dtypes_launched(counts, gn_dtypes):
+    """{kernel: {dtype name: launches}} of a counted run: the dtype is the
+    last field of every launch key but K4's, whose dtypes ``gn_dtypes``
+    holds."""
+    out = {"gn": dict(gn_dtypes)}
+    for kind, c in counts.items():
+        if kind == "gn":
+            continue
+        by = out.setdefault(kind, {})
+        for key, n in c.items():
+            by[key[-1]] = by.get(key[-1], 0) + n
+    return out
+
+
+@contextlib.contextmanager
+def gn_dtype_tally(tally):
+    """Tallies the dtype of each K4 launch into ``tally`` (K4's launch key
+    holds no dtype): wraps ``groupnorm._launch``, which launches once a
+    call."""
+    from fgdm_tpu_torch.kernels import attention, groupnorm
+
+    real = groupnorm._launch
+
+    def launch(x, *a, **kw):
+        tally[attention.dtype_name(x.dtype)] += 1
+        return real(x, *a, **kw)
+
+    groupnorm._launch = launch
+    try:
+        yield
+    finally:
+        groupnorm._launch = real
+
+
+def phase_train_f32():
+    """Float32 training: ``build_trainer(dtype=torch.float32)``, the
+    adapter-only step at full width with every model in float32 (batch 8,
+    256^2, AdamW, EMA).  The cold step with every launch count set to 0
+    just before is the path's counted run, then ``WARM_STEPS`` warm steps;
+    then one float32 distillation step, counted too (K1-f32 with lse
+    through ``attention_with_scores``, K5-f32 and K6-f32).  Checks losses,
+    grad norms, the adapter moved, the frozen weights bit-identical, the
+    EMA count; K1-f32 with lse, K4, K5-f32 and K6-f32 launched, every
+    launch float32.  Before the steps, at the trainer as built, one loss and
+    its adapter gradients kernels on vs plain within ``LOSS_TOL`` and
+    ``UNET_F32_TOL``; beside them, as a yardstick of how far float32
+    rounding alone moves these gradients, the plain path with the scale
+    folded into q before Q K^T (printed, not held); both again after the
+    steps, printed only: there the two plain orderings differ by more than
+    ``UNET_F32_TOL`` of max.  Profiles one warm step."""
+    import collections
+    import torch
+    from fgdm_tpu_torch.builders import build_trainer
+    from fgdm_tpu_torch.kernels import attention
+
+    t0 = time.perf_counter()
+    tr = build_trainer(device="cuda", seed=0, batch=TRAIN_BATCH,
+                       use_ema=True, dtype=torch.float32)
+    ld, state, batch = tr.ld, tr.state, tr.batch
+    torch.cuda.synchronize()
+    log(f"train_f32: built the float32 trainer in "
+        f"{time.perf_counter() - t0:.1f}s, batch "
+        f"{tuple(batch['image'].shape)}")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b = batch["image"].shape[0]
+    draws = (torch.randint(0, 1000, (b,), device="cuda", generator=gen),
+             torch.randn(b, 4, 32, 32, device="cuda", generator=gen),
+             torch.randn(b, 4, 32, 32, device="cuda", generator=gen))
+
+    def scale_first(q, k, v, scale, return_lse=False):
+        sim = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+        out = torch.matmul(torch.softmax(sim, dim=-1).to(v.dtype), v)
+        return (out, torch.logsumexp(sim, dim=-1)) if return_lse else out
+
+    def on_vs_plain():
+        """(loss rel, adapter grads max|d|/max|ref| kernels on vs plain,
+        the same of the plain path with the scale folded into q)."""
+        parts_on, g_on = adapter_grads(ld, state, batch, draws)
+        with plain_path():
+            parts_off, g_off = adapter_grads(ld, state, batch, draws)
+            ref = attention.attention_ref
+            attention.attention_ref = scale_first
+            try:
+                _, g_alt = adapter_grads(ld, state, batch, draws)
+            finally:
+                attention.attention_ref = ref
+        scale = max(g.abs().max().item() for g in g_off.values())
+        return (abs(parts_on["loss"] - parts_off["loss"])
+                / abs(parts_off["loss"]),
+                *(max((g[k] - g_off[k]).abs().max().item() for k in g)
+                  / scale if scale > 0 else math.inf
+                  for g in (g_on, g_alt)))
+
+    # kernels on vs plain, one loss and its adapter gradients
+    loss_rel, g_err, alt_err = on_vs_plain()
+    cmp_ok = (math.isfinite(loss_rel) and loss_rel <= LOSS_TOL
+              and g_err <= UNET_F32_TOL)
+    log(f"train_f32 kernels on vs plain (the trainer as built): loss rel "
+        f"{loss_rel:.3e} (tol {LOSS_TOL}); adapter grads max|d|/max|ref| = "
+        f"{g_err:.3e} (tol {UNET_F32_TOL}); {'OK' if cmp_ok else 'FAIL'}; "
+        f"the plain path with the scale folded into q vs plain: "
+        f"{alt_err:.3e} (f32 rounding alone)")
+
+    adapter0 = {k: p.detach().clone() for k, p in state.params.items()}
+    frozen0 = frozen_checksum(state)
+    metrics = []
+    gn_dtypes = collections.Counter()
+
+    def step(fn=tr.train_step):
+        nonlocal state
+        state, m = fn(state, batch, gen)
+        metrics.append(m)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with gn_dtype_tally(gn_dtypes):
+        step()
+        torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    counts = read_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(WARM_STEPS):
+        step()
+    torch.cuda.synchronize()
+    warm = (time.perf_counter() - t0) / WARM_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    ema_ok = state.ema.num_updates == state.step == 1 + WARM_STEPS
+    reset_counts()
+    t0 = time.perf_counter()
+    with gn_dtype_tally(gn_dtypes):
+        step(tr.distill_step)
+        torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    distill_counts = read_counts()
+    counts = merge_counts(counts, distill_counts)
+    losses = [m["loss"].item() for m in metrics]
+    norms = [m["grad_norm"].item() for m in metrics]
+    distill = metrics[-1]["loss_distill"].item()
+    moved = max((p - adapter0[k]).abs().max().item()
+                for k, p in state.params.items())
+    frozen_same = torch.equal(frozen_checksum(state), frozen0)
+    by_dtype = _dtypes_launched(counts, gn_dtypes)
+    lse = {k[6] for k in counts["attn"] if k[5]}
+    n = {k: sum(c.values()) for k, c in counts.items()}
+    launched = (lse == {"float32"} and n["gn"] > 0
+                and n["flash_attn_bwd_dq"] > 0 and n["flash_attn_bwd_dkv"] > 0
+                and sum(distill_counts["flash_attn_bwd_dq"].values()) > 0
+                and all(set(c) <= {"float32"} for c in by_dtype.values()))
+    ok = (all(math.isfinite(x) for x in losses)
+          and all(math.isfinite(x) and x > 0 for x in norms)
+          and math.isfinite(distill) and distill > 0
+          and moved > 0 and frozen_same and ema_ok and launched)
+    log(f"train_f32: {len(losses)} steps (the last a distillation step), "
+        f"losses {[round(x, 5) for x in losses]}, grad norms "
+        f"{[round(x, 5) for x in norms]}, loss_distill {distill:.6f}; "
+        f"adapter max|moved|={moved:.3e}; frozen bit-identical "
+        f"{frozen_same}; EMA updates {state.ema.num_updates} of "
+        f"{1 + WARM_STEPS} before the distill step {ema_ok}; launches by "
+        f"kernel and dtype {json.dumps(by_dtype, sort_keys=True)}; "
+        f"{'OK' if ok else 'FAIL'}")
+    log(f"train_f32: cold step {1e3 * cold:.1f} ms (kernel compiles "
+        f"included); warm {1e3 * warm:.1f} ms/step over {WARM_STEPS} steps "
+        f"(host clock), {TRAIN_BATCH / warm:.2f} images/s at batch "
+        f"{TRAIN_BATCH}; peak memory {peak_gib:.2f} GiB; one distill step "
+        f"{1e3 * distill_s:.1f} ms (its shapes' first launches included)")
+    log_counts("train_f32", counts)
+    after = on_vs_plain()
+    log(f"train_f32 after the {len(metrics)} steps (printed, not held): "
+        f"loss rel {after[0]:.3e}; adapter grads max|d|/max|ref| kernels on "
+        f"vs plain {after[1]:.3e}, the plain path with the scale folded "
+        f"into q vs plain {after[2]:.3e}")
+
+    def run():
+        step()
+        torch.cuda.synchronize()
+
+    profile("train_f32", run, warm)
+    del tr, ld, state, batch
+    return ok and cmp_ok, counts
+
+
 COND_KINDS = ("depth", "normal", "sketch", "sketch_hed")
 COND_TOL = 1e-4   # max| |n| - 1 | of a normal target's rows
 
@@ -3526,7 +3742,8 @@ def phase_control(root, tree):
                 and maxima[0]["interior"] == 0
                 and maxima[1]["interior"] > 0)
     n, lse, kinds = _launched(counts)
-    bwd = [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80)]
+    bwd = [(2, 8, 4096, 4096, 40, "bfloat16"),
+           (2, 8, 1024, 1024, 80, "bfloat16")]
     launched = (lse and K3 in kinds and n["gn"] > 0 and all(
         counts[k].get(key, 0) > 0 for key in bwd
         for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")))
@@ -5059,6 +5276,10 @@ def main():
     del tr
     gc.collect()
     torch.cuda.empty_cache()
+    t_f32 = time.perf_counter()
+    train_f32_ok, train_f32 = phase_train_f32()
+    gc.collect()
+    torch.cuda.empty_cache()
     t2 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip_smoke_train_", dir="build")
     try:
@@ -5073,7 +5294,8 @@ def main():
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
     log(f"training phase {t1 - t0:.1f}s, distillation phase "
-        f"{t_cond - t1:.1f}s, condition phase {t2 - t_cond:.1f}s, training "
+        f"{t_cond - t1:.1f}s, condition phase {t_f32 - t_cond:.1f}s, "
+        f"train_f32 phase {t2 - t_f32:.1f}s, training "
         f"CLI phase {t_cond_cli - t2:.1f}s, condition CLI phase "
         f"{t3 - t_cond_cli:.1f}s")
     root = tempfile.mkdtemp(prefix="chip_smoke_recipes_", dir="build")
@@ -5113,6 +5335,7 @@ def main():
         f"{t9 - t8:.1f}s, winograd phase {time.perf_counter() - t9:.1f}s")
     by_path = {"chain": chain, "train": train, "serve": serve, "cli": cli,
                "precision_full": precision_full, "seg2image": seg, "guided": guided, "distill": distill,
+               "train_f32": train_f32,
                "chain_n": chain_n, "ptp": ptp, "img2img": img2img,
                "ancestral": ancestral, "tiled": tiled,
                "train_cli": train_cli, "control": control, "joint": joint,
@@ -5169,6 +5392,15 @@ def main():
             failures.append(f"{kind} not launched by the distillation step")
     if not any(k[5] for k in distill["attn"]):
         failures.append("K1 with lse not launched by the distillation step")
+    for kind in ("attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "gn"):
+        if sum(train_f32[kind].values()) == 0:
+            failures.append(f"{kind} not launched by the float32 training "
+                            "step")
+    if not any(k[5] and k[6] == "float32" for k in train_f32["attn"]):
+        failures.append("K1-f32 with lse not launched by the float32 "
+                        "training step")
+    if not train_f32_ok:
+        failures.append("float32 training step (train_f32)")
     for kind in ("attn", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "gn"):
         if sum(train_cli[kind].values()) == 0:
             failures.append(f"{kind} not launched by the training CLI")

@@ -130,17 +130,21 @@ class Trainer:
 
 
 def build_trainer(device=None, seed: int = 0, batch: int = 8,
-                  lr: float = 1e-5, use_ema: bool = False) -> Trainer:
+                  lr: float = 1e-5, use_ema: bool = False,
+                  dtype=torch.bfloat16) -> Trainer:
     """The adapter-only fine-tuning step of ``tools/bench_train.py`` at SD-1.4
-    width: UNet with adapter (fused norms, bf16 compute over f32 params, no
-    activation checkpointing), VAE (fused norms) and CLIP in bf16, the
-    linear 0.00085-0.012 schedule, AdamW(``lr``) on the adapter partition.
-    The batch holds ``batch`` seeded 256^2 images in [-1, 1] and the
-    hash-fallback tokens of ``PROMPTS``.  The distillation step and its
-    cadence are the reference config's (``apply_distill_loss``,
-    ``distill_every_n_step``, ``models/config.yaml:24-25``)."""
+    width: UNet with adapter (fused norms, ``dtype`` compute over f32
+    params, no activation checkpointing), VAE (fused norms) and CLIP in
+    ``dtype``, the linear 0.00085-0.012 schedule, AdamW(``lr``) on the
+    adapter partition.  bf16 by default, as ``tools/bench_train.py``;
+    ``torch.float32`` builds every model in float32, as JAX's
+    ``build_latent_diffusion(dtype=jnp.float32)`` does (float32 training:
+    the float32 flash forward and backward kernels).  The batch holds
+    ``batch`` seeded 256^2 images in [-1, 1] and the hash-fallback tokens of
+    ``PROMPTS``.  The distillation step and its cadence are the reference
+    config's (``apply_distill_loss``, ``distill_every_n_step``,
+    ``models/config.yaml:24-25``)."""
     dev = resolve_device(device)
-    dtype = torch.bfloat16
     unet = build_unet(dev, dtype, True, True, seed)
     vae = seeded_init_(sd_vae(dtype, dev), seed + 3).requires_grad_(False)
     clip = seeded_init_(sd_clip(dtype, dev), seed + 4).requires_grad_(False)

@@ -41,13 +41,13 @@ partial results (``flash_combine``, into bf16 or float32).  The forwards
 optionally write the logsumexp of the scaled scores, the residual of the
 backward.
 
-Backward (``csrc/flash_attn_bwd.cu``, ``wgmma``, TMA): the dQ kernel (K5)
-and the dK/dV kernel (K6) replace ``_flash_bwd_dq_kernel_t`` and
-``_flash_bwd_dkv_kernel_t`` in bf16 at the head dims in ``BWD_HEAD_DIMS``
-(no entry point trains attention in float32; a float32 backward through
-the kernels raises), at the
-tiles ``flash_bwd_plan`` picks (``_flash_k5``, ``_flash_k6``); they read
-K, Q and dO in place, with no transposed copy.  ``FlashAttention`` (the
+Backward: the dQ kernel (K5) and the dK/dV kernel (K6) replace
+``_flash_bwd_dq_kernel_t`` and ``_flash_bwd_dkv_kernel_t`` at the head dims
+in ``BWD_HEAD_DIMS``: in bf16 ``csrc/flash_attn_bwd.cu`` (``wgmma``, TMA) at
+the tiles ``flash_bwd_plan`` picks (``_flash_k5``, ``_flash_k6``), in
+float32 ``csrc/flash_attn_bwd_f32.cu`` (FFMA) at the tiles
+``flash_bwd_f32_plan`` gives (float32 training); both read K, Q and dO in
+place, with no transposed copy.  ``FlashAttention`` (the
 counterpart of the ``custom_vjp`` ``_flash_op``, ``attention.py:634-657``)
 saves the forward's lse and launches both backward kernels where
 ``_FLASH_BWD and _use_flash_bwd(d)`` holds, as ``_flash_op_fwd`` does; else
@@ -76,6 +76,7 @@ __all__ = ["attention_ref", "attention_bwd_ref", "attention_split_ref",
            "combine_ref", "kv_splits", "K1Plan", "k1_tile", "flash_fwd_plan",
            "F32Plan", "f32_tile", "flash_f32_plan",
            "BwdPlan", "bwd_tile", "flash_bwd_plan",
+           "BwdF32Plan", "bwd_f32_tile", "flash_bwd_f32_plan",
            "flash_combine", "flash_attention",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_backward", "FlashAttention", "flash_gate",
@@ -111,6 +112,10 @@ _BWD_TILES = {"dq": (64, 128), "dkv": (64,)}
 # The float32 forward (flash_attn_fwd_f32.cu): (query rows, keys) a block at
 # each head dim it instantiates.
 _F32_TILES = {40: (64, 64), 80: (64, 64), 512: (16, 32)}
+# The float32 backward (flash_attn_bwd_f32.cu): (query rows, keys) a tile at
+# each head dim it instantiates; K5's block owns the query rows and streams
+# the keys, K6's owns the keys and streams the query rows.
+_BWD_F32_TILES = {40: (64, 64), 80: (64, 64)}
 
 
 def attention_ref(q, k, v, scale, return_lse: bool = False):
@@ -307,6 +312,47 @@ def flash_bwd_plan(bh: int, nq: int, nk: int, d: int,
     return tuple(plans)
 
 
+BwdF32Plan = collections.namedtuple("BwdF32Plan",
+                                    "kernel rows bt grid smem")
+BwdF32Plan.__doc__ = """A float32 backward kernel's tile: ``kernel`` "dq"
+(K5) or "dkv" (K6), ``rows`` query rows (K5) or key rows (K6) a block,
+``bt`` keys (K5) or queries (K6) a streamed tile; ``grid`` (row tiles,
+B*H) and the block's shared memory in bytes."""
+
+
+def bwd_f32_tile(kernel: str, bh: int, nq: int, nk: int,
+                 d: int) -> BwdF32Plan:
+    """The float32 tile of K5 (``kernel="dq"``) or K6 (``"dkv"``) for
+    ``[bh, nq, d]`` queries against ``nk`` keys; raises ValueError on what
+    the kernels do not take (the checks of ``flash_attn_bwd_f32.cu``'s
+    launches): another kernel or head dim, or Nk not a multiple of the key
+    tile."""
+    if kernel not in _BWD_TILES or d not in _BWD_F32_TILES:
+        raise ValueError(f"flash_attention_bwd: no float32 tile for kernel "
+                         f"{kernel!r} at d={d} (have "
+                         f"{tuple(_BWD_F32_TILES)})")
+    bq, bk = _BWD_F32_TILES[d]
+    if nk % bk:
+        raise ValueError(f"flash_attention_bwd_{kernel}: no float32 tile at "
+                         f"d={d}, nk={nk} (keys a tile {bk})")
+    if kernel == "dq":
+        smem = 4 * (2 * bq * (d + 4) + 4 * bk * (d + 4) + bq * (bk + 4)
+                    + 2 * bq)
+        return BwdF32Plan(kernel, bq, bk, (-(-nq // bq), bh), smem)
+    smem = 4 * (2 * bk * (d + 4) + 4 * bq * (d + 4) + 2 * bk * (bq + 4)
+                + 4 * bq)
+    return BwdF32Plan(kernel, bk, bq, (nk // bk, bh), smem)
+
+
+def flash_bwd_f32_plan(bh: int, nq: int, nk: int, d: int) -> tuple:
+    """The float32 tiles ``(dq, dkv)`` of K5 and K6 for ``[bh, nq, d]``
+    queries against ``nk`` keys: one tile a head dim (64 query rows and 64
+    keys), so at the training step's [8, 8, 1024, 40] each kernel has 1,024
+    blocks.  Raises where ``bwd_f32_tile`` does; never falls back."""
+    return (bwd_f32_tile("dq", bh, nq, nk, d),
+            bwd_f32_tile("dkv", bh, nq, nk, d))
+
+
 def attention_split_ref(q, k, v, scale, splits: int):
     """Plain version of the split-KV forward: the keys in ``splits`` slices
     of whole 32-key tiles (the kernel's slices); per slice the unnormalised
@@ -397,6 +443,19 @@ def _bwd_lib() -> ctypes.CDLL:
         _typed(lib, "fgdm_flash_attn_bwd_dkv", 8, 7)
         lib.fgdm_flash_attn_bwd_block_n.argtypes = [ctypes.c_int]
         lib.fgdm_flash_attn_bwd_block_n.restype = ctypes.c_int
+        lib.fgdm_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.fgdm_cuda_error_string.restype = ctypes.c_char_p
+        lib._fgdm_typed = True
+    return lib
+
+
+def _bwd_f32_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attn_bwd_f32")
+    if not getattr(lib, "_fgdm_typed", False):
+        _typed(lib, "fgdm_flash_attn_bwd_f32_dq", 7, 5)
+        _typed(lib, "fgdm_flash_attn_bwd_f32_dkv", 8, 5)
+        lib.fgdm_flash_attn_bwd_f32_block_n.argtypes = [ctypes.c_int]
+        lib.fgdm_flash_attn_bwd_f32_block_n.restype = ctypes.c_int
         lib.fgdm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.fgdm_cuda_error_string.restype = ctypes.c_char_p
         lib._fgdm_typed = True
@@ -635,14 +694,20 @@ flash_attention.launches = collections.Counter()
 
 
 def _bwd_args(fn, q, k, v, do, lse, delta):
-    # K5 and K6 are bf16 only (the float32 instances are not ported)
-    b, h, nq, nk, d = _check(fn, q, k, {"q": q, "k": k, "v": v, "do": do},
-                             dtypes=(torch.bfloat16,))
+    """The backward wrappers' checks: q/k/v/dO of one dtype, bf16 or
+    float32 (the forward's ``_check``), and the f32 row statistics.
+    Returns the dtype's library and ``(b * h, nq, nk, d)``."""
+    b, h, nq, nk, d = _check(fn, q, k, {"q": q, "k": k, "v": v, "do": do})
     if do.shape != q.shape:
         raise ValueError(f"{fn}: do {tuple(do.shape)} vs q {tuple(q.shape)}")
     _check_rows(fn, q, {"lse": lse, "delta": delta})
-    lib = _bwd_lib()
-    _block_n(fn, lib.fgdm_flash_attn_bwd_block_n(d), d, nk, BWD_HEAD_DIMS)
+    if q.dtype == torch.float32:
+        lib = _bwd_f32_lib()
+        block_n = lib.fgdm_flash_attn_bwd_f32_block_n(d)
+    else:
+        lib = _bwd_lib()
+        block_n = lib.fgdm_flash_attn_bwd_block_n(d)
+    _block_n(fn, block_n, d, nk, BWD_HEAD_DIMS)
     return lib, (b * h, nq, nk, d)
 
 
@@ -679,19 +744,55 @@ def _flash_k6(q, k, v, do, lse, delta, scale, plan: BwdPlan):
     return dk, dv
 
 
+def _flash_k5_f32(q, k, v, do, lse, delta, scale, plan: BwdF32Plan):
+    """K5 in float32 at the tile ``plan`` on checked inputs."""
+    b, h, nq, d = q.shape
+    dq = torch.empty_like(q)
+    lib = _bwd_f32_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.fgdm_flash_attn_bwd_f32_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, nq,
+            k.shape[2], d, plan.smem, float(scale), stream)
+    _raise_on(lib, "flash_attention_bwd_dq", rc)
+    return dq
+
+
+def _flash_k6_f32(q, k, v, do, lse, delta, scale, plan: BwdF32Plan):
+    """K6 in float32 at the tile ``plan`` on checked inputs."""
+    b, h, nq, d = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _bwd_f32_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = lib.fgdm_flash_attn_bwd_f32_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b * h, nq, k.shape[2], d, plan.smem, float(scale), stream)
+    _raise_on(lib, "flash_attention_bwd_dkv", rc)
+    return dk, dv
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
-    """dQ of flash attention (K5) from the forward's lse and
-    ``delta = rowsum(dO * O)``, both f32 ``[B, H, Nq]``.  A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises.  Counts
-    launches in ``flash_attention_bwd_dq.launches`` keyed by
-    ``(b, h, nq, nk, d)``."""
+    """dQ of flash attention (K5) in bf16 or float32 from the forward's lse
+    and ``delta = rowsum(dO * O)``, both f32 ``[B, H, Nq]``.  A CPU tensor
+    takes the plain version; a CUDA tensor launches the dtype's kernel or
+    raises.  Counts launches in ``flash_attention_bwd_dq.launches`` keyed by
+    ``(b, h, nq, nk, d, dtype name)``."""
     if q.device.type == "cpu":
         return _bwd_ref(q, k, v, do, lse, delta, scale)[0]
     _, (bh, nq, nk, d) = _bwd_args("flash_attention_bwd_dq", q, k, v, do,
                                    lse, delta)
-    dq = _flash_k5(q, k, v, do, lse, delta, scale,
-                   flash_bwd_plan(bh, nq, nk, d)[0])
-    flash_attention_bwd_dq.launches[(*q.shape[:2], nq, nk, d)] += 1
+    if q.dtype == torch.float32:
+        dq = _flash_k5_f32(q, k, v, do, lse, delta, scale,
+                           flash_bwd_f32_plan(bh, nq, nk, d)[0])
+    else:
+        dq = _flash_k5(q, k, v, do, lse, delta, scale,
+                       flash_bwd_plan(bh, nq, nk, d)[0])
+    flash_attention_bwd_dq.launches[(*q.shape[:2], nq, nk, d,
+                                     dtype_name(q.dtype))] += 1
     return dq
 
 
@@ -699,17 +800,23 @@ flash_attention_bwd_dq.launches = collections.Counter()
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
-    """``(dK, dV)`` of flash attention (K6); the arguments of
-    ``flash_attention_bwd_dq``.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises.  Counts launches in
-    ``flash_attention_bwd_dkv.launches`` keyed by ``(b, h, nq, nk, d)``."""
+    """``(dK, dV)`` of flash attention (K6) in bf16 or float32; the
+    arguments of ``flash_attention_bwd_dq``.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the dtype's kernel or raises.  Counts
+    launches in ``flash_attention_bwd_dkv.launches`` keyed by
+    ``(b, h, nq, nk, d, dtype name)``."""
     if q.device.type == "cpu":
         return _bwd_ref(q, k, v, do, lse, delta, scale)[1:]
     _, (bh, nq, nk, d) = _bwd_args("flash_attention_bwd_dkv", q, k, v, do,
                                    lse, delta)
-    dk, dv = _flash_k6(q, k, v, do, lse, delta, scale,
-                       flash_bwd_plan(bh, nq, nk, d)[1])
-    flash_attention_bwd_dkv.launches[(*q.shape[:2], nq, nk, d)] += 1
+    if q.dtype == torch.float32:
+        dk, dv = _flash_k6_f32(q, k, v, do, lse, delta, scale,
+                               flash_bwd_f32_plan(bh, nq, nk, d)[1])
+    else:
+        dk, dv = _flash_k6(q, k, v, do, lse, delta, scale,
+                           flash_bwd_plan(bh, nq, nk, d)[1])
+    flash_attention_bwd_dkv.launches[(*q.shape[:2], nq, nk, d,
+                                      dtype_name(q.dtype))] += 1
     return dk, dv
 
 
@@ -737,8 +844,9 @@ class FlashAttention(torch.autograd.Function):
     backward runs ``flash_attention_backward``, as ``_flash_op_fwd`` does;
     else (the VAE's 512, or a switch off) the backward recomputes
     ``attention_ref`` under autograd.  On the CPU both directions are the
-    plain versions.  The backward kernels take bf16 only: a float32 input
-    with lse kept raises in the backward (the forward runs)."""
+    plain versions.  The backward kernels take bf16 and float32 (K5/K6 and
+    their float32 instances), as the forward does; another dtype raises in
+    the forward already."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):

@@ -2,8 +2,9 @@
 the JAX package, plus the port's own contracts.
 
 The tiny chain uses the geometries of ``tests/test_golden_chain.py:38-43``
-with 0.02 N(0, 1)-perturbed weights, float32 on the CPU, and a real resize
-ratio (condition maps at 32^2, the image at 64^2).  Torch cannot reproduce
+with 0.02 N(0, 1)-perturbed weights (the port's seeded init, read into flax
+by the JAX ingest: ``test_torch_train.ingested``), float32 on the CPU, and a
+real resize ratio (condition maps at 32^2, the image at 64^2).  Torch cannot reproduce
 ``jax.random`` bits, so JAX's x_T goes into both samplers (eta 0: DDIM is
 deterministic after x_T).  The uint8 quantize between the factors can flip
 one 1/255 step where the two frameworks' condition maps straddle a rounding
@@ -50,6 +51,7 @@ from fgdm_tpu_torch.models.unet import UNetModel  # noqa: E402
 from fgdm_tpu_torch.sampling import chain as tchain  # noqa: E402
 from fgdm_tpu_torch.sampling import ddim as tddim  # noqa: E402
 from fgdm_tpu_torch.serving import ChainEngine  # noqa: E402
+from test_torch_train import ingested  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -182,12 +184,6 @@ def test_condition_to_hint_keeps_bf16():
 
 # --- the tiny chain --------------------------------------------------------
 
-def _perturbed(params, seed):
-    rng = np.random.default_rng(seed)
-    return jax.tree.map(lambda a: np.asarray(a) + 0.02 * rng.standard_normal(
-        a.shape).astype(np.float32), params)
-
-
 @pytest.fixture(scope="module")
 def tiny():
     """The tiny JAX pipelines and the port's, on the same weights."""
@@ -197,14 +193,15 @@ def tiny():
     cn_unet_def = JUNetModel(**TINY, use_adapter=False, dtype=jnp.float32)
     cn_def = JControlNet(**TINY, dtype=jnp.float32)
     vae_def = JAutoencoderKL(**VAE_TINY, dtype=jnp.float32)
-    unet_p = _perturbed(unet_def.init(jax.random.PRNGKey(0), x, t, ctx), 10)
-    cn_unet_p = _perturbed(cn_unet_def.init(jax.random.PRNGKey(1), x, t,
-                                            ctx), 11)
-    cn_p = _perturbed(cn_def.init(jax.random.PRNGKey(2), x,
-                                  jnp.zeros((1, 64, 64, 3)), t, ctx), 12)
-    vae_p = _perturbed(vae_def.init(jax.random.PRNGKey(3),
-                                    jnp.zeros((1, 64, 64, 3)),
-                                    sample_posterior=False), 13)
+    f32 = dict(dtype=torch.float32, device="cpu")
+    unet_p = ingested("unet", UNetModel(**TINY, **f32), 10, unet_def, x, t,
+                      ctx)
+    cn_unet_p = ingested("unet", UNetModel(**TINY, use_adapter=False, **f32),
+                         11, cn_unet_def, x, t, ctx)
+    cn_p = ingested("cn", ControlNet(**TINY, **f32), 12, cn_def, x,
+                    jnp.zeros((1, 64, 64, 3)), t, ctx)
+    vae_p = ingested("vae", AutoencoderKL(**VAE_TINY, **f32), 13, vae_def,
+                     jnp.zeros((1, 64, 64, 3)), sample_posterior=False)
     sched = sd14_jax_schedule()
     jld = JLatentDiffusion(unet_def=unet_def, vae_def=vae_def, clip_def=None,
                            unet_params=unet_p, vae_params=vae_p,

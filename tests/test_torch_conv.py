@@ -36,6 +36,7 @@ from fgdm_tpu_torch.models.autoencoder import AutoencoderKL  # noqa: E402
 from fgdm_tpu_torch.models.controlnet import ControlNet  # noqa: E402
 from fgdm_tpu_torch.models.unet import UNetModel  # noqa: E402
 from fgdm_tpu_torch.nn import layers as tlayers  # noqa: E402
+from test_torch_train import ingested  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -352,8 +353,20 @@ GATED = dict(model_channels=128, num_heads=4, context_dim=64,
              num_res_blocks=1)
 
 
+@pytest.fixture(scope="module")
+def gated_params():
+    """The conv-gated tiny UNet's flax params (float32 for both compute
+    dtypes): the port's seeded init with 0.02 N(0, 1), read into flax by
+    the JAX ingest (``test_torch_train.ingested``)."""
+    return ingested("unet", UNetModel(**GATED, dtype=torch.float32,
+                                      device="cpu"), 0,
+                    JUNetModel(**GATED, dtype=jnp.float32),
+                    jnp.zeros((1, 16, 16, 4)), jnp.zeros((1,), jnp.int32),
+                    jnp.zeros((1, 77, 64)))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_conv_gated_unet_matches_jax(monkeypatch, dtype):
+def test_conv_gated_unet_matches_jax(monkeypatch, dtype, gated_params):
     """Flags on in both packages (JAX's Pallas conv in interpret mode).  In
     bf16 and in float32 every 3x3 conv at 16^2 with >= 128 channels takes
     the conv3x3 path, as in JAX (K7 has a kernel for each dtype)."""
@@ -365,10 +378,7 @@ def test_conv_gated_unet_matches_jax(monkeypatch, dtype):
     ctx = rng.standard_normal((2, 77, 64)).astype(np.float32)
     t = np.array([981, 3], np.int32)
     jm = JUNetModel(**GATED, dtype=getattr(jnp, dtype))
-    p = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 4)),
-                jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 64)))
-    p = jax.tree.map(lambda a: np.asarray(a) + 0.02 * rng.standard_normal(
-        a.shape).astype(np.float32), p)
+    p = gated_params
     ref = jax.jit(jm.apply)(p, jnp.asarray(x), jnp.asarray(t),
                             jnp.asarray(ctx))
     tm = UNetModel(**GATED, dtype=getattr(torch, dtype), device="cpu")

@@ -1,9 +1,11 @@
 """The port's UNet, ControlNet, VAE and CLIP held against the JAX package.
 
 Tiny geometries of ``tests/test_golden_chain.py:38-43``, float32, on the CPU.
-Flax params (perturbed by 0.02 N(0, 1) so zero-init heads do work) go
-through ``fgdm_tpu_torch.checkpoint.convert`` into the port with
-``strict=True``; inputs come from ``np.random.default_rng``.
+Flax params (the port's seeded init with 0.02 N(0, 1) on every parameter,
+so zero-init heads do work, read into flax by the JAX ingest against
+flax's abstract init: ``test_torch_train.ingested``) go through
+``fgdm_tpu_torch.checkpoint.convert`` into the port with ``strict=True``;
+inputs come from ``np.random.default_rng``.
 
 Tolerance: max |port - jax| <= 1e-4 * max(1, max |jax|) for a whole model
 (float32 on both sides; the sums run in another order).
@@ -31,6 +33,7 @@ from fgdm_tpu_torch.models.clip import CLIPTextEncoder, CLIPTokenizer  # noqa: E
 from fgdm_tpu_torch.models.controlnet import (ControlNet,  # noqa: E402
                                               guess_mode_scales)
 from fgdm_tpu_torch.models.unet import UNetModel  # noqa: E402
+from test_torch_train import ingested  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -41,13 +44,6 @@ VAE_TINY = dict(ch=32, ch_mult=(1, 2, 4, 4), num_res_blocks=1, resolution=64,
                 z_channels=4, embed_dim=4)
 CLIP_TINY = dict(vocab_size=128, embed_dim=64, num_layers=2, num_heads=4)
 TOL = 1e-4
-
-
-def perturbed(params, seed):
-    rng = np.random.default_rng(seed)
-    return jax.tree.map(
-        lambda a: np.asarray(a) + 0.02 * rng.standard_normal(a.shape)
-        .astype(np.float32), params)
 
 
 def nchw(a):
@@ -87,11 +83,10 @@ def inputs():
 
 def _init_unet(use_adapter, seed):
     jm = JUNetModel(**TINY, use_adapter=use_adapter, dtype=jnp.float32)
-    p = jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8, 8, 4)),
-                jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 64)))
-    p = perturbed(p, seed)
     tm = UNetModel(**TINY, use_adapter=use_adapter, dtype=torch.float32,
                    device="cpu")
+    p = ingested("unet", tm, seed, jm, jnp.zeros((1, 8, 8, 4)),
+                 jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 64)))
     tm.load_state_dict(convert.unet_state_dict(p), strict=True)
     return jm, p, tm.eval()
 
@@ -104,11 +99,10 @@ def unets():
 @pytest.fixture(scope="module")
 def controlnet():
     jm = JControlNet(**TINY, dtype=jnp.float32)
-    p = jm.init(jax.random.PRNGKey(3), jnp.zeros((1, 8, 8, 4)),
-                jnp.zeros((1, 64, 64, 3)), jnp.zeros((1,), jnp.int32),
-                jnp.zeros((1, 77, 64)))
-    p = perturbed(p, 3)
     tm = ControlNet(**TINY, dtype=torch.float32, device="cpu")
+    p = ingested("cn", tm, 3, jm, jnp.zeros((1, 8, 8, 4)),
+                 jnp.zeros((1, 64, 64, 3)), jnp.zeros((1,), jnp.int32),
+                 jnp.zeros((1, 77, 64)))
     tm.load_state_dict(convert.controlnet_state_dict(p), strict=True)
     return jm, p, tm.eval()
 
@@ -162,11 +156,10 @@ def test_unet_forward_matches_jax(unets, controlnet, inputs, case):
 def test_unet_fused_norm_matches_jax(inputs):
     """fused_norm_silu=True on both sides (the plain versions on the CPU)."""
     jm = JUNetModel(**TINY, fused_norm_silu=True, dtype=jnp.float32)
-    p = perturbed(jm.init(jax.random.PRNGKey(4), jnp.zeros((1, 8, 8, 4)),
-                          jnp.zeros((1,), jnp.int32),
-                          jnp.zeros((1, 77, 64))), 4)
     tm = UNetModel(**TINY, fused_norm_silu=True, dtype=torch.float32,
                    device="cpu")
+    p = ingested("unet", tm, 4, jm, jnp.zeros((1, 8, 8, 4)),
+                 jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 64)))
     tm.load_state_dict(convert.unet_state_dict(p), strict=True)
     ref = jm.apply(p, jnp.asarray(inputs["x"]), jnp.asarray(inputs["t"]),
                    jnp.asarray(inputs["ctx"]))
@@ -222,11 +215,10 @@ def test_guess_mode_scales_match_jax(strength):
 @pytest.mark.parametrize("fused", [False, True])
 def test_vae_decoder_matches_jax(fused):
     jm = JAutoencoderKL(**VAE_TINY, fused_norm=fused, dtype=jnp.float32)
-    p = jm.init(jax.random.PRNGKey(5), jnp.zeros((1, 64, 64, 3)),
-                sample_posterior=False)
-    p = perturbed(p, 5)
     tm = AutoencoderKL(**VAE_TINY, fused_norm=fused, dtype=torch.float32,
                        device="cpu")
+    p = ingested("vae", tm, 5, jm, jnp.zeros((1, 64, 64, 3)),
+                 sample_posterior=False)
     sd = convert.vae_state_dict(p)
     tm.load_state_dict(sd, strict=True)
     exported = export_vae(p, prefix="")
@@ -249,8 +241,9 @@ def test_vae_decoder_matches_jax(fused):
 @pytest.fixture(scope="module")
 def vae_pair():
     jm = JAutoencoderKL(**VAE_TINY, dtype=jnp.float32)
-    p = perturbed(jm.init(jax.random.PRNGKey(8), jnp.zeros((1, 64, 64, 3)),
-                          sample_posterior=False), 8)
+    p = ingested("vae", AutoencoderKL(**VAE_TINY, dtype=torch.float32,
+                                      device="cpu"), 8, jm,
+                 jnp.zeros((1, 64, 64, 3)), sample_posterior=False)
     return jm, p
 
 
@@ -283,9 +276,8 @@ def test_vae_encoder_matches_jax(vae_pair, fused):
 @pytest.fixture(scope="module")
 def clip_pair():
     jm = JCLIPTextEncoder(**CLIP_TINY)
-    p = perturbed(jm.init(jax.random.PRNGKey(10),
-                          jnp.zeros((1, 77), jnp.int32)), 10)
     tm = CLIPTextEncoder(**CLIP_TINY, device="cpu")
+    p = ingested("clip", tm, 10, jm, jnp.zeros((1, 77), jnp.int32))
     sd = convert.clip_state_dict(p)
     tm.load_state_dict(sd, strict=True)
     return jm, p, tm, sd

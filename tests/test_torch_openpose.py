@@ -309,24 +309,28 @@ def test_convert_round_trips_jax_ingest_bit_exactly(kind, body, hand):
         assert v.dtype == torch.float32 and torch.equal(v, want[k]), k
 
 
+@pytest.mark.filterwarnings("ignore:.*to a meta parameter:UserWarning")
 def test_load_openpose_refuses_missing_and_unexpected_keys(body, hand,
                                                             tmp_path):
+    """The refusals read key sets alone, so the nets they build sit on the
+    ``meta`` device (52M + 37M parameters a build on the CPU otherwise);
+    the load that succeeds builds them on the CPU."""
     sd = ai.load_torch_state_dict(body["path"])
     torch.save({k: v for k, v in sd.items() if k != "conv1_1.bias"},
                tmp_path / "missing.pth")
     with pytest.raises(ValueError, match="OpenPose ingest from .*1 missing "
                                          ".*model0.conv1_1.bias"):
-        ai.load_openpose(str(tmp_path / "missing.pth"), device="cpu")
+        ai.load_openpose(str(tmp_path / "missing.pth"), device="meta")
     torch.save({**sd, "conv9_9.kernel": torch.zeros(1)},
                tmp_path / "extra.pth")
     with pytest.raises(ValueError, match="1 unexpected .*conv9_9.kernel"):
-        ai.load_openpose(str(tmp_path / "extra.pth"), device="cpu")
+        ai.load_openpose(str(tmp_path / "extra.pth"), device="meta")
     hsd = ai.load_torch_state_dict(hand["path"])
     torch.save({k: v for k, v in hsd.items() if k != "Mconv7_stage6.bias"},
                tmp_path / "hand_missing.pth")
     with pytest.raises(ValueError, match="OpenPose hand ingest from"):
         ai.load_openpose(body["path"], str(tmp_path / "hand_missing.pth"),
-                         device="cpu")
+                         device="meta")
     det = ai.load_openpose(body["path"], hand["path"], device="cpu")
     assert det.hand_estimation is not None
     assert not any(p.requires_grad for p in det.model.parameters())

@@ -1,7 +1,9 @@
 """The port's training path held against the JAX package, on the CPU.
 
 Tiny geometries of ``tests/test_train.py:24-29``, float32.  Flax params
-(perturbed by 0.02 N(0, 1) so zero-init heads pass gradients) go through
+(``ingested``: the port's seeded init with 0.02 N(0, 1) on every parameter,
+so zero-init heads pass gradients, read into flax by the JAX ingest; flax's
+own eager init takes about a minute here) go through
 ``fgdm_tpu_torch.checkpoint.convert`` into the port with ``strict=True``;
 inputs come from ``np.random.default_rng``.  torch cannot reproduce
 ``jax.random``'s bits, so the tests rebuild JAX's timesteps, noise and
@@ -24,6 +26,8 @@ import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 from flax import traverse_util  # noqa: E402
 
+import fgdm_tpu.checkpoint.loader as jloader  # noqa: E402
+import fgdm_tpu.checkpoint.torch_ingest as jti  # noqa: E402
 import fgdm_tpu.core.schedules as jsch  # noqa: E402
 from fgdm_tpu.diffusion.latent_diffusion import (  # noqa: E402
     LatentDiffusion as JLatentDiffusion)
@@ -35,12 +39,14 @@ import fgdm_tpu.train.lr_schedules as jlr  # noqa: E402
 import fgdm_tpu.train.state as jstate  # noqa: E402
 from fgdm_tpu.train.train_step import make_train_step as j_make_train_step  # noqa: E402
 from fgdm_tpu_torch.checkpoint import convert  # noqa: E402
+from fgdm_tpu_torch.checkpoint import torch_ingest as ti  # noqa: E402
 from fgdm_tpu_torch.core.schedules import DiffusionSchedule  # noqa: E402
 from fgdm_tpu_torch.diffusion.latent_diffusion import LatentDiffusion  # noqa: E402
 from fgdm_tpu_torch.diffusion.losses import diffusion_loss  # noqa: E402
 from fgdm_tpu_torch.models.autoencoder import AutoencoderKL  # noqa: E402
 from fgdm_tpu_torch.models.clip import CLIPTextEncoder  # noqa: E402
 from fgdm_tpu_torch.models.unet import UNetModel  # noqa: E402
+from fgdm_tpu_torch.nn.layers import init_params_  # noqa: E402
 from fgdm_tpu_torch.train import lr_schedules as tlr  # noqa: E402
 from fgdm_tpu_torch.train import state as tstate  # noqa: E402
 from fgdm_tpu_torch.train.train_step import (make_eval_step,  # noqa: E402
@@ -59,11 +65,26 @@ LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-3
 
 
-def perturbed(params, seed):
-    rng = np.random.default_rng(seed)
-    return jax.tree.map(
-        lambda a: np.asarray(a) + 0.02 * rng.standard_normal(a.shape)
-        .astype(np.float32), params)
+# the JAX ingest and the reference-schema prefix of each tiny model kind
+INGEST = dict(unet=(jti.ingest_unet, ti.UNET_PREFIX),
+              cn=(jti.ingest_controlnet, ti.CONTROL_PREFIX),
+              vae=(jti.ingest_vae, ti.VAE_PREFIX),
+              clip=(jti.ingest_clip, ti.CLIP_PREFIX))
+
+
+def ingested(kind, module, seed, jdef, *init_args, **init_kw):
+    """``jdef``'s flax params (numpy) on the weights of the port's
+    ``module``: its seeded init with 0.02 N(0, 1) on every parameter, read
+    through the JAX ingest against ``jdef``'s abstract init (no missing and
+    no unexpected key).  Flax's own init runs eagerly, op by op: tens of
+    seconds a model on the CPU."""
+    init_params_(module, torch.Generator().manual_seed(seed), 0.02)
+    fn, prefix = INGEST[kind]
+    tree, missing, unexpected = fn(
+        {prefix + k: v.numpy() for k, v in module.state_dict().items()},
+        expect=jloader._abstract_init(jdef, *init_args, **init_kw))
+    assert missing == [] and unexpected == []
+    return jax.tree.map(np.asarray, tree)
 
 
 def nchw(a):
@@ -82,14 +103,14 @@ def tiny():
     unet_def = JUNetModel(**UNET_TINY, dtype=jnp.float32)
     vae_def = JAutoencoderKL(**VAE_TINY, dtype=jnp.float32)
     clip_def = JCLIPTextEncoder(**CLIP_TINY)
-    unet_p = perturbed(unet_def.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 4)),
-        jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 64))), 20)
-    vae_p = perturbed(vae_def.init(jax.random.PRNGKey(1),
-                                   jnp.zeros((1, 64, 64, 3)),
-                                   sample_posterior=False), 21)
-    clip_p = perturbed(clip_def.init(jax.random.PRNGKey(2),
-                                     jnp.zeros((1, 77), jnp.int32)), 22)
+    f32 = dict(dtype=torch.float32, device="cpu")
+    unet_p = ingested("unet", UNetModel(**UNET_TINY, **f32), 20, unet_def,
+                      jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,), jnp.int32),
+                      jnp.zeros((1, 77, 64)))
+    vae_p = ingested("vae", AutoencoderKL(**VAE_TINY, **f32), 21, vae_def,
+                     jnp.zeros((1, 64, 64, 3)), sample_posterior=False)
+    clip_p = ingested("clip", CLIPTextEncoder(**CLIP_TINY, device="cpu"), 22,
+                      clip_def, jnp.zeros((1, 77), jnp.int32))
     jld = JLatentDiffusion(
         unet_def=unet_def, vae_def=vae_def, clip_def=clip_def,
         unet_params=unet_p, vae_params=vae_p, clip_params=clip_p,
