@@ -2,7 +2,11 @@
 
     python3 chip_smoke.py [--sweep]
 
-With ``--sweep`` it builds the kernels, times K1 at each tile choice (keys
+With ``--sweep`` it builds the kernels, times K7 in float32 at each tile
+and split of the reduction at the ``precision_full`` and ``eval`` paths'
+shapes and the float32 d = 512 forward at each KV split (how
+``conv3x3_plan``'s float32 cost weights and ``f32_kv_splits`` were
+chosen), K1 at each tile choice (keys
 per tile, ring stages, consumer warpgroups), K5 and K6 at each tile choice
 (streamed tile, ring stages, consumer warpgroups) at the ``BWD_CASES``
 shapes, K4 at each cluster size and the host cost of the steps around its
@@ -281,6 +285,7 @@ import zlib
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
+SMS = 132                  # H100 SXM streaming multiprocessors
 # exp on the special-function units: 16 a clock per SM x 132 SMs x ~1.83 GHz
 PEAK_EXPS = 3.9e12
 
@@ -460,6 +465,43 @@ CONV_F32_CASES = [(10, 320, 320, 64, 64, "float32"),
                   (5, 512, 512, 64, 64, "float32"),
                   (5, 128, 128, 512, 512, "float32")]
 RAGGED_CONV_F32_CASES = [(*k, "float32") for k in RAGGED_CONV_CASES]
+# The ``precision_full`` path's other 20 float32 K7 shapes (N, C, Co, H,
+# W) and the ``eval`` path's 9 (its metric networks in float32, one image a
+# call or the 8 of a chunk): where ``--sweep`` times K7-f32 at every tile and
+# split beside ``CONV_F32_CASES``; the phases hold them from their counts.
+PF_CONV_F32_OTHER = [
+    (5, 256, 320, 64, 64), (5, 512, 512, 32, 32), (10, 320, 320, 32, 32),
+    (10, 320, 640, 16, 16), (10, 320, 640, 32, 32), (10, 640, 320, 32, 32),
+    (10, 640, 320, 64, 64), (10, 640, 640, 16, 16), (10, 640, 640, 64, 64),
+    (10, 640, 1280, 16, 16), (10, 960, 320, 32, 32), (10, 960, 640, 16, 16),
+    (10, 960, 640, 32, 32), (10, 1280, 640, 16, 16), (10, 1280, 640, 32, 32),
+    (10, 1280, 1280, 32, 32), (10, 1920, 640, 16, 16),
+    (10, 1920, 640, 32, 32), (10, 1920, 1280, 16, 16),
+    (10, 2560, 1280, 16, 16)]
+EVAL_CONV_F32_CASES = [
+    (1, 128, 128, 32, 32), (1, 128, 256, 64, 64), (1, 256, 128, 32, 32),
+    (1, 256, 256, 64, 64), (1, 256, 512, 32, 32), (1, 512, 256, 32, 32),
+    (1, 512, 512, 32, 32), (8, 256, 256, 24, 24), (8, 256, 256, 48, 48)]
+# K7-f32 before its redesign (device ms of the one-tile kernel at the
+# ``precision_full`` and ``eval`` rows, H100 80GB HBM3, 700.00 W), as
+# PERF.md records them ("before" in the rows' log lines)
+CONV_F32_BEFORE = {
+    (10, 320, 320, 64, 64): 2.6334, (10, 640, 640, 32, 32): 2.6044,
+    (10, 1280, 1280, 16, 16): 2.5892, (10, 960, 320, 64, 64): 7.8224,
+    (5, 512, 512, 64, 64): 2.6561, (5, 128, 128, 512, 512): 11.1177,
+    (1, 128, 128, 32, 32): 0.1368, (1, 128, 256, 64, 64): 0.1390,
+    (1, 256, 128, 32, 32): 0.2651, (1, 256, 256, 64, 64): 0.2676,
+    (1, 256, 512, 32, 32): 0.2638, (1, 512, 256, 32, 32): 0.5215,
+    (1, 512, 512, 32, 32): 0.5216, (8, 256, 256, 24, 24): 0.2650,
+    (8, 256, 256, 48, 48): 0.7928}
+# (batch, N): where ``--sweep`` times the float32 d = 512 forward at every
+# KV split: the ``precision_full`` VAE's two decodes, ``train_f32``'s VAE
+# encoder, the one-slice row's and the tiled decode's shapes
+D512_F32_SWEEP = [(5, 1024), (5, 4096), (8, 1024), (1, 1024), (9, 4096)]
+# The d = 512 float32 forward before its redesign (device ms at (batch, N)
+# of the 16-row kernel, H100 80GB HBM3, 700.00 W, as PERF.md records them)
+ATTN_F32_BEFORE = {(5, 1024): 0.5402, (5, 4096): 7.8533, (1, 1024): 0.1899,
+                   (8, 1024): 0.7963}
 ATTN_TOL = (1e-2, 1e-3)   # max|d| <= 1e-2 * max|ref| + 1e-3 (bf16 out, P)
 LSE_TOL = 1e-3            # max|d| of the f32 lse (same f32 scores)
 BWD_TOL = (2e-2, 2e-3)    # max|d| <= 2e-2 * max|ref| + 2e-3 (bf16 p and dS)
@@ -711,9 +753,12 @@ def attn_row(gen, label, tpu, b, h, nq, nk, d, with_lse, path, splits,
     vt_ms = None
     if f32:
         plan = attention.flash_f32_plan(b * h, nq, nk, d, kw.get("splits"))
+        before = ATTN_F32_BEFORE.get((b, nq)) if d == 512 and h == 1 else None
+        if before and nq == nk:
+            note += f", before {before:.4f} ms"
+        blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
         note += (f", tile {plan.bm} rows x {plan.bn} keys, {plan.splits} KV "
-                 f"slice(s), {plan.grid[0] * plan.grid[1] * plan.grid[2]} "
-                 f"blocks")
+                 f"slice(s), {blocks} blocks, {blocks / SMS:.2f} waves")
     elif d == 512:
         used = splits or attention.kv_splits(b * h, nq, nk)
         note += f", {used} KV slice(s)"
@@ -1201,6 +1246,7 @@ def conv_rows(gen, keys, path="serve"):
         bound_ms, bound_by, term = bound(
             flops, nbytes, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
         plan = conv.conv3x3_plan(n, c, co, h, w, dt)
+        before = CONV_F32_BEFORE.get((n, c, co, h, w)) if f32 else None
         rows.append(dict(
             name=label, route="cuda", source=CONV_F32_SRC if f32 else
             CONV_SRC, replaces=K7, dtype=dtype,
@@ -1210,10 +1256,12 @@ def conv_rows(gen, keys, path="serve"):
             bound_term=term, library_ms=lib_ms))
         log(f"{label}: max|d|={err:.3e} (tol {lim:.3e}), rerun bit-identical "
             f"{same} {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.0f} TF/s; eager {eager_ms:.4f} ms; tile "
-            f"{plan.th}x{plan.tw} of {plan.bm}, {plan.grid[0] * plan.grid[1]}"
-            f" blocks)  plain {plain_ms:.4f} ms  F.conv2d {dtype} "
-            f"{lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({term})")
+            f"({flops / ms / 1e9:.0f} TF/s; eager {eager_ms:.4f} ms; "
+            f"{conv_plan_str(plan)}"
+            f"{f'; before {before:.4f} ms' if before else ''})  plain "
+            f"{plain_ms:.4f} ms  F.conv2d {dtype} {lib_ms:.4f} ms ("
+            f"{ms / lib_ms:.2f}x it)  bound {bound_ms:.4f} ms ({term}; "
+            f"{100 * bound_ms / ms:.1f} % of it)")
         if (n, c, h, w, dtype) in _PREPASS_SEEN:   # one row per input shape
             continue
         _PREPASS_SEEN.add((n, c, h, w, dtype))
@@ -1242,6 +1290,16 @@ def conv_rows(gen, keys, path="serve"):
             f"channels_last copy {pre_lib:.4f} ms  bound {pre_bound:.4f} ms "
             f"({pre_by})")
     return rows
+
+
+def conv_plan_str(plan):
+    """A K7 plan in a log line: the rectangle and tile, the blocks an SM
+    it is compiled for and the slices (float32), blocks and waves."""
+    blocks = plan.grid[0] * plan.grid[1]
+    split = (f" x {plan.bn} ch, minb {plan.minb}, {plan.splits} slice(s) of "
+             f"{plan.per} chunks" if plan.per else "")
+    return (f"tile {plan.th}x{plan.tw} of {plan.bm}{split}, {blocks} blocks, "
+            f"{blocks / SMS:.2f} waves")
 
 
 def conv_grad_check(gen):
@@ -4819,18 +4877,138 @@ def sweep_k4(gen):
     return bad
 
 
+def sweep_conv_f32(gen):
+    """K7-f32's conv kernel alone (no pre-pass) at the planned plan (*) and
+    at every tile (pixel slots x channels, blocks an SM) and split count it
+    takes, at the ``precision_full`` path's 26 shapes and ``eval``'s 9,
+    each held against the plain version (``CONV_F32_TOL``) and rerun bit
+    for bit; device times beside cuDNN's float32 conv (TF32 off).  A forced
+    plan whose clusters do not schedule is reported, not counted.  Returns
+    the number of failures."""
+    import torch
+    import torch.nn.functional as F
+    from fgdm_tpu_torch.kernels import conv
+
+    bad = 0
+    shapes = ([k[:5] for k in CONV_F32_CASES] + PF_CONV_F32_OTHER
+              + EVAL_CONV_F32_CASES)
+    msgs = []
+    for (bm, bn, minb), splits in itertools.product(conv._F32_TILES,
+                                                    conv._F32_SPLITS):
+        plan = conv.f32_conv_tile(10, 640, 640, 32, 32, bm, bn, minb, splits)
+        msgs.append(f"{bm}x{bn}m{minb}s{splits} {conv.f32_resident(plan)}")
+    log("K7-f32 blocks resident at once (cudaOccupancyMaxActiveClusters x "
+        "slices, a 4x32 rectangle): " + "; ".join(msgs))
+    for n, c, co, h, w in shapes:
+        x = torch.randn(n, c, h, w, device="cuda", generator=gen)
+        wt = torch.randn(co, c, 3, 3, device="cuda", generator=gen) \
+            * (9 * c) ** -0.5
+        b = 0.1 * torch.randn(co, device="cuda", generator=gen)
+        ref = conv.conv3x3_ref(x, wt, b)
+        lim = (CONV_F32_TOL[0] * ref.abs().max().item() + CONV_F32_TOL[1])
+        xt = conv.nchw_to_nhwc(x)
+        wk, bias = conv.packed_weight(wt, b, torch.float32)
+        planned = conv.conv3x3_plan(n, c, co, h, w, torch.float32)
+        reps = 3 if n * h * w * c * co > 1 << 33 else 10
+        lib_ms = graph_ms(lambda: F.conv2d(x, wt, b, 1, 1), reps)
+        timed = []
+        for (bm, bn, minb), splits in itertools.product(conv._F32_TILES,
+                                                        conv._F32_SPLITS):
+            try:
+                plan = conv.f32_conv_tile(n, c, co, h, w, bm, bn, minb,
+                                          splits)
+            except ValueError:
+                continue
+            tag = (f"{bm}x{bn}m{minb}s{splits}"
+                   f"{'*' if plan == planned else ''}")
+            try:
+                out = conv._launch(xt, wk, bias, co, plan)
+            except RuntimeError as e:
+                bad += plan == planned
+                timed.append((math.inf, f"{tag} does not launch ({e})"))
+                continue
+            err = (out - ref).abs().max().item()
+            same = torch.equal(out, conv._launch(xt, wk, bias, co, plan))
+            ok = math.isfinite(err) and err <= lim and same
+            bad += not ok
+            ms = graph_ms(lambda: conv._launch(xt, wk, bias, co, plan), reps)
+            blocks = plan.grid[0] * plan.grid[1]
+            timed.append((ms, f"{tag} {blocks} blocks {ms:.4f} ms "
+                              f"{'OK' if ok else 'FAIL'}"))
+        before = CONV_F32_BEFORE.get((n, c, co, h, w))
+        flops = 2.0 * n * h * w * 9 * c * co
+        log(f"conv3x3 f32 [{n},{c},{h},{w}]->{co} (cuDNN f32 {lib_ms:.4f} "
+            f"ms; f32 bound {1e3 * flops / PEAK_F32_FLOPS:.4f} ms"
+            f"{f'; before {before:.4f} ms' if before else ''}), fastest "
+            f"first: " + "; ".join(m for _, m in sorted(timed)))
+        del x, ref, xt
+        torch.cuda.empty_cache()
+    return bad
+
+
+def sweep_attn_f32(gen):
+    """The float32 d = 512 forward at the planned split count (*) and at
+    every other count it takes, at ``D512_F32_SWEEP``, held against the
+    plain version (``ATTN_F32_TOL``) and rerun bit for bit; device times
+    beside SDPA's float32 (TF32 off).  Returns the number of failures."""
+    import torch
+    import torch.nn.functional as F
+    from fgdm_tpu_torch.kernels import attention
+
+    bad = 0
+    for b, n in D512_F32_SWEEP:
+        q, k, v = (torch.randn(b, 1, n, 512, device="cuda", generator=gen)
+                   for _ in range(3))
+        scale = 512 ** -0.5
+        ref = attention.attention_ref(q, k, v, scale)
+        lim = ATTN_F32_TOL[0] * ref.abs().max().item() + ATTN_F32_TOL[1]
+        planned = attention.flash_f32_plan(b, n, n, 512)
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), 10)
+        msgs = []
+        for splits in range(1, 9):
+            try:
+                plan = attention.f32_tile(b, n, n, 512, splits)
+            except ValueError:
+                continue
+            out = attention.flash_attention(q, k, v, scale, splits=splits)
+            err = (out - ref).abs().max().item()
+            same = torch.equal(out, attention.flash_attention(
+                q, k, v, scale, splits=splits))
+            ok = math.isfinite(err) and err <= lim and same
+            bad += not ok
+            ms = graph_ms(lambda: attention.flash_attention(
+                q, k, v, scale, splits=splits), 10)
+            blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
+            msgs.append(f"{splits}{'*' if plan == planned else ''} slices "
+                        f"{blocks} blocks {ms:.4f} ms "
+                        f"{'OK' if ok else 'FAIL'}")
+        flops = 4.0 * b * n * n * 512
+        before = ATTN_F32_BEFORE.get((b, n))
+        log(f"flash_attn_fwd f32 d512 [{b},1,{n},512] (SDPA f32 {lib_ms:.4f}"
+            f" ms; f32 bound {1e3 * flops / PEAK_F32_FLOPS:.4f} ms"
+            f"{f'; before {before:.4f} ms' if before else ''}): "
+            + "; ".join(msgs))
+        del q, k, v, ref
+        torch.cuda.empty_cache()
+    return bad
+
+
 def sweep():
-    """K1 at each tile choice (``sweep_k1``), K5 and K6 at each tile choice
-    (``sweep_bwd``), K4 at each cluster size (``sweep_k4``) and its
-    wrapper's host cost (``gn_host_costs``), K7's ``wgmma`` kernel alone (no
-    pre-pass) at the planned tile (*) and at each forced size, and the d =
-    512 forward at forced KV slice counts; each held against its plain
-    version, device times."""
+    """K7-f32 at each tile and split (``sweep_conv_f32``), the float32
+    d = 512 forward at each KV split (``sweep_attn_f32``), K1 at each tile
+    choice (``sweep_k1``), K5 and K6 at each tile choice (``sweep_bwd``), K4
+    at each cluster size (``sweep_k4``) and its wrapper's host cost
+    (``gn_host_costs``), K7's ``wgmma`` kernel alone (no pre-pass) at the
+    planned tile (*) and at each forced size, and the bf16 d = 512 forward
+    at forced KV slice counts; each held against its plain version, device
+    times."""
     import torch
     from fgdm_tpu_torch.kernels import attention, conv
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bad = sweep_k1(gen) + sweep_bwd(gen) + sweep_k4(gen)
+    bad = sweep_conv_f32(gen) + sweep_attn_f32(gen)
+    bad += sweep_k1(gen) + sweep_bwd(gen) + sweep_k4(gen)
     gn_host_costs()
     for n, c, co, h, w in CONV_CASES + RAGGED_CONV_CASES:
         x = torch.randn(n, c, h, w, device="cuda", generator=gen,

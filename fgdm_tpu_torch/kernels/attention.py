@@ -74,7 +74,7 @@ from fgdm_tpu_torch.kernels import _build
 
 __all__ = ["attention_ref", "attention_bwd_ref", "attention_split_ref",
            "combine_ref", "kv_splits", "K1Plan", "k1_tile", "flash_fwd_plan",
-           "F32Plan", "f32_tile", "flash_f32_plan",
+           "F32Plan", "f32_tile", "f32_kv_splits", "flash_f32_plan",
            "BwdPlan", "bwd_tile", "flash_bwd_plan",
            "BwdF32Plan", "bwd_f32_tile", "flash_bwd_f32_plan",
            "flash_combine", "flash_attention",
@@ -110,8 +110,10 @@ _SMEM_LIMIT = 232448
 _BWD_WG_ROWS, _BWD_WGS, _BWD_MAX_STAGES = 64, (1, 2), 4
 _BWD_TILES = {"dq": (64, 128), "dkv": (64,)}
 # The float32 forward (flash_attn_fwd_f32.cu): (query rows, keys) a block at
-# each head dim it instantiates.
-_F32_TILES = {40: (64, 64), 80: (64, 64), 512: (16, 32)}
+# each head dim it instantiates; at d = 512 the chunk of d a K copy takes,
+# the keys a V copy takes and the stages of their ring.
+_F32_TILES = {40: (64, 64), 80: (64, 64), 512: (64, 128)}
+_F32_D512_DC, _F32_D512_VK, _F32_D512_STAGES = 32, 8, 3
 # The float32 backward (flash_attn_bwd_f32.cu): (query rows, keys) a tile at
 # each head dim it instantiates; K5's block owns the query rows and streams
 # the keys, K6's owns the keys and streams the query rows.
@@ -212,6 +214,36 @@ F32Plan.__doc__ = """The float32 forward's tile: ``bm`` query rows and
 ``grid`` (row tiles, splits, B*H) and the block's shared memory in bytes."""
 
 
+def f32_kv_splits(bh: int, nq: int, nk: int, sms: int = SMS) -> int:
+    """``kv_splits`` for the float32 d = 512 kernel's tile (64 query rows,
+    128-key tiles, one block an SM): least estimated time over 1..8
+    non-empty slices, waves of blocks times the key tiles a block walks
+    plus one tile-time for what each block pays once (the Q load, the
+    partial's write and its re-read by the combine pass)."""
+    bm, bn = _F32_TILES[512]
+    base = bh * -(-nq // bm)
+    tiles = nk // bn
+    best = None
+    for s in range(1, min(tiles, 8) + 1):
+        per = -(-tiles // s)
+        if -(-tiles // per) != s:
+            continue   # the last slices would be empty
+        cost = -(-base * s // sms) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    return best[1]
+
+
+def _f32_smem(d: int) -> int:
+    """The float32 forward's dynamic shared memory at head dim ``d``
+    (``smem_bytes<D>`` and ``d512::SMEM`` of ``flash_attn_fwd_f32.cu``)."""
+    bm, bn = _F32_TILES[d]
+    if d == 512:   # Q, the scores, the K/V ring, three row statistics
+        return 4 * (bm * (d + 4) + bm * (bn + 4)
+                    + _F32_D512_STAGES * bn * (_F32_D512_DC + 4) + 3 * bm)
+    return 4 * ((bm + bn) * (d + 4) + bn * d + bm * (bn + 4) + 3 * bm)
+
+
 def f32_tile(bh: int, nq: int, nk: int, d: int, splits: int = 1) -> F32Plan:
     """The float32 forward's plan with ``splits`` KV slices; raises
     ValueError on what the kernel does not take (the checks of
@@ -222,7 +254,7 @@ def f32_tile(bh: int, nq: int, nk: int, d: int, splits: int = 1) -> F32Plan:
         raise ValueError(f"flash_attention: no float32 tile at d={d} (have "
                          f"{tuple(_F32_TILES)})")
     bm, bn = _F32_TILES[d]
-    smem = 4 * ((bm + bn) * (d + 4) + bn * d + bm * (bn + 4) + 3 * bm)
+    smem = _f32_smem(d)
     tiles = nk // bn
     if (nk % bn or splits < 1 or (splits > 1 and d != 512)
             or splits > tiles or -(-tiles // -(-tiles // splits)) != splits
@@ -236,10 +268,10 @@ def f32_tile(bh: int, nq: int, nk: int, d: int, splits: int = 1) -> F32Plan:
 def flash_f32_plan(bh: int, nq: int, nk: int, d: int,
                    splits: Optional[int] = None) -> F32Plan:
     """The float32 forward's plan for ``[bh, nq, d]`` queries against
-    ``nk`` keys: at d = 512 the keys are cut into ``kv_splits`` slices, as
-    in bf16 (``splits=`` forces a count), else one."""
+    ``nk`` keys: at d = 512 the keys are cut into ``f32_kv_splits`` slices
+    (``splits=`` forces a count), else one."""
     if splits is None:
-        splits = kv_splits(bh, nq, nk) if d == 512 else 1
+        splits = f32_kv_splits(bh, nq, nk) if d == 512 else 1
     return f32_tile(bh, nq, nk, d, splits)
 
 

@@ -15,8 +15,11 @@ in bf16 with two CUDA kernels: a transposing pre-pass (``nchw_to_nhwc``)
 and an implicit GEMM on ``wgmma`` that loads a halo tile of the activations
 once per channel chunk for all nine taps (``conv3x3_kernel``).  In float32
 ``csrc/conv3x3_f32.cu`` does the same on the CUDA cores (FFMA: no tensor
-core keeps float32's products), with an f32 pre-pass.  The host side lives
-here: ``conv3x3_plan`` picks the tile per shape and dtype,
+core keeps float32's products), with an f32 pre-pass, at one of several
+tiles and with the channel reduction split over a thread-block cluster
+where the tiles alone leave SMs idle.  The host side lives here:
+``conv3x3_plan`` picks the tile (and in float32 the split) per shape and
+dtype,
 ``packed_weight`` keeps the kernel's K-major weight (bf16 or f32, the
 activations' dtype) and f32 bias per weight tensor until the weight
 changes, ``conv3x3_taps_ref`` is the kernels' algorithm in plain torch.  See
@@ -59,8 +62,9 @@ from fgdm_tpu_torch.kernels.attention import dtype_name
 
 __all__ = ["conv3x3_ref", "conv3x3_taps_ref", "conv3x3_kernel", "Conv3x3",
            "conv3x3", "conv3x3_ok", "conv3x3_vae_ok", "conv3x3_plan",
-           "ConvPlan", "pack_weight", "packed_weight", "nchw_to_nhwc",
-           "nchw_to_nhwc_ref", "KERNEL_DTYPES"]
+           "ConvPlan", "f32_conv_tile", "f32_resident", "pack_weight",
+           "packed_weight", "nchw_to_nhwc", "nchw_to_nhwc_ref",
+           "KERNEL_DTYPES"]
 
 SMS = 132                  # streaming multiprocessors of an H100
 SMEM_MAX = 232448          # dynamic shared memory one block may have
@@ -68,9 +72,29 @@ SMEM_MAX = 232448          # dynamic shared memory one block may have
 _DISABLE = os.environ.get("FGDM_DISABLE_PALLAS_CONV", "0") == "1"
 _BN, _BK = 128, 64         # the kernel's output-channel tile and channel chunk
 _W_TILE = _BN * _BK * 2    # one (chunk, tap) of weights in shared memory
-# The float32 kernel (conv3x3_f32.cu): pixel slots a block, floats a halo
-# pixel and an output channel's chunk of weights take in shared memory.
-_F32_BM, _F32_HPS, _F32_WS = 128, 12, 9 * 8 + 4
+# The float32 kernel (conv3x3_f32.cu): floats a halo pixel, an output
+# channel's chunk of weights and the pad of a staged partial's rows take in
+# shared memory; its (pixel slots, output channels, blocks an SM) tiles and
+# its slice counts (a portable cluster).
+_F32_HPS, _F32_WS, _F32_RPAD = 12, 9 * 8 + 4, 16
+_F32_TILES = ((128, 128, 1), (128, 64, 2), (64, 64, 2))
+_F32_SPLITS = (1, 2, 4, 8)
+# ``_f32_cost``'s weights, fitted to ``chip_smoke.py --sweep``'s times of
+# every tile and split at the float32 paths' 35 shapes (NVIDIA H100 80GB
+# HBM3, 700 W; the plans they pick are within 5 % of each shape's fastest,
+# 0.2 % on geometric mean): ms a computed FMA slot of a block while its SM
+# holds its most blocks and while it holds one, and the blocks an SM holds;
+# ms a round of blocks pays once (its first chunk's latency; the split
+# partials' exchange did not show).  Then the blocks resident at once by
+# (blocks an SM, slices): whole clusters fit a GPC, so clusters of 4 and 8
+# leave SMs idle (``cudaOccupancyMaxActiveClusters``, which
+# ``chip_smoke.py --sweep`` prints).
+_F32_COST = {(128, 128, 1): (6.4e-9, 6.4e-9, 1),
+             (128, 64, 2): (6.8e-9, 7.0e-9, 2),
+             (64, 64, 2): (7.4e-9, 8.5e-9, 2)}
+_F32_ROUND_MS = 0.005
+_F32_RESIDENT = {(1, 1): 132, (1, 2): 132, (1, 4): 120, (1, 8): 120,
+                 (2, 1): 264, (2, 2): 264, (2, 4): 248, (2, 8): 240}
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -158,11 +182,15 @@ def conv3x3_taps_ref(xt, wk, bias):
 
 class ConvPlan(NamedTuple):
     """How one conv shape is cut into blocks: ``bm`` pixel slots a block
-    (64 or 128: one or two consumer warpgroups of one 64-row ``wgmma`` tile
-    each; float32: 128), of which the ``th x tw`` rectangle of output pixels
-    uses ``th * tw``; ``grid`` = (images x tile rows x tile columns,
-    128-wide output-channel tiles); ``wst`` weight stages (float32: 2
-    stages of halo and weights); ``smem`` bytes of dynamic shared memory."""
+    (64 or 128: in bf16 one or two consumer warpgroups of one 64-row
+    ``wgmma`` tile each), of which the ``th x tw`` rectangle of output
+    pixels uses ``th * tw``; ``grid`` = (images x tile rows x tile columns
+    x slices, ``bn``-wide output-channel tiles); ``wst`` weight stages
+    (float32: 2 stages of halo and weights); ``smem`` bytes of dynamic
+    shared memory.  Float32 only: ``bn`` output channels a block (bf16:
+    128), ``minb`` blocks an SM the kernel is compiled for, and the
+    ``C / 8`` channel chunks cut into ``splits`` slices of ``per`` (one
+    thread-block cluster of ``splits`` blocks a pixel x channel tile)."""
     bm: int
     th: int
     tw: int
@@ -171,6 +199,10 @@ class ConvPlan(NamedTuple):
     grid: tuple
     wst: int
     smem: int
+    bn: int = 128
+    minb: int = 1
+    splits: int = 1
+    per: int = 0
 
 
 def _smem_bytes(bm: int, th: int, tw: int, wst: int) -> int:
@@ -201,22 +233,74 @@ def _tile(n: int, c: int, co: int, h: int, w: int, bm: int) -> ConvPlan:
                     _smem_bytes(bm, th, tw, wst))
 
 
-def _f32_smem_bytes(th: int, tw: int) -> int:
+def _f32_smem_bytes(th: int, tw: int, bm: int, bn: int,
+                    splits: int) -> int:
     """``smem_bytes`` of ``csrc/conv3x3_f32.cu``: two stages of the halo
-    tile and the chunk's weights."""
-    return 2 * 4 * ((th + 2) * (tw + 2) * _F32_HPS + _BN * _F32_WS)
+    tile and the chunk's weights, or a split tile's staged partial
+    ``[bn][bm + 16]``, whichever is larger (they share memory)."""
+    stages = 2 * 4 * ((th + 2) * (tw + 2) * _F32_HPS + bn * _F32_WS)
+    return max(stages, 4 * bn * (bm + _F32_RPAD) if splits > 1 else 0)
 
 
-def _f32_tile(n: int, c: int, co: int, h: int, w: int) -> ConvPlan:
-    """The float32 kernel's tile: 128 pixel slots a block, whole rows where
-    w <= 64, else 64-pixel row segments, as many rows as fit; ``wst`` is
-    its two stages."""
+def f32_conv_tile(n: int, c: int, co: int, h: int, w: int, bm: int = 128,
+                  bn: int = 128, minb: int = 1, splits: int = 1) -> ConvPlan:
+    """The float32 kernel's plan at one forced choice: ``bm`` pixel slots
+    (whole rows where w <= 64, else 64-pixel row segments, as many rows as
+    fit) x ``bn`` output channels a block, compiled for ``minb`` blocks an
+    SM, the ``c / 8`` chunks in ``splits`` slices.  Raises ValueError on a
+    choice the kernel does not take (the checks of ``conv3x3_f32.cu``'s
+    launch): another tile, a split count other than 1, 2, 4 or 8, one that
+    would leave a slice empty, or too much shared memory."""
+    chunks = c // 8
+    per = -(-chunks // splits) if splits >= 1 else 0
     tw = min(w, 64)
-    th = max(1, min(_F32_BM // tw, h))
+    th = max(1, min(bm // tw, h))
     tiles_y, tiles_x = -(-h // th), -(-w // tw)
-    return ConvPlan(_F32_BM, th, tw, tiles_y, tiles_x,
-                    (n * tiles_y * tiles_x, -(-co // _BN)), 2,
-                    _f32_smem_bytes(th, tw))
+    smem = _f32_smem_bytes(th, tw, bm, bn, splits)
+    if ((bm, bn, minb) not in _F32_TILES or c % 8 or splits not in _F32_SPLITS
+            or -(-chunks // per) != splits or smem > SMEM_MAX):
+        raise ValueError(f"conv3x3_plan: no float32 tile {bm}x{bn} "
+                         f"(minb {minb}) in {splits} slice(s) for "
+                         f"{(n, c, co, h, w)} ({smem} B of shared memory)")
+    return ConvPlan(bm, th, tw, tiles_y, tiles_x,
+                    (n * tiles_y * tiles_x * splits, -(-co // bn)), 2, smem,
+                    bn, minb, splits, per)
+
+
+def _f32_cost(plan: ConvPlan) -> float:
+    """The float32 planner's estimate of ``plan``'s ms: the blocks that fit
+    the card at once run in rounds; a round costs its blocks' FMA slots
+    (computed, idle slots included) at the tile's rate plus a fixed cost;
+    where every SM gets at most one block, that block runs alone at its
+    own rate."""
+    a_full, a_alone, per_sm = _F32_COST[plan.bm, plan.bn, plan.minb]
+    blocks = plan.grid[0] * plan.grid[1]
+    slots = plan.bm * plan.bn * 72 * plan.per
+    at_once = _F32_RESIDENT[per_sm, plan.splits]
+    if blocks * per_sm <= at_once:
+        return slots * a_alone + _F32_ROUND_MS
+    return -(-blocks // at_once) * (per_sm * slots * a_full + _F32_ROUND_MS)
+
+
+def _f32_plan(n: int, c: int, co: int, h: int, w: int) -> ConvPlan:
+    """The float32 plan of least ``_f32_cost`` over every tile and split
+    count the kernel takes for the shape."""
+    best = None
+    for bm, bn, minb in _F32_TILES:
+        for splits in _F32_SPLITS:
+            try:
+                plan = f32_conv_tile(n, c, co, h, w, bm, bn, minb, splits)
+            except ValueError:
+                continue
+            if bm > 64 and plan.th * plan.tw <= bm // 2:
+                continue   # the rectangle would leave half the slots idle
+            cost = _f32_cost(plan)
+            if best is None or cost < best[0]:
+                best = (cost, plan)
+    if best is None:
+        raise ValueError(f"conv3x3_plan: no float32 tile for "
+                         f"{(n, c, co, h, w)}")
+    return best[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -225,17 +309,14 @@ def conv3x3_plan(n: int, c: int, co: int, h: int, w: int,
     """The tile for x ``[n, c, h, w]`` -> ``co`` channels in ``dtype``.  In
     bf16, among 128 and 64 pixel slots a block it takes the least estimated
     time, the blocks an SM gets times the slots a block computes, among the
-    sizes that give every SM a block if any does; float32 has one size
-    (``_f32_tile``).  Raises ValueError on a dtype or shape no kernel
+    sizes that give every SM a block if any does; in float32 the tile, the
+    blocks an SM and the split of the reduction of least ``_f32_cost``
+    (``_f32_plan``).  Raises ValueError on a dtype or shape no kernel
     takes."""
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"conv3x3_plan: no kernel for {dtype}")
     if dtype == torch.float32:
-        plan = _f32_tile(n, c, co, h, w)
-        if plan.smem > SMEM_MAX:
-            raise ValueError(f"conv3x3_plan: no float32 tile for "
-                             f"{(n, c, co, h, w)}: {plan}")
-        return plan
+        return _f32_plan(n, c, co, h, w)
     best = None
     for bm in (128, 64):
         plan = _tile(n, c, co, h, w, bm)
@@ -270,14 +351,31 @@ def _f32_lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3_f32")
     if not getattr(lib, "_fgdm_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fgdm_conv3x3_f32.argtypes = [vp] * 4 + [ci] * 8 + [vp]
+        lib.fgdm_conv3x3_f32.argtypes = [vp] * 4 + [ci] * 13 + [vp]
         lib.fgdm_conv3x3_f32.restype = ci
+        lib.fgdm_conv3x3_f32_resident.argtypes = [ci] * 5 + [
+            ctypes.POINTER(ci)]
+        lib.fgdm_conv3x3_f32_resident.restype = ci
         lib.fgdm_nchw_to_nhwc_f32.argtypes = [vp] * 2 + [ci] * 3 + [vp]
         lib.fgdm_nchw_to_nhwc_f32.restype = ci
         lib.fgdm_cuda_error_string.argtypes = [ci]
         lib.fgdm_cuda_error_string.restype = ctypes.c_char_p
         lib._fgdm_typed = True
     return lib
+
+
+def f32_resident(plan: ConvPlan) -> int:
+    """The blocks of a float32 plan's kernel the current CUDA device holds
+    at once in clusters of ``plan.splits`` (``cudaOccupancyMaxActiveClusters``
+    times the cluster size): what ``_F32_RESIDENT`` records.  Raises on
+    error."""
+    lib = _f32_lib()
+    out = ctypes.c_int(0)
+    rc = lib.fgdm_conv3x3_f32_resident(plan.bm, plan.bn, plan.minb,
+                                       plan.splits, plan.smem,
+                                       ctypes.byref(out))
+    _raise_on(lib, "conv3x3_f32_resident", rc)
+    return out.value
 
 
 def _check_x(fn: str, x) -> None:
@@ -331,8 +429,10 @@ def _launch(xt, wk, bias, co: int, plan: ConvPlan):
     with torch.cuda.device(xt.device):
         if xt.dtype == torch.float32:
             lib = _f32_lib()
-            rc = lib.fgdm_conv3x3_f32(*ptrs, n, c, co, h, wd, plan.th,
-                                      plan.tw, plan.smem, stream)
+            rc = lib.fgdm_conv3x3_f32(*ptrs, n, c, co, h, wd, plan.bm,
+                                      plan.bn, plan.minb, plan.th, plan.tw,
+                                      plan.splits, plan.per, plan.smem,
+                                      stream)
         else:
             lib = _lib()
             rc = lib.fgdm_conv3x3(*ptrs, n, c, co, h, wd, plan.bm, plan.th,

@@ -7,7 +7,9 @@ in collectives.  So the JAX names map as follows:
 
 * ``maybe_initialize_distributed`` -> ``torch.distributed`` with ``nccl``
   on CUDA (the rank's device set from ``LOCAL_RANK``) or ``gloo`` on the
-  CPU, when ``FGDM_DISTRIBUTED=1`` or torchrun's environment
+  CPU (only when ``device_type="cpu"`` names it: with no device named a
+  process without a card raises, as ``resolve_device`` does), when
+  ``FGDM_DISTRIBUTED=1`` or torchrun's environment
   (``MASTER_ADDR``, ``WORLD_SIZE``, ``RANK``) declares a job; a no-op
   otherwise (``mesh.py:25-50``).
 * ``create_mesh(n_data, n_model)`` -> an ``init_device_mesh`` with dims
@@ -42,6 +44,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from fgdm_tpu_torch import resolve_device
+
 __all__ = ["maybe_initialize_distributed", "create_mesh", "data_sharding",
            "replicated", "shard_batch", "local_batch_slice", "replicate",
            "data_group", "data_rank", "data_size", "mesh_device",
@@ -51,16 +55,18 @@ _TORCHRUN_ENV = ("MASTER_ADDR", "WORLD_SIZE", "RANK")
 
 
 def _backend(device_type: Optional[str]) -> str:
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
-    return "nccl" if device_type == "cuda" else "gloo"
+    """``nccl`` for CUDA (the default; raises without a card), ``gloo``
+    for the CPU named."""
+    return "nccl" if resolve_device(device_type).type == "cuda" else "gloo"
 
 
 def maybe_initialize_distributed(device_type: Optional[str] = None) -> bool:
     """Join the job declared by the environment, before the first
     collective: ``FGDM_DISTRIBUTED=1`` forces it, torchrun's variables
-    declare it.  Returns True when initialization ran (False when there is
-    no job, or the process already joined one)."""
+    declare it.  NCCL on CUDA unless ``device_type="cpu"`` asks for gloo;
+    a job with no card and no device named raises (``resolve_device``).
+    Returns True when initialization ran (False when there is no job, or
+    the process already joined one)."""
     want = (os.environ.get("FGDM_DISTRIBUTED", "0") == "1"
             or all(k in os.environ for k in _TORCHRUN_ENV))
     if not want or dist.is_initialized():
@@ -80,9 +86,10 @@ def _free_port() -> int:
 
 def create_mesh(n_data: Optional[int] = None, n_model: int = 1,
                 device_type: Optional[str] = None) -> DeviceMesh:
-    """The ``("data", "model")`` mesh over every rank of the job."""
-    device_type = device_type or ("cuda" if torch.cuda.is_available()
-                                  else "cpu")
+    """The ``("data", "model")`` mesh over every rank of the job, on CUDA
+    unless ``device_type`` names another device (``resolve_device``: no
+    card and no device named raises before any group is made)."""
+    device_type = resolve_device(device_type).type
     if not dist.is_initialized():
         if device_type == "cuda":
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))

@@ -838,3 +838,32 @@ def test_maybe_initialize_distributed(monkeypatch):
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     assert tmesh.maybe_initialize_distributed("cpu") is False
     assert calls == ["gloo", "gloo"]
+
+
+def test_mesh_without_a_card_raises(monkeypatch):
+    """No card and no device named: ``create_mesh``, ``_backend`` and a
+    declared job's ``maybe_initialize_distributed`` raise through
+    ``resolve_device`` and leave no process group; the CPU named works."""
+    import torch
+    import torch.distributed as dist
+
+    from fgdm_tpu_torch.parallel import mesh as tmesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmesh._backend(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmesh.create_mesh()
+    assert not dist.is_initialized()
+    monkeypatch.setenv("FGDM_DISTRIBUTED", "1")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmesh.maybe_initialize_distributed()
+    assert not dist.is_initialized()
+    assert tmesh._backend("cpu") == "gloo"
+    try:
+        mesh = tmesh.create_mesh(device_type="cpu")
+        assert mesh.device_type == "cpu" and dist.get_backend() == "gloo"
+        assert dist.get_world_size() == 1
+    finally:
+        dist.destroy_process_group()

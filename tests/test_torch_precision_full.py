@@ -25,6 +25,7 @@ attention and 2e-4 (``tests/test_conv_kernel.py``'s) for the conv; the lse
 1e-5.
 """
 
+import functools
 import importlib.util
 import math
 import pathlib
@@ -68,13 +69,15 @@ def qkv(seed, b, h, nq, nk, d):
 
 # --- the float32 flash forward's algorithm ---------------------------------
 
-def f32_flash_arithmetic(q, k, v, scale, bn, splits=1):
+def f32_flash_arithmetic(q, k, v, scale, bn, splits=1, dc=None):
     """``flash_attn_fwd_f32.cu`` in plain torch: the keys in ``splits``
     slices of whole ``bn``-key tiles; per slice, tile after tile, the
-    scores times scale * log2 e, the running maximum and sum in base 2, P
-    unnormalised in float32, the output rescaled then P.V added.  One slice
-    divides by its sum; several go through ``combine_ref`` as the partials
-    go through the combine pass.  Returns the output and the lse."""
+    scores (with ``dc``, summed over chunks of ``dc`` columns of d in
+    order, as the d = 512 kernel streams K) times scale * log2 e, the
+    running maximum and sum in base 2, P unnormalised in float32, the
+    output rescaled then P.V added.  One slice divides by its sum; several
+    go through ``combine_ref`` as the partials go through the combine
+    pass.  Returns the output and the lse."""
     sl = scale * ta._LOG2E
     b, h, nq, d = q.shape
     tiles = k.shape[2] // bn
@@ -86,7 +89,12 @@ def f32_flash_arithmetic(q, k, v, scale, bn, splits=1):
         acc = torch.zeros(b, h, nq, d)
         for t in range(s * per, min((s + 1) * per, tiles)):
             kt, vt = k[:, :, t * bn:(t + 1) * bn], v[:, :, t * bn:(t + 1) * bn]
-            sc = torch.matmul(q, kt.transpose(2, 3))
+            if dc is None:
+                sc = torch.matmul(q, kt.transpose(2, 3))
+            else:
+                sc = sum(torch.matmul(q[..., c:c + dc],
+                                      kt[..., c:c + dc].transpose(2, 3))
+                         for c in range(0, d, dc))
             mn = torch.maximum(m, sc.amax(dim=-1) * sl)
             alpha = torch.exp2(m - mn)
             p = torch.exp2(sc * sl - mn[..., None])
@@ -110,6 +118,8 @@ F32_CASES = [
     ("K2", "_flash_attention", 1, 1, 512, 512, 512, 1),
     ("K2", "_flash_attention", 1, 1, 512, 512, 512, 4),
     ("K3", "_flash_attention_kv", 1, 1, 256, 1024, 512, 3),
+    ("K2", "_flash_attention", 1, 1, 768, 512, 512, 2),
+    ("K3", "_flash_attention_kv", 1, 1, 256, 1024, 512, 8),
 ]
 
 
@@ -131,7 +141,9 @@ def test_f32_flash_arithmetic_matches_plain_and_pallas(case, monkeypatch):
                                   splits=splits)
     ref, ref_lse = ta.attention_ref(q, k, v, scale, return_lse=True)
     assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
-    emu, emu_lse = f32_flash_arithmetic(q, k, v, scale, plan.bn, splits)
+    emu, emu_lse = f32_flash_arithmetic(
+        q, k, v, scale, plan.bn, splits,
+        ta._F32_D512_DC if d == 512 else None)
     assert emu.dtype == torch.float32 and emu.shape == (b, h, nq, d)
     np.testing.assert_allclose(emu.numpy(), ref.numpy(), atol=1e-5, rtol=0)
     np.testing.assert_allclose(emu_lse.numpy(), ref_lse.numpy(), atol=1e-5,
@@ -154,20 +166,28 @@ def test_f32_combine_cpu_route_keeps_float32():
 
 # --- the float32 conv's algorithm ------------------------------------------
 
-def f32_conv_arithmetic(xt, wk, bias):
+def f32_conv_arithmetic(xt, wk, bias, splits=1):
     """``conv3x3_f32.cu`` in plain torch: xt ``[N, H, W, C]`` (the
-    pre-pass's output) and the float32 pack ``[Co, 9, C]``; channel chunks
-    of 8 in order, the nine taps of each chunk in order over a zero halo,
-    all in float32, the bias added before the one store."""
+    pre-pass's output) and the float32 pack ``[Co, 9, C]``; the C / 8
+    channel chunks in ``splits`` slices of whole chunks (a cluster's
+    blocks), in each slice its chunks of 8 in order and the nine taps of
+    each chunk in order over a zero halo, all in float32; the slices'
+    partial sums added in rank order, then the bias, before the one
+    store."""
     n, h, w, c = xt.shape
     xp = torch.nn.functional.pad(xt, (0, 0, 1, 1, 1, 1))
-    acc = torch.zeros((n, h, w, wk.shape[0]))
-    for c0 in range(0, c, 8):
-        for tap in range(9):
-            ky, kx = divmod(tap, 3)
-            acc += (xp[:, ky:ky + h, kx:kx + w, c0:c0 + 8]
-                    @ wk[:, tap, c0:c0 + 8].t())
-    return (acc + bias).permute(0, 3, 1, 2).contiguous()
+    chunks = c // 8
+    per = -(-chunks // splits)
+    total = None
+    for s in range(splits):
+        acc = torch.zeros((n, h, w, wk.shape[0]))
+        for c0 in range(8 * s * per, 8 * min((s + 1) * per, chunks), 8):
+            for tap in range(9):
+                ky, kx = divmod(tap, 3)
+                acc += (xp[:, ky:ky + h, kx:kx + w, c0:c0 + 8]
+                        @ wk[:, tap, c0:c0 + 8].t())
+        total = acc if total is None else total + acc
+    return (total + bias).permute(0, 3, 1, 2).contiguous()
 
 
 @pytest.mark.parametrize("caller,n,h,w,c,co", [
@@ -178,9 +198,10 @@ def f32_conv_arithmetic(xt, wk, bias):
 def test_f32_conv_arithmetic_matches_plain_and_pallas(caller, n, h, w, c,
                                                       co, monkeypatch):
     """The float32 pack is the K-major weight in float32; the CPU route is
-    ``conv3x3_ref``; the kernel's arithmetic (chunks of 8 channels, taps
-    within) agrees with it within 1e-5 * max and with JAX's Pallas kernel
-    in interpret mode, through the caller the shape takes, within 2e-4."""
+    ``conv3x3_ref``; the kernel's arithmetic at the shape's plan (chunks of
+    8 channels, taps within, the plan's slices: 8, 4 and 1 here) agrees
+    with it within 1e-5 * max and with JAX's Pallas kernel in interpret
+    mode, through the caller the shape takes, within 2e-4."""
     monkeypatch.setattr(kc, "_INTERPRET", True)
     rng = np.random.default_rng(h * w + c)
     x = rng.standard_normal((n, h, w, c)).astype(np.float32)
@@ -195,7 +216,8 @@ def test_f32_conv_arithmetic_matches_plain_and_pallas(caller, n, h, w, c,
     assert torch.equal(wk[:, 5, 7], w_t[:, 7, 1, 2])   # k = (ky*3 + kx)*C + c
     ref = tc.conv3x3(xt, w_t, b_t)
     assert torch.equal(ref, tc.conv3x3_ref(xt, w_t, b_t))
-    emu = f32_conv_arithmetic(tc.nchw_to_nhwc(xt), wk, bias)
+    plan = tc.conv3x3_plan(n, c, co, h, w, torch.float32)
+    emu = f32_conv_arithmetic(tc.nchw_to_nhwc(xt), wk, bias, plan.splits)
     tol = 1e-5 * ref.abs().max().item()
     np.testing.assert_allclose(emu.numpy(), ref.numpy(), atol=tol, rtol=0)
     if caller == "whole":
@@ -207,6 +229,43 @@ def test_f32_conv_arithmetic_matches_plain_and_pallas(caller, n, h, w, c,
         pallas = kc._conv3x3_slab_fwd(jnp.asarray(x), jnp.asarray(wt),
                                       jnp.asarray(b))
     pallas = np.asarray(pallas).transpose(0, 3, 1, 2)
+    np.testing.assert_allclose(emu.numpy(), pallas, rtol=2e-4, atol=2e-4)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case():
+    """A [1, 248, 16, 16] -> 128 conv (31 chunks: at every split count the
+    last slice is short) and JAX's Pallas kernel's output on it."""
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((1, 16, 16, 248)).astype(np.float32)
+    wt = (rng.standard_normal((3, 3, 248, 128)) / 47).astype(np.float32)
+    b = rng.standard_normal((128,)).astype(np.float32)
+    old = kc._INTERPRET
+    kc._INTERPRET = True
+    try:
+        pallas = np.asarray(kc._conv3x3_fwd(
+            jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b)))
+    finally:
+        kc._INTERPRET = old
+    return x, wt, b, pallas.transpose(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_f32_conv_split_slices_match_plain_and_pallas(splits):
+    """Each split count the kernel takes: its plan leaves no slice empty,
+    and the slices' partials summed in rank order agree with the plain
+    version within 1e-5 * max and with JAX's Pallas kernel within 2e-4."""
+    x, wt, b, pallas = _split_case()
+    plan = tc.f32_conv_tile(1, 248, 128, 16, 16, 64, 64, 2, splits)
+    assert plan.splits == splits and (splits - 1) * plan.per < 31
+    assert plan.grid == (plan.tiles_y * plan.tiles_x * splits, 2)
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+    w_t = torch.from_numpy(np.ascontiguousarray(wt.transpose(3, 2, 0, 1)))
+    wk, bias = tc.pack_weight(w_t, torch.from_numpy(b), torch.float32)
+    ref = tc.conv3x3_ref(xt, w_t, torch.from_numpy(b))
+    emu = f32_conv_arithmetic(tc.nchw_to_nhwc(xt), wk, bias, splits)
+    np.testing.assert_allclose(emu.numpy(), ref.numpy(),
+                               atol=1e-5 * ref.abs().max().item(), rtol=0)
     np.testing.assert_allclose(emu.numpy(), pallas, rtol=2e-4, atol=2e-4)
 
 
@@ -292,7 +351,10 @@ def test_every_admitted_f32_attention_has_a_plan(calls):
         assert nk % p.bn == 0 and p.smem <= ta._SMEM_LIMIT
         assert p.grid[2] == b * h and p.grid[1] == p.splits
         assert (p.grid[0] - 1) * p.bm < nq <= p.grid[0] * p.bm
-        assert p.splits == (ta.kv_splits(b * h, nq, nk) if d == 512 else 1)
+        assert p.splits == (ta.f32_kv_splits(b * h, nq, nk) if d == 512
+                            else 1)
+        assert _fills_the_card(p.grid[0] * p.grid[1] * p.grid[2],
+                               b * h * p.grid[0] * (8 if d == 512 else 1))
     # chip_smoke.py holds the path's float32 rows at these shapes
     cs = chip_smoke()
     rows = {(b, h, nq, nk, d) for _, _, b, h, nq, nk, d, _, path, _
@@ -309,16 +371,94 @@ def test_every_admitted_f32_conv_has_a_plan(calls):
                 if tc.conv3x3_ok((n, c, h, w), (co, c, 3, 3), torch.float32)
                 or tc.conv3x3_vae_ok((n, c, h, w), (co, c, 3, 3),
                                      torch.float32)}
-    assert len(admitted) > 20
-    for n, c, co, h, w in admitted:
-        p = tc.conv3x3_plan(n, c, co, h, w, torch.float32)
-        assert p.bm == 128 and 1 <= p.th * p.tw <= 128 and c % 8 == 0
-        assert p.smem == 8 * ((p.th + 2) * (p.tw + 2) * 12 + 128 * 76)
-        assert p.smem <= tc.SMEM_MAX
-        assert p.grid == (n * -(-h // p.th) * -(-w // p.tw), -(-co // 128))
+    assert len(admitted) == 26
+    for shape in admitted:
+        _check_f32_conv_plan(*shape)
     cs = chip_smoke()
     assert {k[:5] for k in cs.CONV_F32_CASES} <= admitted
     assert {k[5] for k in cs.CONV_F32_CASES} == {"float32"}
+    # the path's other shapes as its run launched them: the ControlNet's
+    # hint pyramid (its last conv, 256 -> 320) runs once at the batch of 5
+    # in the sampler (``hint_only``), at 10 in the enumeration
+    assert len(admitted ^ set(cs.PF_CONV_F32_OTHER)) == 8
+    for shape in cs.PF_CONV_F32_OTHER:
+        _check_f32_conv_plan(*shape)
+
+
+def _fills_the_card(blocks, most):
+    """At least 96 % of the SMs get a block wherever ``most`` blocks (the
+    most any plan of the shape gives) would (``flash_fwd_plan``'s rule)."""
+    return blocks >= 0.96 * tc.SMS or blocks == most
+
+
+def _check_f32_conv_plan(n, c, co, h, w):
+    """The float32 K7 plan of a shape is one the kernel takes: a forced
+    tile's plan, the source's shared memory, a grid that covers the
+    output once a slice, slices of whole chunks none of them empty; and it
+    fills the card where the smallest tile at the most slices would."""
+    p = tc.conv3x3_plan(n, c, co, h, w, torch.float32)
+    assert p == tc.f32_conv_tile(n, c, co, h, w, p.bm, p.bn, p.minb,
+                                 p.splits)
+    assert (p.bm, p.bn, p.minb) in tc._F32_TILES and c % 8 == 0
+    assert 1 <= p.th * p.tw <= p.bm and p.tw <= 64
+    chunks = c // 8
+    assert p.splits in (1, 2, 4, 8) and p.per == -(-chunks // p.splits)
+    assert (p.splits - 1) * p.per < chunks   # the last slice is not empty
+    stages = 8 * ((p.th + 2) * (p.tw + 2) * 12 + p.bn * 76)
+    assert p.smem == max(stages, 4 * p.bn * (p.bm + 16) * (p.splits > 1))
+    assert p.smem <= tc.SMEM_MAX
+    assert p.tiles_y == -(-h // p.th) and p.tiles_x == -(-w // p.tw)
+    assert p.grid == (n * p.tiles_y * p.tiles_x * p.splits, -(-co // p.bn))
+    most = max(tc.f32_conv_tile(n, c, co, h, w, 64, 64, 2, s).grid[0]
+               * -(-co // 64) for s in (1, 2, 4, 8)
+               if -(-chunks // -(-chunks // s)) == s)
+    if (n, c, co, h, w) in FEWER_BLOCKS_FASTER:
+        assert p.grid[0] * p.grid[1] == 64
+    else:
+        assert _fills_the_card(p.grid[0] * p.grid[1], most)
+
+
+# Two eval shapes where 64 blocks of the 128 x 128 tile at 8 slices beat
+# every plan that fills the card (chip_smoke.py --sweep on an H100 80GB
+# HBM3: 0.0217 ms against 0.0236 for 256 blocks of 64 x 64 at
+# [1,128,32,32]->128, 0.0365 against 0.0388 at [1,256,32,32]->128)
+FEWER_BLOCKS_FASTER = {(1, 128, 128, 32, 32), (1, 256, 128, 32, 32)}
+
+
+# ``eval``'s float32 K7 calls (its metric networks, one image a call or the
+# 8 of a chunk): the shapes chip_smoke.py holds and sweeps
+EVAL_F32_CONVS = [
+    (1, 128, 128, 32, 32), (1, 128, 256, 64, 64), (1, 256, 128, 32, 32),
+    (1, 256, 256, 64, 64), (1, 256, 512, 32, 32), (1, 512, 256, 32, 32),
+    (1, 512, 512, 32, 32), (8, 256, 256, 24, 24), (8, 256, 256, 48, 48)]
+
+
+@pytest.mark.parametrize("shape", EVAL_F32_CONVS,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_eval_f32_convs_have_a_plan_that_fills_the_card(shape):
+    n, c, co, h, w = shape
+    assert tc.conv3x3_ok((n, c, h, w), (co, c, 3, 3), torch.float32)
+    _check_f32_conv_plan(*shape)
+
+
+def test_eval_f32_conv_cases_are_chip_smokes():
+    assert chip_smoke().EVAL_CONV_F32_CASES == EVAL_F32_CONVS
+
+
+@pytest.mark.parametrize("b,h,nq,nk,d", [
+    (8, 8, 1024, 1024, 40),    # train_f32's forward, its distill step's
+    (2, 8, 1024, 1024, 40), (6, 8, 1024, 1024, 40),
+    (8, 1, 1024, 1024, 512),   # train_f32's VAE encoder (K2)
+    (1, 1, 1024, 1024, 512),   # the one-slice row's shape
+    (9, 1, 4096, 4096, 512),   # a tiled decode's shape in float32
+])
+def test_train_f32_attention_plans_fill_the_card(b, h, nq, nk, d):
+    p = ta.flash_f32_plan(b * h, nq, nk, d)
+    assert p == ta.f32_tile(b * h, nq, nk, d, p.splits)
+    tiles = nk // p.bn
+    assert (p.splits - 1) * -(-tiles // p.splits) < tiles
+    assert _fills_the_card(p.grid[0] * p.grid[1] * p.grid[2],
+                           b * h * p.grid[0] * (8 if d == 512 else 1))
 
 
 @pytest.mark.parametrize("d,nk,splits", [
@@ -326,7 +466,8 @@ def test_every_admitted_f32_conv_has_a_plan(calls):
     (40, 1000, 1),      # Nk not a multiple of the 64-key tile
     (40, 1024, 2),      # a KV split below d = 512
     (512, 1024, 0),
-    (512, 96, 4),       # 3 key tiles cannot fill 4 slices
+    (512, 96, 4),       # Nk not a multiple of the 128-key tile
+    (512, 384, 4),      # 3 key tiles cannot fill 4 slices
     (512, 1024, 33),    # more slices than key tiles
 ])
 def test_f32_tile_refuses_what_the_kernel_does_not_take(d, nk, splits):
@@ -362,15 +503,28 @@ def test_f32_constants_match_the_sources():
     tiles = {int(d): (int(bm), int(bn)) for d, bm, bn in re.findall(
         r"struct Tile<(\d+)> \{\s*static constexpr int BM = (\d+), "
         r"BN = (\d+),", src)}
+    d512 = re.search(r"constexpr int D = 512, BM = (\d+), BN = (\d+), "
+                     r"DC = (\d+), VK = (\d+), STAGES = (\d+);", src)
+    tiles[512] = tuple(map(int, d512.groups()[:2]))
     assert tiles == ta._F32_TILES
     assert set(tiles) == set(ta.KERNEL_HEAD_DIMS)
+    assert tuple(map(int, d512.groups()[2:])) == (
+        ta._F32_D512_DC, ta._F32_D512_VK, ta._F32_D512_STAGES)
     assert "4 * ((T::BM + T::BN) * (D + 4) + T::BN * D +" in src
+    assert ("SMEM = 4 * (BM * QS + BM * SS + STAGES * BUF + 3 * BM)" in src
+            and "QS = D + 4;" in src and "KS = DC + 4;" in src
+            and "SS = BN + 4;" in src and "BUF = BN * KS;" in src)
+    assert ta._f32_smem(512) == 221952 <= ta._SMEM_LIMIT
     conv = (_build.CSRC / "conv3x3_f32.cu").read_text()
-    assert f"constexpr int BM = {tc._F32_BM};" in conv
     assert "constexpr int BK = 8;" in conv
     assert "constexpr int HPS = BK + 4;" in conv and tc._F32_HPS == 12
     assert "constexpr int WS = 9 * BK + 4;" in conv and tc._F32_WS == 76
     assert "constexpr int STAGES = 2;" in conv
+    assert f"constexpr int RPAD = {tc._F32_RPAD};" in conv
+    assert f"constexpr int MAX_SPLITS = {max(tc._F32_SPLITS)};" in conv
+    assert {(16 * int(i), 16 * int(j), int(m)) for i, j, m in re.findall(
+        r"\n  FGDM_CONV_F32\((\d+), (\d+), (\d+)\)", conv)} == set(
+            tc._F32_TILES)
     # every source the wrappers load is built by chip_smoke.py
     assert {"flash_attn_fwd_f32", "conv3x3_f32"} <= {
         p.stem for p in _build.CSRC.glob("*.cu")}
