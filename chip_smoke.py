@@ -1,19 +1,29 @@
 """On-card smoke test of the fgdm_tpu_torch port (one NVIDIA GPU).
 
-    python3 chip_smoke.py [--sweep]
+    python3 chip_smoke.py [--sweep | --compare PARENT_TREE]
 
 With ``--sweep`` it builds the kernels, times K7 in float32 at each tile
 and split of the reduction at the ``precision_full`` and ``eval`` paths'
-shapes and the float32 d = 512 forward at each KV split (how
-``conv3x3_plan``'s float32 cost weights and ``f32_kv_splits`` were
-chosen), K1 at each tile choice (keys
+shapes, the float32 d = 512 forward at each KV split, K1 in float32 at
+each tile (query rows, keys, ring stages) at the ``precision_full`` and
+``train_f32`` paths' shapes (how ``conv3x3_plan``'s float32 cost weights,
+``f32_kv_splits`` and ``flash_f32_plan``'s d = 40/80 tiles were chosen),
+K1 at each tile choice (keys
 per tile, ring stages, consumer warpgroups), K5 and K6 at each tile choice
 (streamed tile, ring stages, consumer warpgroups) at the ``BWD_CASES``
-shapes, K4 at each cluster size and the host cost of the steps around its
-launch, K7 at each forced tile size and the d = 512 forward at forced KV
-slice counts (how ``flash_fwd_plan``, ``flash_bwd_plan``, ``gn_plan``, K4's
-wrapper, ``conv3x3_plan``'s cost weights and ``kv_splits`` were chosen),
-and exits.  With no argument
+shapes, K6 in float32 at each tile (key rows, streamed queries, ring
+stages) beside K5 in float32 at those shapes and the distillation step's
+(how ``flash_bwd_f32_plan``'s K6 tile was chosen), K4 at each cluster
+size and the host cost of the steps around its launch, K7 at each
+forced tile size and the d = 512 forward at forced KV slice counts (how
+``flash_fwd_plan``, ``flash_bwd_plan``, ``gn_plan``, K4's wrapper,
+``conv3x3_plan``'s cost weights and ``kv_splits`` were chosen),
+and exits.  With ``--compare PARENT_TREE`` (another checkout, e.g. the
+parent commit unpacked by ``git archive``) it writes the chain's seeded
+checkpoints once and runs ``--precision full`` (``phase_precision_full``)
+from PARENT_TREE's and this tree's chip_smoke.py in turns, parent, this,
+this, parent, each in a process of its own with its tree's kernels, and
+reports ``[factor1]`` + ``[factor2]`` of each turn.  With no argument
 it builds the port's kernels from the sources in this checkout (one
 ``nvcc`` per CUDA source, started together), then:
 
@@ -124,7 +134,7 @@ it builds the port's kernels from the sources in this checkout (one
    ``cli.txt2img_fgdm.main`` with the CLI's flags plus ``--precision
    full`` on the two files, conv flags on, counts reset just before: 5
    maps (256^2) and 5 images (512^2), K1 at d 40 and 80, K2, K3, the
-   combine pass, K7 and its pre-pass launched in float32; one float32
+   combine pass, K7 and its pre-pass, K4 launched in float32; one float32
    factor-2 UNet + ControlNet forward at [2,4,64,64] and the float32 chain
    at batch 1 (50 + 20 steps, the same x_T), kernels on vs plain;
 6. the serving path, with both conv-kernel flags on, on the engine that
@@ -247,7 +257,8 @@ it builds the port's kernels from the sources in this checkout (one
    co-denoising, the variant UNet, the library modules): K1-K3 and the
    combine pass at each (batch, heads, N, d, dtype), K5 and K6 at each
    (batch, heads, N, d, dtype), K7 and its pre-pass at each conv launch key (the
-   dtype in it), K4 at each (shape, eps), each held once, in its dtype,
+   dtype in it), K4 at each (shape, eps, dtype), each held once, in its
+   dtype,
    under the first path that launched it; every row then reads its path's
    launch count and fails at 0;
 9. prints ``{"kernels": [...]}`` (each row with its ``dtype``) and, last,
@@ -374,6 +385,12 @@ ATTN_F32_CASES = [
     ("flash_attn_fwd f32 d80 Nq600 Nk1024 [1,3] ragged", K1, 1, 3, 600, 1024,
      80, False, None, None),
 ]
+# (batch, heads, N, d, lse): where ``--sweep`` times K1-f32 at every tile:
+# the ``precision_full`` path's three shapes, ``train_f32``'s step and its
+# distillation step's (with lse)
+K1_F32_SWEEP = [(10, 8, 1024, 40, False), (10, 8, 4096, 40, False),
+                (10, 8, 1024, 80, False), (8, 8, 1024, 40, True),
+                (2, 8, 1024, 40, True), (6, 8, 1024, 40, True)]
 # (batch, heads, N, d): where ``--sweep`` times K1 at every tile choice
 K1_SWEEP = [(2, 8, 4096, 40), (8, 8, 4096, 40), (8, 8, 1024, 40),
             (2, 8, 1024, 40), (8, 8, 1024, 80)]
@@ -502,6 +519,13 @@ D512_F32_SWEEP = [(5, 1024), (5, 4096), (8, 1024), (1, 1024), (9, 4096)]
 # of the 16-row kernel, H100 80GB HBM3, 700.00 W, as PERF.md records them)
 ATTN_F32_BEFORE = {(5, 1024): 0.5402, (5, 4096): 7.8533, (1, 1024): 0.1899,
                    (8, 1024): 0.7963}
+# K1-f32 (b, h, N, d) and K6-f32 (b, h, N, d) before their redesign (device
+# ms of the 4 x 4-tile kernels, H100 80GB HBM3, 700.00 W, as PERF.md
+# records them)
+K1_F32_BEFORE = {(10, 8, 1024, 40): 0.5328, (10, 8, 4096, 40): 8.1263,
+                 (10, 8, 1024, 80): 0.9216}
+K6_F32_BEFORE = {(8, 8, 1024, 40): 0.7700, (2, 8, 1024, 40): 0.1941,
+                 (6, 8, 1024, 40): 0.5789}
 ATTN_TOL = (1e-2, 1e-3)   # max|d| <= 1e-2 * max|ref| + 1e-3 (bf16 out, P)
 LSE_TOL = 1e-3            # max|d| of the f32 lse (same f32 scores)
 BWD_TOL = (2e-2, 2e-3)    # max|d| <= 2e-2 * max|ref| + 2e-3 (bf16 p and dS)
@@ -753,12 +777,14 @@ def attn_row(gen, label, tpu, b, h, nq, nk, d, with_lse, path, splits,
     vt_ms = None
     if f32:
         plan = attention.flash_f32_plan(b * h, nq, nk, d, kw.get("splits"))
-        before = ATTN_F32_BEFORE.get((b, nq)) if d == 512 and h == 1 else None
+        before = (ATTN_F32_BEFORE.get((b, nq)) if d == 512 and h == 1
+                  else K1_F32_BEFORE.get((b, h, nq, d)))
         if before and nq == nk:
             note += f", before {before:.4f} ms"
         blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
-        note += (f", tile {plan.bm} rows x {plan.bn} keys, {plan.splits} KV "
-                 f"slice(s), {blocks} blocks, {blocks / SMS:.2f} waves")
+        note += (f", tile {plan.bm} rows x {plan.bn} keys x {plan.stages} "
+                 f"stages, {plan.splits} KV slice(s), {blocks} blocks, "
+                 f"{blocks / SMS:.2f} waves")
     elif d == 512:
         used = splits or attention.kv_splits(b * h, nq, nk)
         note += f", {used} KV slice(s)"
@@ -935,7 +961,11 @@ def bwd_row(gen, suffix, b, h, nq, nk, d, path, dtype="bfloat16"):
     reps = 10 if nq >= 4096 else 30
     if f32:
         plans = attention.flash_bwd_f32_plan(b * h, nq, nk, d)
-        tiles = [f"{p.rows} rows x {p.bt} streamed" for p in plans]
+        tiles = [f"{p.rows} rows x {p.bt} streamed x {p.stages} stages"
+                 for p in plans]
+        before = K6_F32_BEFORE.get((b, h, nq, d)) if nq == nk else None
+        if before:
+            tiles[1] += f", before {before:.4f} ms"
     else:
         plans = attention.flash_bwd_plan(b * h, nq, nk, d)
         tiles = [f"{p.bt} x {p.stages} stages x {p.wgs} warpgroup(s)"
@@ -1043,7 +1073,7 @@ def gn_row(gen, label, shape, eps, path, dtype="bfloat16", silu=True):
         f"{plan.streams} aligned={plan.aligned} blocks={plan.blocks}")
     return dict(
         name=label, route="cuda", source=GN_SRC, replaces=K4, dtype=dtype,
-        key=("gn", tuple(shape), eps), path=path, max_abs_err=err,
+        key=("gn", tuple(shape), eps, dtype), path=path, max_abs_err=err,
         tol=GN_TOL, ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
         library_ms=lib_ms)
@@ -1059,18 +1089,19 @@ def gn_rows(gen):
 
 
 def gn_path_rows(gen, by_path):
-    """K4 at every (shape, eps) that a path launched and ``GN_CASES`` does
-    not hold, in bf16 (the paths' dtype); a shape two paths launch is held
-    once, under the first."""
+    """K4 at every (shape, eps, dtype) that a path launched and
+    ``GN_CASES`` (bf16) does not hold, in that dtype; a key two paths
+    launch is held once, under the first."""
     import torch
 
-    done = {(shape, eps) for _, shape, eps, _ in GN_CASES}
+    done = {(shape, eps, "bfloat16") for _, shape, eps, _ in GN_CASES}
     rows = []
     for path, counts in by_path.items():
-        for shape, eps in sorted(set(counts["gn"]) - done):
-            done.add((shape, eps))
-            label = f"group_norm_silu [{','.join(map(str, shape))}] {path}"
-            rows.append(gn_row(gen, label, shape, eps, path))
+        for shape, eps, dt in sorted(set(counts["gn"]) - done):
+            done.add((shape, eps, dt))
+            label = (f"group_norm_silu{' f32' if dt == 'float32' else ''} "
+                     f"[{','.join(map(str, shape))}] {path}")
+            rows.append(gn_row(gen, label, shape, eps, path, dt))
             torch.cuda.empty_cache()
     return rows
 
@@ -1719,7 +1750,7 @@ def phase_precision_full(paths, outdir):
     checkpoints, both conv flags on, every launch count set to 0 just before
     and read just after (the path's counted run): 5 condition maps (256^2)
     and 5 images (512^2) as valid PNGs, and K1 at d 40 and 80, K2, K3, the
-    combine pass, K7 and its pre-pass launched in float32.  Then, on the
+    combine pass, K7 and its pre-pass, K4 launched in float32.  Then, on the
     chain's models built in float32, one factor-2 UNet + ControlNet forward
     at [2, 4, 64, 64] (UNET_F32_TOL) and the whole chain at batch 1 (50 + 20
     steps, the same x_T from the slot seed; CHAIN_F32_TOL on the image
@@ -1756,7 +1787,7 @@ def phase_precision_full(paths, outdir):
                 and all(shapes[p] == (512, 512) for p in images))
     f32 = {kind: {k: v for k, v in c.items() if k[-1] == "float32"}
            for kind, c in counts.items()
-           if kind in ("attn", "combine", "conv", "prepass")}
+           if kind in ("attn", "combine", "conv", "prepass", "gn")}
     n_bf16 = sum(v for kind in f32 for k, v in counts[kind].items()
                  if k[-1] != "float32")
     launched = {
@@ -1766,7 +1797,8 @@ def phase_precision_full(paths, outdir):
         "K3": any(attn_kernel(k[4], k[3]) == K3 for k in f32["attn"]),
         "combine": sum(f32["combine"].values()) > 0,
         "K7": sum(f32["conv"].values()) > 0,
-        "pre-pass": sum(f32["prepass"].values()) > 0}
+        "pre-pass": sum(f32["prepass"].values()) > 0,
+        "K4": sum(f32["gn"].values()) > 0}
     f1, f2 = out["factor1_s"][0], out["factor2_s"][0]
     ok = files_ok and all(launched.values())
     log(f"precision_full: {len(maps)} maps "
@@ -1776,7 +1808,7 @@ def phase_precision_full(paths, outdir):
         f"({CLI_BATCH / (f1 + f2):.3f} images/s over both factors, first "
         f"run), main() {wall:.2f}s; peak memory {peak_gib:.2f} GiB; float32 "
         "launches " + ", ".join(f"{k} {v}" for k, v in launched.items())
-        + f"; bf16 launches of K1-K3, K7 {n_bf16}; "
+        + f"; bf16 launches of K1-K4, K7 {n_bf16}; "
         f"{'OK' if ok else 'FAIL'}")
     log_counts("precision_full", counts)
     del out
@@ -2397,38 +2429,15 @@ def phase_distill(tr):
     return ok and cmp_ok, counts
 
 
-def _dtypes_launched(counts, gn_dtypes):
+def _dtypes_launched(counts):
     """{kernel: {dtype name: launches}} of a counted run: the dtype is the
-    last field of every launch key but K4's, whose dtypes ``gn_dtypes``
-    holds."""
-    out = {"gn": dict(gn_dtypes)}
+    last field of every launch key."""
+    out = {}
     for kind, c in counts.items():
-        if kind == "gn":
-            continue
         by = out.setdefault(kind, {})
         for key, n in c.items():
             by[key[-1]] = by.get(key[-1], 0) + n
     return out
-
-
-@contextlib.contextmanager
-def gn_dtype_tally(tally):
-    """Tallies the dtype of each K4 launch into ``tally`` (K4's launch key
-    holds no dtype): wraps ``groupnorm._launch``, which launches once a
-    call."""
-    from fgdm_tpu_torch.kernels import attention, groupnorm
-
-    real = groupnorm._launch
-
-    def launch(x, *a, **kw):
-        tally[attention.dtype_name(x.dtype)] += 1
-        return real(x, *a, **kw)
-
-    groupnorm._launch = launch
-    try:
-        yield
-    finally:
-        groupnorm._launch = real
 
 
 def phase_train_f32():
@@ -2447,7 +2456,6 @@ def phase_train_f32():
     folded into q before Q K^T (printed, not held); both again after the
     steps, printed only: there the two plain orderings differ by more than
     ``UNET_F32_TOL`` of max.  Profiles one warm step."""
-    import collections
     import torch
     from fgdm_tpu_torch.builders import build_trainer
     from fgdm_tpu_torch.kernels import attention
@@ -2503,7 +2511,6 @@ def phase_train_f32():
     adapter0 = {k: p.detach().clone() for k, p in state.params.items()}
     frozen0 = frozen_checksum(state)
     metrics = []
-    gn_dtypes = collections.Counter()
 
     def step(fn=tr.train_step):
         nonlocal state
@@ -2512,9 +2519,8 @@ def phase_train_f32():
 
     reset_counts()
     t0 = time.perf_counter()
-    with gn_dtype_tally(gn_dtypes):
-        step()
-        torch.cuda.synchronize()
+    step()
+    torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     counts = read_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -2527,9 +2533,8 @@ def phase_train_f32():
     ema_ok = state.ema.num_updates == state.step == 1 + WARM_STEPS
     reset_counts()
     t0 = time.perf_counter()
-    with gn_dtype_tally(gn_dtypes):
-        step(tr.distill_step)
-        torch.cuda.synchronize()
+    step(tr.distill_step)
+    torch.cuda.synchronize()
     distill_s = time.perf_counter() - t0
     distill_counts = read_counts()
     counts = merge_counts(counts, distill_counts)
@@ -2539,7 +2544,7 @@ def phase_train_f32():
     moved = max((p - adapter0[k]).abs().max().item()
                 for k, p in state.params.items())
     frozen_same = torch.equal(frozen_checksum(state), frozen0)
-    by_dtype = _dtypes_launched(counts, gn_dtypes)
+    by_dtype = _dtypes_launched(counts)
     lse = {k[6] for k in counts["attn"] if k[5]}
     n = {k: sum(c.values()) for k, c in counts.items()}
     launched = (lse == {"float32"} and n["gn"] > 0
@@ -4444,7 +4449,7 @@ def phase_tiled(ld):
             alone = ld.decode_first_stage(z[:, :, :64, :64])
     finite = bool(torch.isfinite(img).all() and torch.isfinite(lat).all())
     k3 = counts["attn"].get((9, 1, 4096, 4096, 512, False, "bfloat16"), 0)
-    gn9 = {c: counts["gn"].get(((9, c, 512, 512), 1e-6), 0)
+    gn9 = {c: counts["gn"].get(((9, c, 512, 512), 1e-6, "bfloat16"), 0)
            for c in (128, 256)}
     k7 = sum(v for k, v in counts["conv"].items() if k[0] == 9)
     rel = _rel(img[:, :, :384, :384], alone[:, :, :384, :384])
@@ -4782,6 +4787,140 @@ def sweep_k1(gen):
     return bad
 
 
+def sweep_k1_f32(gen):
+    """K1-f32 at the planned tile (*) and at every tile the kernel takes
+    (query rows x keys x ring stages), at the ``K1_F32_SWEEP`` shapes of
+    the ``precision_full`` and ``train_f32`` paths, each held against the
+    plain version (``ATTN_F32_TOL``, ``LSE_F32_TOL``) and rerun bit for bit;
+    device times beside SDPA's float32 (TF32 off), each tile's resident
+    blocks an SM.  Returns the number of failures."""
+    import ctypes
+    import torch
+    import torch.nn.functional as F
+    from fgdm_tpu_torch.kernels import attention
+
+    lib = attention._f32_lib()
+    bad = 0
+    for b, h, n, d, with_lse in K1_F32_SWEEP:
+        q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen)
+                   for _ in range(3))
+        scale = d ** -0.5
+        ref, ref_lse = attention.attention_ref(q, k, v, scale,
+                                               return_lse=True)
+        lim = ATTN_F32_TOL[0] * ref.abs().max().item() + ATTN_F32_TOL[1]
+        planned = attention.flash_f32_plan(b * h, n, n, d)
+        reps = 5 if n >= 4096 else 20
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), reps)
+        timed = []
+        for tile in attention._F32_TILES[d]:
+            try:
+                plan = attention.f32_tile(b * h, n, n, d, 1, tile)
+            except ValueError:
+                continue
+            tag = f"{'x'.join(map(str, tile))}{'*' if plan == planned else ''}"
+            out, lse = attention._flash_f32(q, k, v, scale, with_lse, plan)
+            err = (out - ref).abs().max().item()
+            lse_err = (0.0 if lse is None
+                       else (lse - ref_lse).abs().max().item())
+            again = attention._flash_f32(q, k, v, scale, with_lse, plan)
+            same = torch.equal(out, again[0]) and (
+                lse is None or torch.equal(lse, again[1]))
+            ok = (math.isfinite(err) and err <= lim and same
+                  and math.isfinite(lse_err) and lse_err <= LSE_F32_TOL)
+            bad += not ok
+            ms = graph_ms(lambda: attention._flash_f32(
+                q, k, v, scale, with_lse, plan), reps)
+            res = ctypes.c_int(0)
+            rc = lib.fgdm_flash_attn_f32_resident(
+                d, plan.bm, plan.bn, plan.stages, plan.smem,
+                ctypes.addressof(res))
+            blocks = plan.grid[0] * plan.grid[2]
+            timed.append((ms, f"{tag} {blocks} blocks, {res.value if rc == 0 else '?'}"
+                              f" an SM, {ms:.4f} ms, max|d| {err:.1e}"
+                              f"{'' if lse is None else f' lse {lse_err:.1e}'}"
+                              f" {'OK' if ok else 'FAIL'}"))
+        bound_ms = 1e3 * 4.0 * b * h * n * n * d / PEAK_F32_FLOPS
+        log(f"flash_attn_fwd{'+lse' if with_lse else ''} f32 d{d} "
+            f"[{b},{h},{n}] (SDPA f32 {lib_ms:.4f} ms; f32 bound "
+            f"{bound_ms:.4f} ms), fastest first: "
+            + "; ".join(m for _, m in sorted(timed)))
+        del q, k, v, ref
+        torch.cuda.empty_cache()
+    return bad
+
+
+def sweep_bwd_f32(gen):
+    """K6-f32 at the planned tile (*) and at every tile it takes (key rows
+    x streamed queries x ring stages), and K5-f32 at its one tile, at the
+    ``BWD_CASES`` shapes and the distillation step's, each held against the
+    plain version (``ATTN_F32_TOL``) and rerun bit for bit; device times
+    beside SDPA's float32 backward (its kernels' summed time), each tile's
+    resident blocks an SM.  Returns the number of failures."""
+    import ctypes
+    import torch
+    import torch.nn.functional as F
+    from fgdm_tpu_torch.kernels import attention
+
+    lib = attention._bwd_f32_lib()
+    bad = 0
+    shapes = [c[1:6] for c in BWD_CASES] + [(2, 8, 1024, 1024, 40),
+                                            (6, 8, 1024, 1024, 40)]
+    for b, h, nq, nk, d in shapes:
+        q, k, v, do, o, lse, delta, scale = bwd_inputs(gen, b, h, nq, nk, d,
+                                                       "float32")
+        refs = attention.attention_bwd_ref(q, k, v, o, lse, do, scale)
+        reps = 10 if nq >= 4096 else 30
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        lib_ms = profiled_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True), reps)
+        dq_plan, planned = attention.flash_bwd_f32_plan(b * h, nq, nk, d)
+        dq = attention._flash_k5_f32(q, k, v, do, lse, delta, scale, dq_plan)
+        dq_err = bwd_errors((dq, None, None), refs, ATTN_F32_TOL)["q"]
+        dq_ok = dq_err[0] <= dq_err[1] and torch.equal(
+            dq, attention._flash_k5_f32(q, k, v, do, lse, delta, scale,
+                                        dq_plan))
+        bad += not dq_ok
+        dq_ms = graph_ms(lambda: attention._flash_k5_f32(
+            q, k, v, do, lse, delta, scale, dq_plan), reps)
+        timed = []
+        for tile in attention._K6_F32_TILES:
+            try:
+                plan = attention.bwd_f32_tile("dkv", b * h, nq, nk, d, tile)
+            except ValueError:
+                continue
+            tag = f"{'x'.join(map(str, tile))}{'*' if plan == planned else ''}"
+            got = attention._flash_k6_f32(q, k, v, do, lse, delta, scale,
+                                          plan)
+            errs = bwd_errors((None, *got), refs, ATTN_F32_TOL)
+            again = attention._flash_k6_f32(q, k, v, do, lse, delta, scale,
+                                            plan)
+            ok = (all(math.isfinite(e) and e <= lim
+                      for e, lim in errs.values())
+                  and all(torch.equal(x, y) for x, y in zip(got, again)))
+            bad += not ok
+            ms = graph_ms(lambda: attention._flash_k6_f32(
+                q, k, v, do, lse, delta, scale, plan), reps)
+            res = ctypes.c_int(0)
+            rc = lib.fgdm_flash_attn_bwd_f32_dkv_resident(
+                d, plan.rows, plan.bt, plan.stages, plan.smem,
+                ctypes.addressof(res))
+            timed.append((ms, f"{tag} {plan.grid[0] * plan.grid[1]} blocks, "
+                              f"{res.value if rc == 0 else '?'} an SM, "
+                              f"{ms:.4f} ms, K5+K6 {dq_ms + ms:.4f} ms "
+                              f"{'OK' if ok else 'FAIL'}"))
+        ops = 1.0 * b * h * nq * nk * d
+        log(f"flash_attn_bwd f32 d{d} [{b},{h},{nq},{nk}] (SDPA f32 backward "
+            f"{'not measured' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+            f"K5-f32 {dq_ms:.4f} ms {'OK' if dq_ok else 'FAIL'}; K6 f32 "
+            f"bound {1e3 * 8 * ops / PEAK_F32_FLOPS:.4f} ms), K6-f32 "
+            f"fastest first: " + "; ".join(m for _, m in sorted(timed)))
+        del q, k, v, do, o, refs
+        torch.cuda.empty_cache()
+    return bad
+
+
 def sweep_bwd(gen):
     """K5 and K6 at the planned tile (*) and at every tile each kernel takes
     (streamed tile, ring stages, consumer warpgroups) at the ``BWD_CASES``
@@ -4994,10 +5133,83 @@ def sweep_attn_f32(gen):
     return bad
 
 
+# Run in each tree by ``compare_precision_full``: that tree's
+# chip_smoke.py, kernels built from its sources, on the shared checkpoints
+_COMPARE_RUN = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cs.build_kernels()
+sys.exit(0 if cs.phase_precision_full(json.loads(sys.argv[1]),
+                                      sys.argv[2])[0] else 1)
+"""
+
+
+def compare_precision_full(parent):
+    """``--precision full`` of the tree ``parent`` (another checkout, e.g.
+    the parent commit unpacked by ``git archive``) against this one, in
+    turns on one card (parent, this, this, parent): the chain's seeded
+    checkpoint files are written once, then each turn runs that tree's
+    ``phase_precision_full`` in a process of its own and reports
+    ``[factor1]`` + ``[factor2]``.  Returns 0 if every turn passed."""
+    import torch
+    from fgdm_tpu_torch.builders import build_chain
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    if not os.path.isfile(os.path.join(parent, "chip_smoke.py")):
+        log(f"chip_smoke: no chip_smoke.py in {parent}")
+        return 2
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_compare_",
+                            dir=os.path.join(here, "build"))
+    try:
+        ld, cldm = build_chain(device="cuda", seed=0)
+        paths, nbytes, secs = write_checkpoints(ld, cldm, root)
+        del ld, cldm
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"compare: wrote the checkpoints, {nbytes / 2 ** 30:.2f} GiB in "
+            f"{secs:.1f}s")
+        bad, walls = 0, []
+        for i, tree in enumerate((parent, here, here, parent)):
+            out = subprocess.run(
+                [sys.executable, "-c", _COMPARE_RUN, json.dumps(paths),
+                 os.path.join(root, f"out{i}")], cwd=tree,
+                capture_output=True, text=True)
+            found = re.search(r"\[factor1\] ([0-9.]+)s, \[factor2\] "
+                              r"([0-9.]+)s.*?; (OK|FAIL)", out.stdout)
+            ok = out.returncode == 0 and found and found.group(3) == "OK"
+            bad += not ok
+            name = "parent" if tree == parent else "this tree"
+            if found:
+                f1, f2 = float(found.group(1)), float(found.group(2))
+                walls.append((name, f1 + f2))
+                log(f"compare turn {i + 1} ({name}): [factor1] {f1:.2f}s + "
+                    f"[factor2] {f2:.2f}s = {f1 + f2:.2f}s "
+                    f"{'OK' if ok else 'FAIL'}")
+            else:
+                log(f"compare turn {i + 1} ({name}): rc {out.returncode}, "
+                    "no precision_full line FAIL\n" + out.stdout[-2000:]
+                    + out.stderr[-2000:])
+        for name in ("parent", "this tree"):
+            got = [w for n, w in walls if n == name]
+            log(f"compare: {name} [factor1] + [factor2] "
+                + " / ".join(f"{w:.2f}" for w in got) + " s")
+        log(f"compare: {card_line()}")
+        return 1 if bad else 0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def sweep():
     """K7-f32 at each tile and split (``sweep_conv_f32``), the float32
-    d = 512 forward at each KV split (``sweep_attn_f32``), K1 at each tile
-    choice (``sweep_k1``), K5 and K6 at each tile choice (``sweep_bwd``), K4
+    d = 512 forward at each KV split (``sweep_attn_f32``), K1-f32 at each
+    tile (``sweep_k1_f32``), K1 at each tile choice (``sweep_k1``), K5 and
+    K6 at each tile choice (``sweep_bwd``) and K6-f32 at each tile beside
+    K5-f32 (``sweep_bwd_f32``), K4
     at each cluster size (``sweep_k4``) and its wrapper's host cost
     (``gn_host_costs``), K7's ``wgmma`` kernel alone (no pre-pass) at the
     planned tile (*) and at each forced size, and the bf16 d = 512 forward
@@ -5007,8 +5219,9 @@ def sweep():
     from fgdm_tpu_torch.kernels import attention, conv
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bad = sweep_conv_f32(gen) + sweep_attn_f32(gen)
-    bad += sweep_k1(gen) + sweep_bwd(gen) + sweep_k4(gen)
+    bad = sweep_conv_f32(gen) + sweep_attn_f32(gen) + sweep_k1_f32(gen)
+    bad += sweep_k1(gen) + sweep_bwd(gen) + sweep_bwd_f32(gen)
+    bad += sweep_k4(gen)
     gn_host_costs()
     for n, c, co, h, w in CONV_CASES + RAGGED_CONV_CASES:
         x = torch.randn(n, c, h, w, device="cuda", generator=gen,
@@ -5368,9 +5581,12 @@ def main():
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    if sys.argv[1:] not in ([], ["--sweep"]):
+    if not (sys.argv[1:] in ([], ["--sweep"])
+            or (len(sys.argv) == 3 and sys.argv[1] == "--compare")):
         log(f"chip_smoke: unknown arguments {sys.argv[1:]}")
         return 2
+    if sys.argv[1:2] == ["--compare"]:
+        return compare_precision_full(sys.argv[2])
     build_kernels()
     if sys.argv[1:]:
         return sweep()
@@ -5640,7 +5856,7 @@ def main():
                          0) == 0:
         failures.append("K3 not launched at [9,1,4096,512] by the tiled VAE")
     for c in (128, 256):
-        if tiled["gn"].get(((9, c, 512, 512), 1e-6), 0) == 0:
+        if tiled["gn"].get(((9, c, 512, 512), 1e-6, "bfloat16"), 0) == 0:
             failures.append(f"K4 not launched at [9,{c},512,512] by the "
                             "tiled VAE")
     if not any(k[0] == 9 for k in tiled["conv"]):

@@ -109,15 +109,31 @@ _SMEM_LIMIT = 232448
 # its consumer warpgroups and deepest ring.
 _BWD_WG_ROWS, _BWD_WGS, _BWD_MAX_STAGES = 64, (1, 2), 4
 _BWD_TILES = {"dq": (64, 128), "dkv": (64,)}
-# The float32 forward (flash_attn_fwd_f32.cu): (query rows, keys) a block at
-# each head dim it instantiates; at d = 512 the chunk of d a K copy takes,
-# the keys a V copy takes and the stages of their ring.
-_F32_TILES = {40: (64, 64), 80: (64, 64), 512: (64, 128)}
-_F32_D512_DC, _F32_D512_VK, _F32_D512_STAGES = 32, 8, 3
-# The float32 backward (flash_attn_bwd_f32.cu): (query rows, keys) a tile at
-# each head dim it instantiates; K5's block owns the query rows and streams
-# the keys, K6's owns the keys and streams the query rows.
+# The float32 forward (flash_attn_fwd_f32.cu): the tiles (query rows, keys,
+# K/V ring stages) a block it instantiates at each head dim
+# (FGDM_K1_F32_TILES at d = 40 and 80); at d = 512 the chunk of d a K copy
+# takes and the keys a V copy takes.
+_K1_F32_TILES = ((64, 64, 2), (64, 64, 3), (128, 64, 2), (128, 64, 3),
+                 (64, 32, 2), (64, 32, 3), (128, 32, 2), (128, 32, 3))
+_F32_TILES = {40: _K1_F32_TILES, 80: _K1_F32_TILES, 512: ((64, 128, 3),)}
+_F32_D512_DC, _F32_D512_VK = 32, 8
+# The float32 backward (flash_attn_bwd_f32.cu): K5's (query rows, keys) at
+# each head dim it instantiates (its block owns the query rows and streams
+# the keys through two stages); K6's tiles (key rows, streamed query rows,
+# ring stages) a block (FGDM_K6_F32_TILES).
 _BWD_F32_TILES = {40: (64, 64), 80: (64, 64)}
+_K6_F32_TILES = ((64, 64, 2), (64, 64, 3), (128, 64, 2), (128, 64, 3),
+                 (64, 32, 2), (64, 32, 3), (128, 32, 2), (128, 32, 3))
+# The K1-f32 tile at each head dim: the fastest of ``chip_smoke.py
+# --sweep`` at every d = 40 shape of the paths (64 keys, two stages); at
+# d = 80 32 keys, two stages (one block of 128 rows was 1 % faster at
+# [10, 8, 1024], at half the blocks)
+_K1_F32_PLAN = {40: (64, 64, 2), 80: (64, 32, 2)}
+# The K6-f32 tile at each head dim: the fastest of ``chip_smoke.py --sweep``
+# that fits two blocks an SM (64 key rows; 64 queries a tile at d = 40, 32
+# at d = 80; two stages).  One block of 128 key rows (8 warps) ran 2-3 %
+# faster at the paths' d = 40 shapes, and at [2, 8, 1024, 80].
+_K6_F32_PLAN = {40: (64, 64, 2), 80: (64, 32, 2)}
 
 
 def attention_ref(q, k, v, scale, return_lse: bool = False):
@@ -208,10 +224,11 @@ def flash_fwd_plan(bh: int, nq: int, nk: int, d: int,
     return k1_tile(bh, nq, nk, d, bn, 2, wgs)
 
 
-F32Plan = collections.namedtuple("F32Plan", "bm bn splits grid smem")
+F32Plan = collections.namedtuple("F32Plan", "bm bn stages splits grid smem")
 F32Plan.__doc__ = """The float32 forward's tile: ``bm`` query rows and
-``bn`` keys a block, the keys cut into ``splits`` slices (d = 512 only);
-``grid`` (row tiles, splits, B*H) and the block's shared memory in bytes."""
+``bn`` keys a block, a K/V ring of ``stages``, the keys cut into ``splits``
+slices (d = 512 only); ``grid`` (row tiles, splits, B*H) and the block's
+shared memory in bytes."""
 
 
 def f32_kv_splits(bh: int, nq: int, nk: int, sms: int = SMS) -> int:
@@ -220,7 +237,7 @@ def f32_kv_splits(bh: int, nq: int, nk: int, sms: int = SMS) -> int:
     non-empty slices, waves of blocks times the key tiles a block walks
     plus one tile-time for what each block pays once (the Q load, the
     partial's write and its re-read by the combine pass)."""
-    bm, bn = _F32_TILES[512]
+    bm, bn, _ = _F32_TILES[512][0]
     base = bh * -(-nq // bm)
     tiles = nk // bn
     best = None
@@ -234,44 +251,52 @@ def f32_kv_splits(bh: int, nq: int, nk: int, sms: int = SMS) -> int:
     return best[1]
 
 
-def _f32_smem(d: int) -> int:
-    """The float32 forward's dynamic shared memory at head dim ``d``
-    (``smem_bytes<D>`` and ``d512::SMEM`` of ``flash_attn_fwd_f32.cu``)."""
-    bm, bn = _F32_TILES[d]
+def _f32_smem(d: int, bm: int, bn: int, stages: int) -> int:
+    """The float32 forward's dynamic shared memory at head dim ``d`` and the
+    tile ``bm x bn x stages`` (``smem_bytes`` and ``d512::SMEM`` of
+    ``flash_attn_fwd_f32.cu``)."""
     if d == 512:   # Q, the scores, the K/V ring, three row statistics
         return 4 * (bm * (d + 4) + bm * (bn + 4)
-                    + _F32_D512_STAGES * bn * (_F32_D512_DC + 4) + 3 * bm)
-    return 4 * ((bm + bn) * (d + 4) + bn * d + bm * (bn + 4) + 3 * bm)
+                    + stages * bn * (_F32_D512_DC + 4) + 3 * bm)
+    # Q, the K/V ring (rows of d + 4), each warp's 16 P rows of bn + 8
+    return 4 * (bm * (d + 4) + stages * 2 * bn * (d + 4) + bm * (bn + 8))
 
 
-def f32_tile(bh: int, nq: int, nk: int, d: int, splits: int = 1) -> F32Plan:
-    """The float32 forward's plan with ``splits`` KV slices; raises
-    ValueError on what the kernel does not take (the checks of
-    ``flash_attn_fwd_f32.cu``'s launch): another head dim, Nk not a
+def f32_tile(bh: int, nq: int, nk: int, d: int, splits: int = 1,
+             tile: Optional[tuple] = None) -> F32Plan:
+    """The float32 forward's plan with ``splits`` KV slices at ``tile``
+    ``(bm, bn, stages)``, one of ``_F32_TILES[d]`` (default: the first);
+    raises ValueError on what the kernel does not take (the checks of
+    ``flash_attn_fwd_f32.cu``'s launch): another head dim or tile, Nk not a
     multiple of the key tile, a split below d = 512 or one that would leave
-    a slice empty."""
+    a slice empty, more shared memory than a block has."""
     if d not in _F32_TILES:
         raise ValueError(f"flash_attention: no float32 tile at d={d} (have "
                          f"{tuple(_F32_TILES)})")
-    bm, bn = _F32_TILES[d]
-    smem = _f32_smem(d)
+    bm, bn, stages = tile or _F32_TILES[d][0]
+    smem = _f32_smem(d, bm, bn, stages)
     tiles = nk // bn
-    if (nk % bn or splits < 1 or (splits > 1 and d != 512)
-            or splits > tiles or -(-tiles // -(-tiles // splits)) != splits
+    if ((bm, bn, stages) not in _F32_TILES[d] or nk % bn or splits < 1
+            or (splits > 1 and d != 512) or splits > tiles
+            or -(-tiles // -(-tiles // splits)) != splits
             or smem > _SMEM_LIMIT):
-        raise ValueError(f"flash_attention: no float32 tile for {splits} "
-                         f"split(s) at d={d}, nk={nk} (keys a tile {bn}, "
-                         f"{smem} B of shared memory)")
-    return F32Plan(bm, bn, splits, (-(-nq // bm), splits, bh), smem)
+        raise ValueError(f"flash_attention: no float32 tile {bm}x{bn}x"
+                         f"{stages} for {splits} split(s) at d={d}, nk={nk} "
+                         f"({smem} B of shared memory)")
+    return F32Plan(bm, bn, stages, splits, (-(-nq // bm), splits, bh), smem)
 
 
 def flash_f32_plan(bh: int, nq: int, nk: int, d: int,
                    splits: Optional[int] = None) -> F32Plan:
     """The float32 forward's plan for ``[bh, nq, d]`` queries against
-    ``nk`` keys: at d = 512 the keys are cut into ``f32_kv_splits`` slices
-    (``splits=`` forces a count), else one."""
+    ``nk`` keys: at d = 512 one tile, the keys cut into ``f32_kv_splits``
+    slices (``splits=`` forces a count); at d = 40 and 80 the tile
+    ``_K1_F32_PLAN`` names, unsplit (64 query rows a block, 3 blocks an
+    SM: 1,280 blocks at ``precision_full``'s [10, 8, 1024])."""
+    if d != 512:
+        return f32_tile(bh, nq, nk, d, splits or 1, _K1_F32_PLAN.get(d))
     if splits is None:
-        splits = f32_kv_splits(bh, nq, nk) if d == 512 else 1
+        splits = f32_kv_splits(bh, nq, nk)
     return f32_tile(bh, nq, nk, d, splits)
 
 
@@ -345,44 +370,54 @@ def flash_bwd_plan(bh: int, nq: int, nk: int, d: int,
 
 
 BwdF32Plan = collections.namedtuple("BwdF32Plan",
-                                    "kernel rows bt grid smem")
+                                    "kernel rows bt stages grid smem")
 BwdF32Plan.__doc__ = """A float32 backward kernel's tile: ``kernel`` "dq"
 (K5) or "dkv" (K6), ``rows`` query rows (K5) or key rows (K6) a block,
-``bt`` keys (K5) or queries (K6) a streamed tile; ``grid`` (row tiles,
-B*H) and the block's shared memory in bytes."""
+``bt`` keys (K5) or queries (K6) a streamed tile, a ring of ``stages``;
+``grid`` (row tiles, B*H) and the block's shared memory in bytes."""
 
 
-def bwd_f32_tile(kernel: str, bh: int, nq: int, nk: int,
-                 d: int) -> BwdF32Plan:
-    """The float32 tile of K5 (``kernel="dq"``) or K6 (``"dkv"``) for
+def bwd_f32_tile(kernel: str, bh: int, nq: int, nk: int, d: int,
+                 tile: Optional[tuple] = None) -> BwdF32Plan:
+    """The float32 tile of K5 (``kernel="dq"``: 64 query rows, 64-key
+    tiles, two stages) or K6 (``"dkv"``: ``tile`` ``(key rows, queries,
+    stages)``, one of ``_K6_F32_TILES``, default the first) for
     ``[bh, nq, d]`` queries against ``nk`` keys; raises ValueError on what
     the kernels do not take (the checks of ``flash_attn_bwd_f32.cu``'s
-    launches): another kernel or head dim, or Nk not a multiple of the key
-    tile."""
+    launches): another kernel, head dim or tile, Nk not a multiple of the
+    key tile, more shared memory than a block has."""
     if kernel not in _BWD_TILES or d not in _BWD_F32_TILES:
         raise ValueError(f"flash_attention_bwd: no float32 tile for kernel "
                          f"{kernel!r} at d={d} (have "
                          f"{tuple(_BWD_F32_TILES)})")
-    bq, bk = _BWD_F32_TILES[d]
-    if nk % bk:
-        raise ValueError(f"flash_attention_bwd_{kernel}: no float32 tile at "
-                         f"d={d}, nk={nk} (keys a tile {bk})")
     if kernel == "dq":
+        bq, bk = _BWD_F32_TILES[d]
+        if nk % bk or tile not in (None, (bq, bk, 2)):
+            raise ValueError(f"flash_attention_bwd_dq: no float32 tile "
+                             f"{tile} at d={d}, nk={nk} (keys a tile {bk})")
         smem = 4 * (2 * bq * (d + 4) + 4 * bk * (d + 4) + bq * (bk + 4)
                     + 2 * bq)
-        return BwdF32Plan(kernel, bq, bk, (-(-nq // bq), bh), smem)
-    smem = 4 * (2 * bk * (d + 4) + 4 * bq * (d + 4) + 2 * bk * (bq + 4)
-                + 4 * bq)
-    return BwdF32Plan(kernel, bk, bq, (nk // bk, bh), smem)
+        return BwdF32Plan(kernel, bq, bk, 2, (-(-nq // bq), bh), smem)
+    bk, bq, stages = tile or _K6_F32_TILES[0]
+    # K and V, the ring of Q, dO, lse and delta, each warp's P^T and dS^T
+    smem = 4 * (2 * bk * (d + 4) + stages * (2 * bq * (d + 4) + 2 * bq)
+                + 2 * bk * (bq + 8))
+    if ((bk, bq, stages) not in _K6_F32_TILES or nk % bk
+            or smem > _SMEM_LIMIT):
+        raise ValueError(f"flash_attention_bwd_dkv: no float32 tile "
+                         f"{bk}x{bq}x{stages} at d={d}, nk={nk} ({smem} B "
+                         "of shared memory)")
+    return BwdF32Plan(kernel, bk, bq, stages, (nk // bk, bh), smem)
 
 
 def flash_bwd_f32_plan(bh: int, nq: int, nk: int, d: int) -> tuple:
     """The float32 tiles ``(dq, dkv)`` of K5 and K6 for ``[bh, nq, d]``
-    queries against ``nk`` keys: one tile a head dim (64 query rows and 64
-    keys), so at the training step's [8, 8, 1024, 40] each kernel has 1,024
-    blocks.  Raises where ``bwd_f32_tile`` does; never falls back."""
+    queries against ``nk`` keys: K5's one tile (64 query rows and 64 keys),
+    K6's from ``_K6_F32_PLAN`` (64 key rows a block, two blocks an SM), so
+    at the training step's [8, 8, 1024, 40] each kernel has 1,024 blocks.
+    Raises where ``bwd_f32_tile`` does; never falls back."""
     return (bwd_f32_tile("dq", bh, nq, nk, d),
-            bwd_f32_tile("dkv", bh, nq, nk, d))
+            bwd_f32_tile("dkv", bh, nq, nk, d, _K6_F32_PLAN[d]))
 
 
 def attention_split_ref(q, k, v, scale, splits: int):
@@ -458,8 +493,10 @@ def _f32_lib() -> ctypes.CDLL:
     if not getattr(lib, "_fgdm_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.fgdm_flash_attn_fwd_f32.argtypes = (
-            [vp] * 8 + [ci] * 6 + [ctypes.c_float, vp])
+            [vp] * 8 + [ci] * 9 + [ctypes.c_float, vp])
         lib.fgdm_flash_attn_fwd_f32.restype = ci
+        lib.fgdm_flash_attn_f32_resident.argtypes = [ci] * 5 + [vp]
+        lib.fgdm_flash_attn_f32_resident.restype = ci
         lib.fgdm_flash_attn_f32_block_n.argtypes = [ci]
         lib.fgdm_flash_attn_f32_block_n.restype = ci
         lib.fgdm_cuda_error_string.argtypes = [ci]
@@ -485,7 +522,10 @@ def _bwd_f32_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn_bwd_f32")
     if not getattr(lib, "_fgdm_typed", False):
         _typed(lib, "fgdm_flash_attn_bwd_f32_dq", 7, 5)
-        _typed(lib, "fgdm_flash_attn_bwd_f32_dkv", 8, 5)
+        _typed(lib, "fgdm_flash_attn_bwd_f32_dkv", 8, 8)
+        lib.fgdm_flash_attn_bwd_f32_dkv_resident.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.fgdm_flash_attn_bwd_f32_dkv_resident.restype = ctypes.c_int
         lib.fgdm_flash_attn_bwd_f32_block_n.argtypes = [ctypes.c_int]
         lib.fgdm_flash_attn_bwd_f32_block_n.restype = ctypes.c_int
         lib.fgdm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -655,7 +695,8 @@ def _flash_f32(q, k, v, scale, return_lse, plan: F32Plan):
         rc = lib.fgdm_flash_attn_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(out), ptr(lse),
             ptr(part_o), ptr(part_m), ptr(part_l), b * h, nq, k.shape[2], d,
-            plan.splits, plan.smem, float(scale), stream)
+            plan.bm, plan.bn, plan.stages, plan.splits, plan.smem,
+            float(scale), stream)
     _raise_on(lib, "flash_attention", rc)
     if plan.splits > 1:
         out, lse = flash_combine(part_o, part_m, part_l, torch.float32)
@@ -802,7 +843,8 @@ def _flash_k6_f32(q, k, v, do, lse, delta, scale, plan: BwdF32Plan):
         rc = lib.fgdm_flash_attn_bwd_f32_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b * h, nq, k.shape[2], d, plan.smem, float(scale), stream)
+            b * h, nq, k.shape[2], d, plan.rows, plan.bt, plan.stages,
+            plan.smem, float(scale), stream)
     _raise_on(lib, "flash_attention_bwd_dkv", rc)
     return dk, dv
 

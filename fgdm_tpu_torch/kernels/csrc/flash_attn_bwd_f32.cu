@@ -20,28 +20,42 @@
 // dS.K) and dK/dV 8*d (S^T, dP^T, P^T.dO, dS^T.Q), and each one exp.  No
 // tensor core keeps float32's 24-bit products (TF32 keeps 11 bits), so the
 // products run as FFMA, 67 TFLOP/s at most, and that bounds every shape the
-// gate admits; bytes (~20*N*d per head) are far below.  The design is the
-// float32 forward's (flash_attn_fwd_f32.cu), turned round for each kernel:
+// gate admits; bytes (~20*N*d per head) are far below.  The designs are
+// the float32 forward's (flash_attn_fwd_f32.cu), turned round:
 //
 //   * dQ (flash_bwd_dq_f32_kernel): a block owns BQ query rows of one
 //     (batch, head).  Q, dO and the rows' lse (times log2 e) and delta stay
 //     in shared memory; K and V tiles of BK keys stream through two stages
 //     by cp.async: tile t + 1 is copied in while the block computes tile t.
-//   * dK/dV (flash_bwd_dkv_f32_kernel): a block owns BK key rows.  K and V
-//     stay in shared memory; Q and dO tiles of BQ queries stream through two
-//     stages by cp.async, and the next tile's lse and delta go through
-//     registers into the other stage while the block computes this one.
-//   * Scores: each thread computes a 4 x 4 block of S and of dP (or of S^T
-//     and dP^T) from float4 reads of rows padded by 4 floats (the eight rows
-//     a quarter-warp reads fall in different banks), 16 FMAs per 8 loads;
-//     then p in base 2 (one FFMA of the score with scale * log2 e and the
-//     row's lse * log2 e, one exp2) and dS in registers, written to a tile
-//     in shared memory (P^T beside dS^T in dK/dV).
-//   * Products: each thread owns RG rows x 4 columns of dQ (of dK and dV)
-//     in registers and reads the dS (P^T, dS^T) rows and the K (dO, Q)
-//     rows as float4.  dQ and dK are scaled once at the end.
-//   * Two barriers a tile, no atomics and a fixed order of sums: every
-//     output element is summed by one thread, so a rerun is bit-identical.
+//     Each thread computes a 4 x 4 block of S and of dP from float4 reads
+//     of rows padded by 4 floats (the eight rows a quarter-warp reads fall
+//     in different banks), 16 FMAs per 8 loads; then p in base 2 (one FFMA
+//     of the score with scale * log2 e and the row's lse * log2 e, one
+//     exp2) and dS in registers, written to a tile in shared memory.  Each
+//     thread owns RG rows x 4 columns of dQ in registers and reads the dS
+//     rows and the K rows as float4.  Two barriers a tile.
+//   * dK/dV (flash_bwd_dkv_f32_kernel<D, BQ, WARPS, STAGES>): the float32
+//     forward's K1 design turned round.  A block of WARPS warps owns
+//     BK = 16 WARPS key rows (K and V in shared memory), each warp 16 of
+//     them; Q and dO tiles of BQ queries stream through a ring of STAGES
+//     cp.async tiles (tile t + STAGES - 1 is copied in while the block
+//     computes tile t), and each tile's lse (times log2 e) and delta go
+//     through registers into their stage a tile ahead.  One block barrier
+//     a tile.  Lane 8 rg + kl of a warp scores its key rows rg + 4 i
+//     (i < 4) against the queries kl + 8 j (j < BQ / 8): S^T and dP^T in
+//     registers from float4 reads (one wavefront each), then p and dS^T.
+//     P^T and dS^T cross shared memory once, into the warp's own tiles,
+//     behind a warp barrier; the products read them as float4s that serve
+//     the LD lanes of a row group at once.  dV += P^T dO and dK += dS^T Q:
+//     the 8 lanes of a row group split d into LD lanes of ten columns
+//     (float2 reads of dO and Q rows) and the queries into 8 / LD
+//     partitions (at d = 40 even and odd queries), so every lane sums 4
+//     key rows x 10 columns of dK and of dV (80 FMAs per 10 float2 reads);
+//     the partitions' sums are added by one shuffle at the end.  The tiles
+//     (BK, BQ, STAGES) the sweep times are instantiated below
+//     (FGDM_K6_F32); kernels/attention.py flash_bwd_f32_plan picks one.
+//   * dQ and dK are scaled once at the end; no atomics and a fixed order
+//     of sums: a rerun is bit-identical.
 //   * Masking: the gate admits Nq != Nk and Nq % 64 != 0.  Query rows past
 //     nq arrive as zeros (cp.async with 0 bytes) with lse +inf and delta 0,
 //     so p = dS = 0 and they add nothing to dK/dV (JAX pads lse with +inf,
@@ -63,10 +77,10 @@ using namespace fgdm;
 
 constexpr int THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may use
 
-// The tile of each head dim: BQ query rows and BK keys (a dQ block's rows
-// and streamed key tile; a dK/dV block's rows are BK keys and its streamed
-// tile BQ queries); the products as RG rows x 4 columns a thread.
+// The dQ kernel's tile at each head dim: BQ query rows a block and a
+// streamed key tile of BK; the products as RG rows x 4 columns a thread.
 template <int D>
 struct Tile;
 template <>
@@ -87,14 +101,27 @@ constexpr int dq_smem_bytes() {
               T::BQ * (T::BK + 4) + 2 * T::BQ);
 }
 
-// Of the dK/dV kernel: K and V, two stages of Q and dO, the P^T and dS^T
-// tiles (rows of BQ + 4), two stages of lse and delta.
-template <int D>
+// Of the dK/dV kernel: K and V (rows of D + 4 floats), STAGES of Q, dO
+// (the same rows), lse and delta, each warp's P^T and dS^T tiles (16 rows
+// of BQ + 8).
+template <int D, int BQ, int WARPS, int STAGES>
 constexpr int dkv_smem_bytes() {
-  using T = Tile<D>;
-  return 4 * (2 * T::BK * (D + 4) + 4 * T::BQ * (D + 4) +
-              2 * T::BK * (T::BQ + 4) + 4 * T::BQ);
+  return 4 * (2 * 16 * WARPS * (D + 4) + STAGES * (2 * BQ * (D + 4) + 2 * BQ) +
+              2 * 16 * WARPS * (BQ + 8));
 }
+
+// dK/dV's split of a row group's 8 lanes: LD lanes across d (ten columns
+// each), 8 / LD partitions of the queries.
+template <int D>
+struct DkvSplit;
+template <>
+struct DkvSplit<40> {
+  static constexpr int LD = 4;
+};
+template <>
+struct DkvSplit<80> {
+  static constexpr int LD = 8;
+};
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -135,6 +162,18 @@ __device__ __forceinline__ void fma4(float (&acc)[4], float a,
   acc[1] = fmaf(a, b.y, acc[1]);
   acc[2] = fmaf(a, b.z, acc[2]);
   acc[3] = fmaf(a, b.w, acc[3]);
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ void dot4(float& acc, const float4& a,
+                                     const float4& b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  acc = fmaf(a.w, b.w, acc);
 }
 
 // q/dout [bh, nq, D], k/v [bh, nk, D], lse/delta [bh, nq] f32 -> dq
@@ -274,9 +313,10 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   }
 }
 
-// The same arguments -> dk, dv [bh, nk, D].
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+// The same arguments -> dk, dv [bh, nk, D]: K6 at the tile WARPS x 16 key
+// rows, BQ streamed query rows, a ring of STAGES.
+template <int D, int BQ, int WARPS, int STAGES>
+__global__ void __launch_bounds__(32 * WARPS)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -285,25 +325,29 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv,
                          int nq, int nk, float sl, float scale) {
-  using T = Tile<D>;
-  constexpr int BQ = T::BQ, BK = T::BK, RG = T::RG;
-  constexpr int QS = D + 4, SS = BQ + 4;
+  constexpr int NT = 32 * WARPS, BK = 16 * WARPS;
+  constexpr int QS = D + 4;          // K, V, Q and dO row stride (floats)
+  constexpr int PS = BQ + 8;         // P^T and dS^T row stride
+  constexpr int TN = BQ / 8;         // queries a lane scores
   constexpr int C4 = D / 4;
-  constexpr int SY = BK / 4, SX = BQ / 4;
-  constexpr int ACC_THREADS = BK / RG * C4;
-  static_assert(SY * SX == THREADS, "every thread computes scores");
-  static_assert(ACC_THREADS <= THREADS && D % 4 == 0 && BQ <= THREADS,
+  constexpr int LD = DkvSplit<D>::LD, KP = 8 / LD;
+  constexpr int PW = BQ / KP + 4;    // a query partition's span in a row
+  constexpr int E = D / (2 * LD);    // float2 columns a lane sums
+  constexpr int TILE = BQ * QS;      // floats of a Q or dO tile
+  constexpr int STAGE = 2 * TILE + 2 * BQ;  // Q, dO, lse * log2 e, delta
+  static_assert(E == 5 && BQ % 32 == 0 && BQ <= NT && KP * PW <= PS,
                 "tile");
 
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;
   float* v_s = k_s + BK * QS;
-  float* qd_s = v_s + BK * QS;  // stage s: Q at 2 s BQ QS, dO after it
-  float* pt_s = qd_s + 4 * BQ * QS;
-  float* dst_s = pt_s + BK * SS;
-  float* l_s = dst_s + BK * SS;  // stage s: lse at 2 s BQ, delta after it
+  float* ring = v_s + BK * QS;
+  float* pt_s = ring + STAGES * STAGE;  // each warp's 16 rows of P^T
+  float* dst_s = pt_s + BK * PS;        // and of dS^T
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int rg = (tid & 31) >> 3, kl = tid & 7;
+  const int dl = kl / KP, kp = kl % KP;
   const int key0 = blockIdx.x * BK;
   const int bh = blockIdx.y;
   const int tiles = (nq + BQ - 1) / BQ;
@@ -312,118 +356,181 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
   const float* lb = lse + (size_t)bh * nq;
   const float* db = delta + (size_t)bh * nq;
 
-  auto load_qdo = [&](int tile, int stage) {
-    float* qs = qd_s + stage * 2 * BQ * QS;
-    float* ds = qs + BQ * QS;
-    for (int i = tid; i < BQ * C4; i += THREADS) {
-      const int r = i / C4, c = i % C4;
-      const int row = tile * BQ + r;
-      const bool in = row < nq;
-      const size_t off = (size_t)(in ? row : 0) * D + 4 * c;
-      cp_async16(smem_u32(qs + r * QS + 4 * c), qb + off, in ? 16 : 0);
-      cp_async16(smem_u32(ds + r * QS + 4 * c), dob + off, in ? 16 : 0);
+  // Q/dO tile t into stage t % STAGES, the rows past nq zero; past the end
+  // an empty group, so that every wait below counts the same groups
+  auto load_qdo = [&](int t) {
+    if (t < tiles) {
+      float* qs = ring + (t % STAGES) * STAGE;
+      for (int i = tid; i < BQ * C4; i += NT) {
+        const int r = i / C4, c = i % C4;
+        const int row = t * BQ + r;
+        const bool in = row < nq;
+        const size_t off = (size_t)(in ? row : 0) * D + 4 * c;
+        cp_async16(smem_u32(qs + r * QS + 4 * c), qb + off, in ? 16 : 0);
+        cp_async16(smem_u32(qs + TILE + r * QS + 4 * c), dob + off,
+                   in ? 16 : 0);
+      }
     }
     cp_async_commit();
   };
+  // query row t BQ + tid's lse (times log2 e) and delta: +inf and 0 past
+  // nq, so that its p and dS are 0
+  auto row_stats = [&](int t, float& l, float& d) {
+    const int row = t * BQ + tid;
+    const bool in = row < nq;
+    l = in ? lb[row] * LOG2E : INFINITY;
+    d = in ? db[row] : 0.f;
+  };
 
   // K and V land with the first Q/dO tile
-  for (int i = tid; i < BK * C4; i += THREADS) {
+  for (int i = tid; i < BK * C4; i += NT) {
     const int r = i / C4, c = i % C4;
     const size_t off = ((size_t)bh * nk + key0 + r) * D + 4 * c;
     cp_async16(smem_u32(k_s + r * QS + 4 * c), k + off, 16);
     cp_async16(smem_u32(v_s + r * QS + 4 * c), v + off, 16);
   }
-  load_qdo(0, 0);
-  // a query row's lse (times log2 e) and delta: +inf and 0 past nq
-  auto row_stats = [&](int tile, float& l, float& d) {
-    const int row = tile * BQ + tid;
-    const bool in = row < nq;
-    l = in ? lb[row] * LOG2E : INFINITY;
-    d = in ? db[row] : 0.f;
-  };
-  if (tid < BQ) row_stats(0, l_s[tid], l_s[BQ + tid]);
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    load_qdo(t);
+    if (t < tiles && tid < BQ) {
+      float* st = ring + t * STAGE + 2 * TILE;
+      row_stats(t, st[tid], st[BQ + tid]);
+    }
+  }
 
-  const int sx = tid % SX, sy = tid / SX;
-  const bool mine = tid < ACC_THREADS;
-  const int pr0 = tid / C4 * RG, pc = tid % C4;
-  float acc_k[RG][4], acc_v[RG][4];
+  // this lane's key rows rg + 4 i of the warp's 16: in K and V, and in its
+  // P^T and dS^T tiles
+  const float* kw = k_s + (16 * warp + rg) * QS;
+  const float* vw = v_s + (16 * warp + rg) * QS;
+  float* ptw = pt_s + (16 * warp + rg) * PS;
+  float* dsw = dst_s + (16 * warp + rg) * PS;
+  float acc_k[4][E][2], acc_v[4][E][2];
 #pragma unroll
-  for (int r = 0; r < RG; ++r)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
+    for (int e = 0; e < E; ++e)
+      acc_k[i][e][0] = acc_k[i][e][1] = acc_v[i][e][0] = acc_v[i][e][1] = 0.f;
 
 #pragma unroll 1
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int st = tile & 1;
-    const bool more = tile + 1 < tiles;
-    cp_async_wait<0>();  // this tile (and K, V) are in
-    __syncthreads();     // ... for every thread; the last P^T, dS^T are read
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<STAGES - 2>();  // K, V and tile t are in
+    __syncthreads();              // ... for every thread; tile t - 1 is read
+    const int next = t + STAGES - 1;
+    load_qdo(next);
     float next_l = 0.f, next_d = 0.f;
-    if (more) {
-      load_qdo(tile + 1, st ^ 1);
-      if (tid < BQ) row_stats(tile + 1, next_l, next_d);
-    }
-    const float* qs = qd_s + st * 2 * BQ * QS;
-    const float* dos = qs + BQ * QS;
-    const float* ls = l_s + st * 2 * BQ;
+    if (next < tiles && tid < BQ) row_stats(next, next_l, next_d);
+    const float* qs = ring + (t % STAGES) * STAGE;
+    const float* dos = qs + TILE;
+    const float* ls = dos + TILE;
     const float* dls = ls + BQ;
 
-    float s[4][4], dp[4][4];
+    // S^T = K Q^T and dP^T = V dO^T: key rows rg + 4 i, queries kl + 8 j
+    float s[4][TN], dp[4][TN];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    scores4x4<C4, QS, SY, SX>(s, k_s + sy * QS, qs + sx * QS);
-    scores4x4<C4, QS, SY, SX>(dp, v_s + sy * QS, dos + sx * QS);
+      for (int j = 0; j < TN; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int g = 0; g < C4; ++g) {
+      float4 a[4], b[TN];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float l2 = ls[sx + SX * j], dl = dls[sx + SX * j];
+      for (int i = 0; i < 4; ++i) a[i] = ld4(kw + 4 * i * QS + 4 * g);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = ld4(qs + (kl + 8 * j) * QS + 4 * g);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) dot4(s[i][j], a[i], b[j]);
+    }
+#pragma unroll 2
+    for (int g = 0; g < C4; ++g) {
+      float4 a[4], b[TN];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ld4(vw + 4 * i * QS + 4 * g);
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        b[j] = ld4(dos + (kl + 8 * j) * QS + 4 * g);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) dot4(dp[i][j], a[i], b[j]);
+    }
+    // p and dS in base 2, into the warp's tiles at query kl + 8 j's
+    // partition span
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float l2 = ls[kl + 8 * j], dl2 = dls[kl + 8 * j];
+      const int at = (kl % KP) * PW + kl / KP + 8 / KP * j;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = exp2f(fmaf(s[i][j], sl, -l2));
-        const int at = (sy + SY * i) * SS + sx + SX * j;
-        pt_s[at] = p;
-        dst_s[at] = p * (dp[i][j] - dl);
+        ptw[4 * i * PS + at] = p;
+        dsw[4 * i * PS + at] = p * (dp[i][j] - dl2);
       }
     }
-    __syncthreads();  // P^T and dS^T are written
+    __syncwarp();  // the warp's P^T and dS^T are written
 
-    if (mine) {  // dV += P^T dO, dK += dS^T Q
+    // dV += P^T dO, dK += dS^T Q over this lane's query partition: queries
+    // KP (4 u + c) + kp
 #pragma unroll 1
-      for (int j = 0; j < BQ; j += 4) {
-        float4 a[RG], b[RG];
+    for (int u = 0; u < BQ / KP / 4; ++u) {
+      float4 pt[4], ds[4];
 #pragma unroll
-        for (int r = 0; r < RG; ++r) {
-          a[r] = ld4(pt_s + (pr0 + r) * SS + j);
-          b[r] = ld4(dst_s + (pr0 + r) * SS + j);
+      for (int i = 0; i < 4; ++i) {
+        pt[i] = ld4(ptw + 4 * i * PS + kp * PW + 4 * u);
+        ds[i] = ld4(dsw + 4 * i * PS + kp * PW + 4 * u);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int at = (KP * (4 * u + c) + kp) * QS + 2 * dl;
+        float2 qq[E], dd[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          qq[e] = ld2(qs + at + 2 * LD * e);
+          dd[e] = ld2(dos + at + 2 * LD * e);
         }
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float4 dd = ld4(dos + (j + jj) * QS + 4 * pc);
-          const float4 qq = ld4(qs + (j + jj) * QS + 4 * pc);
+        for (int i = 0; i < 4; ++i) {
+          const float pc = lane(pt[i], c), dc = lane(ds[i], c);
 #pragma unroll
-          for (int r = 0; r < RG; ++r) {
-            fma4(acc_v[r], lane(a[r], jj), dd);
-            fma4(acc_k[r], lane(b[r], jj), qq);
+          for (int e = 0; e < E; ++e) {
+            acc_v[i][e][0] = fmaf(pc, dd[e].x, acc_v[i][e][0]);
+            acc_v[i][e][1] = fmaf(pc, dd[e].y, acc_v[i][e][1]);
+            acc_k[i][e][0] = fmaf(dc, qq[e].x, acc_k[i][e][0]);
+            acc_k[i][e][1] = fmaf(dc, qq[e].y, acc_k[i][e][1]);
           }
         }
       }
     }
-    if (more && tid < BQ) {  // the other stage was last read a tile ago
-      l_s[(st ^ 1) * 2 * BQ + tid] = next_l;
-      l_s[(st ^ 1) * 2 * BQ + BQ + tid] = next_d;
+    if (next < tiles && tid < BQ) {  // that stage was last read a tile ago
+      float* st = ring + (next % STAGES) * STAGE + 2 * TILE;
+      st[tid] = next_l;
+      st[BQ + tid] = next_d;
     }
   }
+  cp_async_wait<0>();  // the empty trailing groups
 
-  if (mine) {
+  // the partitions' sums; the lanes of partition i % KP write key row i
 #pragma unroll
-    for (int r = 0; r < RG; ++r) {
-      const size_t at = ((size_t)bh * nk + key0 + pr0 + r) * D + 4 * pc;
-      *reinterpret_cast<float4*>(dk + at) =
-          make_float4(acc_k[r][0] * scale, acc_k[r][1] * scale,
-                      acc_k[r][2] * scale, acc_k[r][3] * scale);
-      *reinterpret_cast<float4*>(dv + at) =
-          make_float4(acc_v[r][0], acc_v[r][1], acc_v[r][2], acc_v[r][3]);
+  for (int i = 0; i < 4; ++i) {
+    if (KP == 2) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          acc_k[i][e][h] += __shfl_xor_sync(0xffffffffu, acc_k[i][e][h], 1);
+          acc_v[i][e][h] += __shfl_xor_sync(0xffffffffu, acc_v[i][e][h], 1);
+        }
+    }
+    if (i % KP != kp) continue;
+    const size_t at =
+        ((size_t)bh * nk + key0 + 16 * warp + rg + 4 * i) * D + 2 * dl;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      *reinterpret_cast<float2*>(dk + at + 2 * LD * e) =
+          make_float2(acc_k[i][e][0] * scale, acc_k[i][e][1] * scale);
+      *reinterpret_cast<float2*>(dv + at + 2 * LD * e) =
+          make_float2(acc_v[i][e][0], acc_v[i][e][1]);
     }
   }
 }
@@ -453,25 +560,55 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int BQ, int WARPS, int STAGES>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh,
                int nq, int nk, int smem, float scale, cudaStream_t stream) {
-  using T = Tile<D>;
-  if (nk % T::BK != 0 || smem != dkv_smem_bytes<D>())
+  constexpr int SMEM = dkv_smem_bytes<D, BQ, WARPS, STAGES>();
+  if constexpr (SMEM > MAX_SMEM) {  // no such block (d = 80 at 128 x 64)
     return (int)cudaErrorInvalidValue;
-  auto kern = flash_bwd_dkv_f32_kernel<D>;
-  const int err = prepare(kern, smem);
-  if (err != 0) return err;
-  const dim3 grid(nk / T::BK, bh);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), nq, nk,
-      scale * LOG2E, scale);
-  return (int)cudaGetLastError();
+  } else {
+    if (nk % (16 * WARPS) != 0 || smem != SMEM)
+      return (int)cudaErrorInvalidValue;
+    auto kern = flash_bwd_dkv_f32_kernel<D, BQ, WARPS, STAGES>;
+    const int err = prepare(kern, smem);
+    if (err != 0) return err;
+    const dim3 grid(nk / (16 * WARPS), bh);
+    kern<<<grid, 32 * WARPS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dk), static_cast<float*>(dv), nq, nk,
+        scale * LOG2E, scale);
+    return (int)cudaGetLastError();
+  }
 }
+
+// Blocks of a K6 tile resident on an SM at once, into *out.
+template <int D, int BQ, int WARPS, int STAGES>
+int resident_dkv(int smem, int* out) {
+  if constexpr (dkv_smem_bytes<D, BQ, WARPS, STAGES>() > MAX_SMEM) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    auto kern = flash_bwd_dkv_f32_kernel<D, BQ, WARPS, STAGES>;
+    const int err = prepare(kern, smem);
+    if (err != 0) return err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, kern, 32 * WARPS, (size_t)smem);
+  }
+}
+
+// The K6 tiles: (key rows, streamed queries, ring stages) a block at each
+// head dim.
+#define FGDM_K6_F32_TILES(X) \
+  X(64, 64, 2)               \
+  X(64, 64, 3)               \
+  X(128, 64, 2)              \
+  X(128, 64, 3)              \
+  X(64, 32, 2)               \
+  X(64, 32, 3)               \
+  X(128, 32, 2)              \
+  X(128, 32, 3)
 
 bool bad_shape(int bh, int nq, int nk) {
   return bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0;
@@ -506,24 +643,48 @@ int fgdm_flash_attn_bwd_f32_dq(const void* q, const void* k, const void* v,
   }
 }
 
-// The same inputs; writes dk and dv [bh, nk, d] f32.
+// The same inputs and the K6 tile bk x bq x stages (key rows a block,
+// streamed queries, ring stages; one of FGDM_K6_F32_TILES) with its smem;
+// nk a multiple of bk.  Writes dk and dv [bh, nk, d] f32.
 int fgdm_flash_attn_bwd_f32_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv, int bh,
-                                int nq, int nk, int d, int smem, float scale,
+                                int nq, int nk, int d, int bk, int bq,
+                                int stages, int smem, float scale,
                                 void* stream) {
   if (bad_shape(bh, nq, nk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 40:
-      return launch_dkv<40>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk,
-                            smem, scale, s);
-    case 80:
-      return launch_dkv<80>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk,
-                            smem, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+#define FGDM_K6_F32(BK, BQ, STAGES)                                         \
+  if (bk == BK && bq == BQ && stages == STAGES) {                           \
+    if (d == 40)                                                            \
+      return launch_dkv<40, BQ, BK / 16, STAGES>(q, k, v, dout, lse, delta, \
+                                                 dk, dv, bh, nq, nk, smem,  \
+                                                 scale, s);                 \
+    if (d == 80)                                                            \
+      return launch_dkv<80, BQ, BK / 16, STAGES>(q, k, v, dout, lse, delta, \
+                                                 dk, dv, bh, nq, nk, smem,  \
+                                                 scale, s);                 \
   }
+  FGDM_K6_F32_TILES(FGDM_K6_F32)
+#undef FGDM_K6_F32
+  return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the K6 tile bk x bq x stages (smem as above) resident on an SM
+// at once, into *out.  Returns 0 or a cudaError_t code.
+int fgdm_flash_attn_bwd_f32_dkv_resident(int d, int bk, int bq, int stages,
+                                         int smem, int* out) {
+  if (out == nullptr) return (int)cudaErrorInvalidValue;
+#define FGDM_K6_F32(BK, BQ, STAGES)                                        \
+  if (bk == BK && bq == BQ && stages == STAGES &&                          \
+      smem == (d == 40 ? dkv_smem_bytes<40, BQ, BK / 16, STAGES>()         \
+                       : dkv_smem_bytes<80, BQ, BK / 16, STAGES>())) {     \
+    if (d == 40) return resident_dkv<40, BQ, BK / 16, STAGES>(smem, out);  \
+    if (d == 80) return resident_dkv<80, BQ, BK / 16, STAGES>(smem, out);  \
+  }
+  FGDM_K6_F32_TILES(FGDM_K6_F32)
+#undef FGDM_K6_F32
+  return (int)cudaErrorInvalidValue;
 }
 
 // The keys a tile at head dim d (nk must be a multiple), 0 if the head dim

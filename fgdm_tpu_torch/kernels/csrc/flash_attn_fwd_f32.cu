@@ -19,23 +19,35 @@
 // every shape the gate admits (N >= 512).  Two kernels keep the FMA units
 // fed from shared memory.
 //
-// flash_fwd_f32_kernel<D>, d = 40 and 80 (K1):
+// flash_fwd_f32_kernel<D, BN, WARPS, STAGES>, d = 40 and 80 (K1).  Every
+// warp owns 16 query rows and runs both products on them; the warps share
+// only the K/V tiles:
 //
-//   * A block owns BM query rows and walks the keys in tiles of BN (Tile<D>
-//     below).  Q stays in shared memory; the next K tile is copied in by
-//     cp.async while the block computes the softmax and P.V of this one,
-//     the next V tile while it computes the next Q K^T.
-//   * S = Q K^T: each thread computes a 4 x 4 block of scores from float4
-//     reads of Q and K rows (rows padded by 4 floats, so the eight keys a
-//     quarter-warp reads fall in different banks): 16 FMAs per 8 loads.
-//   * The online softmax runs in base 2 (scores times scale * log2 e) on
-//     the score tile in shared memory, TPR threads a row, row statistics by
-//     shuffles; P overwrites S, and each row's rescale factor goes to
-//     shared memory.
-//   * O += P V: each thread owns RG rows x 4 columns of the f32 output in
-//     registers, rescales them, then reads P rows and V rows as float4.
-//   * The end divides by the row sum once and writes the output (and the
-//     lse).
+//   * A block of WARPS warps owns BM = 16 WARPS query rows (Q in shared
+//     memory) and walks the keys in tiles of BN.  K and V stream through a
+//     ring of STAGES cp.async tiles: tile t + STAGES - 1 is copied in while
+//     the block computes tile t, so the copy overlaps whole tiles.  One
+//     block barrier a tile (the stage a copy overwrites was read before it).
+//   * S = Q K^T in registers: lane 8 rg + kl of a warp scores its rows
+//     rg + 4 i (i < 4) against the keys kl + 8 j (j < BN / 8) from float4
+//     reads (Q and K rows padded by 4 floats: each read is one wavefront):
+//     4 x 8 scores, 128 FMAs per 12 reads at BN = 64.
+//   * The online softmax runs in base 2 on those registers: row maxima by
+//     three shuffles among the 8 lanes of a row; each lane keeps its own
+//     part of the row sums, added up once at the end.
+//   * P crosses shared memory once, into the warp's own 16 x (BN + 8)
+//     tile, behind a warp barrier (no block barrier).
+//   * O += P V: the 8 lanes of a row group split d into LD lanes of ten
+//     columns (float2 reads of V rows, 2 (dl + LD e)) and the keys into
+//     8 / LD partitions (at d = 40 two: even and odd keys), so every lane
+//     sums 4 rows x 10 columns, 40 FMAs per 5 float2 reads and a float4 of
+//     P per 4 keys.  The partitions' sums are added once at the end.
+//   * The end adds the lanes' row sums and the partitions' outputs by
+//     shuffles in a fixed order, divides by the row sum once and writes the
+//     output (and the lse).  No atomics: reruns are bit-identical.
+//
+// The tiles (BM, BN, STAGES) the sweep times are instantiated below
+// (FGDM_K1_F32); kernels/attention.py flash_f32_plan picks one.
 //
 // flash_fwd_d512_f32_kernel, d = 512 (K2 and K3): at this width a K/V byte
 // read for few query rows makes the block wait on L2 (16 rows a block read
@@ -51,7 +63,7 @@
 //   * S = Q K^T: each thread sums 8 rows x 4 keys over the whole of d in
 //     registers (12 float4 reads per 128 FMAs; the 8 rows are the same
 //     in a warp, so Q reads are broadcasts).  The scores go to shared
-//     memory for the online softmax (base 2, 4 threads a row, as above).
+//     memory for the online softmax (base 2, 4 threads a row, shuffles).
 //   * O += P V: each thread owns 8 rows x 16 columns of the f32 output
 //     (128 registers), the columns 4 lane + 128 q so that a warp reads
 //     512 contiguous bytes of a V row; P reads are broadcasts.  (Warps of
@@ -64,6 +76,7 @@
 // Numerics follow the plain version (_xla_attention, attention.py:63-71, in
 // float32): f32 scores, softmax and P.V, one division by the row sum.
 
+
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -74,131 +87,135 @@ namespace {
 
 using namespace fgdm;
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // the d = 512 kernel's
 constexpr float LN2 = 0.6931471805599453f;
-
-// The tile of each head dim: BM query rows and BN keys a block; S = Q K^T
-// as TM x TN scores a thread; P.V as RG rows x 4 columns a thread.
-template <int D>
-struct Tile;
-template <>
-struct Tile<40> {
-  static constexpr int BM = 64, BN = 64, TM = 4, TN = 4, RG = 4;
-};
-template <>
-struct Tile<80> {
-  static constexpr int BM = 64, BN = 64, TM = 4, TN = 4, RG = 8;
-};
-
-// Dynamic shared memory: Q and K tiles (rows of D + 4 floats), the V tile,
-// the score tile (rows of BN + 4) and three row statistics.
-template <int D>
-constexpr int smem_bytes() {
-  using T = Tile<D>;
-  return 4 * ((T::BM + T::BN) * (D + 4) + T::BN * D +
-              T::BM * (T::BN + 4) + 3 * T::BM);
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// P.V's split of a row group's 8 lanes: LD lanes across d (ten columns
+// each), 8 / LD partitions of the keys.
+template <int D>
+struct PvSplit;
+template <>
+struct PvSplit<40> {
+  static constexpr int LD = 4;
+};
+template <>
+struct PvSplit<80> {
+  static constexpr int LD = 8;
+};
+
+// Dynamic shared memory of a K1 tile: Q, the K/V ring (rows of D + 4
+// floats) and each warp's P tile (16 rows of BN + 8).
+template <int D, int BN, int WARPS, int STAGES>
+constexpr int smem_bytes() {
+  return 4 * (16 * WARPS * (D + 4) + STAGES * 2 * BN * (D + 4) +
+              16 * WARPS * (BN + 8));
+}
+
 // q [bh, nq, D], k/v [bh, nk, D] f32.  o [bh, nq, D] and lse [bh, nq] (or
 // null) are written.  sl = scale * log2 e.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int BN, int WARPS, int STAGES>
+__global__ void __launch_bounds__(32 * WARPS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int nq, int nk, float sl) {
-  using T = Tile<D>;
-  constexpr int BM = T::BM, BN = T::BN, TM = T::TM, TN = T::TN, RG = T::RG;
-  constexpr int QS = D + 4, SS = BN + 4;  // row strides in floats
-  constexpr int C4 = D / 4;               // float4 columns of a row
-  constexpr int SY = BM / TM, SX = BN / TN;
-  constexpr int TPR = THREADS / BM;       // softmax threads of a row
-  constexpr int PV_THREADS = BM / RG * C4;
-  static_assert(SY * SX == THREADS, "every thread computes scores");
-  static_assert(PV_THREADS <= THREADS && BN % TPR == 0, "tile");
+  constexpr int NT = 32 * WARPS, BM = 16 * WARPS;
+  constexpr int QS = D + 4;          // Q, K and V row stride (floats)
+  constexpr int PS = BN + 8;         // P row stride
+  constexpr int TN = BN / 8;         // keys a lane scores
+  constexpr int C4 = D / 4;          // float4 columns of a row
+  constexpr int LD = PvSplit<D>::LD, KP = 8 / LD;
+  constexpr int PW = BN / KP + 4;    // a key partition's span in a P row
+  constexpr int E = D / (2 * LD);    // float2 columns a lane sums
+  constexpr int TILE = BN * QS;      // floats of a K or V tile
+  static_assert(E == 5 && BN % 32 == 0 && KP * PW <= PS, "tile");
 
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;
-  float* k_s = q_s + BM * QS;
-  float* v_s = k_s + BN * QS;
-  float* s_s = v_s + BN * D;
-  float* alpha_s = s_s + BM * SS;
-  float* l_s = alpha_s + BM;
-  float* m_s = l_s + BM;
+  float* ring = q_s + BM * QS;  // stage s: K at 2 s TILE, V after it
+  float* p_s = ring + STAGES * 2 * TILE;
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = lane >> 3, kl = lane & 7;
+  const int dl = kl / KP, kp = kl % KP;
   const int row0 = blockIdx.x * BM;
   const int bh = blockIdx.y;
   const int tiles = nk / BN;
   const float* kb = k + (size_t)bh * nk * D;
   const float* vb = v + (size_t)bh * nk * D;
 
-  auto load_k = [&](int tile) {
-    for (int i = tid; i < BN * C4; i += THREADS) {
-      const int r = i / C4, c = i % C4;
-      cp_async16(smem_u32(k_s + r * QS + 4 * c),
-                 kb + ((size_t)tile * BN + r) * D + 4 * c, 16);
-    }
-    cp_async_commit();
-  };
-  auto load_v = [&](int tile) {
-    for (int i = tid; i < BN * C4; i += THREADS) {
-      const int r = i / C4, c = i % C4;
-      cp_async16(smem_u32(v_s + r * D + 4 * c),
-                 vb + ((size_t)tile * BN + r) * D + 4 * c, 16);
+  // tile t into stage t % STAGES; past the end an empty group, so that
+  // every wait below counts the same groups
+  auto load_kv = [&](int t) {
+    if (t < tiles) {
+      float* ks = ring + (t % STAGES) * 2 * TILE;
+      for (int i = tid; i < BN * C4; i += NT) {
+        const int r = i / C4, c = i % C4;
+        const size_t off = ((size_t)t * BN + r) * D + 4 * c;
+        cp_async16(smem_u32(ks + r * QS + 4 * c), kb + off, 16);
+        cp_async16(smem_u32(ks + TILE + r * QS + 4 * c), vb + off, 16);
+      }
     }
     cp_async_commit();
   };
 
   // Q, with the rows past nq zero (computed, never stored); it lands with
-  // the first K tile
+  // the first K/V tile
   const float* qb = q + (size_t)bh * nq * D;
-  for (int i = tid; i < BM * C4; i += THREADS) {
+  for (int i = tid; i < BM * C4; i += NT) {
     const int r = i / C4, c = i % C4;
     const bool in = row0 + r < nq;
     cp_async16(smem_u32(q_s + r * QS + 4 * c),
                qb + (size_t)(in ? row0 + r : 0) * D + 4 * c, in ? 16 : 0);
   }
-  load_k(0);
-  load_v(0);
-
-  // S: scores (sy + SY i, sx + SX j)
-  const int sx = tid % SX, sy = tid / SX;
-  // softmax: row srow, keys spart + TPR j; m_run/l_run are the row's
-  // running maximum (base 2) and sum, the same in all TPR threads
-  const int srow = tid / TPR, spart = tid % TPR;
-  float m_run = -INFINITY, l_run = 0.f;
-  // P.V: rows pr0 .. pr0 + RG - 1, columns 4 pc .. 4 pc + 3
-  const bool pv = tid < PV_THREADS;
-  const int pr0 = tid / C4 * RG, pc = tid % C4;
-  float acc[RG][4];
 #pragma unroll
-  for (int r = 0; r < RG; ++r)
-    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+  for (int t = 0; t < STAGES - 1; ++t) load_kv(t);
+
+  // this lane's rows rg + 4 i of the warp's 16: in Q, and in its P tile
+  const float* qw = q_s + (16 * warp + rg) * QS;
+  float* pw = p_s + (16 * warp + rg) * PS;
+  float m_run[4], l_run[4], acc[4][E][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[i][e][0] = acc[i][e][1] = 0.f;
+  }
 
 #pragma unroll 1
-  for (int tile = 0; tile < tiles; ++tile) {
-    const bool more = tile + 1 < tiles;
-    cp_async_wait<1>();  // Q and this K tile are in (this V may not be)
-    __syncthreads();
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<STAGES - 2>();  // Q and tile t are in
+    __syncthreads();              // ... for every thread; tile t - 1 is read
+    load_kv(t + STAGES - 1);
+    const float* ks = ring + (t % STAGES) * 2 * TILE;
+    const float* vs = ks + TILE;
 
-    float s[TM][TN];
+    float s[4][TN];
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
-#pragma unroll 4
+#pragma unroll 2
     for (int g = 0; g < C4; ++g) {
-      float4 a[TM], b[TN];
+      float4 a[4], b[TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = ld4(q_s + (sy + SY * i) * QS + 4 * g);
+      for (int i = 0; i < 4; ++i) a[i] = ld4(qw + 4 * i * QS + 4 * g);
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ld4(k_s + (sx + SX * j) * QS + 4 * g);
+      for (int j = 0; j < TN; ++j) b[j] = ld4(ks + (kl + 8 * j) * QS + 4 * g);
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
           s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
@@ -207,116 +224,129 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
         }
     }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        s_s[(sy + SY * i) * SS + sx + SX * j] = s[i][j];
-    __syncthreads();  // the scores are written, K is read
-    if (more) load_k(tile + 1);
 
-    {  // online softmax in base 2; P replaces S
-      float* row = s_s + srow * SS;
-      float mx = -INFINITY;
+    // online softmax in base 2; P into the warp's tile, key kl + 8 j at
+    // its partition's span
 #pragma unroll
-      for (int j = 0; j < BN / TPR; ++j) mx = fmaxf(mx, row[spart + TPR * j]);
+    for (int i = 0; i < 4; ++i) {
+      float mx = s[i][0];
 #pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run, mx * sl);
+      for (int j = 1; j < TN; ++j) mx = fmaxf(mx, s[i][j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m_run[i], mx * sl);
+      const float alpha = exp2f(m_run[i] - m_new);
+      m_run[i] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < BN / TPR; ++j) {
-        const float p = exp2f(row[spart + TPR * j] * sl - m_new);
-        row[spart + TPR * j] = p;
+      for (int j = 0; j < TN; ++j) {
+        const float p = exp2f(fmaf(s[i][j], sl, -m_new));
         sum += p;
+        pw[4 * i * PS + (kl % KP) * PW + kl / KP + 8 / KP * j] = p;
       }
+      l_run[i] = l_run[i] * alpha + sum;
 #pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = exp2f(m_run - m_new);
-      l_run = l_run * alpha + sum;
-      m_run = m_new;
-      if (spart == 0) alpha_s[srow] = alpha;
+      for (int e = 0; e < E; ++e) {
+        acc[i][e][0] *= alpha;
+        acc[i][e][1] *= alpha;
+      }
     }
-    if (more)
-      cp_async_wait<1>();  // this V tile is in (the next K may not be)
-    else
-      cp_async_wait<0>();
-    __syncthreads();
+    __syncwarp();  // the warp's P is written
 
-    if (pv) {
-#pragma unroll
-      for (int r = 0; r < RG; ++r) {
-        const float a = alpha_s[pr0 + r];
-        acc[r][0] *= a;
-        acc[r][1] *= a;
-        acc[r][2] *= a;
-        acc[r][3] *= a;
-      }
+    // O += P V over this lane's key partition: keys KP (4 u + c) + kp
 #pragma unroll 2
-      for (int j = 0; j < BN; j += 4) {
-        float4 p[RG];
+    for (int u = 0; u < BN / KP / 4; ++u) {
+      float4 p[4];
 #pragma unroll
-        for (int r = 0; r < RG; ++r) p[r] = ld4(s_s + (pr0 + r) * SS + j);
+      for (int i = 0; i < 4; ++i) p[i] = ld4(pw + 4 * i * PS + kp * PW + 4 * u);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float4 vv = ld4(v_s + (j + jj) * D + 4 * pc);
+      for (int c = 0; c < 4; ++c) {
+        const float* vr = vs + (KP * (4 * u + c) + kp) * QS + 2 * dl;
+        float2 vv[E];
 #pragma unroll
-          for (int r = 0; r < RG; ++r) {
-            const float pj = jj == 0 ? p[r].x
-                             : jj == 1 ? p[r].y
-                             : jj == 2 ? p[r].z
-                                       : p[r].w;
-            acc[r][0] = fmaf(pj, vv.x, acc[r][0]);
-            acc[r][1] = fmaf(pj, vv.y, acc[r][1]);
-            acc[r][2] = fmaf(pj, vv.z, acc[r][2]);
-            acc[r][3] = fmaf(pj, vv.w, acc[r][3]);
+        for (int e = 0; e < E; ++e) vv[e] = ld2(vr + 2 * LD * e);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pc = lane4(p[i], c);
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            acc[i][e][0] = fmaf(pc, vv[e].x, acc[i][e][0]);
+            acc[i][e][1] = fmaf(pc, vv[e].y, acc[i][e][1]);
           }
         }
       }
     }
-    __syncthreads();  // P and V are read
-    if (more) load_v(tile + 1);
   }
+  cp_async_wait<0>();  // the empty trailing groups
 
-  if (spart == 0) {
-    l_s[srow] = l_run;
-    m_s[srow] = m_run;
-  }
-  __syncthreads();
-  if (pv) {
+  // the row sums over the row's 8 lanes, the partitions' outputs; then the
+  // lanes of partition i % KP write row i
 #pragma unroll
-    for (int r = 0; r < RG; ++r) {
-      const int row = row0 + pr0 + r;
-      if (row >= nq) continue;
-      const float l = l_s[pr0 + r];
-      *reinterpret_cast<float4*>(o + ((size_t)bh * nq + row) * D + 4 * pc) =
-          make_float4(acc[r][0] / l, acc[r][1] / l, acc[r][2] / l,
-                      acc[r][3] / l);
+  for (int i = 0; i < 4; ++i) {
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 4);
+    if (KP == 2) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        acc[i][e][0] += __shfl_xor_sync(0xffffffffu, acc[i][e][0], 1);
+        acc[i][e][1] += __shfl_xor_sync(0xffffffffu, acc[i][e][1], 1);
+      }
     }
+    const int row = row0 + 16 * warp + rg + 4 * i;
+    if (row >= nq) continue;
+    if (i % KP == kp) {
+      float* orow = o + ((size_t)bh * nq + row) * D + 2 * dl;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        *reinterpret_cast<float2*>(orow + 2 * LD * e) =
+            make_float2(acc[i][e][0] / l_run[i], acc[i][e][1] / l_run[i]);
+    }
+    if (kl == 0 && lse != nullptr)
+      lse[(size_t)bh * nq + row] = (m_run[i] + log2f(l_run[i])) * LN2;
   }
-  if (tid < BM && row0 + tid < nq && lse != nullptr)
-    lse[(size_t)bh * nq + row0 + tid] = (m_s[tid] + log2f(l_s[tid])) * LN2;
 }
 
-template <int D>
+template <int D, int BN, int WARPS, int STAGES>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int bh, int nq, int nk, int smem, float scale,
            cudaStream_t stream) {
-  constexpr int BN = Tile<D>::BN, BM = Tile<D>::BM;
-  if (nk % BN != 0 || smem != smem_bytes<D>()) return (int)cudaErrorInvalidValue;
-  auto kern = flash_fwd_f32_kernel<D>;
+  if (nk % BN != 0 || smem != smem_bytes<D, BN, WARPS, STAGES>())
+    return (int)cudaErrorInvalidValue;
+  auto kern = flash_fwd_f32_kernel<D, BN, WARPS, STAGES>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((nq + BM - 1) / BM, bh);
-  kern<<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((nq + 16 * WARPS - 1) / (16 * WARPS), bh);
+  kern<<<grid, 32 * WARPS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), nq, nk, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
+
+// Blocks of a K1 tile resident on an SM at once, into *out.
+template <int D, int BN, int WARPS, int STAGES>
+int resident(int smem, int* out) {
+  auto kern = flash_fwd_f32_kernel<D, BN, WARPS, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, kern, 32 * WARPS, (size_t)smem);
+}
+
+// The K1 tiles: (query rows, keys, ring stages) a block at each head dim.
+#define FGDM_K1_F32_TILES(X) \
+  X(64, 64, 2)               \
+  X(64, 64, 3)               \
+  X(128, 64, 2)              \
+  X(128, 64, 3)              \
+  X(64, 32, 2)               \
+  X(64, 32, 3)               \
+  X(128, 32, 2)              \
+  X(128, 32, 3)
 
 // The d = 512 kernel's tile: BM query rows and BN keys a block, K chunks of
 // DC columns of d, V chunks of VK keys, a ring of STAGES chunk buffers.
@@ -571,17 +601,19 @@ extern "C" {
 
 // q/k/v: contiguous [bh, n, d] f32, 16-byte aligned, on the current device;
 // d one of 40, 80, 512; nk a multiple of fgdm_flash_attn_f32_block_n(d);
-// smem the dynamic shared memory of the tile (kernels/attention.py f32_tile;
-// checked against this file's: Tile<D> at d = 40 and 80, d512:: at 512).
-// With splits == 1, o [bh, nq, d] f32 and lse ([bh, nq] f32 or null) are
-// written; else (d = 512 only, every split non-empty) the partials part_o
+// the tile bm x bn x stages and its dynamic shared memory smem
+// (kernels/attention.py f32_tile; checked against this file's: one of
+// FGDM_K1_F32_TILES at d = 40 and 80, d512:: at 512).  With splits == 1,
+// o [bh, nq, d] f32 and lse ([bh, nq] f32 or null) are written; else
+// (d = 512 only, every split non-empty) the partials part_o
 // [splits, bh, nq, 512], part_m and part_l [splits, bh, nq] f32 for
 // fgdm_flash_combine.  Returns 0 or a cudaError_t code (launch errors
 // included).
 int fgdm_flash_attn_fwd_f32(const void* q, const void* k, const void* v,
                             void* o, void* lse, void* part_o, void* part_m,
                             void* part_l, int bh, int nq, int nk, int d,
-                            int splits, int smem, float scale, void* stream) {
+                            int bm, int bn, int stages, int splits, int smem,
+                            float scale, void* stream) {
   if (bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0 || splits < 1 ||
       splits > 65535 || (splits > 1 && d != 512))
     return (int)cudaErrorInvalidValue;
@@ -590,27 +622,50 @@ int fgdm_flash_attn_fwd_f32(const void* q, const void* k, const void* v,
                      part_l == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 40:
-      return launch<40>(q, k, v, o, lse, bh, nq, nk, smem, scale, s);
-    case 80:
-      return launch<80>(q, k, v, o, lse, bh, nq, nk, smem, scale, s);
-    case 512:
-      return launch_d512(q, k, v, o, lse, part_o, part_m, part_l, bh, nq, nk,
-                         splits, smem, scale, s);
-    default:
+  if (d == 512) {
+    if (bm != d512::BM || bn != d512::BN || stages != d512::STAGES)
       return (int)cudaErrorInvalidValue;
+    return launch_d512(q, k, v, o, lse, part_o, part_m, part_l, bh, nq, nk,
+                       splits, smem, scale, s);
   }
+#define FGDM_K1_F32(BM, BN, STAGES)                                    \
+  if (bm == BM && bn == BN && stages == STAGES) {                      \
+    if (d == 40)                                                       \
+      return launch<40, BN, BM / 16, STAGES>(q, k, v, o, lse, bh, nq,  \
+                                             nk, smem, scale, s);      \
+    if (d == 80)                                                       \
+      return launch<80, BN, BM / 16, STAGES>(q, k, v, o, lse, bh, nq,  \
+                                             nk, smem, scale, s);      \
+  }
+  FGDM_K1_F32_TILES(FGDM_K1_F32)
+#undef FGDM_K1_F32
+  return (int)cudaErrorInvalidValue;
 }
 
-// The keys a tile at head dim d (nk must be a multiple), 0 if the head dim
-// is not instantiated.
+// Blocks of the d = 40/80 tile bm x bn x stages (smem as above) resident on
+// an SM at once, into *out.  Returns 0 or a cudaError_t code.
+int fgdm_flash_attn_f32_resident(int d, int bm, int bn, int stages, int smem,
+                                 int* out) {
+  if (out == nullptr) return (int)cudaErrorInvalidValue;
+#define FGDM_K1_F32(BM, BN, STAGES)                                    \
+  if (bm == BM && bn == BN && stages == STAGES &&                      \
+      smem == (d == 40 ? smem_bytes<40, BN, BM / 16, STAGES>()         \
+                       : smem_bytes<80, BN, BM / 16, STAGES>())) {     \
+    if (d == 40) return resident<40, BN, BM / 16, STAGES>(smem, out);  \
+    if (d == 80) return resident<80, BN, BM / 16, STAGES>(smem, out);  \
+  }
+  FGDM_K1_F32_TILES(FGDM_K1_F32)
+#undef FGDM_K1_F32
+  return (int)cudaErrorInvalidValue;
+}
+
+// The keys every tile at head dim d divides (nk must be a multiple), 0 if
+// the head dim is not instantiated.
 int fgdm_flash_attn_f32_block_n(int d) {
   switch (d) {
     case 40:
-      return Tile<40>::BN;
     case 80:
-      return Tile<80>::BN;
+      return 64;
     case 512:
       return d512::BN;
     default:

@@ -236,8 +236,8 @@ def group_norm_silu_kernel(x, weight, bias, num_groups: int = 32,
                            eps: float = 1e-5, apply_silu: bool = True):
     """Fused GroupNorm+affine(+SiLU).  A CPU tensor takes the plain version;
     a CUDA tensor launches the kernel (one launch, counted in
-    ``group_norm_silu_kernel.launches`` keyed by ``(shape, eps)``) or
-    raises.  x is contiguous ``[B, C, *spatial]`` in bf16, f16 or f32;
+    ``group_norm_silu_kernel.launches`` keyed by ``(shape, eps, dtype
+    name)``) or raises.  x is contiguous ``[B, C, *spatial]`` in bf16, f16 or f32;
     weight and bias f32 ``[C]``."""
     if x.device.type == "cpu":
         return group_norm_silu_ref(x, weight, bias, num_groups, eps,
@@ -259,7 +259,8 @@ def group_norm_silu_kernel(x, weight, bias, num_groups: int = 32,
                              f"contiguous on {x.device}")
     y = _launch(x, weight, bias, num_groups, eps, apply_silu,
                 card_plan(shape, x.dtype, num_groups))
-    group_norm_silu_kernel.launches[(shape, float(eps))] += 1
+    group_norm_silu_kernel.launches[
+        (shape, float(eps), str(x.dtype).removeprefix("torch."))] += 1
     return y
 
 

@@ -8,8 +8,10 @@ on the card, where ``chip_smoke.py`` holds them against the float32
 * ``k56_f32_arithmetic`` repeats their tile walk in plain torch float32 (K5:
   key tiles of ``flash_bwd_f32_plan``'s streamed tile against a block's
   query rows; K6: query tiles against a block's key rows, the ragged tail
-  with lse +inf; exps in base 2 with scale * log2 e folded in; dQ and dK
-  scaled once) and is held against the JAX package's Pallas backward
+  with lse +inf, dK and dV summed in the query partitions of its lanes and
+  the partitions added at the end; exps in base 2 with scale * log2 e
+  folded in; dQ and dK scaled once) and is held against the JAX package's
+  Pallas backward
   ``_flash_backward_t`` in interpret mode in float32, within
   ``tests/test_attention.py``'s atol 5e-3, rtol 1e-3, and against
   ``jax.vjp`` of ``_xla_attention`` and the port's CPU route
@@ -63,12 +65,18 @@ def chip_smoke():
     return mod
 
 
+# K6-f32's query partitions of the dK/dV products (8 / DkvSplit<D>::LD)
+K6_PARTS = {40: 2, 80: 1}
+
+
 def k56_f32_arithmetic(q, k, v, do, lse, delta, scale, plans):
     """K5-f32 and K6-f32's arithmetic in plain torch on float32 q/k/v/dO
     ``[B, H, N, d]`` and lse/delta ``[B, H, Nq]``: K5 walks key tiles of
     ``plans[0].bt``, K6 query tiles of ``plans[1].bt`` (the last one padded
     with zero rows whose lse is +inf and delta 0, as the kernel loads
-    them).  Returns ``(dq, dk, dv)`` in float32."""
+    them), its dK and dV summed in ``K6_PARTS[d]`` partitions of the
+    queries (query = p mod parts) and the partitions added at the end.
+    Returns ``(dq, dk, dv)`` in float32."""
     sl = scale * ta._LOG2E
     l2 = lse[..., None] * ta._LOG2E
     dl = delta[..., None]
@@ -86,15 +94,18 @@ def k56_f32_arithmetic(q, k, v, do, lse, delta, scale, plans):
     qp, dop = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, do))
     l2p = torch.nn.functional.pad(l2[..., 0], (0, pad), value=float("inf"))
     dlp = torch.nn.functional.pad(dl[..., 0], (0, pad))
-    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    parts = K6_PARTS[q.shape[3]]
+    dk = [torch.zeros_like(k) for _ in range(parts)]
+    dv = [torch.zeros_like(v) for _ in range(parts)]
     for i in range(0, qp.shape[2], bq):
         qi, doi = qp[:, :, i:i + bq], dop[:, :, i:i + bq]
         pt = torch.exp2(k @ qi.transpose(2, 3) * sl
                         - l2p[:, :, None, i:i + bq])
         dst = pt * (v @ doi.transpose(2, 3) - dlp[:, :, None, i:i + bq])
-        dv = dv + pt @ doi
-        dk = dk + dst @ qi
-    return dq * scale, dk * scale, dv
+        for p in range(parts):
+            dv[p] = dv[p] + pt[..., p::parts] @ doi[:, :, p::parts]
+            dk[p] = dk[p] + dst[..., p::parts] @ qi[:, :, p::parts]
+    return dq * scale, sum(dk[1:], dk[0]) * scale, sum(dv[1:], dv[0])
 
 
 # (d, Nq, Nk): an even and a ragged query length at each head dim
@@ -155,6 +166,26 @@ def test_k56_f32_arithmetic_matches_pallas_and_xla_vjp(case, references):
             np.testing.assert_allclose(got, ref, atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize("bq", sorted({t[1] for t in ta._K6_F32_TILES}))
+@pytest.mark.parametrize("case", CASES,
+                         ids=["d40", "d40-ragged", "d80", "d80-ragged"])
+def test_k6_f32_tiles_match_pallas_and_xla_vjp(case, bq, references):
+    """K6-f32's arithmetic at each streamed query tile it instantiates (the
+    query partitions, the ragged tail) against the Pallas backward and the
+    XLA VJP, as closely as at the planned tile."""
+    d, nq, nk = case
+    (q, k, v, g), (o, lse), pallas, xla = references[case]
+    scale = d ** -0.5
+    delta = (g * o).sum(dim=-1)
+    plans = (ta.bwd_f32_tile("dq", 2, nq, nk, d),
+             ta.bwd_f32_tile("dkv", 2, nq, nk, d, (64, bq, 2)))
+    emu = k56_f32_arithmetic(q, k, v, g, lse, delta, scale, plans)
+    for ours, x, p in zip(emu[1:], xla[1:], pallas[1:]):
+        np.testing.assert_allclose(ours.numpy(), p, **PALLAS_TOL)
+        tol = EXACT_TOL[0] * np.abs(x).max() + EXACT_TOL[1]
+        np.testing.assert_allclose(ours.numpy(), x, atol=tol, rtol=0)
+
+
 # --- the float32 plan ------------------------------------------------------
 
 @pytest.mark.parametrize("d", ta.BWD_HEAD_DIMS)
@@ -173,7 +204,8 @@ def test_bwd_f32_plan_is_a_valid_tile(nq, nk, d):
             assert (plan.grid[0] - 1) * plan.rows < rows
             assert rows <= plan.grid[0] * plan.rows
             assert plan.smem <= ta._SMEM_LIMIT
-            assert plan == ta.bwd_f32_tile(plan.kernel, bh, nq, nk, d)
+            assert plan == ta.bwd_f32_tile(plan.kernel, bh, nq, nk, d,
+                                           (plan.rows, plan.bt, plan.stages))
 
 
 # (B*H, Nq, Nk, d) of the float32 training step's K5/K6 launches (the plain
@@ -206,6 +238,18 @@ def test_bwd_f32_tile_refuses_what_the_kernels_do_not_take(kernel, d, nk):
             ta.flash_bwd_f32_plan(16, 1024, nk, d)
 
 
+@pytest.mark.parametrize("kernel,d,nk,tile", [
+    ("dkv", 80, 1024, (128, 64, 2)),   # more shared memory than a block has
+    ("dkv", 40, 1024, (96, 64, 2)),    # a tile K6-f32 does not instantiate
+    ("dkv", 40, 1024, (64, 64, 4)),
+    ("dkv", 40, 960, (128, 32, 2)),    # Nk not a multiple of the key rows
+    ("dq", 40, 1024, (64, 32, 2)),     # K5-f32 has one tile
+])
+def test_bwd_f32_tile_refuses_a_forced_tile(kernel, d, nk, tile):
+    with pytest.raises(ValueError, match="no float32 tile"):
+        ta.bwd_f32_tile(kernel, 16, 1024, nk, d, tile)
+
+
 def test_bwd_f32_constants_match_the_source():
     """The tiles, the shared-memory formulas and the head dims the host
     assumes are ``flash_attn_bwd_f32.cu``'s; no atomics; chip_smoke.py
@@ -218,13 +262,32 @@ def test_bwd_f32_constants_match_the_source():
     assert set(tiles) == set(ta.BWD_HEAD_DIMS)
     assert ("4 * (2 * T::BQ * (D + 4) + 4 * T::BK * (D + 4) +\n"
             "              T::BQ * (T::BK + 4) + 2 * T::BQ)") in src
-    assert ("4 * (2 * T::BK * (D + 4) + 4 * T::BQ * (D + 4) +\n"
-            "              2 * T::BK * (T::BQ + 4) + 4 * T::BQ)") in src
-    for fn in ("fgdm_flash_attn_bwd_f32_dq(", "fgdm_flash_attn_bwd_f32_dkv("):
-        body = src[src.index("int " + fn):]
-        body = body[:body.index("default:")]
-        dims = tuple(int(d) for d in re.findall(r"case (\d+):", body))
-        assert dims == ta.BWD_HEAD_DIMS
+    assert ("return 4 * (2 * 16 * WARPS * (D + 4) + STAGES * (2 * BQ * (D + 4)"
+            " + 2 * BQ) +\n              2 * 16 * WARPS * (BQ + 8));") in src
+    table = src[src.index("#define FGDM_K6_F32_TILES(X)"):]
+    table = table[:table.index("\n\n")]
+    k6 = tuple(tuple(map(int, t)) for t in re.findall(
+        r"X\((\d+), (\d+), (\d+)\)", table))
+    assert k6 == ta._K6_F32_TILES and len(set(k6)) == len(k6)
+    split = {int(d): 8 // int(ld) for d, ld in re.findall(
+        r"struct DkvSplit<(\d+)> \{\s*static constexpr int LD = (\d+);",
+        src)}
+    assert split == K6_PARTS
+    for d in ta.BWD_HEAD_DIMS:
+        for bk, bq, stages in k6:
+            smem = 4 * (2 * bk * (d + 4) + stages * (2 * bq * (d + 4) + 2 * bq)
+                        + 2 * bk * (bq + 8))
+            if smem <= ta._SMEM_LIMIT:
+                assert ta.bwd_f32_tile("dkv", 1, 1024, 1024, d,
+                                       (bk, bq, stages)).smem == smem
+    body = src[src.index("int fgdm_flash_attn_bwd_f32_dq("):]
+    body = body[:body.index("default:")]
+    dims = tuple(int(d) for d in re.findall(r"case (\d+):", body))
+    assert dims == ta.BWD_HEAD_DIMS
+    body = src[src.index("int fgdm_flash_attn_bwd_f32_dkv("):]
+    body = body[:body.index("#undef")]
+    dims = tuple(int(d) for d in re.findall(r"if \(d == (\d+)\)", body))
+    assert dims == ta.BWD_HEAD_DIMS
     assert "atomic" not in src.replace("no atomics", "")
     assert '"flash_attn_bwd_f32"' in (REPO / "chip_smoke.py").read_text()
 

@@ -19,6 +19,8 @@ only on the card, where ``chip_smoke.py`` holds it against
   gives against ``_xla_group_norm``'s, on data whose mean is 33 std from 0
   (where the unshifted E[x^2] - mean^2 of the TPU kernel loses digits);
 * the plan's constants are the source's ``constexpr``s.
+* the wrapper counts each launch under ``(shape, eps, dtype name)``
+  (stand-in CUDA tensors, the launch replaced).
 
 Tolerances: the emulated mean within 1e-5 * (|mean| + std) of f64, the
 variance within 2e-5 relative (f32 sums of up to 2M terms, offset data);
@@ -26,6 +28,7 @@ the output within 1e-5 * max|ref| of ``_xla_group_norm`` (float32, sums in
 another order).
 """
 
+import collections
 import math
 import re
 
@@ -254,3 +257,35 @@ def test_plan_constants_match_the_source():
     # the header's barriers cover the largest resident slice
     chunks = -(-(tg._SMEM_BLOCK - tg._HEADER) // const("CHUNK"))
     assert chunks <= const("MAX_CHUNKS")
+
+
+class _Fake:
+    """A contiguous tensor stand-in on the card (no card here): the wrapper
+    reads its device, dtype and shape."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = torch.Size(shape), dtype
+        self.device = torch.device("cuda", 0)
+
+    def is_contiguous(self):
+        return True
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32, torch.float16])
+def test_launch_key_carries_the_dtype(dtype, monkeypatch):
+    """On a CUDA tensor the wrapper launches once at the card's plan and
+    counts the launch under ``(shape, eps, dtype name)``: a float32 path's
+    launches are told apart from bf16 ones at the same shape."""
+    launched = []
+    monkeypatch.setattr(tg, "card_plan", lambda shape, dt, groups: "plan")
+    monkeypatch.setattr(tg, "_launch", lambda *a: launched.append(a[-1]))
+    monkeypatch.setattr(tg.group_norm_silu_kernel, "launches",
+                        collections.Counter())
+    x = _Fake((2, 320, 8, 8), dtype)
+    w, b = _Fake((320,), F32), _Fake((320,), F32)
+    tg.group_norm_silu_kernel(x, w, b, 32, 1e-6, True)
+    tg.group_norm_silu_kernel(x, w, b, 32, 1e-6, False)
+    name = str(dtype).removeprefix("torch.")
+    assert launched == ["plan", "plan"]
+    assert dict(tg.group_norm_silu_kernel.launches) == {
+        ((2, 320, 8, 8), 1e-6, name): 2}

@@ -7,8 +7,9 @@ only on the card, where ``chip_smoke.py`` holds them against the float32
 plain versions.  Here:
 
 * a plain-torch emulation of each kernel's own algorithm (the flash
-  forward's key tiles in order, its online softmax in base 2 and, at
-  d = 512, its KV slices merged by the combine pass; the conv's channel
+  forward's key tiles in order, its online softmax in base 2; at d = 40/80
+  each row's sum in its 8 lanes' parts and P.V in its key partitions, at
+  d = 512 its KV slices merged by the combine pass; the conv's channel
   chunks of 8 and its nine taps within each) is held against JAX's Pallas
   kernels in interpret mode in float32 and against the plain versions;
 * on the ``meta`` device, every float32 attention and 3x3 conv of the
@@ -109,6 +110,43 @@ def f32_flash_arithmetic(q, k, v, scale, bn, splits=1, dc=None):
                           torch.float32)
 
 
+# The d = 40/80 kernel's key partitions of P.V (8 / PvSplit<D>::LD)
+K1_PARTS = {40: 2, 80: 1}
+
+
+def k1_f32_arithmetic(q, k, v, scale, bn, parts):
+    """``flash_fwd_f32_kernel`` (d = 40/80) in plain torch: key tiles of
+    ``bn`` in order; per tile the scores times scale * log2 e, the running
+    row maximum, and P unnormalised in float32; each of a row's 8 lanes
+    (keys = lane mod 8) keeps its part of the row sum, each of ``parts``
+    key partitions (keys = p mod parts) its part of the output, rescaled
+    then P.V added.  At the end the lanes' sums are added as the shuffles
+    add them, ((0 + 1) + (2 + 3)) + ((4 + 5) + (6 + 7)), then the
+    partitions' outputs, then one division.  Returns the output and the
+    lse."""
+    sl = scale * ta._LOG2E
+    b, h, nq, d = q.shape
+    m = torch.full((b, h, nq), -math.inf)
+    lanes = torch.zeros(8, b, h, nq)
+    acc = torch.zeros(parts, b, h, nq, d)
+    for t in range(k.shape[2] // bn):
+        kt, vt = k[:, :, t * bn:(t + 1) * bn], v[:, :, t * bn:(t + 1) * bn]
+        sc = torch.matmul(q, kt.transpose(2, 3))
+        mn = torch.maximum(m, sc.amax(dim=-1) * sl)
+        alpha = torch.exp2(m - mn)
+        p = torch.exp2(sc * sl - mn[..., None])
+        for ln in range(8):
+            lanes[ln] = lanes[ln] * alpha + p[..., ln::8].sum(dim=-1)
+        for pt in range(parts):
+            acc[pt] = (acc[pt] * alpha[..., None]
+                       + torch.matmul(p[..., pt::parts], vt[:, :, pt::parts]))
+        m = mn
+    pairs = [lanes[i] + lanes[i + 1] for i in range(0, 8, 2)]
+    l = (pairs[0] + pairs[1]) + (pairs[2] + pairs[3])
+    out = acc[0] if parts == 1 else acc[0] + acc[1]
+    return out / l[..., None], (m + torch.log2(l)) / ta._LOG2E
+
+
 # (TPU kernel, its jitted caller, B, H, Nq, Nk, d, splits): K1 at a ragged
 # and an even query length, K2 and K3 at the VAE's head, one and several
 # KV slices
@@ -127,9 +165,10 @@ F32_CASES = [
     "case", F32_CASES, ids=lambda c: f"{c[0]}-d{c[6]}-nq{c[4]}-s{c[7]}")
 def test_f32_flash_arithmetic_matches_plain_and_pallas(case, monkeypatch):
     """In float32 the CPU route is ``attention_ref``; the kernel's
-    arithmetic (key tiles of the f32 tile, base 2, KV slices and the combine
-    pass) agrees with it within 1e-5 and with JAX's Pallas kernel in
-    interpret mode within 2e-3; its lse with the plain version's within
+    arithmetic (key tiles of the planned f32 tile, base 2; at d = 40/80 the
+    lanes' row sums and the key partitions, at d = 512 the KV slices and the
+    combine pass) agrees with it within 1e-5 and with JAX's Pallas kernel
+    in interpret mode within 2e-3; its lse with the plain version's within
     1e-5."""
     _, fn, b, h, nq, nk, d, splits = case
     monkeypatch.setattr(ka, "_INTERPRET", True)
@@ -141,9 +180,12 @@ def test_f32_flash_arithmetic_matches_plain_and_pallas(case, monkeypatch):
                                   splits=splits)
     ref, ref_lse = ta.attention_ref(q, k, v, scale, return_lse=True)
     assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
-    emu, emu_lse = f32_flash_arithmetic(
-        q, k, v, scale, plan.bn, splits,
-        ta._F32_D512_DC if d == 512 else None)
+    if d == 512:
+        emu, emu_lse = f32_flash_arithmetic(q, k, v, scale, plan.bn, splits,
+                                            ta._F32_D512_DC)
+    else:
+        emu, emu_lse = k1_f32_arithmetic(q, k, v, scale, plan.bn,
+                                         K1_PARTS[d])
     assert emu.dtype == torch.float32 and emu.shape == (b, h, nq, d)
     np.testing.assert_allclose(emu.numpy(), ref.numpy(), atol=1e-5, rtol=0)
     np.testing.assert_allclose(emu_lse.numpy(), ref_lse.numpy(), atol=1e-5,
@@ -151,6 +193,39 @@ def test_f32_flash_arithmetic_matches_plain_and_pallas(case, monkeypatch):
     pallas = np.asarray(getattr(ka, fn)(*(jnp.asarray(a) for a in arrs),
                                         scale, block_q=256, block_k=256))
     assert pallas.dtype == np.float32
+    np.testing.assert_allclose(emu.numpy(), pallas, atol=2e-3, rtol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_case(d):
+    """A ragged [1, 2, 200, 256] float32 forward at head dim ``d`` and JAX's
+    Pallas kernel's output on it (interpret mode)."""
+    arrs = qkv(d + 1, 1, 2, 200, 256, d)
+    old = ka._INTERPRET
+    ka._INTERPRET = True
+    try:
+        pallas = np.asarray(ka._flash_attention_t(
+            *(jnp.asarray(a) for a in arrs), d ** -0.5, block_q=128,
+            block_k=128))
+    finally:
+        ka._INTERPRET = old
+    return arrs, pallas
+
+
+@pytest.mark.parametrize("bn", sorted({t[1] for t in ta._K1_F32_TILES}))
+@pytest.mark.parametrize("d", [40, 80])
+def test_k1_f32_tiles_match_plain_and_pallas(d, bn):
+    """Every key tile K1-f32 instantiates: its arithmetic (the lanes' row
+    sums, the key partitions) agrees with the plain version within 1e-5,
+    its lse too, and with JAX's Pallas kernel within 2e-3."""
+    arrs, pallas = _k1_case(d)
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    scale = d ** -0.5
+    ref, ref_lse = ta.attention_ref(q, k, v, scale, return_lse=True)
+    emu, emu_lse = k1_f32_arithmetic(q, k, v, scale, bn, K1_PARTS[d])
+    np.testing.assert_allclose(emu.numpy(), ref.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(emu_lse.numpy(), ref_lse.numpy(), atol=1e-5,
+                               rtol=0)
     np.testing.assert_allclose(emu.numpy(), pallas, atol=2e-3, rtol=0)
 
 
@@ -347,7 +422,8 @@ def test_every_admitted_f32_attention_has_a_plan(calls):
                         (5, 1, 4096, 4096, 512)}
     for b, h, nq, nk, d in admitted:
         p = ta.flash_f32_plan(b * h, nq, nk, d)
-        assert p == ta.f32_tile(b * h, nq, nk, d, p.splits)
+        assert p == ta.f32_tile(b * h, nq, nk, d, p.splits,
+                                (p.bm, p.bn, p.stages))
         assert nk % p.bn == 0 and p.smem <= ta._SMEM_LIMIT
         assert p.grid[2] == b * h and p.grid[1] == p.splits
         assert (p.grid[0] - 1) * p.bm < nq <= p.grid[0] * p.bm
@@ -454,7 +530,8 @@ def test_eval_f32_conv_cases_are_chip_smokes():
 ])
 def test_train_f32_attention_plans_fill_the_card(b, h, nq, nk, d):
     p = ta.flash_f32_plan(b * h, nq, nk, d)
-    assert p == ta.f32_tile(b * h, nq, nk, d, p.splits)
+    assert p == ta.f32_tile(b * h, nq, nk, d, p.splits,
+                            (p.bm, p.bn, p.stages))
     tiles = nk // p.bn
     assert (p.splits - 1) * -(-tiles // p.splits) < tiles
     assert _fills_the_card(p.grid[0] * p.grid[1] * p.grid[2],
@@ -473,6 +550,17 @@ def test_train_f32_attention_plans_fill_the_card(b, h, nq, nk, d):
 def test_f32_tile_refuses_what_the_kernel_does_not_take(d, nk, splits):
     with pytest.raises(ValueError, match="no float32 tile"):
         ta.f32_tile(1, 1024, nk, d, splits)
+
+
+@pytest.mark.parametrize("d,nk,tile", [
+    (40, 1024, (64, 64, 4)),    # a tile K1-f32 does not instantiate
+    (80, 1024, (32, 32, 2)),
+    (40, 1056, (64, 64, 2)),    # Nk a multiple of 32 only
+    (512, 1024, (64, 64, 2)),   # the d = 512 kernel has one tile
+])
+def test_f32_tile_refuses_a_forced_tile(d, nk, tile):
+    with pytest.raises(ValueError, match="no float32 tile"):
+        ta.f32_tile(1, 1024, nk, d, 1, tile)
 
 
 # --- gates and the sources' constants --------------------------------------
@@ -500,21 +588,40 @@ def test_attention_gate_matches_jax_in_float32(nq, nk, monkeypatch):
 
 def test_f32_constants_match_the_sources():
     src = (_build.CSRC / "flash_attn_fwd_f32.cu").read_text()
-    tiles = {int(d): (int(bm), int(bn)) for d, bm, bn in re.findall(
-        r"struct Tile<(\d+)> \{\s*static constexpr int BM = (\d+), "
-        r"BN = (\d+),", src)}
+    table = src[src.index("#define FGDM_K1_F32_TILES(X)"):]
+    table = table[:table.index("\n\n")]
+    k1 = tuple(tuple(map(int, t)) for t in re.findall(
+        r"X\((\d+), (\d+), (\d+)\)", table))
+    assert k1 == ta._K1_F32_TILES and len(set(k1)) == len(k1)
+    # both head dims are dispatched over the whole table
+    assert "if (d == 40)" in src and "if (d == 80)" in src
     d512 = re.search(r"constexpr int D = 512, BM = (\d+), BN = (\d+), "
                      r"DC = (\d+), VK = (\d+), STAGES = (\d+);", src)
-    tiles[512] = tuple(map(int, d512.groups()[:2]))
+    tiles = {40: k1, 80: k1,
+             512: (tuple(int(d512.group(i)) for i in (1, 2, 5)),)}
     assert tiles == ta._F32_TILES
     assert set(tiles) == set(ta.KERNEL_HEAD_DIMS)
-    assert tuple(map(int, d512.groups()[2:])) == (
-        ta._F32_D512_DC, ta._F32_D512_VK, ta._F32_D512_STAGES)
-    assert "4 * ((T::BM + T::BN) * (D + 4) + T::BN * D +" in src
+    assert tuple(map(int, d512.groups()[2:4])) == (
+        ta._F32_D512_DC, ta._F32_D512_VK)
+    # P.V's key partitions, 8 / LD, as the emulation above splits them
+    split = {int(d): 8 // int(ld) for d, ld in re.findall(
+        r"struct PvSplit<(\d+)> \{\s*static constexpr int LD = (\d+);",
+        src)}
+    assert split == K1_PARTS
+    assert ("return 4 * (16 * WARPS * (D + 4) + STAGES * 2 * BN * (D + 4) +\n"
+            "              16 * WARPS * (BN + 8));") in src
+    for d in (40, 80):
+        for bm, bn, stages in k1:
+            assert ta._f32_smem(d, bm, bn, stages) == 4 * (
+                bm // 16 * 16 * (d + 4) + stages * 2 * bn * (d + 4)
+                + bm // 16 * 16 * (bn + 8)) <= ta._SMEM_LIMIT
     assert ("SMEM = 4 * (BM * QS + BM * SS + STAGES * BUF + 3 * BM)" in src
             and "QS = D + 4;" in src and "KS = DC + 4;" in src
             and "SS = BN + 4;" in src and "BUF = BN * KS;" in src)
-    assert ta._f32_smem(512) == 221952 <= ta._SMEM_LIMIT
+    assert ta._f32_smem(512, *ta._F32_TILES[512][0]) == 221952
+    assert 221952 <= ta._SMEM_LIMIT
+    assert "atomic" not in src.replace("No atomics", "").replace(
+        "no atomics", "")
     conv = (_build.CSRC / "conv3x3_f32.cu").read_text()
     assert "constexpr int BK = 8;" in conv
     assert "constexpr int HPS = BK + 4;" in conv and tc._F32_HPS == 12
