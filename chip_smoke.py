@@ -11,9 +11,10 @@ each tile (query rows, keys, ring stages) at the ``precision_full`` and
 K1 at each tile choice (keys
 per tile, ring stages, consumer warpgroups), K5 and K6 at each tile choice
 (streamed tile, ring stages, consumer warpgroups) at the ``BWD_CASES``
-shapes, K6 in float32 at each tile (key rows, streamed queries, ring
-stages) beside K5 in float32 at those shapes and the distillation step's
-(how ``flash_bwd_f32_plan``'s K6 tile was chosen), K4 at each cluster
+shapes, K5 in float32 at each tile (query rows, streamed keys, ring
+stages) and K6 in float32 at each tile (key rows, streamed queries, ring
+stages) at those shapes and the distillation step's (how
+``flash_bwd_f32_plan``'s K5 and K6 tiles were chosen), K4 at each cluster
 size and the host cost of the steps around its launch, K7 at each
 forced tile size and the d = 512 forward at forced KV slice counts (how
 ``flash_fwd_plan``, ``flash_bwd_plan``, ``gn_plan``, K4's wrapper,
@@ -526,6 +527,11 @@ K1_F32_BEFORE = {(10, 8, 1024, 40): 0.5328, (10, 8, 4096, 40): 8.1263,
                  (10, 8, 1024, 80): 0.9216}
 K6_F32_BEFORE = {(8, 8, 1024, 40): 0.7700, (2, 8, 1024, 40): 0.1941,
                  (6, 8, 1024, 40): 0.5789}
+# K5-f32 (b, h, N, d) before its redesign (device ms of the 4 x 4-tile
+# kernel, H100 80GB HBM3, 700.00 W, as PERF.md records them)
+K5_F32_BEFORE = {(8, 8, 1024, 40): 0.5391, (6, 8, 1024, 40): 0.4085,
+                 (2, 8, 1024, 40): 0.1379, (2, 8, 4096, 40): 2.1126,
+                 (2, 8, 1024, 80): 0.2859}
 ATTN_TOL = (1e-2, 1e-3)   # max|d| <= 1e-2 * max|ref| + 1e-3 (bf16 out, P)
 LSE_TOL = 1e-3            # max|d| of the f32 lse (same f32 scores)
 BWD_TOL = (2e-2, 2e-3)    # max|d| <= 2e-2 * max|ref| + 2e-3 (bf16 p and dS)
@@ -963,9 +969,10 @@ def bwd_row(gen, suffix, b, h, nq, nk, d, path, dtype="bfloat16"):
         plans = attention.flash_bwd_f32_plan(b * h, nq, nk, d)
         tiles = [f"{p.rows} rows x {p.bt} streamed x {p.stages} stages"
                  for p in plans]
-        before = K6_F32_BEFORE.get((b, h, nq, d)) if nq == nk else None
-        if before:
-            tiles[1] += f", before {before:.4f} ms"
+        for i, table in enumerate((K5_F32_BEFORE, K6_F32_BEFORE)):
+            before = table.get((b, h, nq, d)) if nq == nk else None
+            if before:
+                tiles[i] += f", before {before:.4f} ms"
     else:
         plans = attention.flash_bwd_plan(b * h, nq, nk, d)
         tiles = [f"{p.bt} x {p.stages} stages x {p.wgs} warpgroup(s)"
@@ -4851,12 +4858,13 @@ def sweep_k1_f32(gen):
 
 
 def sweep_bwd_f32(gen):
-    """K6-f32 at the planned tile (*) and at every tile it takes (key rows
-    x streamed queries x ring stages), and K5-f32 at its one tile, at the
-    ``BWD_CASES`` shapes and the distillation step's, each held against the
-    plain version (``ATTN_F32_TOL``) and rerun bit for bit; device times
-    beside SDPA's float32 backward (its kernels' summed time), each tile's
-    resident blocks an SM.  Returns the number of failures."""
+    """K5-f32 (query rows x streamed keys x ring stages) and K6-f32 (key
+    rows x streamed queries x ring stages) at the planned tile (*) and at
+    every tile each takes, at the ``BWD_CASES`` shapes and the distillation
+    step's, each held against the plain version (``ATTN_F32_TOL``) and
+    rerun bit for bit; device times beside SDPA's float32 backward (its
+    kernels' summed time), each tile's blocks and resident blocks an SM.
+    Returns the number of failures."""
     import ctypes
     import torch
     import torch.nn.functional as F
@@ -4875,47 +4883,50 @@ def sweep_bwd_f32(gen):
         out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
         lib_ms = profiled_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True), reps)
-        dq_plan, planned = attention.flash_bwd_f32_plan(b * h, nq, nk, d)
-        dq = attention._flash_k5_f32(q, k, v, do, lse, delta, scale, dq_plan)
-        dq_err = bwd_errors((dq, None, None), refs, ATTN_F32_TOL)["q"]
-        dq_ok = dq_err[0] <= dq_err[1] and torch.equal(
-            dq, attention._flash_k5_f32(q, k, v, do, lse, delta, scale,
-                                        dq_plan))
-        bad += not dq_ok
-        dq_ms = graph_ms(lambda: attention._flash_k5_f32(
-            q, k, v, do, lse, delta, scale, dq_plan), reps)
-        timed = []
-        for tile in attention._K6_F32_TILES:
-            try:
-                plan = attention.bwd_f32_tile("dkv", b * h, nq, nk, d, tile)
-            except ValueError:
-                continue
-            tag = f"{'x'.join(map(str, tile))}{'*' if plan == planned else ''}"
-            got = attention._flash_k6_f32(q, k, v, do, lse, delta, scale,
-                                          plan)
-            errs = bwd_errors((None, *got), refs, ATTN_F32_TOL)
-            again = attention._flash_k6_f32(q, k, v, do, lse, delta, scale,
-                                            plan)
-            ok = (all(math.isfinite(e) and e <= lim
-                      for e, lim in errs.values())
-                  and all(torch.equal(x, y) for x, y in zip(got, again)))
-            bad += not ok
-            ms = graph_ms(lambda: attention._flash_k6_f32(
-                q, k, v, do, lse, delta, scale, plan), reps)
-            res = ctypes.c_int(0)
-            rc = lib.fgdm_flash_attn_bwd_f32_dkv_resident(
-                d, plan.rows, plan.bt, plan.stages, plan.smem,
-                ctypes.addressof(res))
-            timed.append((ms, f"{tag} {plan.grid[0] * plan.grid[1]} blocks, "
-                              f"{res.value if rc == 0 else '?'} an SM, "
-                              f"{ms:.4f} ms, K5+K6 {dq_ms + ms:.4f} ms "
-                              f"{'OK' if ok else 'FAIL'}"))
+        plans = attention.flash_bwd_f32_plan(b * h, nq, nk, d)
         ops = 1.0 * b * h * nq * nk * d
+        parts = []
+        for kernel, tiles, run, resident, flops in (
+                ("dq", attention._K5_F32_TILES, attention._flash_k5_f32,
+                 lib.fgdm_flash_attn_bwd_f32_dq_resident, 6 * ops),
+                ("dkv", attention._K6_F32_TILES, attention._flash_k6_f32,
+                 lib.fgdm_flash_attn_bwd_f32_dkv_resident, 8 * ops)):
+            planned = plans[kernel == "dkv"]
+            timed = []
+            for tile in tiles:
+                try:
+                    plan = attention.bwd_f32_tile(kernel, b * h, nq, nk, d,
+                                                  tile)
+                except ValueError:
+                    continue
+                tag = (f"{'x'.join(map(str, tile))}"
+                       f"{'*' if plan == planned else ''}")
+                got = run(q, k, v, do, lse, delta, scale, plan)
+                again = run(q, k, v, do, lse, delta, scale, plan)
+                got, again = ((g,) if kernel == "dq" else g
+                              for g in (got, again))
+                errs = bwd_errors((*got, None, None) if kernel == "dq"
+                                  else (None, *got), refs, ATTN_F32_TOL)
+                ok = (all(math.isfinite(e) and e <= lim
+                          for e, lim in errs.values())
+                      and all(torch.equal(x, y) for x, y in zip(got, again)))
+                bad += not ok
+                ms = graph_ms(lambda: run(q, k, v, do, lse, delta, scale,
+                                          plan), reps)
+                res = ctypes.c_int(0)
+                rc = resident(d, plan.rows, plan.bt, plan.stages, plan.smem,
+                              ctypes.addressof(res))
+                timed.append((ms, f"{tag} {plan.grid[0] * plan.grid[1]} "
+                                  f"blocks, {res.value if rc == 0 else '?'} "
+                                  f"an SM, {ms:.4f} ms, max|d| "
+                                  f"{max(e for e, _ in errs.values()):.1e} "
+                                  f"{'OK' if ok else 'FAIL'}"))
+            parts.append(f"{'K5' if kernel == 'dq' else 'K6'}-f32 (bound "
+                         f"{1e3 * flops / PEAK_F32_FLOPS:.4f} ms) fastest "
+                         f"first: " + "; ".join(m for _, m in sorted(timed)))
         log(f"flash_attn_bwd f32 d{d} [{b},{h},{nq},{nk}] (SDPA f32 backward "
-            f"{'not measured' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
-            f"K5-f32 {dq_ms:.4f} ms {'OK' if dq_ok else 'FAIL'}; K6 f32 "
-            f"bound {1e3 * 8 * ops / PEAK_F32_FLOPS:.4f} ms), K6-f32 "
-            f"fastest first: " + "; ".join(m for _, m in sorted(timed)))
+            f"{'not measured' if lib_ms is None else f'{lib_ms:.4f} ms'}), "
+            + "; ".join(parts))
         del q, k, v, do, o, refs
         torch.cuda.empty_cache()
     return bad
@@ -5208,8 +5219,8 @@ def sweep():
     """K7-f32 at each tile and split (``sweep_conv_f32``), the float32
     d = 512 forward at each KV split (``sweep_attn_f32``), K1-f32 at each
     tile (``sweep_k1_f32``), K1 at each tile choice (``sweep_k1``), K5 and
-    K6 at each tile choice (``sweep_bwd``) and K6-f32 at each tile beside
-    K5-f32 (``sweep_bwd_f32``), K4
+    K6 at each tile choice (``sweep_bwd``) and K5-f32 and K6-f32 at each
+    tile (``sweep_bwd_f32``), K4
     at each cluster size (``sweep_k4``) and its wrapper's host cost
     (``gn_host_costs``), K7's ``wgmma`` kernel alone (no pre-pass) at the
     planned tile (*) and at each forced size, and the bf16 d = 512 forward

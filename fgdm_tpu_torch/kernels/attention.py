@@ -117,11 +117,12 @@ _K1_F32_TILES = ((64, 64, 2), (64, 64, 3), (128, 64, 2), (128, 64, 3),
                  (64, 32, 2), (64, 32, 3), (128, 32, 2), (128, 32, 3))
 _F32_TILES = {40: _K1_F32_TILES, 80: _K1_F32_TILES, 512: ((64, 128, 3),)}
 _F32_D512_DC, _F32_D512_VK = 32, 8
-# The float32 backward (flash_attn_bwd_f32.cu): K5's (query rows, keys) at
-# each head dim it instantiates (its block owns the query rows and streams
-# the keys through two stages); K6's tiles (key rows, streamed query rows,
-# ring stages) a block (FGDM_K6_F32_TILES).
-_BWD_F32_TILES = {40: (64, 64), 80: (64, 64)}
+# The float32 backward (flash_attn_bwd_f32.cu, at BWD_HEAD_DIMS): K5's
+# tiles (query rows, streamed keys, ring stages) a block
+# (FGDM_K5_F32_TILES) and K6's (key rows, streamed query rows, ring stages;
+# FGDM_K6_F32_TILES).
+_K5_F32_TILES = ((64, 64, 2), (64, 64, 3), (128, 64, 2), (128, 64, 3),
+                 (64, 32, 2), (64, 32, 3), (128, 32, 2), (128, 32, 3))
 _K6_F32_TILES = ((64, 64, 2), (64, 64, 3), (128, 64, 2), (128, 64, 3),
                  (64, 32, 2), (64, 32, 3), (128, 32, 2), (128, 32, 3))
 # The K1-f32 tile at each head dim: the fastest of ``chip_smoke.py
@@ -134,6 +135,14 @@ _K1_F32_PLAN = {40: (64, 64, 2), 80: (64, 32, 2)}
 # at d = 80; two stages).  One block of 128 key rows (8 warps) ran 2-3 %
 # faster at the paths' d = 40 shapes, and at [2, 8, 1024, 80].
 _K6_F32_PLAN = {40: (64, 64, 2), 80: (64, 32, 2)}
+# The K5-f32 tile at each head dim: the fastest of ``chip_smoke.py --sweep``
+# that keeps the float32 step's shapes at >= 132 blocks, 64 query rows and
+# 64 keys, two stages (H100 80GB HBM3, 700 W: [8,8,1024,40] 0.4457 ms, the
+# next 0.4478 (three stages) and 0.4543 (128 rows); [6,8] 0.3366; [2,8]
+# 0.1155, where 128 rows at 128 blocks ran 0.1150).  At d = 80 the same
+# tile, 0.2586 ms at [2,8,1024,80] against 0.2619 at 32 keys; 128 rows (128
+# blocks, one an SM) ran 0.2193.
+_K5_F32_PLAN = {40: (64, 64, 2), 80: (64, 64, 2)}
 
 
 def attention_ref(q, k, v, scale, return_lse: bool = False):
@@ -377,47 +386,51 @@ BwdF32Plan.__doc__ = """A float32 backward kernel's tile: ``kernel`` "dq"
 ``grid`` (row tiles, B*H) and the block's shared memory in bytes."""
 
 
+def _bwd_f32_smem(kernel: str, d: int, rows: int, bt: int,
+                  stages: int) -> int:
+    """The float32 backward's dynamic shared memory (``dq_smem_bytes`` and
+    ``dkv_smem_bytes`` of ``flash_attn_bwd_f32.cu``) at head dim ``d``:
+    ``rows`` owned a block, ``bt`` streamed a tile, a ring of ``stages``."""
+    if kernel == "dq":   # Q and dO, the K/V ring, each warp's dS rows
+        return 4 * (2 * rows * (d + 4) + stages * 2 * bt * (d + 4)
+                    + rows * (bt + 8))
+    # K and V, the ring of Q, dO, lse and delta, each warp's P^T and dS^T
+    return 4 * (2 * rows * (d + 4) + stages * (2 * bt * (d + 4) + 2 * bt)
+                + 2 * rows * (bt + 8))
+
+
 def bwd_f32_tile(kernel: str, bh: int, nq: int, nk: int, d: int,
                  tile: Optional[tuple] = None) -> BwdF32Plan:
-    """The float32 tile of K5 (``kernel="dq"``: 64 query rows, 64-key
-    tiles, two stages) or K6 (``"dkv"``: ``tile`` ``(key rows, queries,
-    stages)``, one of ``_K6_F32_TILES``, default the first) for
-    ``[bh, nq, d]`` queries against ``nk`` keys; raises ValueError on what
-    the kernels do not take (the checks of ``flash_attn_bwd_f32.cu``'s
+    """The float32 tile of K5 (``kernel="dq"``: ``tile`` ``(query rows,
+    keys, stages)``, one of ``_K5_F32_TILES``) or K6 (``"dkv"``: ``(key
+    rows, queries, stages)``, one of ``_K6_F32_TILES``), default the first,
+    for ``[bh, nq, d]`` queries against ``nk`` keys; raises ValueError on
+    what the kernels do not take (the checks of ``flash_attn_bwd_f32.cu``'s
     launches): another kernel, head dim or tile, Nk not a multiple of the
     key tile, more shared memory than a block has."""
-    if kernel not in _BWD_TILES or d not in _BWD_F32_TILES:
+    if kernel not in _BWD_TILES or d not in BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: no float32 tile for kernel "
-                         f"{kernel!r} at d={d} (have "
-                         f"{tuple(_BWD_F32_TILES)})")
-    if kernel == "dq":
-        bq, bk = _BWD_F32_TILES[d]
-        if nk % bk or tile not in (None, (bq, bk, 2)):
-            raise ValueError(f"flash_attention_bwd_dq: no float32 tile "
-                             f"{tile} at d={d}, nk={nk} (keys a tile {bk})")
-        smem = 4 * (2 * bq * (d + 4) + 4 * bk * (d + 4) + bq * (bk + 4)
-                    + 2 * bq)
-        return BwdF32Plan(kernel, bq, bk, 2, (-(-nq // bq), bh), smem)
-    bk, bq, stages = tile or _K6_F32_TILES[0]
-    # K and V, the ring of Q, dO, lse and delta, each warp's P^T and dS^T
-    smem = 4 * (2 * bk * (d + 4) + stages * (2 * bq * (d + 4) + 2 * bq)
-                + 2 * bk * (bq + 8))
-    if ((bk, bq, stages) not in _K6_F32_TILES or nk % bk
-            or smem > _SMEM_LIMIT):
-        raise ValueError(f"flash_attention_bwd_dkv: no float32 tile "
-                         f"{bk}x{bq}x{stages} at d={d}, nk={nk} ({smem} B "
+                         f"{kernel!r} at d={d} (have {BWD_HEAD_DIMS})")
+    tiles = _K5_F32_TILES if kernel == "dq" else _K6_F32_TILES
+    rows, bt, stages = tile or tiles[0]
+    smem = _bwd_f32_smem(kernel, d, rows, bt, stages)
+    keys = bt if kernel == "dq" else rows
+    if (rows, bt, stages) not in tiles or nk % keys or smem > _SMEM_LIMIT:
+        raise ValueError(f"flash_attention_bwd_{kernel}: no float32 tile "
+                         f"{rows}x{bt}x{stages} at d={d}, nk={nk} ({smem} B "
                          "of shared memory)")
-    return BwdF32Plan(kernel, bk, bq, stages, (nk // bk, bh), smem)
+    grid = (-(-(nq if kernel == "dq" else nk) // rows), bh)
+    return BwdF32Plan(kernel, rows, bt, stages, grid, smem)
 
 
 def flash_bwd_f32_plan(bh: int, nq: int, nk: int, d: int) -> tuple:
     """The float32 tiles ``(dq, dkv)`` of K5 and K6 for ``[bh, nq, d]``
-    queries against ``nk`` keys: K5's one tile (64 query rows and 64 keys),
-    K6's from ``_K6_F32_PLAN`` (64 key rows a block, two blocks an SM), so
-    at the training step's [8, 8, 1024, 40] each kernel has 1,024 blocks.
-    Raises where ``bwd_f32_tile`` does; never falls back."""
-    return (bwd_f32_tile("dq", bh, nq, nk, d),
-            bwd_f32_tile("dkv", bh, nq, nk, d, _K6_F32_PLAN[d]))
+    queries against ``nk`` keys, from ``_K5_F32_PLAN`` and ``_K6_F32_PLAN``
+    (64 rows a block each, two blocks an SM at d = 40, so at the training
+    step's [8, 8, 1024, 40] each kernel has 1,024 blocks).  Raises where
+    ``bwd_f32_tile`` does; never falls back."""
+    return (bwd_f32_tile("dq", bh, nq, nk, d, _K5_F32_PLAN.get(d)),
+            bwd_f32_tile("dkv", bh, nq, nk, d, _K6_F32_PLAN.get(d)))
 
 
 def attention_split_ref(q, k, v, scale, splits: int):
@@ -521,11 +534,13 @@ def _bwd_lib() -> ctypes.CDLL:
 def _bwd_f32_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn_bwd_f32")
     if not getattr(lib, "_fgdm_typed", False):
-        _typed(lib, "fgdm_flash_attn_bwd_f32_dq", 7, 5)
+        _typed(lib, "fgdm_flash_attn_bwd_f32_dq", 7, 8)
         _typed(lib, "fgdm_flash_attn_bwd_f32_dkv", 8, 8)
-        lib.fgdm_flash_attn_bwd_f32_dkv_resident.argtypes = (
-            [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.fgdm_flash_attn_bwd_f32_dkv_resident.restype = ctypes.c_int
+        for name in ("fgdm_flash_attn_bwd_f32_dq_resident",
+                     "fgdm_flash_attn_bwd_f32_dkv_resident"):
+            getattr(lib, name).argtypes = [ctypes.c_int] * 5 + [
+                ctypes.c_void_p]
+            getattr(lib, name).restype = ctypes.c_int
         lib.fgdm_flash_attn_bwd_f32_block_n.argtypes = [ctypes.c_int]
         lib.fgdm_flash_attn_bwd_f32_block_n.restype = ctypes.c_int
         lib.fgdm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -827,7 +842,8 @@ def _flash_k5_f32(q, k, v, do, lse, delta, scale, plan: BwdF32Plan):
         rc = lib.fgdm_flash_attn_bwd_f32_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, nq,
-            k.shape[2], d, plan.smem, float(scale), stream)
+            k.shape[2], d, plan.rows, plan.bt, plan.stages, plan.smem,
+            float(scale), stream)
     _raise_on(lib, "flash_attention_bwd_dq", rc)
     return dq
 

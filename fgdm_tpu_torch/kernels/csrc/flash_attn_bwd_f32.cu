@@ -20,47 +20,57 @@
 // dS.K) and dK/dV 8*d (S^T, dP^T, P^T.dO, dS^T.Q), and each one exp.  No
 // tensor core keeps float32's 24-bit products (TF32 keeps 11 bits), so the
 // products run as FFMA, 67 TFLOP/s at most, and that bounds every shape the
-// gate admits; bytes (~20*N*d per head) are far below.  The designs are
-// the float32 forward's (flash_attn_fwd_f32.cu), turned round:
+// gate admits; bytes (~20*N*d per head) are far below.  Both kernels are
+// the float32 forward's K1 design (flash_attn_fwd_f32.cu): every warp owns
+// 16 rows and runs every product on them, the warps share only the
+// streamed tiles, and what one product hands the next crosses shared
+// memory once, in the warp's own tile:
 //
-//   * dQ (flash_bwd_dq_f32_kernel): a block owns BQ query rows of one
-//     (batch, head).  Q, dO and the rows' lse (times log2 e) and delta stay
-//     in shared memory; K and V tiles of BK keys stream through two stages
-//     by cp.async: tile t + 1 is copied in while the block computes tile t.
-//     Each thread computes a 4 x 4 block of S and of dP from float4 reads
-//     of rows padded by 4 floats (the eight rows a quarter-warp reads fall
-//     in different banks), 16 FMAs per 8 loads; then p in base 2 (one FFMA
-//     of the score with scale * log2 e and the row's lse * log2 e, one
-//     exp2) and dS in registers, written to a tile in shared memory.  Each
-//     thread owns RG rows x 4 columns of dQ in registers and reads the dS
-//     rows and the K rows as float4.  Two barriers a tile.
-//   * dK/dV (flash_bwd_dkv_f32_kernel<D, BQ, WARPS, STAGES>): the float32
-//     forward's K1 design turned round.  A block of WARPS warps owns
-//     BK = 16 WARPS key rows (K and V in shared memory), each warp 16 of
-//     them; Q and dO tiles of BQ queries stream through a ring of STAGES
-//     cp.async tiles (tile t + STAGES - 1 is copied in while the block
-//     computes tile t), and each tile's lse (times log2 e) and delta go
-//     through registers into their stage a tile ahead.  One block barrier
-//     a tile.  Lane 8 rg + kl of a warp scores its key rows rg + 4 i
-//     (i < 4) against the queries kl + 8 j (j < BQ / 8): S^T and dP^T in
-//     registers from float4 reads (one wavefront each), then p and dS^T.
-//     P^T and dS^T cross shared memory once, into the warp's own tiles,
-//     behind a warp barrier; the products read them as float4s that serve
-//     the LD lanes of a row group at once.  dV += P^T dO and dK += dS^T Q:
-//     the 8 lanes of a row group split d into LD lanes of ten columns
-//     (float2 reads of dO and Q rows) and the queries into 8 / LD
-//     partitions (at d = 40 even and odd queries), so every lane sums 4
-//     key rows x 10 columns of dK and of dV (80 FMAs per 10 float2 reads);
-//     the partitions' sums are added by one shuffle at the end.  The tiles
-//     (BK, BQ, STAGES) the sweep times are instantiated below
-//     (FGDM_K6_F32); kernels/attention.py flash_bwd_f32_plan picks one.
+//   * dQ (flash_bwd_dq_f32_kernel<D, BN, WARPS, STAGES>): the forward with
+//     a second score product (dP = dO V^T) and K in V's place in the last.
+//     A block of WARPS warps owns BM = 16 WARPS query rows of one (batch,
+//     head): Q and dO stay in shared memory (rows padded by 4 floats), and
+//     each lane keeps its rows' lse (times log2 e) and delta in registers.
+//     K and V tiles of BN keys stream through a ring of STAGES cp.async
+//     tiles: tile t + STAGES - 1 is copied in while the block computes
+//     tile t.  One block barrier a tile.  Lane 8 rg + kl of a warp scores
+//     its rows rg + 4 i (i < 4) against the keys kl + 8 j (j < BN / 8): S
+//     and dP in registers from float4 reads (one wavefront each), then
+//     p = exp2(s * scale * log2 e - lse * log2 e) (one FFMA, one exp2) and
+//     dS = p (dP - delta).  dS crosses shared memory once, into the warp's
+//     own 16 x (BN + 8) tile, behind a warp barrier.  dQ += dS K: the 8
+//     lanes of a row group split d into LD lanes of ten columns (float2
+//     reads of K rows) and the keys into 8 / LD partitions (at d = 40 even
+//     and odd keys), so every lane sums 4 rows x 10 columns, 40 FMAs per 5
+//     float2 reads and a float4 of dS per 4 keys; the partitions' sums are
+//     added by one shuffle at the end.  The tiles (BM, BN, STAGES) the
+//     sweep times are instantiated below (FGDM_K5_F32).
+//   * dK/dV (flash_bwd_dkv_f32_kernel<D, BQ, WARPS, STAGES>): the same
+//     design turned round.  A block of WARPS warps owns BK = 16 WARPS key
+//     rows (K and V in shared memory), each warp 16 of them; Q and dO tiles
+//     of BQ queries stream through a ring of STAGES cp.async tiles, and
+//     each tile's lse (times log2 e) and delta go through registers into
+//     their stage a tile ahead.  One block barrier a tile.  Lane 8 rg + kl
+//     of a warp scores its key rows rg + 4 i (i < 4) against the queries
+//     kl + 8 j (j < BQ / 8): S^T and dP^T in registers from float4 reads,
+//     then p and dS^T.  P^T and dS^T cross shared memory once, into the
+//     warp's own tiles, behind a warp barrier; the products read them as
+//     float4s that serve the LD lanes of a row group at once.  dV += P^T dO
+//     and dK += dS^T Q: the 8 lanes of a row group split d into LD lanes of
+//     ten columns (float2 reads of dO and Q rows) and the queries into
+//     8 / LD partitions (at d = 40 even and odd queries), so every lane
+//     sums 4 key rows x 10 columns of dK and of dV (80 FMAs per 10 float2
+//     reads); the partitions' sums are added by one shuffle at the end.
+//     The tiles (BK, BQ, STAGES) the sweep times are instantiated below
+//     (FGDM_K6_F32).
+//   * kernels/attention.py flash_bwd_f32_plan picks each kernel's tile.
 //   * dQ and dK are scaled once at the end; no atomics and a fixed order
 //     of sums: a rerun is bit-identical.
 //   * Masking: the gate admits Nq != Nk and Nq % 64 != 0.  Query rows past
 //     nq arrive as zeros (cp.async with 0 bytes) with lse +inf and delta 0,
 //     so p = dS = 0 and they add nothing to dK/dV (JAX pads lse with +inf,
 //     attention.py:395-397); the dQ kernel never writes them.  Nk is a
-//     multiple of the key tile (the gate takes Nk % 512 == 0).
+//     multiple of each kernel's key tile (the gate takes Nk % 512 == 0).
 //
 // Numerics follow the plain version (attention_bwd_ref: f32 scores, p from
 // lse, f32 products), sums in another order.
@@ -75,30 +85,16 @@ namespace {
 
 using namespace fgdm;
 
-constexpr int THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may use
 
-// The dQ kernel's tile at each head dim: BQ query rows a block and a
-// streamed key tile of BK; the products as RG rows x 4 columns a thread.
-template <int D>
-struct Tile;
-template <>
-struct Tile<40> {
-  static constexpr int BQ = 64, BK = 64, RG = 4;
-};
-template <>
-struct Tile<80> {
-  static constexpr int BQ = 64, BK = 64, RG = 8;
-};
-
 // Dynamic shared memory of the dQ kernel: Q and dO (rows of D + 4 floats),
-// two stages of K and V, the dS tile (rows of BK + 4), lse and delta.
-template <int D>
+// STAGES of K and V (the same rows), each warp's dS tile (16 rows of
+// BN + 8).
+template <int D, int BN, int WARPS, int STAGES>
 constexpr int dq_smem_bytes() {
-  using T = Tile<D>;
-  return 4 * (2 * T::BQ * (D + 4) + 4 * T::BK * (D + 4) +
-              T::BQ * (T::BK + 4) + 2 * T::BQ);
+  return 4 * (2 * 16 * WARPS * (D + 4) + STAGES * 2 * BN * (D + 4) +
+              16 * WARPS * (BN + 8));
 }
 
 // Of the dK/dV kernel: K and V (rows of D + 4 floats), STAGES of Q, dO
@@ -110,58 +106,30 @@ constexpr int dkv_smem_bytes() {
               2 * 16 * WARPS * (BQ + 8));
 }
 
-// dK/dV's split of a row group's 8 lanes: LD lanes across d (ten columns
-// each), 8 / LD partitions of the queries.
+// Both kernels' split of a row group's 8 lanes in the last products: LD
+// lanes across d (ten columns each), 8 / LD partitions of the streamed
+// rows (keys for dQ, queries for dK/dV).
 template <int D>
-struct DkvSplit;
+struct DSplit;
 template <>
-struct DkvSplit<40> {
+struct DSplit<40> {
   static constexpr int LD = 4;
 };
 template <>
-struct DkvSplit<80> {
+struct DSplit<80> {
   static constexpr int LD = 8;
 };
+
+// Keys every tile the host plans divides (K5's BN, K6's BK): nk must be a
+// multiple (kernels/attention.py _K5_F32_PLAN, _K6_F32_PLAN).
+constexpr int KEY_MULTIPLE = 64;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// Adds the 4 x 4 products of rows a_rows[i * SY] and b_rows[j * SX] (each a
-// row of C4 float4s in shared memory, stride S floats) to acc.
-template <int C4, int S, int SY, int SX>
-__device__ __forceinline__ void scores4x4(float (&acc)[4][4],
-                                          const float* a_rows,
-                                          const float* b_rows) {
-#pragma unroll 2
-  for (int g = 0; g < C4; ++g) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = ld4(a_rows + SY * i * S + 4 * g);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = ld4(b_rows + SX * j * S + 4 * g);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-      }
-  }
-}
-
 __device__ __forceinline__ float lane(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ void fma4(float (&acc)[4], float a,
-                                     const float4& b) {
-  acc[0] = fmaf(a, b.x, acc[0]);
-  acc[1] = fmaf(a, b.y, acc[1]);
-  acc[2] = fmaf(a, b.z, acc[2]);
-  acc[3] = fmaf(a, b.w, acc[3]);
 }
 
 __device__ __forceinline__ float2 ld2(const float* p) {
@@ -177,9 +145,10 @@ __device__ __forceinline__ void dot4(float& acc, const float4& a,
 }
 
 // q/dout [bh, nq, D], k/v [bh, nk, D], lse/delta [bh, nq] f32 -> dq
-// [bh, nq, D].  sl = scale * log2 e.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+// [bh, nq, D]: K5 at the tile WARPS x 16 query rows, BN streamed keys, a
+// ring of STAGES.  sl = scale * log2 e.
+template <int D, int BN, int WARPS, int STAGES>
+__global__ void __launch_bounds__(32 * WARPS)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
@@ -188,38 +157,43 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ delta,
                         float* __restrict__ dq, int nq, int nk, float sl,
                         float scale) {
-  using T = Tile<D>;
-  constexpr int BQ = T::BQ, BK = T::BK, RG = T::RG;
-  constexpr int QS = D + 4, SS = BK + 4;  // row strides in floats
-  constexpr int C4 = D / 4;               // float4 columns of a row
-  constexpr int SY = BQ / 4, SX = BK / 4;
-  constexpr int ACC_THREADS = BQ / RG * C4;
-  static_assert(SY * SX == THREADS, "every thread computes scores");
-  static_assert(ACC_THREADS <= THREADS && D % 4 == 0, "tile");
+  constexpr int NT = 32 * WARPS, BM = 16 * WARPS;
+  constexpr int QS = D + 4;          // Q, dO, K and V row stride (floats)
+  constexpr int PS = BN + 8;         // dS row stride
+  constexpr int TN = BN / 8;         // keys a lane scores
+  constexpr int C4 = D / 4;
+  constexpr int LD = DSplit<D>::LD, KP = 8 / LD;
+  constexpr int PW = BN / KP + 4;    // a key partition's span in a dS row
+  constexpr int E = D / (2 * LD);    // float2 columns a lane sums
+  constexpr int TILE = BN * QS;      // floats of a K or V tile
+  static_assert(E == 5 && BN % 32 == 0 && KP * PW <= PS, "tile");
 
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;
-  float* do_s = q_s + BQ * QS;
-  float* kv_s = do_s + BQ * QS;  // stage s: K at 2 s BK QS, V after it
-  float* ds_s = kv_s + 4 * BK * QS;
-  float* l_s = ds_s + BQ * SS;
-  float* dl_s = l_s + BQ;
+  float* do_s = q_s + BM * QS;
+  float* ring = do_s + BM * QS;  // stage s: K at 2 s TILE, V after it
+  float* ds_s = ring + STAGES * 2 * TILE;
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int rg = (tid & 31) >> 3, kl = tid & 7;
+  const int dl = kl / KP, kp = kl % KP;
+  const int row0 = blockIdx.x * BM;
   const int bh = blockIdx.y;
-  const int tiles = nk / BK;
+  const int tiles = nk / BN;
   const float* kb = k + (size_t)bh * nk * D;
   const float* vb = v + (size_t)bh * nk * D;
 
-  auto load_kv = [&](int tile, int stage) {
-    float* ks = kv_s + stage * 2 * BK * QS;
-    float* vs = ks + BK * QS;
-    for (int i = tid; i < BK * C4; i += THREADS) {
-      const int r = i / C4, c = i % C4;
-      const size_t off = ((size_t)tile * BK + r) * D + 4 * c;
-      cp_async16(smem_u32(ks + r * QS + 4 * c), kb + off, 16);
-      cp_async16(smem_u32(vs + r * QS + 4 * c), vb + off, 16);
+  // K/V tile t into stage t % STAGES; past the end an empty group, so that
+  // every wait below counts the same groups
+  auto load_kv = [&](int t) {
+    if (t < tiles) {
+      float* ks = ring + (t % STAGES) * 2 * TILE;
+      for (int i = tid; i < BN * C4; i += NT) {
+        const int r = i / C4, c = i % C4;
+        const size_t off = ((size_t)t * BN + r) * D + 4 * c;
+        cp_async16(smem_u32(ks + r * QS + 4 * c), kb + off, 16);
+        cp_async16(smem_u32(ks + TILE + r * QS + 4 * c), vb + off, 16);
+      }
     }
     cp_async_commit();
   };
@@ -227,89 +201,130 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   // Q and dO, the rows past nq zero; they land with the first K/V tile
   const float* qb = q + (size_t)bh * nq * D;
   const float* dob = dout + (size_t)bh * nq * D;
-  for (int i = tid; i < BQ * C4; i += THREADS) {
+  for (int i = tid; i < BM * C4; i += NT) {
     const int r = i / C4, c = i % C4;
     const bool in = row0 + r < nq;
     const size_t off = (size_t)(in ? row0 + r : 0) * D + 4 * c;
     cp_async16(smem_u32(q_s + r * QS + 4 * c), qb + off, in ? 16 : 0);
     cp_async16(smem_u32(do_s + r * QS + 4 * c), dob + off, in ? 16 : 0);
   }
-  load_kv(0, 0);
-  if (tid < BQ) {
-    const bool in = row0 + tid < nq;
-    const size_t r = (size_t)bh * nq + (in ? row0 + tid : 0);
-    l_s[tid] = in ? lse[r] * LOG2E : INFINITY;
-    dl_s[tid] = in ? delta[r] : 0.f;
-  }
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) load_kv(t);
 
-  // scores (sy + SY i, sx + SX j); products: rows pr0 .. pr0 + RG - 1,
-  // columns 4 pc .. 4 pc + 3
-  const int sx = tid % SX, sy = tid / SX;
-  const bool mine = tid < ACC_THREADS;
-  const int pr0 = tid / C4 * RG, pc = tid % C4;
-  float acc[RG][4];
-#pragma unroll
-  for (int r = 0; r < RG; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  __syncthreads();  // lse and delta are written
-  float l2[4], dl[4];  // of this thread's score rows
+  // this lane's rows rg + 4 i of the warp's 16: in Q, dO and its dS tile;
+  // their lse (times log2 e) and delta, +inf and 0 past nq so that their
+  // p and dS are 0
+  const int wrow = 16 * warp + rg;
+  const float* qw = q_s + wrow * QS;
+  const float* dow = do_s + wrow * QS;
+  float* dsw = ds_s + wrow * PS;
+  float l2[4], dlt[4], acc[4][E][2];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    l2[i] = l_s[sy + SY * i];
-    dl[i] = dl_s[sy + SY * i];
+    const int row = row0 + wrow + 4 * i;
+    const bool in = row < nq;
+    const size_t r = (size_t)bh * nq + (in ? row : 0);
+    l2[i] = in ? lse[r] * LOG2E : INFINITY;
+    dlt[i] = in ? delta[r] : 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[i][e][0] = acc[i][e][1] = 0.f;
   }
 
 #pragma unroll 1
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int st = tile & 1;
-    cp_async_wait<0>();  // this tile (and Q, dO) are in
-    __syncthreads();     // ... for every thread; the last dS and K are read
-    if (tile + 1 < tiles) load_kv(tile + 1, st ^ 1);
-    const float* ks = kv_s + st * 2 * BK * QS;
-    const float* vs = ks + BK * QS;
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<STAGES - 2>();  // Q, dO and tile t are in
+    __syncthreads();              // ... for every thread; tile t - 1 is read
+    load_kv(t + STAGES - 1);
+    const float* ks = ring + (t % STAGES) * 2 * TILE;
+    const float* vs = ks + TILE;
 
-    float s[4][4], dp[4][4];
+    // S = Q K^T and dP = dO V^T: rows rg + 4 i, keys kl + 8 j
+    float s[4][TN], dp[4][TN];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    scores4x4<C4, QS, SY, SX>(s, q_s + sy * QS, ks + sx * QS);
-    scores4x4<C4, QS, SY, SX>(dp, do_s + sy * QS, vs + sx * QS);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(fmaf(s[i][j], sl, -l2[i]));
-        ds_s[(sy + SY * i) * SS + sx + SX * j] = p * (dp[i][j] - dl[i]);
-      }
-    __syncthreads();  // dS is written
-
-    if (mine) {  // dQ += dS K
+      for (int j = 0; j < TN; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 2
-      for (int j = 0; j < BK; j += 4) {
-        float4 a[RG];
+    for (int g = 0; g < C4; ++g) {
+      float4 a[4], b[TN];
 #pragma unroll
-        for (int r = 0; r < RG; ++r) a[r] = ld4(ds_s + (pr0 + r) * SS + j);
+      for (int i = 0; i < 4; ++i) a[i] = ld4(qw + 4 * i * QS + 4 * g);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float4 kk = ld4(ks + (j + jj) * QS + 4 * pc);
+      for (int j = 0; j < TN; ++j) b[j] = ld4(ks + (kl + 8 * j) * QS + 4 * g);
 #pragma unroll
-          for (int r = 0; r < RG; ++r) fma4(acc[r], lane(a[r], jj), kk);
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) dot4(s[i][j], a[i], b[j]);
+    }
+#pragma unroll 2
+    for (int g = 0; g < C4; ++g) {
+      float4 a[4], b[TN];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ld4(dow + 4 * i * QS + 4 * g);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = ld4(vs + (kl + 8 * j) * QS + 4 * g);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) dot4(dp[i][j], a[i], b[j]);
+    }
+    // p and dS in base 2, into the warp's tile at key kl + 8 j's partition
+    // span
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int at = kp * PW + kl / KP + 8 / KP * j;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = exp2f(fmaf(s[i][j], sl, -l2[i]));
+        dsw[4 * i * PS + at] = p * (dp[i][j] - dlt[i]);
+      }
+    }
+    __syncwarp();  // the warp's dS is written
+
+    // dQ += dS K over this lane's key partition: keys KP (4 u + c) + kp
+#pragma unroll 2
+    for (int u = 0; u < BN / KP / 4; ++u) {
+      float4 ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ds[i] = ld4(dsw + 4 * i * PS + kp * PW + 4 * u);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float* kr = ks + (KP * (4 * u + c) + kp) * QS + 2 * dl;
+        float2 kk[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) kk[e] = ld2(kr + 2 * LD * e);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float dc = lane(ds[i], c);
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            acc[i][e][0] = fmaf(dc, kk[e].x, acc[i][e][0]);
+            acc[i][e][1] = fmaf(dc, kk[e].y, acc[i][e][1]);
+          }
         }
       }
     }
   }
+  cp_async_wait<0>();  // the empty trailing groups
 
-  if (mine) {
+  // the partitions' sums; the lanes of partition i % KP write row i
 #pragma unroll
-    for (int r = 0; r < RG; ++r) {
-      const int row = row0 + pr0 + r;
-      if (row >= nq) continue;
-      *reinterpret_cast<float4*>(dq + ((size_t)bh * nq + row) * D + 4 * pc) =
-          make_float4(acc[r][0] * scale, acc[r][1] * scale,
-                      acc[r][2] * scale, acc[r][3] * scale);
+  for (int i = 0; i < 4; ++i) {
+    if (KP == 2) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        acc[i][e][0] += __shfl_xor_sync(0xffffffffu, acc[i][e][0], 1);
+        acc[i][e][1] += __shfl_xor_sync(0xffffffffu, acc[i][e][1], 1);
+      }
     }
+    const int row = row0 + wrow + 4 * i;
+    if (row >= nq || i % KP != kp) continue;
+    float* qrow = dq + ((size_t)bh * nq + row) * D + 2 * dl;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      *reinterpret_cast<float2*>(qrow + 2 * LD * e) =
+          make_float2(acc[i][e][0] * scale, acc[i][e][1] * scale);
   }
 }
 
@@ -330,7 +345,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
   constexpr int PS = BQ + 8;         // P^T and dS^T row stride
   constexpr int TN = BQ / 8;         // queries a lane scores
   constexpr int C4 = D / 4;
-  constexpr int LD = DkvSplit<D>::LD, KP = 8 / LD;
+  constexpr int LD = DSplit<D>::LD, KP = 8 / LD;
   constexpr int PW = BQ / KP + 4;    // a query partition's span in a row
   constexpr int E = D / (2 * LD);    // float2 columns a lane sums
   constexpr int TILE = BQ * QS;      // floats of a Q or dO tile
@@ -541,23 +556,26 @@ int prepare(K kern, int smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int D>
+template <int D, int BN, int WARPS, int STAGES>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int nq,
               int nk, int smem, float scale, cudaStream_t stream) {
-  using T = Tile<D>;
-  if (nk % T::BK != 0 || smem != dq_smem_bytes<D>())
+  constexpr int SMEM = dq_smem_bytes<D, BN, WARPS, STAGES>();
+  if constexpr (SMEM > MAX_SMEM) {  // no such block (d = 80 at 128 x 64 x 3)
     return (int)cudaErrorInvalidValue;
-  auto kern = flash_bwd_dq_f32_kernel<D>;
-  const int err = prepare(kern, smem);
-  if (err != 0) return err;
-  const dim3 grid((nq + T::BQ - 1) / T::BQ, bh);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), nq, nk, scale * LOG2E, scale);
-  return (int)cudaGetLastError();
+  } else {
+    if (nk % BN != 0 || smem != SMEM) return (int)cudaErrorInvalidValue;
+    auto kern = flash_bwd_dq_f32_kernel<D, BN, WARPS, STAGES>;
+    const int err = prepare(kern, smem);
+    if (err != 0) return err;
+    const dim3 grid((nq + 16 * WARPS - 1) / (16 * WARPS), bh);
+    kern<<<grid, 32 * WARPS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dq), nq, nk, scale * LOG2E, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <int D, int BQ, int WARPS, int STAGES>
@@ -584,6 +602,20 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   }
 }
 
+// Blocks of a K5 tile resident on an SM at once, into *out.
+template <int D, int BN, int WARPS, int STAGES>
+int resident_dq(int smem, int* out) {
+  if constexpr (dq_smem_bytes<D, BN, WARPS, STAGES>() > MAX_SMEM) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    auto kern = flash_bwd_dq_f32_kernel<D, BN, WARPS, STAGES>;
+    const int err = prepare(kern, smem);
+    if (err != 0) return err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, kern, 32 * WARPS, (size_t)smem);
+  }
+}
+
 // Blocks of a K6 tile resident on an SM at once, into *out.
 template <int D, int BQ, int WARPS, int STAGES>
 int resident_dkv(int smem, int* out) {
@@ -597,6 +629,18 @@ int resident_dkv(int smem, int* out) {
         out, kern, 32 * WARPS, (size_t)smem);
   }
 }
+
+// The K5 tiles: (query rows, streamed keys, ring stages) a block at each
+// head dim.
+#define FGDM_K5_F32_TILES(X) \
+  X(64, 64, 2)               \
+  X(64, 64, 3)               \
+  X(128, 64, 2)              \
+  X(128, 64, 3)              \
+  X(64, 32, 2)               \
+  X(64, 32, 3)               \
+  X(128, 32, 2)              \
+  X(128, 32, 3)
 
 // The K6 tiles: (key rows, streamed queries, ring stages) a block at each
 // head dim.
@@ -620,27 +664,49 @@ extern "C" {
 
 // q/dout: contiguous [bh, nq, d] f32, k/v [bh, nk, d] f32, lse (natural
 // log) and delta [bh, nq] f32, all on the current device, 16-byte aligned;
-// d one of 40, 80; nk a multiple of fgdm_flash_attn_bwd_f32_block_n(d);
-// smem the dynamic shared memory of the tile (kernels/attention.py
-// bwd_f32_tile; checked against this file's).  Writes dq [bh, nq, d] f32.
-// Returns 0 or a cudaError_t code (launch errors included).
+// d one of 40, 80; the K5 tile bm x bn x stages (query rows a block,
+// streamed keys, ring stages; one of FGDM_K5_F32_TILES) with its smem
+// (kernels/attention.py bwd_f32_tile; checked against this file's); nk a
+// multiple of bn.  Writes dq [bh, nq, d] f32.  Returns 0 or a cudaError_t
+// code (launch errors included).
 int fgdm_flash_attn_bwd_f32_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, int bh, int nq,
-                               int nk, int d, int smem, float scale,
-                               void* stream) {
+                               int nk, int d, int bm, int bn, int stages,
+                               int smem, float scale, void* stream) {
   if (bad_shape(bh, nq, nk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 40:
-      return launch_dq<40>(q, k, v, dout, lse, delta, dq, bh, nq, nk, smem,
-                           scale, s);
-    case 80:
-      return launch_dq<80>(q, k, v, dout, lse, delta, dq, bh, nq, nk, smem,
-                           scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+#define FGDM_K5_F32(BM, BN, STAGES)                                          \
+  if (bm == BM && bn == BN && stages == STAGES) {                            \
+    if (d == 40)                                                             \
+      return launch_dq<40, BN, BM / 16, STAGES>(q, k, v, dout, lse, delta,   \
+                                                dq, bh, nq, nk, smem, scale, \
+                                                s);                          \
+    if (d == 80)                                                             \
+      return launch_dq<80, BN, BM / 16, STAGES>(q, k, v, dout, lse, delta,   \
+                                                dq, bh, nq, nk, smem, scale, \
+                                                s);                          \
   }
+  FGDM_K5_F32_TILES(FGDM_K5_F32)
+#undef FGDM_K5_F32
+  return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the K5 tile bm x bn x stages (smem as above) resident on an SM
+// at once, into *out.  Returns 0 or a cudaError_t code.
+int fgdm_flash_attn_bwd_f32_dq_resident(int d, int bm, int bn, int stages,
+                                        int smem, int* out) {
+  if (out == nullptr) return (int)cudaErrorInvalidValue;
+#define FGDM_K5_F32(BM, BN, STAGES)                                      \
+  if (bm == BM && bn == BN && stages == STAGES &&                        \
+      smem == (d == 40 ? dq_smem_bytes<40, BN, BM / 16, STAGES>()        \
+                       : dq_smem_bytes<80, BN, BM / 16, STAGES>())) {    \
+    if (d == 40) return resident_dq<40, BN, BM / 16, STAGES>(smem, out); \
+    if (d == 80) return resident_dq<80, BN, BM / 16, STAGES>(smem, out); \
+  }
+  FGDM_K5_F32_TILES(FGDM_K5_F32)
+#undef FGDM_K5_F32
+  return (int)cudaErrorInvalidValue;
 }
 
 // The same inputs and the K6 tile bk x bq x stages (key rows a block,
@@ -687,17 +753,10 @@ int fgdm_flash_attn_bwd_f32_dkv_resident(int d, int bk, int bq, int stages,
   return (int)cudaErrorInvalidValue;
 }
 
-// The keys a tile at head dim d (nk must be a multiple), 0 if the head dim
-// is not instantiated.
+// The keys every planned tile at head dim d divides (nk must be a
+// multiple), 0 if the head dim is not instantiated.
 int fgdm_flash_attn_bwd_f32_block_n(int d) {
-  switch (d) {
-    case 40:
-      return Tile<40>::BK;
-    case 80:
-      return Tile<80>::BK;
-    default:
-      return 0;
-  }
+  return d == 40 || d == 80 ? KEY_MULTIPLE : 0;
 }
 
 const char* fgdm_cuda_error_string(int code) { return error_string(code); }

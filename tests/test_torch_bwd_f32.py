@@ -6,12 +6,13 @@ on the card, where ``chip_smoke.py`` holds them against the float32
 ``attention_bwd_ref``.  Here:
 
 * ``k56_f32_arithmetic`` repeats their tile walk in plain torch float32 (K5:
-  key tiles of ``flash_bwd_f32_plan``'s streamed tile against a block's
-  query rows; K6: query tiles against a block's key rows, the ragged tail
-  with lse +inf, dK and dV summed in the query partitions of its lanes and
-  the partitions added at the end; exps in base 2 with scale * log2 e
-  folded in; dQ and dK scaled once) and is held against the JAX package's
-  Pallas backward
+  key tiles of the plan's streamed tile against a block's query rows, dQ
+  summed in the key partitions of its lanes; K6: query tiles against a
+  block's key rows, the ragged tail with lse +inf, dK and dV summed in the
+  query partitions of its lanes; each kernel's partitions added at the end;
+  exps in base 2 with scale * log2 e folded in; dQ and dK scaled once) and
+  is held, at the planned tiles and at every tile each kernel
+  instantiates, against the JAX package's Pallas backward
   ``_flash_backward_t`` in interpret mode in float32, within
   ``tests/test_attention.py``'s atol 5e-3, rtol 1e-3, and against
   ``jax.vjp`` of ``_xla_attention`` and the port's CPU route
@@ -65,29 +66,34 @@ def chip_smoke():
     return mod
 
 
-# K6-f32's query partitions of the dK/dV products (8 / DkvSplit<D>::LD)
+# K5-f32's key partitions of dS K and K6-f32's query partitions of the
+# dK/dV products (8 / DSplit<D>::LD)
+K5_PARTS = {40: 2, 80: 1}
 K6_PARTS = {40: 2, 80: 1}
 
 
 def k56_f32_arithmetic(q, k, v, do, lse, delta, scale, plans):
     """K5-f32 and K6-f32's arithmetic in plain torch on float32 q/k/v/dO
     ``[B, H, N, d]`` and lse/delta ``[B, H, Nq]``: K5 walks key tiles of
-    ``plans[0].bt``, K6 query tiles of ``plans[1].bt`` (the last one padded
-    with zero rows whose lse is +inf and delta 0, as the kernel loads
-    them), its dK and dV summed in ``K6_PARTS[d]`` partitions of the
-    queries (query = p mod parts) and the partitions added at the end.
-    Returns ``(dq, dk, dv)`` in float32."""
+    ``plans[0].bt``, its dQ summed in ``K5_PARTS[d]`` partitions of the
+    keys (key = p mod parts); K6 query tiles of ``plans[1].bt`` (the last
+    one padded with zero rows whose lse is +inf and delta 0, as the kernel
+    loads them), its dK and dV summed in ``K6_PARTS[d]`` partitions of the
+    queries (query = p mod parts); each kernel's partitions added at the
+    end.  Returns ``(dq, dk, dv)`` in float32."""
     sl = scale * ta._LOG2E
     l2 = lse[..., None] * ta._LOG2E
     dl = delta[..., None]
     # K5: a block's query rows against streamed key tiles
-    dq = torch.zeros_like(q)
     bk = plans[0].bt
+    parts = K5_PARTS[q.shape[3]]
+    dq = [torch.zeros_like(q) for _ in range(parts)]
     for j in range(0, k.shape[2], bk):
         kj, vj = k[:, :, j:j + bk], v[:, :, j:j + bk]
         p = torch.exp2(q @ kj.transpose(2, 3) * sl - l2)
         ds = p * (do @ vj.transpose(2, 3) - dl)
-        dq = dq + ds @ kj
+        for r in range(parts):
+            dq[r] = dq[r] + ds[..., r::parts] @ kj[:, :, r::parts]
     # K6: a block's key rows against streamed query tiles, transposed scores
     bq = plans[1].bt
     pad = -q.shape[2] % bq
@@ -105,11 +111,13 @@ def k56_f32_arithmetic(q, k, v, do, lse, delta, scale, plans):
         for p in range(parts):
             dv[p] = dv[p] + pt[..., p::parts] @ doi[:, :, p::parts]
             dk[p] = dk[p] + dst[..., p::parts] @ qi[:, :, p::parts]
-    return dq * scale, sum(dk[1:], dk[0]) * scale, sum(dv[1:], dv[0])
+    return (sum(dq[1:], dq[0]) * scale, sum(dk[1:], dk[0]) * scale,
+            sum(dv[1:], dv[0]))
 
 
 # (d, Nq, Nk): an even and a ragged query length at each head dim
 CASES = [(40, 256, 256), (40, 200, 256), (80, 256, 256), (80, 136, 384)]
+CASE_IDS = ["d40", "d40-ragged", "d80", "d80-ragged"]
 
 
 @pytest.fixture(scope="module")
@@ -143,8 +151,7 @@ def references():
     return out
 
 
-@pytest.mark.parametrize("case", CASES,
-                         ids=["d40", "d40-ragged", "d80", "d80-ragged"])
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 def test_k56_f32_arithmetic_matches_pallas_and_xla_vjp(case, references):
     """The kernels' float32 arithmetic, from the port's float32 forward and
     lse, against the Pallas backward (interpret mode) and the XLA VJP; the
@@ -167,8 +174,7 @@ def test_k56_f32_arithmetic_matches_pallas_and_xla_vjp(case, references):
 
 
 @pytest.mark.parametrize("bq", sorted({t[1] for t in ta._K6_F32_TILES}))
-@pytest.mark.parametrize("case", CASES,
-                         ids=["d40", "d40-ragged", "d80", "d80-ragged"])
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 def test_k6_f32_tiles_match_pallas_and_xla_vjp(case, bq, references):
     """K6-f32's arithmetic at each streamed query tile it instantiates (the
     query partitions, the ragged tail) against the Pallas backward and the
@@ -184,6 +190,41 @@ def test_k6_f32_tiles_match_pallas_and_xla_vjp(case, bq, references):
         np.testing.assert_allclose(ours.numpy(), p, **PALLAS_TOL)
         tol = EXACT_TOL[0] * np.abs(x).max() + EXACT_TOL[1]
         np.testing.assert_allclose(ours.numpy(), x, atol=tol, rtol=0)
+
+
+def _k5_smem(d, rows, bn, stages):
+    """``dq_smem_bytes`` of ``flash_attn_bwd_f32.cu``: Q and dO, the K/V
+    ring (rows of d + 4 floats), each warp's dS rows of bn + 8."""
+    return 4 * (2 * rows * (d + 4) + stages * 2 * bn * (d + 4)
+                + rows * (bn + 8))
+
+
+# every K5-f32 tile at each case whose head dim has room for it
+K5_TILE_CASES = [pytest.param(case, tile,
+                              id=f"{cid}-{'x'.join(map(str, tile))}")
+                 for case, cid in zip(CASES, CASE_IDS)
+                 for tile in ta._K5_F32_TILES
+                 if _k5_smem(case[0], *tile) <= ta._SMEM_LIMIT]
+
+
+@pytest.mark.parametrize("case,tile", K5_TILE_CASES)
+def test_k5_f32_tiles_match_pallas_and_xla_vjp(case, tile, references):
+    """K5-f32's arithmetic at each tile it instantiates (the key tiles, the
+    key partitions, the ragged query rows) against the Pallas backward and
+    the XLA VJP, as closely as at the planned tile; the tile's grid covers
+    the query rows once."""
+    d, nq, nk = case
+    (q, k, v, g), (o, lse), pallas, xla = references[case]
+    scale = d ** -0.5
+    delta = (g * o).sum(dim=-1)
+    plans = (ta.bwd_f32_tile("dq", 2, nq, nk, d, tile),
+             ta.bwd_f32_tile("dkv", 2, nq, nk, d))
+    assert (plans[0].rows, plans[0].bt, plans[0].stages) == tile
+    assert plans[0].grid == (-(-nq // tile[0]), 2)
+    dq = k56_f32_arithmetic(q, k, v, g, lse, delta, scale, plans)[0]
+    np.testing.assert_allclose(dq.numpy(), pallas[0], **PALLAS_TOL)
+    tol = EXACT_TOL[0] * np.abs(xla[0]).max() + EXACT_TOL[1]
+    np.testing.assert_allclose(dq.numpy(), xla[0], atol=tol, rtol=0)
 
 
 # --- the float32 plan ------------------------------------------------------
@@ -226,7 +267,7 @@ def test_bwd_f32_plan_fills_the_card():
 @pytest.mark.parametrize("kernel,d,nk", [
     ("dq", 64, 1024),       # no float32 tile at this head dim
     ("dkv", 512, 1024),     # the VAE's head has no backward kernel
-    ("dq", 40, 1000),       # Nk not a multiple of the 64-key tile
+    ("dq", 40, 1000),       # Nk not a multiple of the planned key tile
     ("dkv", 80, 960 + 32),
     ("dqkv", 40, 1024),     # no such kernel
 ])
@@ -243,7 +284,10 @@ def test_bwd_f32_tile_refuses_what_the_kernels_do_not_take(kernel, d, nk):
     ("dkv", 40, 1024, (96, 64, 2)),    # a tile K6-f32 does not instantiate
     ("dkv", 40, 1024, (64, 64, 4)),
     ("dkv", 40, 960, (128, 32, 2)),    # Nk not a multiple of the key rows
-    ("dq", 40, 1024, (64, 32, 2)),     # K5-f32 has one tile
+    ("dq", 40, 1024, (64, 64, 4)),     # a tile K5-f32 does not instantiate
+    ("dq", 40, 1024, (32, 64, 2)),
+    ("dq", 80, 1024, (128, 64, 3)),    # more shared memory than a block has
+    ("dq", 40, 1000, (64, 32, 2)),     # Nk not a multiple of the key tile
 ])
 def test_bwd_f32_tile_refuses_a_forced_tile(kernel, d, nk, tile):
     with pytest.raises(ValueError, match="no float32 tile"):
@@ -251,43 +295,51 @@ def test_bwd_f32_tile_refuses_a_forced_tile(kernel, d, nk, tile):
 
 
 def test_bwd_f32_constants_match_the_source():
-    """The tiles, the shared-memory formulas and the head dims the host
-    assumes are ``flash_attn_bwd_f32.cu``'s; no atomics; chip_smoke.py
-    builds the source."""
+    """The tiles, the shared-memory formulas, the lanes' partition split,
+    the key multiple and the head dims the host assumes are
+    ``flash_attn_bwd_f32.cu``'s; no atomics; chip_smoke.py builds the
+    source."""
     src = (_build.CSRC / "flash_attn_bwd_f32.cu").read_text()
-    tiles = {int(d): (int(bq), int(bk)) for d, bq, bk in re.findall(
-        r"struct Tile<(\d+)> \{\s*static constexpr int BQ = (\d+), "
-        r"BK = (\d+),", src)}
-    assert tiles == ta._BWD_F32_TILES
-    assert set(tiles) == set(ta.BWD_HEAD_DIMS)
-    assert ("4 * (2 * T::BQ * (D + 4) + 4 * T::BK * (D + 4) +\n"
-            "              T::BQ * (T::BK + 4) + 2 * T::BQ)") in src
+
+    def table(name):
+        body = src[src.index(f"#define {name}(X)"):]
+        body = body[:body.index("\n\n")]
+        return tuple(tuple(map(int, t)) for t in re.findall(
+            r"X\((\d+), (\d+), (\d+)\)", body))
+
+    k5, k6 = table("FGDM_K5_F32_TILES"), table("FGDM_K6_F32_TILES")
+    assert k5 == ta._K5_F32_TILES and len(set(k5)) == len(k5)
+    assert k6 == ta._K6_F32_TILES and len(set(k6)) == len(k6)
+    assert ("return 4 * (2 * 16 * WARPS * (D + 4) + STAGES * 2 * BN * (D + 4)"
+            " +\n              16 * WARPS * (BN + 8));") in src
     assert ("return 4 * (2 * 16 * WARPS * (D + 4) + STAGES * (2 * BQ * (D + 4)"
             " + 2 * BQ) +\n              2 * 16 * WARPS * (BQ + 8));") in src
-    table = src[src.index("#define FGDM_K6_F32_TILES(X)"):]
-    table = table[:table.index("\n\n")]
-    k6 = tuple(tuple(map(int, t)) for t in re.findall(
-        r"X\((\d+), (\d+), (\d+)\)", table))
-    assert k6 == ta._K6_F32_TILES and len(set(k6)) == len(k6)
     split = {int(d): 8 // int(ld) for d, ld in re.findall(
-        r"struct DkvSplit<(\d+)> \{\s*static constexpr int LD = (\d+);",
+        r"struct DSplit<(\d+)> \{\s*static constexpr int LD = (\d+);",
         src)}
-    assert split == K6_PARTS
+    assert split == K5_PARTS == K6_PARTS
+    assert src.count("constexpr int LD = DSplit<D>::LD, KP = 8 / LD;") == 2
+    multiple = int(re.search(r"constexpr int KEY_MULTIPLE = (\d+);",
+                             src).group(1))
     for d in ta.BWD_HEAD_DIMS:
+        assert multiple % ta._K5_F32_PLAN[d][1] == 0
+        assert multiple % ta._K6_F32_PLAN[d][0] == 0
+        for bm, bn, stages in k5:
+            smem = _k5_smem(d, bm, bn, stages)
+            if smem <= ta._SMEM_LIMIT:
+                assert ta.bwd_f32_tile("dq", 1, 1024, 1024, d,
+                                       (bm, bn, stages)).smem == smem
         for bk, bq, stages in k6:
             smem = 4 * (2 * bk * (d + 4) + stages * (2 * bq * (d + 4) + 2 * bq)
                         + 2 * bk * (bq + 8))
             if smem <= ta._SMEM_LIMIT:
                 assert ta.bwd_f32_tile("dkv", 1, 1024, 1024, d,
                                        (bk, bq, stages)).smem == smem
-    body = src[src.index("int fgdm_flash_attn_bwd_f32_dq("):]
-    body = body[:body.index("default:")]
-    dims = tuple(int(d) for d in re.findall(r"case (\d+):", body))
-    assert dims == ta.BWD_HEAD_DIMS
-    body = src[src.index("int fgdm_flash_attn_bwd_f32_dkv("):]
-    body = body[:body.index("#undef")]
-    dims = tuple(int(d) for d in re.findall(r"if \(d == (\d+)\)", body))
-    assert dims == ta.BWD_HEAD_DIMS
+    for fn in ("fgdm_flash_attn_bwd_f32_dq(", "fgdm_flash_attn_bwd_f32_dkv("):
+        body = src[src.index(f"int {fn}"):]
+        body = body[:body.index("#undef")]
+        dims = tuple(int(d) for d in re.findall(r"if \(d == (\d+)\)", body))
+        assert dims == ta.BWD_HEAD_DIMS
     assert "atomic" not in src.replace("no atomics", "")
     assert '"flash_attn_bwd_f32"' in (REPO / "chip_smoke.py").read_text()
 
