@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from fgdm_tpu_torch.data.dataset import stack_items
+from fgdm_tpu_torch.utils.profiling import span
 
 __all__ = ["ParallelBatchLoader", "device_prefetch", "to_device",
            "NHWC_KEYS"]
@@ -150,9 +151,13 @@ def device_prefetch(iterator, device=None, size: int = 2, keys=KEYS,
 
         device = mesh_device(mesh)
     dev = resolve_device(device)
+    it = iter(iterator)
     if dev.type != "cuda":
-        for batch in iterator:
-            yield to_device(batch, dev, keys)
+        def take():
+            batch = next(it, None)
+            return None if batch is None else to_device(batch, dev, keys)
+
+        yield from _spanned(take)
         return
 
     copy_stream = torch.cuda.Stream(dev)
@@ -182,9 +187,25 @@ def device_prefetch(iterator, device=None, size: int = 2, keys=KEYS,
         return out
 
     buf: collections.deque = collections.deque()
-    for batch in iterator:
-        buf.append(put(batch))
-        if len(buf) > size:
-            yield hand_over(buf.popleft())
-    while buf:
-        yield hand_over(buf.popleft())
+
+    def take():
+        for batch in it:   # until ``size`` batches wait behind the next
+            buf.append(put(batch))
+            if len(buf) > size:
+                break
+        return hand_over(buf.popleft()) if buf else None
+
+    yield from _spanned(take)
+
+
+def _spanned(take):
+    """Yield ``take()`` until it gives None, each call (the upstream fetch,
+    the copy and the hand-over of one batch) in a ``data.next_batch`` span
+    that closes before the yield: the consumer's spans do not nest in
+    it."""
+    while True:
+        with span("data.next_batch"):
+            out = take()
+        if out is None:
+            return
+        yield out

@@ -27,6 +27,7 @@ from fgdm_tpu_torch.core.schedules import DiffusionSchedule
 from fgdm_tpu_torch.models.autoencoder import AutoencoderKL
 from fgdm_tpu_torch.models.clip import CLIPTextEncoder
 from fgdm_tpu_torch.models.unet import UNetModel
+from fgdm_tpu_torch.utils.profiling import span
 
 __all__ = ["LatentDiffusion", "CONDITIONING_KEYS"]
 
@@ -70,7 +71,8 @@ class LatentDiffusion:
         return self.scale_factor * z
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
-        return self.vae.decode(z / self.scale_factor)
+        with span("vae.decode"):
+            return self.vae.decode(z / self.scale_factor)
 
     def apply_model(self, x_noisy, t, cond: Optional[Cond],
                     adapter_on: bool = True, capture=False):

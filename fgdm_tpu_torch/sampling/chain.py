@@ -27,6 +27,7 @@ from fgdm_tpu_torch.models.controlnet import guess_mode_scales
 from fgdm_tpu_torch.sampling.ddim import ddim_sample, derive_seed
 from fgdm_tpu_torch.sampling.dpm_solver import dpm_solver_sample
 from fgdm_tpu_torch.sampling.plms import plms_sample
+from fgdm_tpu_torch.utils.profiling import span
 
 __all__ = ["A_PROMPT", "N_PROMPT", "quantize_like_png", "condition_to_hint",
            "latent_to_condition_image", "factor_slot_seeds",
@@ -52,11 +53,13 @@ def condition_to_hint(cond_img: torch.Tensor,
     """[0, 1] condition map ``[B, C, h, w]`` -> hint at ``out_hw``: quantize,
     then bilinear resize (half-pixel centers, as ``jax.image.resize``; the
     chain only upsamples, where neither antialiases)."""
-    hint = quantize_like_png(cond_img)
-    if tuple(out_hw) == tuple(hint.shape[-2:]):
-        return hint
-    return F.interpolate(hint.float(), size=tuple(out_hw), mode="bilinear",
-                         align_corners=False).to(hint.dtype)
+    with span("chain.hint"):
+        hint = quantize_like_png(cond_img)
+        if tuple(out_hw) == tuple(hint.shape[-2:]):
+            return hint
+        return F.interpolate(hint.float(), size=tuple(out_hw),
+                             mode="bilinear", align_corners=False
+                             ).to(hint.dtype)
 
 
 @torch.inference_mode()
@@ -213,18 +216,20 @@ def fgdm_chain_n(factors: Sequence[LatentDiffusion],
             if all_pconds and k > 1:
                 cond["extra_pconds"] = uncond["extra_pconds"] = zs[:-1]
         shape = (ctx_k.shape[0], ld_k.unet.in_channels) + latent_hw
-        zs.append(_sample_factor_latents(
-            ld_k, shape, cond, uncond, factor_steps, factor_scale, 0.0, None,
-            generator, seeds(k + 1), factor_sampler))
+        with span("chain.condition", factor=k):
+            zs.append(_sample_factor_latents(
+                ld_k, shape, cond, uncond, factor_steps, factor_scale, 0.0,
+                None, generator, seeds(k + 1), factor_sampler))
     conditions = [((ld_k.decode_first_stage(z) + 1.0) / 2.0).clamp(0.0, 1.0)
                   for ld_k, z in zip(factors, zs)]
     hint = image = None
     if cldm is not None:
         hint = condition_to_hint(conditions[-1], image_hw)
-        z_img = sample_image_factor(
-            cldm, hint, cn_prompt_ctx, cn_neg_ctx, num_steps=f2_steps,
-            cfg_scale=f2_scale, generator=generator,
-            slot_seeds=seeds(len(factors) + 1), sampler=f2_sampler)
+        with span("chain.image"):
+            z_img = sample_image_factor(
+                cldm, hint, cn_prompt_ctx, cn_neg_ctx, num_steps=f2_steps,
+                cfg_scale=f2_scale, generator=generator,
+                slot_seeds=seeds(len(factors) + 1), sampler=f2_sampler)
         image = cldm.decode_first_stage(z_img)
     return {"conditions": conditions, "hint": hint, "image": image}
 

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from fgdm_tpu_torch.core.schedules import DDIMSchedule
+from fgdm_tpu_torch.utils.profiling import span
 
 __all__ = ["derive_seed", "slot_noise", "initial_noise", "ddim_step",
            "cfg_inputs", "cfg_eps", "ddim_sample", "stochastic_encode",
@@ -202,40 +203,43 @@ def ddim_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
         per_slot = slot_seeds is not None
         steps = sched.num_steps
         for i in range(steps):
-            index = steps - 1 - i
-            t = sched.timesteps[index].expand(shape[0])
-            if mask is not None:
-                if mask_noise is None:
-                    n = (slot_noise(slot_seeds, shape, SLOT_MASK_TAG, device,
-                                    i)
-                         if per_slot else
-                         torch.randn(shape, generator=generator,
-                                     device=device))
+            with span("sampler.step"):
+                index = steps - 1 - i
+                t = sched.timesteps[index].expand(shape[0])
+                if mask is not None:
+                    if mask_noise is None:
+                        n = (slot_noise(slot_seeds, shape, SLOT_MASK_TAG,
+                                        device, i)
+                             if per_slot else
+                             torch.randn(shape, generator=generator,
+                                         device=device))
+                    else:
+                        n = mask_noise(i) if callable(mask_noise) else \
+                            mask_noise[i]
+                    x = (schedule.q_sample(x0, t, n.to(device)) * mask
+                         + (1.0 - mask) * x)
+                scale = (cfg_scale if ucg_schedule is None
+                         else ucg_schedule[i])
+                if guidance_fn is not None:
+                    e_t = guided_cfg_eps(guidance_fn, x, t, cond, uncond,
+                                         scale, i)
                 else:
-                    n = mask_noise(i) if callable(mask_noise) else \
-                        mask_noise[i]
-                x = (schedule.q_sample(x0, t, n.to(device)) * mask
-                     + (1.0 - mask) * x)
-            scale = cfg_scale if ucg_schedule is None else ucg_schedule[i]
-            if guidance_fn is not None:
-                e_t = guided_cfg_eps(guidance_fn, x, t, cond, uncond,
-                                     scale, i)
-            else:
-                e_t = cfg_eps(denoise_fn, x, t, cond, uncond, scale)
-            noise = None
-            if sched.eta != 0.0 and step_noise is not None:
-                noise = (step_noise(i) if callable(step_noise)
-                         else step_noise[i]).to(device)
-            elif sched.eta != 0.0:
-                noise = (slot_noise(slot_seeds, shape, SLOT_STEP_TAG, device,
-                                    i)
-                         if per_slot else
-                         torch.randn(shape, generator=generator,
-                                     device=device))
-            x, pred_x0 = ddim_step(x, e_t, index, sched, noise, temperature)
-            if log_every_t and i % log_every_t == 0:
-                inter["x_inter"].append(x)
-                inter["pred_x0"].append(pred_x0)
+                    e_t = cfg_eps(denoise_fn, x, t, cond, uncond, scale)
+                noise = None
+                if sched.eta != 0.0 and step_noise is not None:
+                    noise = (step_noise(i) if callable(step_noise)
+                             else step_noise[i]).to(device)
+                elif sched.eta != 0.0:
+                    noise = (slot_noise(slot_seeds, shape, SLOT_STEP_TAG,
+                                        device, i)
+                             if per_slot else
+                             torch.randn(shape, generator=generator,
+                                         device=device))
+                x, pred_x0 = ddim_step(x, e_t, index, sched, noise,
+                                       temperature)
+                if log_every_t and i % log_every_t == 0:
+                    inter["x_inter"].append(x)
+                    inter["pred_x0"].append(pred_x0)
     if not log_every_t:
         return x
     return x, {k: torch.stack(v) for k, v in inter.items()}

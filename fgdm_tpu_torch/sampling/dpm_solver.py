@@ -24,6 +24,7 @@ import torch
 
 from fgdm_tpu_torch.core.schedules import DiffusionSchedule
 from fgdm_tpu_torch.sampling.ddim import DenoiseFn, cfg_eps, initial_noise
+from fgdm_tpu_torch.utils.profiling import span
 
 __all__ = ["NoiseScheduleVP", "dpm_solver_sample"]
 
@@ -102,19 +103,21 @@ def dpm_solver_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
         return (x - float(sigmas[i]) * eps) / float(alphas[i])
 
     # step 0: first-order update from ts[0] to ts[1]
-    m_prev = x0_pred(x, 0)
-    h0 = lambdas[1] - lambdas[0]
-    x = (float(sigmas[1] / sigmas[0]) * x
-         - float(alphas[1] * torch.expm1(-h0)) * m_prev)
+    with span("sampler.step"):
+        m_prev = x0_pred(x, 0)
+        h0 = lambdas[1] - lambdas[0]
+        x = (float(sigmas[1] / sigmas[0]) * x
+             - float(alphas[1] * torch.expm1(-h0)) * m_prev)
     for i in range(1, steps):
-        m_cur = x0_pred(x, i)
-        h_0 = lambdas[i] - lambdas[i - 1]
-        h = lambdas[i + 1] - lambdas[i]
-        phi = torch.expm1(-h)
-        x_new = (float(sigmas[i + 1] / sigmas[i]) * x
-                 - float(alphas[i + 1] * phi) * m_cur)
-        if i < steps - 1:   # lower_order_final: first order on the last step
-            d1 = (m_cur - m_prev) / float(h_0 / h)
-            x_new = x_new - float(0.5 * alphas[i + 1] * phi) * d1
-        x, m_prev = x_new, m_cur
+        with span("sampler.step"):
+            m_cur = x0_pred(x, i)
+            h_0 = lambdas[i] - lambdas[i - 1]
+            h = lambdas[i + 1] - lambdas[i]
+            phi = torch.expm1(-h)
+            x_new = (float(sigmas[i + 1] / sigmas[i]) * x
+                     - float(alphas[i + 1] * phi) * m_cur)
+            if i < steps - 1:   # lower_order_final: first order at the end
+                d1 = (m_cur - m_prev) / float(h_0 / h)
+                x_new = x_new - float(0.5 * alphas[i + 1] * phi) * d1
+            x, m_prev = x_new, m_cur
     return x

@@ -18,6 +18,7 @@ import torch
 from fgdm_tpu_torch.core.schedules import DDIMSchedule
 from fgdm_tpu_torch.sampling.ddim import (DenoiseFn, cfg_eps, ddim_step,
                                           initial_noise)
+from fgdm_tpu_torch.utils.profiling import span
 
 __all__ = ["plms_sample"]
 
@@ -44,18 +45,20 @@ def plms_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
 
     hist = []
     for i in range(steps):
-        index = steps - 1 - i
-        e_t = model(x, index)
-        if i == 0:
-            x_next, _ = ddim_step(x, e_t, index, sched)
-            e_prime = (e_t + model(x_next, max(index - 1, 0))) / 2.0
-        elif i == 1:
-            e_prime = (3.0 * e_t - hist[0]) / 2.0
-        elif i == 2:
-            e_prime = (23.0 * e_t - 16.0 * hist[0] + 5.0 * hist[1]) / 12.0
-        else:
-            e_prime = (55.0 * e_t - 59.0 * hist[0] + 37.0 * hist[1]
-                       - 9.0 * hist[2]) / 24.0
-        x, _ = ddim_step(x, e_prime, index, sched)
-        hist = [e_t] + hist[:2]
+        with span("sampler.step"):
+            index = steps - 1 - i
+            e_t = model(x, index)
+            if i == 0:
+                x_next, _ = ddim_step(x, e_t, index, sched)
+                e_prime = (e_t + model(x_next, max(index - 1, 0))) / 2.0
+            elif i == 1:
+                e_prime = (3.0 * e_t - hist[0]) / 2.0
+            elif i == 2:
+                e_prime = (23.0 * e_t - 16.0 * hist[0]
+                           + 5.0 * hist[1]) / 12.0
+            else:
+                e_prime = (55.0 * e_t - 59.0 * hist[0] + 37.0 * hist[1]
+                           - 9.0 * hist[2]) / 24.0
+            x, _ = ddim_step(x, e_prime, index, sched)
+            hist = [e_t] + hist[:2]
     return x

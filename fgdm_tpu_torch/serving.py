@@ -39,6 +39,7 @@ from fgdm_tpu_torch.diffusion.control import ControlLDM
 from fgdm_tpu_torch.diffusion.latent_diffusion import LatentDiffusion
 from fgdm_tpu_torch.models.clip import CLIPTokenizer
 from fgdm_tpu_torch.sampling.chain import A_PROMPT, N_PROMPT, fgdm_chain
+from fgdm_tpu_torch.utils.profiling import span
 
 __all__ = ["slot_seeds_from_seeds", "ChainEngine"]
 
@@ -126,9 +127,10 @@ class ChainEngine:
             return pipe.get_learned_conditioning(
                 self.tok(texts).to(self.device))
 
-        return (embed(self.ld, padded), embed(self.ld, [""] * b),
-                embed(self.cldm, [p + ", " + A_PROMPT for p in padded]),
-                embed(self.cldm, [N_PROMPT] * b))
+        with span("engine.contexts"):
+            return (embed(self.ld, padded), embed(self.ld, [""] * b),
+                    embed(self.cldm, [p + ", " + A_PROMPT for p in padded]),
+                    embed(self.cldm, [N_PROMPT] * b))
 
     def _run(self, slot_seeds, p_ctx, e_ctx, cnp_ctx, cnn_ctx):
         return fgdm_chain(self.ld, self.cldm, p_ctx, e_ctx, cnp_ctx, cnn_ctx,
@@ -153,17 +155,18 @@ class ChainEngine:
             raise ValueError(f"{len(seeds)} seeds for {n} prompts")
         slots = slot_seeds_from_seeds(list(seeds)
                                       + [0] * (self.max_batch - n))
-        with torch.inference_mode():
+        with torch.inference_mode(), span("engine.generate"):
             out = self._run(slots[self._rows], *self._contexts(prompts))
-            img = ((out["image"] + 1.0) / 2.0).clamp(0.0, 1.0) * 255
-            cond = out["condition"].clamp(0.0, 1.0) * 255
-            img, cond = (a.to(torch.uint8) for a in (img, cond))
-            if self.mesh is not None:
-                from fgdm_tpu_torch.parallel.mesh import (all_gather_rows,
-                                                          data_group)
+            with span("engine.to_host"):
+                img = ((out["image"] + 1.0) / 2.0).clamp(0.0, 1.0) * 255
+                cond = out["condition"].clamp(0.0, 1.0) * 255
+                img, cond = (a.to(torch.uint8) for a in (img, cond))
+                if self.mesh is not None:
+                    from fgdm_tpu_torch.parallel.mesh import (
+                        all_gather_rows, data_group)
 
-                img, cond = (all_gather_rows(a, data_group(self.mesh))
-                             for a in (img, cond))
-            imgs, conds = (a[:n].permute(0, 2, 3, 1).cpu()
-                           for a in (img, cond))
-        return {"images": imgs.numpy(), "conditions": conds.numpy()}
+                    img, cond = (all_gather_rows(a, data_group(self.mesh))
+                                 for a in (img, cond))
+                imgs, conds = (a[:n].permute(0, 2, 3, 1).cpu().numpy()
+                               for a in (img, cond))
+        return {"images": imgs, "conditions": conds}

@@ -38,6 +38,7 @@ from fgdm_tpu_torch.diffusion.latent_diffusion import LatentDiffusion
 from fgdm_tpu_torch.diffusion.losses import diffusion_loss
 from fgdm_tpu_torch.parallel.mesh import average_gradients, average_metrics
 from fgdm_tpu_torch.train.state import TrainState, global_norm
+from fgdm_tpu_torch.utils.profiling import span
 
 __all__ = ["make_train_step", "make_eval_step", "finish_step"]
 
@@ -68,15 +69,17 @@ def _encode_target(ld: LatentDiffusion, batch: Batch, condition,
 def _loss(ld: LatentDiffusion, batch: Batch, generator, t, noise,
           posterior_eps, encode_first_stage: bool, condition=None,
           **loss_kw):
-    with torch.no_grad():
+    with torch.no_grad(), span("train.encode"):
         if encode_first_stage and "latent" not in batch:
             x_start = _encode_target(ld, batch, condition, posterior_eps,
                                      generator)
         else:
             x_start = batch["latent"]
         ctx = ld.get_learned_conditioning(batch["input_ids"])
-    return diffusion_loss(ld, x_start, {"c_crossattn": ctx},
-                          generator=generator, t=t, noise=noise, **loss_kw)
+    with span("train.forward"):
+        return diffusion_loss(ld, x_start, {"c_crossattn": ctx},
+                              generator=generator, t=t, noise=noise,
+                              **loss_kw)
 
 
 def make_train_step(ld: LatentDiffusion, distill: bool = False,
@@ -100,14 +103,17 @@ def make_train_step(ld: LatentDiffusion, distill: bool = False,
                    t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None,
                    posterior_eps: Optional[torch.Tensor] = None):
-        loss, loss_dict = _loss(
-            ld, batch, generator, t, noise, posterior_eps,
-            encode_first_stage, condition, parameterization=parameterization,
-            l_simple_weight=l_simple_weight,
-            original_elbo_weight=original_elbo_weight, distill=distill,
-            distill_weight=distill_weight)
-        loss.backward()
-        return finish_step(state, loss_dict, mesh)
+        with span("train.step", distill=distill):
+            loss, loss_dict = _loss(
+                ld, batch, generator, t, noise, posterior_eps,
+                encode_first_stage, condition,
+                parameterization=parameterization,
+                l_simple_weight=l_simple_weight,
+                original_elbo_weight=original_elbo_weight, distill=distill,
+                distill_weight=distill_weight)
+            with span("train.backward"):
+                loss.backward()
+            return finish_step(state, loss_dict, mesh)
 
     return train_step
 
@@ -116,13 +122,14 @@ def finish_step(state: TrainState, loss_dict, mesh=None):
     """The end of every train step: gradients (and the loss metrics)
     averaged over the mesh's ``data`` dim, ``grad_norm`` of the averaged
     gradients, the optimizer step and EMA."""
-    metrics = {k: v.detach() for k, v in loss_dict.items()}
-    if mesh is not None:
-        average_gradients(state.params.values(), mesh)
-        metrics = average_metrics(metrics, mesh)
-    metrics["grad_norm"] = global_norm(
-        p.grad for p in state.params.values() if p.grad is not None)
-    return state.apply_gradients(), metrics
+    with span("train.update"):
+        metrics = {k: v.detach() for k, v in loss_dict.items()}
+        if mesh is not None:
+            average_gradients(state.params.values(), mesh)
+            metrics = average_metrics(metrics, mesh)
+        metrics["grad_norm"] = global_norm(
+            p.grad for p in state.params.values() if p.grad is not None)
+        return state.apply_gradients(), metrics
 
 
 def make_eval_step(ld: LatentDiffusion, parameterization: str = "eps",
