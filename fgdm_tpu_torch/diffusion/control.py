@@ -40,6 +40,10 @@ class ControlLDM(LatentDiffusion):
                          only_mid_control=self.only_mid_control,
                          adapter_on=False, capture=capture)
 
+    def _graph_parts(self, adapter_on: bool):
+        return ((self.unet, self.control),
+                (tuple(self.control_scales), self.only_mid_control))
+
     def encode_hint(self, hint: torch.Tensor) -> torch.Tensor:
         """Hint pyramid only: ``[B, 3, H, W]`` in [0, 1] ->
         ``[B, mc, H/8, W/8]``; step-invariant, so samplers run it once."""

@@ -96,12 +96,21 @@ class LatentDiffusion:
                          extra_pconds=cond.get("extra_pconds"), **kw)
 
     def denoise_fn(self, adapter_on: bool = True):
-        """``(x, t, cond) -> eps`` for the samplers."""
+        """``(x, t, cond) -> eps`` for the samplers.  Its ``graph_parts()``
+        gives the modules a call runs and the Python values its forward
+        reads, which ``sampling.step_graph`` keys a CUDA graph of the call
+        on."""
 
         def fn(x, t, cond):
             return self.apply_model(x, t, cond, adapter_on=adapter_on)
 
+        fn.graph_parts = lambda: self._graph_parts(adapter_on)
         return fn
+
+    def _graph_parts(self, adapter_on: bool):
+        """The modules a denoise call runs and the Python values its
+        forward reads."""
+        return (self.unet,), (self.conditioning_key, adapter_on)
 
     def capture_fn(self, adapter_on: bool = True, mode="probs"):
         """``(x, t, cond) -> (eps, selfattn, crossattn)`` for the

@@ -70,7 +70,7 @@ from typing import Optional
 
 import torch
 
-from fgdm_tpu_torch.kernels import _build
+from fgdm_tpu_torch.kernels import _build, graphs
 
 __all__ = ["attention_ref", "attention_bwd_ref", "attention_split_ref",
            "combine_ref", "kv_splits", "K1Plan", "k1_tile", "flash_fwd_plan",
@@ -639,7 +639,7 @@ def flash_combine(part_o, part_m, part_l, dtype=torch.bfloat16):
             out.data_ptr(), lse.data_ptr(), b * h * nq, splits,
             int(dtype == torch.float32), stream)
     _raise_on(lib, fn, rc)
-    flash_combine.launches[(b, h, nq, splits, dtype_name(dtype))] += 1
+    graphs.count(flash_combine, (b, h, nq, splits, dtype_name(dtype)))
     return out, lse
 
 
@@ -773,8 +773,8 @@ def flash_attention(q, k, v, scale, return_lse: bool = False,
                  KERNEL_HEAD_DIMS)
         out, lse = _flash_k1(q, k, v, scale, return_lse,
                              flash_fwd_plan(b * h, nq, nk, d))
-    flash_attention.launches[(b, h, nq, nk, d, bool(return_lse),
-                              dtype_name(q.dtype))] += 1
+    graphs.count(flash_attention, (b, h, nq, nk, d, bool(return_lse),
+                                   dtype_name(q.dtype)))
     return (out, lse) if return_lse else out
 
 
@@ -881,8 +881,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
     else:
         dq = _flash_k5(q, k, v, do, lse, delta, scale,
                        flash_bwd_plan(bh, nq, nk, d)[0])
-    flash_attention_bwd_dq.launches[(*q.shape[:2], nq, nk, d,
-                                     dtype_name(q.dtype))] += 1
+    graphs.count(flash_attention_bwd_dq, (*q.shape[:2], nq, nk, d,
+                                          dtype_name(q.dtype)))
     return dq
 
 
@@ -905,8 +905,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
     else:
         dk, dv = _flash_k6(q, k, v, do, lse, delta, scale,
                            flash_bwd_plan(bh, nq, nk, d)[1])
-    flash_attention_bwd_dkv.launches[(*q.shape[:2], nq, nk, d,
-                                      dtype_name(q.dtype))] += 1
+    graphs.count(flash_attention_bwd_dkv, (*q.shape[:2], nq, nk, d,
+                                           dtype_name(q.dtype)))
     return dk, dv
 
 

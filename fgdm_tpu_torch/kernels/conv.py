@@ -57,7 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakTensorKeyDictionary
 
-from fgdm_tpu_torch.kernels import _build
+from fgdm_tpu_torch.kernels import _build, graphs
 from fgdm_tpu_torch.kernels.attention import dtype_name
 
 __all__ = ["conv3x3_ref", "conv3x3_taps_ref", "conv3x3_kernel", "Conv3x3",
@@ -146,12 +146,14 @@ def packed_weight(w, b, dtype=torch.bfloat16):
     overwritten, which frees its old pack.  A tensor made under
     ``torch.inference_mode`` has no version counter to read and is packed
     anew at every call (the port makes its parameters outside it).  Counts
-    the packs it makes in ``packed_weight.packs``."""
+    the packs it makes in ``packed_weight.packs``.  A CUDA graph captured
+    around the call keeps the pack it reads (``graphs.keep``)."""
     keep = not (w.is_inference() or b.is_inference())
     if keep:
         state = (_state(w), _state(b), dtype)
         e = _PACKS.get(w)
         if e is not None and e[0] == state and e[1]() is b:
+            graphs.keep(e[2], e[3])
             return e[2], e[3]
     wk, bias = pack_weight(w, b, dtype)
     packed_weight.packs += 1
@@ -411,7 +413,7 @@ def nchw_to_nhwc(x):
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), xt.data_ptr(), n, c, h * wd, stream)
     _raise_on(lib, "nchw_to_nhwc", rc)
-    nchw_to_nhwc.launches[(n, c, h, wd, dtype_name(x.dtype))] += 1
+    graphs.count(nchw_to_nhwc, (n, c, h, wd, dtype_name(x.dtype)))
     return xt
 
 
@@ -464,7 +466,7 @@ def conv3x3_kernel(x, w, b):
     plan = conv3x3_plan(n, c, co, h, wd, x.dtype)
     wk, bias = packed_weight(w, b, x.dtype)
     out = _launch(nchw_to_nhwc(x), wk, bias, co, plan)
-    conv3x3_kernel.launches[(n, c, co, h, wd, dtype_name(x.dtype))] += 1
+    graphs.count(conv3x3_kernel, (n, c, co, h, wd, dtype_name(x.dtype)))
     return out
 
 

@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from fgdm_tpu_torch.kernels import _build
+from fgdm_tpu_torch.kernels import _build, graphs
 
 __all__ = ["group_norm_silu_ref", "group_norm_silu_kernel", "GroupNormSiLU",
            "use_fused_gn", "group_norm_silu", "gn_plan", "gn_tile", "GNPlan",
@@ -259,8 +259,8 @@ def group_norm_silu_kernel(x, weight, bias, num_groups: int = 32,
                              f"contiguous on {x.device}")
     y = _launch(x, weight, bias, num_groups, eps, apply_silu,
                 card_plan(shape, x.dtype, num_groups))
-    group_norm_silu_kernel.launches[
-        (shape, float(eps), str(x.dtype).removeprefix("torch."))] += 1
+    graphs.count(group_norm_silu_kernel,
+                 (shape, float(eps), str(x.dtype).removeprefix("torch.")))
     return y
 
 

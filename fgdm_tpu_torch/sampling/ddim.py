@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from fgdm_tpu_torch.core.schedules import DDIMSchedule
+from fgdm_tpu_torch.sampling import step_graph
 from fgdm_tpu_torch.utils.profiling import span
 
 __all__ = ["derive_seed", "slot_noise", "initial_noise", "ddim_step",
@@ -185,7 +186,13 @@ def ddim_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
     eta noise (``ddim_step``); ``step_noise`` gives that noise for step i
     (a ``[S, *shape]`` tensor or a callable of i), as ``mask_noise``
     does.  ``callback`` is accepted and never called,
-    as in JAX (``ddim.py:123``)."""
+    as in JAX (``ddim.py:123``).
+
+    On a CUDA device, with eta 0, none of ``guidance_fn``, ``mask``,
+    ``log_every_t`` and ``ucg_schedule``, and a ``denoise_fn`` that
+    declares ``graph_parts`` (``LatentDiffusion.denoise_fn``), every step
+    replays one CUDA graph of the eager step (``step_graph``), with the
+    eager loop's numbers."""
     del callback
     if mask is not None and (x0 is None or schedule is None):
         raise ValueError("inpainting needs x0 and the DDPM schedule")
@@ -197,13 +204,26 @@ def ddim_sample(denoise_fn: DenoiseFn, shape: Tuple[int, ...],
     inter = {"x_inter": [], "pred_x0": []}
     with mode:
         x, device = initial_noise(shape, x_T, generator, slot_seeds, device)
+        graph = None
+        if (sched.eta == 0.0 and guidance_fn is None and mask is None
+                and not log_every_t and ucg_schedule is None):
+            graph = step_graph.key(denoise_fn, x, cond, uncond, cfg_scale,
+                                   sched)
+        if graph is not None:
+            def step(xs, idx, sch, c, uc):
+                t = sch.timesteps[idx].expand(shape[0])
+                e_t = cfg_eps(denoise_fn, xs, t, c, uc, cfg_scale)
+                return ddim_step(xs, e_t, idx, sch)[0]
+
+            return step_graph.sample(graph, step, x, sched, cond, uncond)
         sched = sched.to(device)
         if mask is not None:
             schedule = schedule.to(device)
         per_slot = slot_seeds is not None
         steps = sched.num_steps
         for i in range(steps):
-            with span("sampler.step"):
+            step_graph.STATS["eager_steps"] += 1
+            with span("sampler.step", graph=False):
                 index = steps - 1 - i
                 t = sched.timesteps[index].expand(shape[0])
                 if mask is not None:
